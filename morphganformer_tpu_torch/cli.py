@@ -1,15 +1,23 @@
-"""Entry points of the port: generate, merge and demorph.
+"""Entry points of the port: generate, merge, project, morph and demorph.
 
     python -m morphganformer_tpu_torch.cli generate --model init:1024 --output-dir images
     python -m morphganformer_tpu_torch.cli merge --model init:1024 --latents a.mat b.mat --out morphs
+    python -m morphganformer_tpu_torch.cli project --model init:1024 --img face.png \
+        --step 1000 --path_to_gen images/projection
+    python -m morphganformer_tpu_torch.cli morph --model init:1024 --img-a a.png --img-b b.png \
+        --out images/morphs
     python -m morphganformer_tpu_torch.cli demorph --model init:1024 \
         --morph-latent m.mat --accomplice-latent a.mat --out demorph
+    python -m morphganformer_tpu_torch.cli demorph --model init:1024 \
+        --morph-img m.png --accomplice-img a.png --out demorph
 
-They mirror cli/generate.py, cli/merge.py and cli/demorph.py of the JAX
-package. `--model init:<res>` builds a randomly initialised FFHQ-style
-generator at that resolution (weights from `--seed`); reading checkpoints is
-not ported yet. Everything runs on the card; `--device cpu` asks for the CPU.
-Latents are fed to the generator as z, as the JAX entry points do.
+They mirror cli/generate.py, cli/merge.py, cli/project.py, cli/morph.py
+(one pair) and cli/demorph.py of the JAX package. `--model init:<res>`
+builds a randomly initialised FFHQ-style generator at that resolution
+(weights from `--seed`); reading checkpoints is not ported yet. Everything
+runs on the card; `--device cpu` asks for the CPU. Latents are fed to the
+generator as z, as the JAX entry points do. Projection targets are PNGs
+whose shorter side is the model's resolution.
 """
 
 from __future__ import annotations
@@ -17,10 +25,12 @@ from __future__ import annotations
 import argparse
 import itertools
 import os
+import zlib
 
 import numpy as np
 import torch
 
+from morphganformer_tpu_torch.losses import build_loss_stack, parse_loss_spec
 from morphganformer_tpu_torch.models import GANformerConfig, init_generator
 from morphganformer_tpu_torch.morph import (
     demorph_latent,
@@ -28,7 +38,13 @@ from morphganformer_tpu_torch.morph import (
     morph_latents,
     save_latent_mat,
 )
-from morphganformer_tpu_torch.utils.image import crop_max_rectangle, to_uint8, write_png
+from morphganformer_tpu_torch.projection import ProjectionConfig, latent_stats, project
+from morphganformer_tpu_torch.utils.image import (
+    crop_max_rectangle,
+    load_target,
+    to_uint8,
+    write_png,
+)
 
 
 def get_model(model_spec: str, device="cuda", seed=0):
@@ -94,13 +110,104 @@ def run_merge(G, latent_files, out_dir, alpha=0.5, truncation_psi=0.7, all_pairs
     return results
 
 
-def run_demorph(G, morph_latent, accomplice_latent, out_dir, alpha=0.5, truncation_psi=0.7):
-    """Recover the second identity from a morph latent and the accomplice's
-    latent (.mat files), regenerate, write demorph.png and demorph.mat.
-    Returns (image, recovered latent)."""
+def _targets(G, paths):
+    imgs = np.concatenate([load_target(p, size=G.cfg.img_resolution) for p in paths])
+    return torch.from_numpy(imgs).to(next(G.parameters()).device)
+
+
+def _print_progress(steps):
+    def progress(step, loss, best):
+        print(f"  step {step}/{steps}  loss {loss:.5f}  min_loss {best:.5f}", flush=True)
+    return progress
+
+
+def run_project(G, img, out_dir, loss="mse", steps=5000, lr=0.1, lr_rampup=0.05,
+                lr_rampdown=0.25, noise=0.05, noise_ramp=0.75, truncation_psi=0.7,
+                n_mean_latent=10000, chunk=250, w_plus=False, init_latent=None,
+                save_latent=None, ratio=1.0, seed=0, progress=None):
+    """Project the PNG `img` into G's latent space. The prior statistics and
+    then the per-step noise are drawn from one torch.Generator seeded with
+    `seed`. Writes <out_dir>/sample_{best_step:06d}_{best_loss:.4f}.png and
+    the best latent to `save_latent` (default <out_dir>/w.mat); returns the
+    ProjectionResult. `progress(step, loss, best)` is called every `chunk`
+    steps (by default it prints a line)."""
+    pcfg = ProjectionConfig(steps=steps, lr=lr, lr_rampup=lr_rampup, lr_rampdown=lr_rampdown,
+                            noise=noise, noise_ramp=noise_ramp, truncation_psi=truncation_psi,
+                            n_mean_latent=n_mean_latent, chunk=chunk, w_plus=w_plus)
+    gen = torch.Generator().manual_seed(seed)
+    mean, std = latent_stats(G.cfg, gen, n_mean_latent)
+    result = project(G, _targets(G, [img]), build_loss_stack(parse_loss_spec(loss)), pcfg,
+                     mean, std, generator=gen,
+                     progress=progress or _print_progress(steps),
+                     init_latent=None if init_latent is None else load_latent_mat(init_latent))
     os.makedirs(out_dir, exist_ok=True)
-    w_rec = demorph_latent(_as_batch(load_latent_mat(morph_latent)),
-                           _as_batch(load_latent_mat(accomplice_latent)), alpha)
+    name = f"sample_{result.best_step:06d}_{result.best_loss:.4f}.png"
+    _save_png(os.path.join(out_dir, name), result.best_img[0].cpu().numpy(), ratio)
+    save_latent_mat(save_latent or os.path.join(out_dir, "w.mat"),
+                    result.latent[0].cpu().numpy())
+    return result
+
+
+def run_morph_pair(G, img_a, img_b, out_dir, loss="mse", steps=1000, lr=0.1,
+                   truncation_psi=0.7, n_mean_latent=10000, chunk=250, alpha=0.5, seed=0,
+                   progress=None):
+    """Project both photos of a pair as one batch-2 projection, morph the
+    best latents (W = alpha*w_a + (1-alpha)*w_b) and regenerate. Writes
+    <a>_rec.png, <b>_rec.png, <a>.mat, <b>.mat, <a>_<b>_morph.png and
+    <a>_<b>_morph.mat; returns (ProjectionResult, morph image, morph latent).
+    `progress` as in `run_project`."""
+    pcfg = ProjectionConfig(steps=steps, lr=lr, truncation_psi=truncation_psi,
+                            n_mean_latent=n_mean_latent, chunk=chunk)
+    gen = torch.Generator().manual_seed(seed)
+    mean, std = latent_stats(G.cfg, gen, n_mean_latent)
+    names = [os.path.splitext(os.path.basename(p))[0] for p in (img_a, img_b)]
+    res = project(G, _targets(G, [img_a, img_b]), build_loss_stack(parse_loss_spec(loss)),
+                  pcfg, mean, std, generator=gen,
+                  progress=progress or _print_progress(steps))
+    os.makedirs(out_dir, exist_ok=True)
+    latents = res.latent.cpu().numpy()
+    for i, name in enumerate(names):
+        _save_png(os.path.join(out_dir, f"{name}_rec.png"), res.best_img[i].cpu().numpy())
+        save_latent_mat(os.path.join(out_dir, f"{name}.mat"), latents[i])
+    w_morph = morph_latents(latents[0], latents[1], alpha)
+    img = synthesize(G, w_morph[None], truncation_psi)[0].cpu().numpy()
+    stem = f"{names[0]}_{names[1]}_morph"
+    _save_png(os.path.join(out_dir, f"{stem}.png"), img)
+    save_latent_mat(os.path.join(out_dir, f"{stem}.mat"), w_morph)
+    return res, img, w_morph
+
+
+def tag_seed(seed, tag):
+    """The projection seed of one de-morph input: seed + crc32(tag) % 97.
+    (The JAX script adds Python's hash(tag) % 97, which changes from process
+    to process; crc32 gives every run the same draws.)"""
+    return seed + zlib.crc32(tag.encode()) % 97
+
+
+def run_demorph(G, morph_latent=None, accomplice_latent=None, out_dir="images/demorph",
+                alpha=0.5, truncation_psi=0.7, morph_img=None, accomplice_img=None,
+                loss="mse", steps=1000, n_mean_latent=10000, seed=0):
+    """Recover the second identity from a morph and the accomplice:
+    each given as a latent (.mat) or as a photo, which is projected first
+    (prior statistics from `seed`, per-step noise from `tag_seed`). Writes
+    demorph.png and demorph.mat; returns (image, recovered latent)."""
+    def get_latent(mat, img, tag):
+        if mat:
+            return _as_batch(load_latent_mat(mat))
+        if not img:
+            raise ValueError(f"need the {tag} latent or the {tag} image")
+        pcfg = ProjectionConfig(steps=steps, truncation_psi=truncation_psi,
+                                n_mean_latent=n_mean_latent)
+        mean, std = latent_stats(G.cfg, torch.Generator().manual_seed(seed), n_mean_latent)
+        print(f"projecting {tag} ({steps} steps)...", flush=True)
+        res = project(G, _targets(G, [img]), build_loss_stack(parse_loss_spec(loss)), pcfg,
+                      mean, std, generator=torch.Generator().manual_seed(tag_seed(seed, tag)),
+                      progress=_print_progress(steps))
+        return res.latent.cpu().numpy()
+
+    os.makedirs(out_dir, exist_ok=True)
+    w_rec = demorph_latent(get_latent(morph_latent, morph_img, "morph"),
+                           get_latent(accomplice_latent, accomplice_img, "accomplice"), alpha)
     img = synthesize(G, w_rec, truncation_psi).cpu().numpy()
     _save_png(os.path.join(out_dir, "demorph.png"), img[0])
     save_latent_mat(os.path.join(out_dir, "demorph.mat"), w_rec[0])
@@ -109,7 +216,8 @@ def run_demorph(G, morph_latent, accomplice_latent, out_dir, alpha=0.5, truncati
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m morphganformer_tpu_torch.cli",
-                                description="GANformer generation, morphing and de-morphing")
+                                description="GANformer generation, projection, morphing "
+                                            "and de-morphing")
     sub = p.add_subparsers(dest="command", required=True)
 
     def common(sp):
@@ -133,10 +241,46 @@ def main(argv=None):
     m.add_argument("--out", default="images/merged")
     m.add_argument("--alpha", type=float, default=0.5)
 
-    d = sub.add_parser("demorph", help="recover an identity from a morph latent")
+    def projection_flags(sp, steps):
+        sp.add_argument("--loss", default="mse", help='loss spec of the terms mse, l1, '
+                        'psnr and ssim, e.g. "mse" or "mse+0.5*ssim"')
+        sp.add_argument("--step", type=int, default=steps)
+        sp.add_argument("--n_mean_latent", type=int, default=10000)
+
+    pr = sub.add_parser("project", help="project a photo into the latent space")
+    common(pr)
+    projection_flags(pr, 5000)
+    pr.add_argument("--img", required=True, help="target PNG")
+    pr.add_argument("--path_to_gen", default="images/projection")
+    pr.add_argument("--lr", type=float, default=0.1)
+    pr.add_argument("--lr_rampup", type=float, default=0.05)
+    pr.add_argument("--lr_rampdown", type=float, default=0.25)
+    pr.add_argument("--noise", type=float, default=0.05)
+    pr.add_argument("--noise_ramp", type=float, default=0.75)
+    pr.add_argument("--chunk", type=int, default=250)
+    pr.add_argument("--w_plus", action="store_true",
+                    help="optimize per-layer W+ latents [k, num_ws, w_dim]")
+    pr.add_argument("--init-latent", default=None, help="start from a stored .mat latent")
+    pr.add_argument("--save-latent", default=None)
+    pr.add_argument("--ratio", type=float, default=1.0)
+
+    mo = sub.add_parser("morph", help="project a pair of photos and morph them")
+    common(mo)
+    projection_flags(mo, 1000)
+    mo.add_argument("--img-a", required=True)
+    mo.add_argument("--img-b", required=True)
+    mo.add_argument("--out", default="images/morphs")
+    mo.add_argument("--alpha", type=float, default=0.5)
+    mo.add_argument("--lr", type=float, default=0.1)
+    mo.add_argument("--chunk", type=int, default=250)
+
+    d = sub.add_parser("demorph", help="recover an identity from a morph and an accomplice")
     common(d)
-    d.add_argument("--morph-latent", required=True)
-    d.add_argument("--accomplice-latent", required=True)
+    projection_flags(d, 1000)
+    d.add_argument("--morph-latent", help=".mat of the morph latent")
+    d.add_argument("--accomplice-latent", help=".mat of the accomplice latent")
+    d.add_argument("--morph-img", help="morph photo (projected first)")
+    d.add_argument("--accomplice-img", help="accomplice photo (projected first)")
     d.add_argument("--out", default="images/demorph")
     d.add_argument("--alpha", type=float, default=0.5)
 
@@ -152,9 +296,19 @@ def main(argv=None):
                             for f in os.listdir(args.latent_dir) if f.endswith(".mat"))
         run_merge(G, files, args.out, args.alpha, args.truncation_psi,
                   all_pairs=bool(args.latent_dir))
+    elif args.command == "project":
+        run_project(G, args.img, args.path_to_gen, args.loss, args.step, args.lr,
+                    args.lr_rampup, args.lr_rampdown, args.noise, args.noise_ramp,
+                    args.truncation_psi, args.n_mean_latent, args.chunk, args.w_plus,
+                    args.init_latent, args.save_latent, args.ratio, args.seed)
+    elif args.command == "morph":
+        run_morph_pair(G, args.img_a, args.img_b, args.out, args.loss, args.step, args.lr,
+                       args.truncation_psi, args.n_mean_latent, args.chunk, args.alpha,
+                       args.seed)
     else:
-        run_demorph(G, args.morph_latent, args.accomplice_latent, args.out,
-                    args.alpha, args.truncation_psi)
+        run_demorph(G, args.morph_latent, args.accomplice_latent, args.out, args.alpha,
+                    args.truncation_psi, args.morph_img, args.accomplice_img, args.loss,
+                    args.step, args.n_mean_latent, args.seed)
 
 
 if __name__ == "__main__":

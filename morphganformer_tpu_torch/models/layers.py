@@ -18,7 +18,7 @@ from torch import nn
 
 from morphganformer_tpu_torch.ops.bias_act import activation_funcs, bias_act
 from morphganformer_tpu_torch.ops.conv2d_resample import conv2d_resample
-from morphganformer_tpu_torch.ops.fused_conv import fused_upconv2, upconv2_plain
+from morphganformer_tpu_torch.ops.fused_conv import fused_upconv2
 from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter
 
 
@@ -136,16 +136,16 @@ class Conv2dLayer(nn.Module):
 
     def forward(self, x, fused=None):
         """`fused` ("kernel" or "plain") runs the unmodulated 1x1 up-conv
-        skip as K2 (kernel wrapper or its plain version); None runs the
-        unfused conv2d_resample path."""
+        skip as K2 with K3 as its adjoint (kernels, or their plain versions);
+        None runs the unfused conv2d_resample path."""
         w = self.weight * self.coef
         f = self.resample_filter
         if fused is not None:
             if (self.up, self.down, self.kernel_size) != (2, 1, 1) \
                     or self.biasAct.bias is not None or self.biasAct.act != "linear":
                 raise ValueError("the fused skip branch is the linear, bias-free 1x1 up-conv")
-            op = fused_upconv2 if fused == "kernel" else upconv2_plain
-            return op(x.contiguous(), w, None, f, None, None, self.gain, 1.0, False, False)
+            return fused_upconv2(x.contiguous(), w, None, f, None, None, self.gain, 1.0,
+                                 False, False, plain=fused == "plain")
         x = conv2d_resample(x, w.to(x.dtype), f=f, up=self.up, down=self.down,
                             padding=self.kernel_size // 2, flip_weight=(self.up == 1))
         return self.biasAct(x)

@@ -10,9 +10,11 @@ ops/fused_conv.py, as the JAX package runs them on its Pallas kernels:
     conv1           K1, with the skip branch added in-kernel
     conv_last       K1 (no bias, no noise: alpha 1, gain 1)
 
-so one 1024^2 forward makes 4 K1 and 6 K2 launches. The other blocks run the
-unfused plain PyTorch path. `plain=True` runs the fused blocks on the plain
-versions of the kernels even on a card (used to check the kernels).
+so one 1024^2 forward makes 4 K1 and 6 K2 launches, and its backward (the
+latent gradient of projection) 4 K1-adjoint and 6 K3 launches. The other
+blocks run the unfused plain PyTorch path. `plain=True` runs the fused blocks
+on the plain versions of the kernels and of their adjoints even on a card
+(used to check the kernels).
 """
 
 from __future__ import annotations
@@ -37,12 +39,7 @@ from morphganformer_tpu_torch.models.layers import (
 )
 from morphganformer_tpu_torch.models.transformer import TransformerLayer
 from morphganformer_tpu_torch.ops.bias_act import activation_funcs
-from morphganformer_tpu_torch.ops.fused_conv import (
-    fused_modconv3x3,
-    fused_upconv2,
-    modconv3x3_plain,
-    upconv2_plain,
-)
+from morphganformer_tpu_torch.ops.fused_conv import fused_modconv3x3, fused_upconv2
 from morphganformer_tpu_torch.ops.modulated_conv import modulated_conv2d
 from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter, upsample2d
 
@@ -118,14 +115,14 @@ class SynthesisLayer(nn.Module):
                 act_gain = activation_funcs[self.cfg.act].def_gain * self.gain
             else:
                 b, alpha, act_gain = None, 1.0, 1.0
-            x = x.contiguous()
+            x, plain = x.contiguous(), fused == "plain"
             if self.up == 2:
-                op = fused_upconv2 if fused == "kernel" else upconv2_plain
-                x = op(x, w, styles, f, noise, b, act_gain, alpha, True, False)
+                x = fused_upconv2(x, w, styles, f, noise, b, act_gain, alpha, True, False,
+                                  plain=plain)
                 return x if resid is None else x + resid
-            op = fused_modconv3x3 if fused == "kernel" else modconv3x3_plain
-            return op(x, w, styles, noise, b, None if resid is None else resid.contiguous(),
-                      act_gain, alpha, True)
+            return fused_modconv3x3(x, w, styles, noise, b,
+                                    None if resid is None else resid.contiguous(),
+                                    act_gain, alpha, True, plain=plain)
 
         x = modulated_conv2d(x, w.to(x.dtype), styles=styles, modulate=self.cfg.style,
                              up=self.up, padding=self.kernel_size // 2,

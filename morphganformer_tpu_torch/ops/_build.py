@@ -31,6 +31,13 @@ _SIGNATURES = {
     "mgt_modconv3x3_fwd": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _P],
     # x, wp, s, d, noise, bias, y, N, H, W, Cin, Cout, nt, hb0, hb1, gain, alpha, device, stream
     "mgt_upconv2_fwd": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _P],
+    # H, W of dx -> the number of spatial blocks of an adjoint launch
+    "mgt_bwd_tiles": [_I, _I],
+    # gd, wt, s, x, y, noise, dx, dot, dd1, dd2, N, H, W, O, C, gain, alpha, device, stream
+    "mgt_modconv3x3_bwd": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _P],
+    # gd, wt, s, x, y, noise, dx, dot, dd1, dd2, N, H, W, O, C, nt, hb0, hb1, gain, alpha,
+    # device, stream
+    "mgt_upconv2_bwd": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],
 }
 
 

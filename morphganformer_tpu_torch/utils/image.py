@@ -1,7 +1,7 @@
-"""Image conversion and PNG output (port of morphganformer_tpu/utils/image.py).
+"""Image conversion and PNG input/output (port of morphganformer_tpu/utils/image.py).
 
-Generator output is NHWC float in [-1, 1]. PNGs are written with the
-standard library's zlib and struct, so the port needs no imaging package.
+Generator output is NHWC float in [-1, 1]. PNGs are read and written with
+the standard library's zlib and struct, so the port needs no imaging package.
 """
 
 from __future__ import annotations
@@ -59,3 +59,80 @@ def write_png(path, img_hwc_uint8):
             + _chunk(b"IEND", b""))
     with open(path, "wb") as f:
         f.write(data)
+
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}      # gray, RGB, RGBA
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+
+
+def _unfilter_row(ft, line, prev, bpp):
+    """Undo one row's PNG filter (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)."""
+    if ft == 0:
+        return line.copy()
+    if ft == 1:
+        return np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+    if ft == 2:
+        return line + prev
+    if ft not in (3, 4):
+        raise ValueError(f"PNG: unknown filter type {ft}")
+    cur, up = bytearray(line.tobytes()), prev.tobytes()
+    for i in range(len(cur)):
+        a = cur[i - bpp] if i >= bpp else 0
+        if ft == 3:
+            cur[i] = (cur[i] + ((a + up[i]) >> 1)) & 0xFF
+        else:
+            cur[i] = (cur[i] + _paeth(a, up[i], up[i - bpp] if i >= bpp else 0)) & 0xFF
+    return np.frombuffer(bytes(cur), np.uint8)
+
+
+def read_png(path):
+    """Decode an 8-bit, non-interlaced gray, RGB or RGBA PNG to HWC uint8."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        (length,), tag = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+        pos += 12 + length
+    w, h, depth, color, _, _, interlace = hdr
+    if depth != 8 or color not in _PNG_CHANNELS or interlace != 0:
+        raise NotImplementedError(f"{path}: only 8-bit non-interlaced gray, RGB and RGBA "
+                                  f"PNGs are read (depth {depth}, color type {color}, "
+                                  f"interlace {interlace})")
+    c = _PNG_CHANNELS[color]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * c)
+    out = np.empty((h, w * c), np.uint8)
+    prev = np.zeros(w * c, np.uint8)
+    for y in range(h):
+        prev = out[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prev, c)
+    return out.reshape(h, w, c)
+
+
+def load_target(path, size=1024, drange=(-1.0, 1.0)):
+    """A projection target [1, size, size, 3] float32 in `drange` from a PNG
+    whose shorter side is `size`: centre crop, as the JAX package's
+    load_target does after its resize. Gray is replicated to RGB and alpha
+    dropped. Other sizes need the Lanczos resize, which is not ported yet."""
+    img = read_png(path)
+    h, w = img.shape[:2]
+    if min(h, w) != size:
+        raise NotImplementedError(f"{path}: shorter side {min(h, w)} != {size}; the Lanczos "
+                                  "resize of load_target is not ported yet")
+    img = np.repeat(img, 3, axis=2) if img.shape[2] == 1 else img[:, :, :3]
+    left, top = (w - size) // 2, (h - size) // 2
+    img = img[top:top + size, left:left + size]
+    return adjust_range(img.astype(np.float32), (0, 255), drange)[None]

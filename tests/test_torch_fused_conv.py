@@ -106,5 +106,7 @@ def test_wrappers_refuse_other_devices_and_shapes():
         fc._check("noise", torch.zeros(3, 4), (4, 4), torch.device("cpu"))
     with pytest.raises(ValueError, match="contiguous"):
         fc._check("x", torch.zeros(4, 4).t(), (4, 4), torch.device("cpu"))
-    with pytest.raises(RuntimeError, match="forward only"):
-        fc._check("x", torch.zeros(4, requires_grad=True), (4,), torch.device("cpu"))
+    # Operands that carry a gradient are taken: the autograd Functions pass
+    # them to the kernels without the graph.
+    t = torch.zeros(4, requires_grad=True)
+    assert fc._check("x", t, (4,), torch.device("cpu")) == t.data_ptr()

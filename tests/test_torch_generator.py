@@ -71,13 +71,13 @@ def test_generator_matches_jax(carried, noise_mode, monkeypatch):
 def test_fused_blocks_call_each_kernel_site(carried, monkeypatch):
     """The split config's three top blocks are fused like FFHQ-1024's b256,
     b512 and b1024: one forward calls K1 4 times and K2 6 times; with
-    plain=True it calls neither wrapper."""
+    plain=True every call asks for the plain versions."""
     _, _, G = carried
     calls = {"k1": 0, "k2": 0}
 
     def counting(key, fn):
         def wrapped(*a, **k):
-            calls[key] += 1
+            calls[key] += not k.get("plain", False)
             return fn(*a, **k)
         return wrapped
 
