@@ -35,12 +35,31 @@ Phases, each printing its wall time:
               to 1e-5); a 50-step batch-2 projected morph of two G(z)
               targets and an image-mode demorph of its result, with their
               launch counts; pair-steps/s.
+  7. train    the training roles at every call shape of a 1024^2 training
+              step at batch 4 against their plain versions: K3-forward (the
+              D down-conv, to 1e-3 max abs), K2's use_dw role (its dx), the
+              dw taps of K1, K3 and the down-conv (relative to the largest
+              entry, 1e-4), with kernel, plain and one cuDNN call's times
+              beside the bound; K1 and K2 forward and adjoint with
+              per-sample noise [4,H,W] at the noisy call shapes. Then
+              GANTrainer on FFHQ-1024 and a 1024^2 D from seed 0: one
+              G_main and one D_main round's gradients, with non-zero noise
+              strengths, on the kernels against the plain path (every leaf
+              within 1e-3 of its largest entry; the noise strengths as one
+              vector leaf) and the backward alone against the plain
+              backward (every leaf on its own), beside a control of the
+              plain path with its weights nudged by 1e-6; train_iteration
+              steps 1-3 at batch 4 (G_main, D_main, EMA) with finite losses
+              and exact launch counts per iteration, one iteration in two
+              accumulation rounds (batch 8), stage times and peak memory,
+              and one iteration under torch.profiler.
 
 The last line is {"ok": true, "device": {...}}; any failure raises before it
 and exits non-zero. Nothing is written inside the repository except the
 kernel build in morphganformer_tpu_torch/_build/.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -57,6 +76,9 @@ PEAK_BYTES = 3.35e12
 K1_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:114"
 K2_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:1143"
 K3_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:1263"
+K1_DW_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:256"
+K3_DW_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:1387"
+K2_DW_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:1225"
 SOURCE = "morphganformer_tpu_torch/csrc/fused_conv.cu"
 PROJECT_STEPS = 100
 MORPH_STEPS = 50
@@ -338,7 +360,429 @@ def _steady_rate(stamps):
 
 def _per_step(steps, forwards):
     return {"modconv3x3": 4 * (steps + forwards), "upconv2": 6 * (steps + forwards),
-            "modconv3x3_adj": 4 * steps, "upconv2_adj": 6 * steps}
+            "modconv3x3_adj": 4 * steps, "upconv2_adj": 6 * steps,
+            **dict.fromkeys(TRAIN_KEYS.values(), 0)}
+
+
+TRAIN_BATCH = 4
+
+
+def train_calls():
+    """The call shapes of the training roles in one 1024^2 iteration at batch
+    4: (role, block, layer, base resolution, Cin, Cout, kh). The base
+    resolution is the conv's output resolution for K3-forward, K2 use_dw and
+    the down-conv's dw, and its input resolution for K1 dw and K3 dw."""
+    calls = []
+    for res, cin in ((1024, 32), (512, 64)):          # D b1024, b512 (fused)
+        for role in ("K3-forward", "K2-use_dw", "K2-use_dw-dw"):
+            calls += [(role, f"D b{res}", "conv1", res // 2, cin, 2 * cin, 3),
+                      (role, f"D b{res}", "skip", res // 2, cin, 2 * cin, 1)]
+        calls.append(("K1-dw", f"D b{res}", "conv0", res, cin, cin, 3))
+    for res, cin, cout in ((256, 256, 128), (512, 128, 64), (1024, 64, 32)):
+        calls += [("K3-dw", f"G b{res}", "conv0", res // 2, cin, cout, 3),
+                  ("K3-dw", f"G b{res}", "skip", res // 2, cin, cout, 1),
+                  ("K1-dw", f"G b{res}", "conv1", res, cout, cout, 3)]
+    calls.append(("K1-dw", "G b1024", "conv_last", 1024, 32, 32, 3))
+    return calls
+
+
+TRAIN_KEYS = {"K3-forward": "downconv2", "K2-use_dw": "downconv2_adj",
+              "K2-use_dw-dw": "downconv2_dw", "K1-dw": "modconv3x3_dw", "K3-dw": "upconv2_dw"}
+
+
+def check_train_kernel(torch, fc, gen, call):
+    """One training role at one call shape, batch 4: kernel against plain on
+    random inputs, times, bound, and one cuDNN call of the bare convolution
+    (without the FIR) as the yardstick."""
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_weight
+
+    from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter
+
+    role, block, layer, h, cin, cout, kh = call
+    dev = torch.device("cuda")
+    n = TRAIN_BATCH
+    f = setup_filter([1, 3, 3, 1]).cuda()
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    w = randn(kh, kh, cin, cout, scale=1 / math.sqrt(kh * kh * cin))
+    nchw = lambda t: t.permute(0, 3, 1, 2)                              # noqa: E731
+    pad = kh // 2
+    if role in ("K3-forward", "K2-use_dw", "K2-use_dw-dw"):
+        conv1 = layer == "conv1"
+        x = randn(n, 2 * h, 2 * h, cin)
+        gz = randn(n, h, h, cout)
+        # Least work: the separable 4-tap FIR (at every input pixel before a
+        # strided 3x3; at the output pixels only for the 1x1 skip) and the
+        # stride-2 conv at output resolution.
+        fir = 2 * n * (2 * h) ** 2 * (8 if conv1 else 3) * cin
+        flops = 2 * n * h * h * kh * kh * cin * cout + fir
+        if role == "K3-forward":
+            b = randn(cout, scale=0.1) if conv1 else None
+            r = randn(n, h, h, cout) if conv1 else None
+            gain, alpha = (1.0, 0.2) if conv1 else (math.sqrt(0.5), 1.0)
+            run_k = lambda: fc.fused_downconv2(x, w, f, b, r, gain, alpha)        # noqa: E731
+            run_p = lambda: fc.downconv2_plain(x, w, f, b, r, gain, alpha)        # noqa: E731
+            w_lib = w.permute(3, 2, 0, 1).contiguous()
+            run_lib = lambda: F.conv2d(nchw(x), w_lib, stride=2, padding=pad)    # noqa: E731
+            tensors, out_numel, rel = [x, w, b, r], n * h * h * cout, False
+        elif role == "K2-use_dw":
+            run_k = lambda: fc.downconv2_adjoint(gz, w, f)                         # noqa: E731
+            run_p = lambda: fc.downconv2_adjoint_plain(gz, w, f)                   # noqa: E731
+            w_lib = w.permute(3, 2, 0, 1).contiguous()
+            run_lib = lambda: F.conv_transpose2d(nchw(gz), w_lib, stride=2, padding=pad,  # noqa
+                                                 output_padding=1)
+            tensors, out_numel, rel = [gz, w], n * 4 * h * h * cin, True
+        else:
+            wf, hb = fc.downconv2_parity_kernels(w, f)
+            nt = int(wf.shape[2])
+            run_k = lambda: fc.conv_dw(x, gz, None, 2, 1, nt, hb, "downconv2_dw")  # noqa: E731
+            run_p = lambda: fc.conv_dw_plain(x, gz, None, 2, 1, nt, hb)            # noqa: E731
+            run_lib = lambda: conv2d_weight(nchw(x), (cout, cin, kh, kh), nchw(gz),  # noqa
+                                            stride=2, padding=pad)
+            tensors, out_numel, rel = [x, gz], 4 * nt * nt * cin * cout, True
+    else:
+        x = randn(n, h, h, cin)
+        s = (torch.rand((n, cin), generator=gen, device=dev) + 0.5) if block[0] == "G" else None
+        if role == "K1-dw":
+            gd = randn(n, h, h, cout)
+            run_k = lambda: fc.conv_dw(x, gd, s, 1, 1, 3, (0, 0), "modconv3x3_dw")  # noqa: E731
+            run_p = lambda: fc.conv_dw_plain(x, gd, s, 1, 1, 3, (0, 0))             # noqa: E731
+            run_lib = lambda: conv2d_weight(nchw(x), (cout, cin, 3, 3), nchw(gd),   # noqa: E731
+                                            padding=1)
+            flops = 2 * n * h * h * 9 * cin * cout
+            tensors, out_numel = [x, gd, s], 9 * cin * cout
+        else:
+            gd = randn(n, 2 * h, 2 * h, cout)
+            wp, hb = fc.upconv2_phase_kernels(w, f)
+            nt = int(wp.shape[2])
+            run_k = lambda: fc.conv_dw(x, gd, s, 1, 2, nt, hb, "upconv2_dw")       # noqa: E731
+            run_p = lambda: fc.conv_dw_plain(x, gd, s, 1, 2, nt, hb)                # noqa: E731
+            run_lib = lambda: conv2d_weight(nchw(gd), (cin, cout, kh, kh), nchw(x),  # noqa
+                                            stride=2, padding=pad)
+            # The weight gradient of a transposed conv at input resolution
+            # and the FIR's adjoint over the output-resolution gd.
+            flops = 2 * n * h * h * kh * kh * cin * cout + 2 * n * (2 * h) ** 2 * 8 * cout
+            tensors, out_numel = [x, gd, s], 4 * nt * nt * cin * cout
+        rel = True
+
+    key = TRAIN_KEYS[role]
+    before = fc.launch_counts[key]
+    got = run_k()
+    assert fc.launch_counts[key] == before + 1, (role, fc.launch_counts)
+    want = run_p()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    print(f"  {role} {block} {layer}: out {tuple(got.shape)} max_abs_err {err:.3e} "
+          f"(largest entry {scale:.3e})", flush=True)
+    assert torch.isfinite(got).all().item() and got.shape == want.shape
+    if rel:
+        assert err <= 1e-4 * scale, f"{role} {block} {layer}: err {err} > 1e-4 of {scale}"
+    else:
+        assert err <= 1e-3, f"{role} {block} {layer}: max abs err {err} > 1e-3"
+    nbytes = 4 * (sum(t.numel() for t in tensors if t is not None) + out_numel)
+    bound_ms, bound_by = bound(flops, nbytes)
+    ms = cuda_ms(torch, run_k, reps=5, warmup=1)
+    plain_ms = cuda_ms(torch, run_p, reps=3, warmup=1)
+    library_ms = cuda_ms(torch, run_lib, reps=5, warmup=1)
+    print(f"  {role} {block} {layer}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+          f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
+    return dict(kernel=role, block=block, role=layer, max_abs_err=err, ref_scale=scale, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                gflop=flops / 1e9, mbytes=nbytes / 1e6)
+
+
+def per_iteration(rounds=1):
+    """Exact launches of one training iteration, derived from the fused
+    blocks. G_main: G's forward (4 K1, 6 K2) and backward with dw (4 K1-adj,
+    6 K3-adj, 4 K1-dw, 6 K3-dw); D's two fused blocks forward (per block 1
+    K1 for conv0, 2 K3-forward for skip and conv1) and backward to its input
+    only (per block 1 K1-adj, 2 K2-use_dw). D_main: G's forward without a
+    graph, then D forward and backward with dw on fakes and on reals (per
+    block and pass 1 K1-adj, 2 K2-use_dw, 1 K1-dw, 2 K2-use_dw-dw)."""
+    g_main = {"modconv3x3": 4 + 2, "upconv2": 6, "downconv2": 4, "modconv3x3_adj": 4 + 2,
+              "upconv2_adj": 6, "downconv2_adj": 4, "modconv3x3_dw": 4, "upconv2_dw": 6,
+              "downconv2_dw": 0}
+    d_main = {"modconv3x3": 4 + 2 * 2, "upconv2": 6, "downconv2": 2 * 4,
+              "modconv3x3_adj": 2 * 2, "upconv2_adj": 0, "downconv2_adj": 2 * 4,
+              "modconv3x3_dw": 2 * 2, "upconv2_dw": 0, "downconv2_dw": 2 * 4}
+    return {k: rounds * (g_main[k] + d_main[k]) for k in g_main}
+
+
+def check_per_sample_noise(torch, fc, gen):
+    """K1 and K2 forward and their adjoints (the K1 adjoint launch, K3) with
+    per-sample noise [N,H,W] of non-zero strength, at the noisy call shapes
+    of a 1024^2 training iteration (batch 4), against the plain versions:
+    forwards to 1e-4 max abs, adjoints to 1e-4 of each output's largest
+    entry, as in phase kernels. Returns the worst of each."""
+    from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter
+
+    dev = torch.device("cuda")
+    n = TRAIN_BATCH
+    f = setup_filter([1, 3, 3, 1]).cuda()
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    worst = {"forward": 0.0, "adjoint": 0.0}
+    for kernel, block, role, h, cin, cout in kernel_calls():
+        if role in ("skip", "conv_last"):                  # no noise there
+            continue
+        x, w = randn(n, h, h, cin), randn(3, 3, cin, cout, scale=1 / math.sqrt(9 * cin))
+        s = torch.rand((n, cin), generator=gen, device=dev) + 0.5
+        bias = randn(cout, scale=0.1)
+        before = dict(fc.launch_counts)
+        if kernel == "K1":
+            noise, resid = randn(n, h, h, scale=0.1), randn(n, h, h, cout)
+            fwd = (x, w, s, noise, bias, resid, 1.0, 0.2, True)
+            yk, yp = fc.fused_modconv3x3(*fwd), fc.modconv3x3_plain(*fwd)
+            adj = (randn(*yp.shape), x, w, s, yp, noise, bias, resid, 1.0, 0.2, True)
+            got, want = fc.modconv3x3_adjoint(*adj), fc.modconv3x3_adjoint_plain(*adj)
+            keys = ("modconv3x3", "modconv3x3_adj")
+        else:
+            noise = randn(n, 2 * h, 2 * h, scale=0.1)
+            fwd = (x, w, s, f, noise, bias, math.sqrt(2), 0.2, True, False)
+            yk, yp = fc.fused_upconv2(*fwd), fc.upconv2_plain(*fwd)
+            adj = (randn(*yp.shape), x, w, s, f, yp, noise, bias, math.sqrt(2), 0.2, True, False)
+            got, want = fc.upconv2_adjoint(*adj), fc.upconv2_adjoint_plain(*adj)
+            keys = ("upconv2", "upconv2_adj")
+        torch.cuda.synchronize()
+        assert [fc.launch_counts[k] - before[k] for k in keys] == [1, 1], fc.launch_counts
+        fwd_err = (yk - yp).abs().max().item()
+        adj_err = max(_rel_err(a, b) for a, b in zip(got, want) if b is not None)
+        print(f"  per-sample noise {tuple(noise.shape)}: {kernel} {block} {role} forward max "
+              f"abs err {fwd_err:.3e}; adjoint (dx, ds, dd1, dd2) rel err {adj_err:.3e}",
+              flush=True)
+        assert fwd_err <= 1e-4, f"{kernel} {block} {role} per-sample noise forward: {fwd_err}"
+        assert adj_err <= 1e-4, f"{kernel} {block} {role} per-sample noise adjoint: {adj_err}"
+        worst["forward"] = max(worst["forward"], fwd_err)
+        worst["adjoint"] = max(worst["adjoint"], adj_err)
+    return worst
+
+
+@contextlib.contextmanager
+def plain_backwards(fc):
+    """The fused Functions' backwards on the plain versions while their
+    forwards stay on the kernels: each backward helper takes `plain` as its
+    last positional argument."""
+    saved = {n: getattr(fc, n) for n in
+             ("modconv3x3_backward", "upconv2_backward", "downconv2_backward")}
+    try:
+        for n, fn in saved.items():
+            setattr(fc, n, lambda *a, _fn=fn: _fn(*a[:-1], True))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(fc, n, fn)
+
+
+@contextlib.contextmanager
+def nudged(torch, nets, gen, rel):
+    """Every parameter of `nets` times (1 + rel * N(0, 1)), restored after."""
+    params = [p for net in nets for p in net.parameters()]
+    saved = [p.detach().clone() for p in params]
+    try:
+        with torch.no_grad():
+            for p in params:
+                p.mul_(1 + rel * torch.randn(p.shape, generator=gen, device=p.device))
+        yield
+    finally:
+        with torch.no_grad():
+            for p, v in zip(params, saved):
+                p.copy_(v)
+
+
+def leaf_errors(names, got, want, floor):
+    """Each leaf's max abs error relative to its largest entry, floored at
+    `floor`: [(relative error, name, largest entry, abs error, is a noise
+    strength)], worst first."""
+    rows = []
+    for name, a, b in zip(names, got, want):
+        err, scale = (a - b).abs().max().item(), b.abs().max().item()
+        rows.append((err / max(scale, floor), name, scale, err, name.endswith("noise_strength")))
+    return sorted(rows, reverse=True)
+
+
+def pooled_strengths(rows):
+    """The noise strengths (one scalar per layer) as one vector leaf: the
+    largest abs error over its largest entry."""
+    strengths = [r for r in rows if r[4]]
+    if not strengths:
+        return 0.0
+    return max(r[3] for r in strengths) / max(r[2] for r in strengths)
+
+
+def _fmt(rows, k=3):
+    return [(r[1], f"{r[0]:.3e}", f"{r[2]:.3e}") for r in rows[:k]]
+
+
+def train_phase(torch, fc):
+    """Phase 7: the training roles' kernels, then train_iteration at 1024^2."""
+    from morphganformer_tpu_torch.models.config import DiscriminatorConfig, ffhq1024_config
+    from morphganformer_tpu_torch.training import GANTrainer, TrainConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = [check_train_kernel(torch, fc, gen, call) for call in train_calls()]
+    noise_errs = check_per_sample_noise(torch, fc, gen)
+
+    g_cfg, d_cfg = ffhq1024_config(), DiscriminatorConfig()
+    trainer = GANTrainer(g_cfg, d_cfg, TrainConfig(batch_size=TRAIN_BATCH, batch_gpu=4))
+    t0 = time.perf_counter()
+    state = trainer.init_state(seed=0)
+    torch.cuda.synchronize()
+    print(f"  G (FFHQ-1024) and D (1024^2) from seed 0 on cuda: "
+          f"{time.perf_counter() - t0:.3f} s; {sum(p.numel() for p in state.G.parameters())} "
+          f"G and {sum(p.numel() for p in state.D.parameters())} D parameters", flush=True)
+    res = d_cfg.img_resolution
+    reals = torch.rand((2 * TRAIN_BATCH, res, res, 3), generator=gen, device="cuda") * 2 - 1
+
+    # One G_main and one D_main round at the seed-0 weights with the noise
+    # strengths (0 at init) set to U(0.05, 0.15), so the per-sample noise
+    # reaches the kernels' epilogues and dd taps. Every run draws from a
+    # generator seeded alike, in an order that does not depend on the path.
+    # Four runs per stage: on the kernels; plain; the kernels' forward with
+    # the plain backward (one forward, so only the backward differs); and
+    # plain with every weight nudged by 1e-6 of itself (the size of the
+    # kernels' forward rounding) as a control of how far float32 rounding
+    # alone moves each leaf. Errors are relative to each leaf's largest
+    # entry, floored at 1e-3 of the stage's largest entry (leaves of zero
+    # true gradient: the key biases before a softmax). Checks: backward
+    # alone, every leaf on its own within 1e-3; kernels against plain, every
+    # other leaf on its own within 1e-3 and the noise strengths as one
+    # vector leaf within 1e-3 of its largest entry (each is a sum of
+    # g * noise over its layer that cancels down to a small value, which
+    # pre-activations rounding to the other side of zero move by about 1e-3
+    # of itself: the control shows the same on the plain path alone).
+    z = torch.randn((1, TRAIN_BATCH, g_cfg.k, g_cfg.z_dim), generator=gen, device="cuda")
+    real = reals[None, :TRAIN_BATCH]
+    w_avg = state.G.mapping.w_avg.clone()
+    strengths = [p for n, p in state.G.named_parameters() if n.endswith("noise_strength")]
+    assert strengths
+    with torch.no_grad():
+        for p in strengths:
+            p.copy_(0.05 + 0.1 * torch.rand((), generator=gen, device="cuda"))
+
+    def one_round(stage, plain=False):
+        state.G.mapping.w_avg.copy_(w_avg)
+        rng = torch.Generator(device="cuda").manual_seed(11)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if stage == "g":
+            out = trainer.g_main_grads(state, z, gen=rng, plain=plain)
+        else:
+            out = trainer.d_main_grads(state, real, z, gen=rng, plain=plain)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    errs, round_ms = {}, {}
+    for stage, net in (("g", state.G), ("d", state.D)):
+        runs = {"kernels": one_round(stage), "plain": one_round(stage, plain=True)}
+        before = dict(fc.launch_counts)
+        with plain_backwards(fc):
+            runs["kernel_fwd_plain_bwd"] = one_round(stage)
+        assert all(fc.launch_counts[k] == before[k] for k in before
+                   if k.endswith(("_adj", "_dw"))), "a backward kernel ran under plain_backwards"
+        with nudged(torch, (state.G, state.D), torch.Generator(device="cuda").manual_seed(3),
+                    1e-6):
+            runs["plain_nudged"] = one_round(stage, plain=True)
+        names = [n for n, _ in net.named_parameters()]
+        (got, stats_k), (want, stats_p) = runs["kernels"][0], runs["plain"][0]
+        assert all(torch.isfinite(t).all().item() for t in got)
+        floor = 1e-3 * max(t.abs().max().item() for t in want)
+        bwd = leaf_errors(names, got, runs["kernel_fwd_plain_bwd"][0][0], floor)
+        full = leaf_errors(names, got, want, floor)
+        ctrl = leaf_errors(names, runs["plain_nudged"][0][0], want, floor)
+        others = [r for r in full if not r[4]]
+        strength_worst = {k: max((r[0] for r in rows if r[4]), default=0.0)
+                          for k, rows in (("bwd", bwd), ("full", full), ("ctrl", ctrl))}
+        loss_key = next(k for k in stats_p if k.endswith("/loss"))
+        loss_err = abs(stats_k[loss_key] - stats_p[loss_key])
+        errs[stage] = dict(backward=bwd[0][0], other_leaves=others[0][0],
+                           noise_strengths_pooled=pooled_strengths(full),
+                           noise_strength_worst=strength_worst, control_worst=ctrl[0][0],
+                           loss_abs_err=loss_err)
+        for k, (_, ms) in runs.items():
+            round_ms[f"{stage}_{k}"] = ms
+        print(f"  one {stage.upper()}_main round ({len(names)} leaves; floor {floor:.3e}), "
+              f"{loss_key} kernels {stats_k[loss_key]:.6f} plain {stats_p[loss_key]:.6f}:\n"
+              f"    backward alone (kernels vs plain backward, one forward): worst "
+              f"{bwd[0][0]:.3e} {_fmt(bwd)}; worst noise strength {strength_worst['bwd']:.3e}\n"
+              f"    kernels vs plain: other leaves worst {others[0][0]:.3e} {_fmt(others)}; "
+              f"noise strengths as one {errs[stage]['noise_strengths_pooled']:.3e}, worst on "
+              f"its own {strength_worst['full']:.3e} {_fmt([r for r in full if r[4]])}\n"
+              f"    control (plain, weights nudged by 1e-6, vs plain): worst {ctrl[0][0]:.3e} "
+              f"{_fmt(ctrl)}; worst noise strength {strength_worst['ctrl']:.3e} "
+              f"{_fmt([r for r in ctrl if r[4]])}\n"
+              f"    ms: " + ", ".join(f"{k} {ms:.3f}" for k, (_, ms) in runs.items()),
+              flush=True)
+        e = errs[stage]
+        assert e["backward"] <= 1e-3, f"{stage.upper()}_main backward kernels vs plain: {e}"
+        assert e["other_leaves"] <= 1e-3, f"{stage.upper()}_main kernels vs plain: {e}"
+        assert e["noise_strengths_pooled"] <= 1e-3, f"{stage.upper()}_main noise strengths: {e}"
+        assert loss_err <= 1e-4 * max(1.0, abs(stats_p[loss_key])), (stats_k, stats_p)
+    with torch.no_grad():
+        for p in strengths:
+            p.zero_()
+    state.G.mapping.w_avg.copy_(w_avg)
+
+    stage_ms = {"g_main": [], "d_main": []}
+    for name in ("g_main", "d_main"):
+        inner = getattr(trainer, f"{name}_step")
+
+        def timed(*a, _inner=inner, _name=name):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _inner(*a)
+            torch.cuda.synchronize()
+            stage_ms[_name].append((time.perf_counter() - t) * 1e3)
+            return out
+        setattr(trainer, f"{name}_step", timed)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = {k: 0 for k in fc.launch_counts}
+    iter_ms = []
+    for step in (1, 2, 3):
+        fc.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = trainer.train_iteration(state, reals[:TRAIN_BATCH], step)
+        torch.cuda.synchronize()
+        iter_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(fc.launch_counts)
+        print(f"  step {step}: {iter_ms[-1]:.3f} ms (G_main {stage_ms['g_main'][-1]:.3f}, "
+              f"D_main {stage_ms['d_main'][-1]:.3f}); {json.dumps(stats)}; launches {launches}",
+              flush=True)
+        assert all(math.isfinite(v) for v in stats.values()), stats
+        assert launches == per_iteration(), (launches, per_iteration())
+        for k, v in launches.items():
+            total[k] += v
+    peak = torch.cuda.max_memory_allocated()
+    assert state.cur_nimg == 3 * TRAIN_BATCH
+
+    two = GANTrainer(g_cfg, d_cfg, TrainConfig(batch_size=2 * TRAIN_BATCH, batch_gpu=4))
+    assert two.n_accum == 2
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats2 = two.train_iteration(state, reals, 5)
+    torch.cuda.synchronize()
+    two_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  step 5, batch 8 in two rounds: {two_ms:.3f} ms; {json.dumps(stats2)}; launches "
+          f"{dict(fc.launch_counts)}", flush=True)
+    assert all(math.isfinite(v) for v in stats2.values()), stats2
+    assert dict(fc.launch_counts) == per_iteration(2), dict(fc.launch_counts)
+    assert state.cur_nimg == 5 * TRAIN_BATCH
+
+    traced_forward(torch, lambda: trainer.train_iteration(state, reals[:TRAIN_BATCH], 6),
+                   "training iteration batch 4")
+    stats = dict(iteration_ms=iter_ms, g_main_ms=stage_ms["g_main"][:3],
+                 d_main_ms=stage_ms["d_main"][:3], two_round_ms=two_ms, peak_gib=peak / 2**30,
+                 g_grads=errs["g"], d_grads=errs["d"], round_ms=round_ms,
+                 per_sample_noise=noise_errs)
+    print(f"  peak memory over steps 1-3: {peak / 2**30:.3f} GiB", flush=True)
+    return rows, total, stats
 
 
 def main():
@@ -385,7 +829,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="mgt_smoke_") as tmp:
         with Phase("generate") as ph:
             t0 = time.perf_counter()
-            cfg, G = cli.get_model("init:1024", device="cuda", seed=0)
+            cfg, G = cli.get_model("init:1024", device="cuda")
             torch.cuda.synchronize()
             print(f"  init:1024 on cuda: {time.perf_counter() - t0:.3f} s, "
                   f"{sum(p.numel() for p in G.parameters())} parameters", flush=True)
@@ -563,9 +1007,14 @@ def main():
         morph_stats = dict(pair_steps_per_s=pair_rate, peak_gib=pair_peak / 2**30,
                            wall_s=pair_s, demorph_image_s=demorph_img_s)
 
-    print("kernel_calls " + json.dumps(rows), flush=True)
+    with Phase("train") as ph:
+        train_rows, train_launches, train_stats = train_phase(torch, fc)
+    phases["train"] = ph.seconds
+
+    print("kernel_calls " + json.dumps(rows + train_rows), flush=True)
     print("projection " + json.dumps(proj_stats), flush=True)
     print("morph " + json.dumps(morph_stats), flush=True)
+    print("train " + json.dumps(train_stats), flush=True)
     kernels = []
     for kernel, name, replaces, key in (
             ("K1", "fused_modconv3x3", K1_REPLACES, "modconv3x3"),
@@ -583,6 +1032,33 @@ def main():
                     + f"; launches over the {PROJECT_STEPS}-step projection)",
             "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": proj_launches[key],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": sum(r["ms"] for r in mine),
+            "plain_ms": sum(r["plain_ms"] for r in mine),
+            "bound_ms": b_ms,
+            "bound_by": "operations" if 2 * ops_ms >= b_ms else "bytes",
+            "library_ms": sum(r["library_ms"] for r in mine),
+        })
+    for role, name, replaces, what in (
+            ("K3-forward", "mgt_downconv2_fwd (D-tower forward, pallas_conv.py:2054-2072)",
+             K3_REPLACES, "the D down-conv"),
+            ("K2-use_dw", "mgt_upconv2_fwd in the use_dw role (dx of the D down-conv, "
+             "pallas_conv.py:2121-2157)", K2_REPLACES, "the D down-conv's dx"),
+            ("K2-use_dw-dw", "mgt_conv_dw (the D down-conv's block cotangent, "
+             "pallas_conv.py:1225-1246, :2161-2173)", K2_DW_REPLACES, "the D down-conv's dw"),
+            ("K1-dw", "mgt_conv_dw (K1's dw taps, pallas_conv.py:256-285, :894-905)",
+             K1_DW_REPLACES, "G conv1/conv_last and D conv0 dw"),
+            ("K3-dw", "mgt_conv_dw (K3's dw taps in the adjoint role, pallas_conv.py:1387-1416)",
+             K3_DW_REPLACES, "G conv0/skip dw")):
+        mine = [r for r in train_rows if r["kernel"] == role]
+        b_ms = sum(r["bound_ms"] for r in mine)
+        ops_ms = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")
+        kernels.append({
+            "name": f"{role} {name}: {what} (the call shapes of one 1024^2 training iteration, "
+                    f"batch {TRAIN_BATCH}: " + ", ".join(f"{r['block']} {r['role']}" for r in mine)
+                    + "; launches over train_iteration steps 1-3)",
+            "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "launches": train_launches[TRAIN_KEYS[role]],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),

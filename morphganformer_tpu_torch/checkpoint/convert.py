@@ -1,4 +1,5 @@
-"""Carry a flax variables tree of the JAX generator over to the port.
+"""Carry a flax variables tree of the JAX generator or discriminator over to
+the port.
 
 The port's modules mirror the flax module tree name for name and keep the
 JAX layouts ([in, out] dense weights, HWIO conv weights), so each leaf maps
@@ -7,6 +8,7 @@ onto the state_dict key that joins its path with dots:
     params/synthesis/b1024/conv1/weight          -> synthesis.b1024.conv1.weight
     buffers/synthesis/b1024/conv1/noise_const    -> synthesis.b1024.conv1.noise_const
     moving_stats/mapping/w_avg                   -> mapping.w_avg
+    params/b1024/conv1/biasAct/bias (D)          -> b1024.conv1.biasAct.bias
 
 Reading `.msgpack` checkpoints is not ported yet; callers pass the variables
 as nested dicts of numpy arrays.

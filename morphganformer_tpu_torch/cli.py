@@ -14,7 +14,9 @@
 They mirror cli/generate.py, cli/merge.py, cli/project.py, cli/morph.py
 (one pair) and cli/demorph.py of the JAX package. `--model init:<res>`
 builds a randomly initialised FFHQ-style generator at that resolution
-(weights from `--seed`); reading checkpoints is not ported yet. Everything
+(weights from seed 0 whatever `--seed` says, as the JAX entry points build
+them; `--seed` picks z, the prior statistics and the projection noise);
+reading checkpoints is not ported yet. Everything
 runs on the card; `--device cpu` asks for the CPU. Latents are fed to the
 generator as z, as the JAX entry points do. Projection targets are PNGs
 whose shorter side is the model's resolution.
@@ -47,12 +49,13 @@ from morphganformer_tpu_torch.utils.image import (
 )
 
 
-def get_model(model_spec: str, device="cuda", seed=0):
-    """`init:<res>` -> (cfg, generator with random weights from `seed`)."""
+def get_model(model_spec: str, device="cuda"):
+    """`init:<res>` -> (cfg, generator with random weights from seed 0, as
+    JAX's `cli/generate.py:get_model` builds them for every entry point)."""
     if not model_spec.startswith("init:"):
         raise NotImplementedError("loading checkpoints is not ported yet; use init:<res>")
     cfg = GANformerConfig(img_resolution=int(model_spec.split(":", 1)[1]))
-    return cfg, init_generator(cfg, seed=seed, device=device)
+    return cfg, init_generator(cfg, seed=0, device=device)
 
 
 @torch.no_grad()
@@ -285,7 +288,7 @@ def main(argv=None):
     d.add_argument("--alpha", type=float, default=0.5)
 
     args = p.parse_args(argv)
-    _, G = get_model(args.model, device=args.device, seed=args.seed)
+    _, G = get_model(args.model, device=args.device)
     if args.command == "generate":
         run_generate(G, args.output_dir, args.images_num, args.truncation_psi,
                      args.ratio, args.batch_size, args.seed)

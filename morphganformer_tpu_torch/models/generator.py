@@ -1,8 +1,10 @@
 """GANformer generator (port of morphganformer_tpu/models/generator.py).
 
 z [B, k, z_dim] -> MappingNetwork -> ws [B, k, num_ws, w_dim]
--> SynthesisNetwork -> img [B, H, W, C] in [-1, 1] (NHWC). Inference only:
-component dropout and random noise belong to training, which is not ported.
+-> SynthesisNetwork -> img [B, H, W, C] in [-1, 1] (NHWC). The training loss
+(training/loss.py) calls `run_mapping` / `run_synthesis` with `train=True`:
+attention dropout, the w_avg update, random noise and the component-dropout
+mask then draw from an explicit `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -28,16 +30,29 @@ class Generator(nn.Module):
         with torch.no_grad():
             self.pos.copy_(torch.rand(self.pos.shape, generator=gen))
 
-    def _mask(self, batch, device):
-        return torch.ones(batch, self.cfg.k - 1, device=device)
+    def component_mask(self, batch, device, train=False, gen=None):
+        """Keep-mask [B, k-1] of the latent components: under `train` each is
+        dropped with probability `component_dropout` (JAX `generator.py:37-39`,
+        `random_dp_binary`: kept where uniform >= the rate), else all ones."""
+        cfg = self.cfg
+        if train and cfg.component_dropout > 0:
+            u = torch.rand((batch, cfg.k - 1), generator=gen, device=device)
+            return (u >= cfg.component_dropout).float()
+        return torch.ones(batch, cfg.k - 1, device=device)
 
-    def run_mapping(self, z, truncation_psi=1.0):
-        return self.mapping(z, pos=self.pos, mask=self._mask(z.shape[0], z.device),
-                            truncation_psi=truncation_psi)
+    def run_mapping(self, z, truncation_psi=1.0, train=False, skip_w_avg_update=False,
+                    gen=None, mask=None):
+        if mask is None:
+            mask = self.component_mask(z.shape[0], z.device, train, gen)
+        return self.mapping(z, pos=self.pos, mask=mask, truncation_psi=truncation_psi,
+                            train=train, skip_w_avg_update=skip_w_avg_update, gen=gen)
 
-    def run_synthesis(self, ws, noise_mode="const", plain=False):
-        return self.synthesis(ws, pos=self.pos, mask=self._mask(ws.shape[0], ws.device),
-                              noise_mode=noise_mode, plain=plain)
+    def run_synthesis(self, ws, noise_mode="const", plain=False, train=False, gen=None,
+                      mask=None):
+        if mask is None:
+            mask = self.component_mask(ws.shape[0], ws.device, train, gen)
+        return self.synthesis(ws, pos=self.pos, mask=mask, noise_mode=noise_mode, plain=plain,
+                              train=train, gen=gen)
 
     def forward(self, z=None, ws=None, truncation_psi=1.0, noise_mode="const",
                 return_ws=False, plain=False):

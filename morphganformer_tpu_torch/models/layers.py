@@ -18,7 +18,11 @@ from torch import nn
 
 from morphganformer_tpu_torch.ops.bias_act import activation_funcs, bias_act
 from morphganformer_tpu_torch.ops.conv2d_resample import conv2d_resample
-from morphganformer_tpu_torch.ops.fused_conv import fused_upconv2
+from morphganformer_tpu_torch.ops.fused_conv import (
+    fused_downconv2,
+    fused_modconv3x3,
+    fused_upconv2,
+)
 from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter
 
 
@@ -118,7 +122,8 @@ class ResnetLayer(nn.Module):
 
 
 class Conv2dLayer(nn.Module):
-    """Conv + resample + bias/act; here the synthesis resnet skip branch."""
+    """Conv + resample + bias/act: the synthesis resnet skip branch and the
+    discriminator's layers."""
 
     def __init__(self, in_channels, out_channels, kernel_size, use_bias=True,
                  act="linear", up=1, down=1, resample_kernel=(1, 3, 3, 1), gain=1.0):
@@ -134,21 +139,45 @@ class Conv2dLayer(nn.Module):
     def reset_parameters(self, gen):
         _normal_(self.weight, gen)
 
-    def forward(self, x, fused=None):
-        """`fused` ("kernel" or "plain") runs the unmodulated 1x1 up-conv
-        skip as K2 with K3 as its adjoint (kernels, or their plain versions);
-        None runs the unfused conv2d_resample path."""
+    def _forward_fused(self, x, w, f, resid, plain):
+        """The fused branches (JAX `layers.py:170-227`): the unmodulated 1x1
+        up-conv skip on K2, the 2x-down conv on K3-forward (bias, lrelu and
+        the resnet skip-add in its epilogue), the same-res 3x3 conv on K1
+        with styles 1 and no demodulation."""
+        act = self.biasAct.act
+        if act not in ("lrelu", "linear"):
+            raise ValueError(f"the fused branches take lrelu or linear, got {act!r}")
+        x = x.contiguous()
+        resid = None if resid is None else resid.contiguous()
+        if self.up == 2:
+            if self.kernel_size != 1 or self.down != 1 or self.biasAct.bias is not None \
+                    or act != "linear" or resid is not None:
+                raise ValueError("the fused up-conv is the linear, bias-free 1x1 skip")
+            return fused_upconv2(x, w, None, f, None, None, self.gain, 1.0, False, False,
+                                 plain=plain)
+        gain = activation_funcs[act].def_gain * self.gain
+        alpha = 0.2 if act == "lrelu" else 1.0
+        b = self.biasAct.runtime_bias()
+        if self.down == 2:
+            return fused_downconv2(x, w, f, b, resid, gain, alpha, True, plain=plain)
+        if self.kernel_size == 3 and self.down == 1:
+            ones = x.new_ones((x.shape[0], x.shape[-1]))
+            return fused_modconv3x3(x, w, ones, None, b, resid, gain, alpha, False, plain=plain)
+        raise ValueError("no fused branch for this layer")
+
+    def forward(self, x, fused=None, resid=None):
+        """`fused` ("kernel" or "plain") runs the layer on the fused kernels
+        (or their plain versions); None runs the unfused conv2d_resample path.
+        `resid`: a skip branch shaped like the output, added after the
+        activation."""
         w = self.weight * self.coef
         f = self.resample_filter
         if fused is not None:
-            if (self.up, self.down, self.kernel_size) != (2, 1, 1) \
-                    or self.biasAct.bias is not None or self.biasAct.act != "linear":
-                raise ValueError("the fused skip branch is the linear, bias-free 1x1 up-conv")
-            return fused_upconv2(x.contiguous(), w, None, f, None, None, self.gain, 1.0,
-                                 False, False, plain=fused == "plain")
+            return self._forward_fused(x, w, f, resid, fused == "plain")
         x = conv2d_resample(x, w.to(x.dtype), f=f, up=self.up, down=self.down,
                             padding=self.kernel_size // 2, flip_weight=(self.up == 1))
-        return self.biasAct(x)
+        x = self.biasAct(x)
+        return x if resid is None else x + resid.to(x.dtype)
 
 
 def sinusoidal_encoding(size: int, dim: int, num: int = 2) -> np.ndarray:

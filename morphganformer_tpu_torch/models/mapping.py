@@ -23,7 +23,7 @@ class MLP(nn.Module):
     """(Resnet, optionally self-attentive) MLP over the last axis."""
 
     def __init__(self, channels, act, resnet=False, sa=False, lrmul=1.0,
-                 sa_to_len=0, sa_pos=False, num_heads=1):
+                 sa_to_len=0, sa_pos=False, num_heads=1, attention_dropout=0.0):
         super().__init__()
         self.resnet, self.sa = resnet, sa
         self.layers_num = len(channels) // 2 if resnet else len(channels) - 1
@@ -33,7 +33,7 @@ class MLP(nn.Module):
                 setattr(self, f"sa{idx}", TransformerLayer(
                     dim=d, pos_dim=d, from_len=sa_to_len, to_len=sa_to_len,
                     from_dim=d, to_dim=d, from_pos=sa_pos, to_pos=sa_pos,
-                    num_heads=num_heads))
+                    num_heads=num_heads, attention_dropout=attention_dropout))
             if resnet:
                 if channels[idx] != channels[idx + 1]:
                     raise ValueError("resnet MLP layers need equal widths")
@@ -44,11 +44,12 @@ class MLP(nn.Module):
         self.out_layer = FullyConnected(channels[self.layers_num], channels[-1],
                                         act=act, lrmul=lrmul)
 
-    def forward(self, x, pos=None, mask=None):
+    def forward(self, x, pos=None, mask=None, train=False, gen=None):
         for idx in range(self.layers_num):
             skip = x
             if self.sa:
-                x, _ = getattr(self, f"sa{idx}")(x, x, from_pos=pos, to_pos=pos, att_mask=mask)
+                x, _ = getattr(self, f"sa{idx}")(x, x, from_pos=pos, to_pos=pos, att_mask=mask,
+                                                 train=train, gen=gen)
             layer = getattr(self, f"l{idx}")
             x = layer(x, skip) if self.resnet else layer(x)
         return self.out_layer(x)
@@ -67,10 +68,15 @@ class MappingNetwork(nn.Module):
         self.global_mlp = MLP(channels, act=m.act, resnet=m.resnet, lrmul=m.lrmul)
         self.mlp = MLP(channels, act=m.act, resnet=m.resnet, lrmul=m.lrmul,
                        sa=m.ltnt2ltnt, sa_to_len=cfg.k - 1, sa_pos=m.use_pos,
-                       num_heads=cfg.attention.num_heads)
+                       num_heads=cfg.attention.num_heads,
+                       attention_dropout=cfg.attention.dropout)
         self.register_buffer("w_avg", torch.zeros(cfg.w_dim))
 
-    def forward(self, z, pos=None, mask=None, truncation_psi=1.0):
+    def forward(self, z, pos=None, mask=None, truncation_psi=1.0, train=False,
+                skip_w_avg_update=False, gen=None):
+        """`train` applies the attention dropout (masks from `gen`) and,
+        unless `skip_w_avg_update`, moves the tracked w_avg towards this
+        batch's mean (JAX `mapping.py:276-281`), in place."""
         cfg = self.cfg
         m = cfg.mapping
         k = cfg.k
@@ -81,8 +87,12 @@ class MappingNetwork(nn.Module):
             g = normalize_l2(g)
         z_comp = normalize_l2(z_comp)
         x = self.global_mlp(g)
-        p = self.mlp(z_comp, pos=pos if m.use_pos else None, mask=mask)
+        p = self.mlp(z_comp, pos=pos if m.use_pos else None, mask=mask, train=train, gen=gen)
         x = torch.cat([p, x], dim=1)                                # global last
+        if train and m.w_avg_beta is not None and not skip_w_avg_update:
+            with torch.no_grad():
+                batch_mean = x.mean(dim=(0, 1))
+                self.w_avg.copy_(batch_mean + m.w_avg_beta * (self.w_avg - batch_mean))
         x = x[:, :, None, :].expand(-1, -1, cfg.num_ws, -1)          # [B,k,num_ws,w]
         if truncation_psi != 1:
             if m.w_avg_beta is None:

@@ -10,9 +10,12 @@ ops/fused_conv.py, as the JAX package runs them on its Pallas kernels:
     conv1           K1, with the skip branch added in-kernel
     conv_last       K1 (no bias, no noise: alpha 1, gain 1)
 
-so one 1024^2 forward makes 4 K1 and 6 K2 launches, and its backward (the
-latent gradient of projection) 4 K1-adjoint and 6 K3 launches. The other
-blocks run the unfused plain PyTorch path. `plain=True` runs the fused blocks
+so one 1024^2 forward makes 4 K1 and 6 K2 launches, and its backward 4
+K1-adjoint and 6 K3 launches, plus, when the weights are differentiated
+(training), 4 K1-dw and 6 K3-dw launches. The other blocks run the unfused
+plain PyTorch path. Training runs `noise_mode="random"`: per-sample noise
+[N,H,W] drawn from an explicit `torch.Generator`; `train=True` applies the
+attention dropout. `plain=True` runs the fused blocks
 on the plain versions of the kernels and of their adjoints even on a card
 (used to check the kernels).
 """
@@ -43,14 +46,14 @@ from morphganformer_tpu_torch.ops.fused_conv import fused_modconv3x3, fused_upco
 from morphganformer_tpu_torch.ops.modulated_conv import modulated_conv2d
 from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter, upsample2d
 
-NOISE_MODES = ("const", "none")
+NOISE_MODES = ("const", "none", "random")
 
 
 def packed_structural_ok(cfg: GANformerConfig, res: int, noise_mode: str) -> bool:
     """Which blocks run on the fused kernels: the structural part of the JAX
     gate of the same name without its lane-alignment terms, which only the
     TPU's [N, H, G, 128] packing needs. The kernels take batch-shared
-    [H, W] noise, hence const or none."""
+    [H, W] (const) and per-sample [N, H, W] (random) noise."""
     return (cfg.architecture == "resnet" and cfg.style and cfg.act == "lrelu"
             and res > 4 and not cfg.use_attention(res) and noise_mode in NOISE_MODES)
 
@@ -83,7 +86,8 @@ class SynthesisLayer(nn.Module):
                 from_pos=True, to_pos=cfg.mapping.use_pos,
                 from_gate=att.img_gate, to_gate=att.ltnt_gate,
                 num_heads=att.num_heads, integration=att.integration, norm=att.norm,
-                kmeans=att.kmeans, kmeans_iters=att.kmeans_iters, iterative=att.iterative)
+                kmeans=att.kmeans, kmeans_iters=att.kmeans_iters, iterative=att.iterative,
+                attention_dropout=att.dropout)
         else:
             self.transformer = None
         if local_noise:
@@ -97,18 +101,24 @@ class SynthesisLayer(nn.Module):
             _fill_(self.noise_strength, 0.0)
             _normal_(self.noise_const, gen)
 
-    def forward(self, x, y, pos=None, mask=None, noise_mode="const", resid=None, fused=None):
+    def forward(self, x, y, pos=None, mask=None, noise_mode="const", resid=None, fused=None,
+                train=False, gen=None):
         """`resid`: the skip branch, added after the activation. `fused`
-        ("kernel" / "plain") runs the conv and its epilogue as K1 / K2."""
+        ("kernel" / "plain") runs the conv and its epilogue as K1 / K2.
+        Random noise and the attention dropout draw from `gen`."""
         if noise_mode not in NOISE_MODES:
             raise ValueError(f"noise_mode must be one of {NOISE_MODES}, got {noise_mode!r}")
         styles = self.affine(get_global(y).float())
         w = self.weight * self.w_gain
         f = self.resample_filter
-        use_noise = self.local_noise and noise_mode == "const"
+        noise = None
+        if self.local_noise and noise_mode == "const":
+            noise = self.noise_const * self.noise_strength
+        elif self.local_noise and noise_mode == "random":
+            noise = torch.randn((x.shape[0], self.out_res, self.out_res), generator=gen,
+                                device=x.device) * self.noise_strength
 
         if fused is not None:
-            noise = self.noise_const * self.noise_strength if use_noise else None
             if self.biasAct is not None:
                 b = self.biasAct.runtime_bias()
                 alpha = 0.2
@@ -133,10 +143,10 @@ class SynthesisLayer(nn.Module):
                 x.reshape(b_, h * wd, c), get_components(y).to(x.dtype),
                 from_pos=self.grid_pos,
                 to_pos=pos if (self.cfg.mapping.use_pos and pos is not None) else None,
-                att_mask=mask)
+                att_mask=mask, train=train, gen=gen)
             x = tokens.reshape(b_, h, wd, c)
-        if use_noise:
-            x = x + (self.noise_const[None, :, :, None] * self.noise_strength).to(x.dtype)
+        if noise is not None:
+            x = x + (noise[..., None] if noise.dim() == 3 else noise[None, :, :, None]).to(x.dtype)
         if self.biasAct is not None:
             x = self.biasAct(x)
         return x if resid is None else x + resid.to(x.dtype)
@@ -211,10 +221,11 @@ class SynthesisBlock(nn.Module):
         if self.stem and not self.cfg.latent_stem:
             _normal_(self.const, gen)
 
-    def forward(self, x, img, ws, pos=None, mask=None, noise_mode="const", fused=None):
+    def forward(self, x, img, ws, pos=None, mask=None, noise_mode="const", fused=None,
+                train=False, gen=None):
         cfg = self.cfg
         w_i = iter(range(ws.shape[2]))
-        kw = dict(pos=pos, mask=mask, noise_mode=noise_mode, fused=fused)
+        kw = dict(pos=pos, mask=mask, noise_mode=noise_mode, fused=fused, train=train, gen=gen)
         if self.stem:
             if cfg.latent_stem:
                 h = self.conv_stem(get_global(ws[:, :, next(w_i)]))
@@ -232,7 +243,8 @@ class SynthesisBlock(nn.Module):
         if img is not None:
             img = upsample2d(img, self.resample_filter)
         if self.is_last:
-            x = self.conv_last(x, ws[:, :, next(w_i)], noise_mode=noise_mode, fused=fused)
+            x = self.conv_last(x, ws[:, :, next(w_i)], noise_mode=noise_mode, fused=fused,
+                               train=train, gen=gen)
         if self.is_last or cfg.architecture == "skip":
             y = self.torgb(x, ws[:, :, next(w_i)])
             img = img + y if img is not None else y
@@ -246,7 +258,8 @@ class SynthesisNetwork(nn.Module):
         for res in cfg.block_resolutions:
             setattr(self, f"b{res}", SynthesisBlock(cfg, res))
 
-    def forward(self, ws, pos=None, mask=None, noise_mode="const", plain=False):
+    def forward(self, ws, pos=None, mask=None, noise_mode="const", plain=False, train=False,
+                gen=None):
         cfg = self.cfg
         if tuple(ws.shape[1:]) != (cfg.k, cfg.num_ws, cfg.w_dim):
             raise ValueError(f"ws must be [B,{cfg.k},{cfg.num_ws},{cfg.w_dim}], "
@@ -258,5 +271,5 @@ class SynthesisNetwork(nn.Module):
                      if packed_structural_ok(cfg, res, noise_mode) else None)
             x, img = getattr(self, f"b{res}")(x, img, ws[:, :, start:start + count],
                                               pos=pos, mask=mask, noise_mode=noise_mode,
-                                              fused=fused)
+                                              fused=fused, train=train, gen=gen)
         return img

@@ -10,8 +10,9 @@ reference's `torch.split(control, 2)` cuts pieces of size 2).
 
 Ported: k-means duplex attention with parametric centroids (iterative=False)
 and plain attention, integration add/mul/both, norm None/instance/layer.
-Not ported yet: gating, the iterative centroid carry, kmeans_iters > 1,
-dropout (training).
+Training's double attention dropout is ported, its masks drawn from an
+explicit `torch.Generator`. Not ported yet: gating, the iterative centroid
+carry, kmeans_iters > 1.
 """
 
 from __future__ import annotations
@@ -34,6 +35,28 @@ def _from_heads(x):
     """[B, N, L, H] -> [B, L, N*H]."""
     b, n, l, h = x.shape
     return x.permute(0, 2, 1, 3).reshape(b, l, n * h)
+
+
+def dropout_masks(att_probs, rate, gen):
+    """The two keep-masks of `attention_dropout`, each kept with probability
+    1 - rate/2 (flax Dropout keeps where uniform < keep probability): one
+    elementwise [B,N,F,T], one per 'to' column [B,N,1,T]."""
+    b, heads, _, to_len = att_probs.shape
+    keep = 1.0 - rate / 2
+    dev = att_probs.device
+    m1 = torch.rand(att_probs.shape, generator=gen, device=dev) < keep
+    m2 = torch.rand((b, heads, 1, to_len), generator=gen, device=dev) < keep
+    return m1, m2
+
+
+def attention_dropout(att_probs, rate, m1, m2):
+    """The reference's double dropout (networks.py:505-513; JAX
+    `transformer.py:239-247`): elementwise dropout at rate/2, then a
+    dropped-out column mask at rate/2, each kept value scaled by
+    1 / (1 - rate/2)."""
+    keep = 1.0 - rate / 2
+    probs = torch.where(m1, att_probs / keep, torch.zeros_like(att_probs))
+    return probs * torch.where(m2, 1.0 / keep, 0.0).to(probs.dtype)
 
 
 def att_norm(x, integration: str, norm: Optional[str]):
@@ -59,7 +82,7 @@ class TransformerLayer(nn.Module):
     def __init__(self, dim, pos_dim, from_len, to_len, from_dim, to_dim,
                  from_pos=False, to_pos=False, from_gate=False, to_gate=False,
                  num_heads=1, integration="add", norm=None, kmeans=False,
-                 kmeans_iters=1, iterative=False):
+                 kmeans_iters=1, iterative=False, attention_dropout=0.0):
         super().__init__()
         if from_gate or to_gate:
             raise NotImplementedError("attention gating is not ported")
@@ -71,6 +94,7 @@ class TransformerLayer(nn.Module):
         self.size_head = dim // num_heads
         self.integration, self.norm = integration, norm
         self.kmeans = kmeans
+        self.attention_dropout = attention_dropout
         self.to_queries = FullyConnected(from_dim, dim)
         self.to_keys = FullyConnected(to_dim, dim)
         self.to_values = FullyConnected(to_dim, dim)
@@ -88,7 +112,9 @@ class TransformerLayer(nn.Module):
             _normal_(self.centroids, gen)
             _fill_(self.att_weight, 1.0)
 
-    def forward(self, from_tensor, to_tensor, from_pos=None, to_pos=None, att_mask=None):
+    def forward(self, from_tensor, to_tensor, from_pos=None, to_pos=None, att_mask=None,
+                train=False, gen=None):
+        """`train` applies the attention dropout, its masks drawn from `gen`."""
         b = from_tensor.shape[0]
         queries = self.to_queries(from_tensor)
         values = self.to_values(to_tensor)
@@ -116,6 +142,10 @@ class TransformerLayer(nn.Module):
         if att_mask is not None:
             att_scores = logits_mask(att_scores, att_mask[:, None, None, :])
         att_probs = torch.softmax(att_scores.float(), dim=-1)
+        if train and self.attention_dropout > 0:
+            att_probs = attention_dropout(
+                att_probs, self.attention_dropout,
+                *dropout_masks(att_probs, self.attention_dropout, gen))
 
         values_h = _to_heads(values, self.num_heads, self.size_head)
         control = _from_heads(torch.einsum("bnft,bnth->bnfh",

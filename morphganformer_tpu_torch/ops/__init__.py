@@ -1,6 +1,8 @@
 from morphganformer_tpu_torch.ops.bias_act import activation_funcs, bias_act  # noqa: F401
 from morphganformer_tpu_torch.ops.conv2d_resample import conv2d_resample  # noqa: F401
 from morphganformer_tpu_torch.ops.fused_conv import (  # noqa: F401
+    downconv2_plain,
+    fused_downconv2,
     fused_modconv3x3,
     fused_upconv2,
     launch_counts,

@@ -27,17 +27,26 @@ BUILD_TIMEOUT_S = 600
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # x, w, s, d, noise, bias, resid, y, N, H, W, C, O, gain, alpha, device, stream
-    "mgt_modconv3x3_fwd": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _P],
-    # x, wp, s, d, noise, bias, y, N, H, W, Cin, Cout, nt, hb0, hb1, gain, alpha, device, stream
-    "mgt_upconv2_fwd": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _P],
+    # x, w, s, d, noise, bias, resid, y, N, H, W, C, O, gain, alpha, noise_ns, device, stream
+    "mgt_modconv3x3_fwd": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _I, _P],
+    # x, wp, s, d, noise, bias, y, N, H, W, Cin, Cout, nt, hb0, hb1, gain, alpha, noise_ns,
+    # device, stream
+    "mgt_upconv2_fwd": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _P],
+    # x, wf, bias, resid, y, N, H, W, Cin, Cout, nt, hb0, hb1, gain, alpha, device, stream
+    "mgt_downconv2_fwd": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _P],
     # H, W of dx -> the number of spatial blocks of an adjoint launch
     "mgt_bwd_tiles": [_I, _I],
-    # gd, wt, s, x, y, noise, dx, dot, dd1, dd2, N, H, W, O, C, gain, alpha, device, stream
-    "mgt_modconv3x3_bwd": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _P],
-    # gd, wt, s, x, y, noise, dx, dot, dd1, dd2, N, H, W, O, C, nt, hb0, hb1, gain, alpha,
+    # gd, wt, s, x, y, noise, dx, dot, dd1, dd2, N, H, W, O, C, gain, alpha, noise_ns,
     # device, stream
-    "mgt_upconv2_bwd": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],
+    "mgt_modconv3x3_bwd": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _I, _P],
+    # gd, wt, s, x, y, noise, dx, dot, dd1, dd2, N, H, W, O, C, nt, hb0, hb1, gain, alpha,
+    # noise_ns, device, stream
+    "mgt_upconv2_bwd": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _I, _P],
+    # a, b, s, part, N, H, W, Cin, Cout, pa, pb, nt, hb0, hb1, slices, chunks_per_slice,
+    # device, stream
+    "mgt_conv_dw": [_P] * 4 + [_I] * 12 + [_I, _P],
+    # -> positions per chunk of the dw kernel
+    "mgt_dw_chunk": [],
 }
 
 

@@ -1,31 +1,46 @@
-"""Fused modulated convolutions of the high-resolution synthesis blocks.
+"""Fused convolutions of the high-resolution blocks, their adjoints and their
+weight cotangents.
 
-Port of the two Pallas kernels the 1024^2 generator runs and of their
-adjoint launches (morphganformer_tpu/ops/pallas_conv.py):
+Port of the Pallas kernels of morphganformer_tpu/ops/pallas_conv.py that the
+1024^2 generator and discriminator run, in every role a first-order
+training step needs:
 
   * K1 `fused_modconv3x3` <- `fused_modconv3x3_lrelu` (`_modconv_epilogue_kernel`):
         y = lrelu(d * conv3x3_same(x * s, w) + noise + bias, alpha) * gain [+ resid]
     Its backward launches the same kernel in its adjoint role
     (`_modconv_bwd_impl`): dx = s * conv3x3(gd, flip(w)^T) with the ds dot
-    tap and the demod-chain dd taps.
+    tap and the demod-chain dd taps; and the dw taps.
   * K2 `fused_upconv2` <- `fused_packed_upconv2` / `fused_packed_upconv2_c256`
     (`_packed_upconv_kernel`): the 2x-up modulated conv with the 4-tap FIR
     composed into the weights, evaluated per output parity, then the same
     epilogue (no resid). Its backward is K3 `_packed_downconv_kernel` in its
-    adjoint role (`_packed_upconv_bwd_impl`): the stride-2 correlation from
-    output-resolution gd to input-resolution dx, with the same taps.
+    adjoint role (`_packed_upconv_bwd_impl`), and K3's dw taps.
+  * K3 `fused_downconv2` <- `fused_packed_dconv2` (`_packed_downconv_kernel`,
+    D-tower forward): lrelu(conv_down2(x, compose(w, f)) + bias) * gain
+    [+ resid], evaluated per input parity. Its backward is K2 in its
+    `use_dw` role (`_dconv_bwd_impl`): dx = upconv(gz) with the flipped,
+    transposed parity taps, and the block cotangent.
 
-`FusedModConv3x3` and `FusedUpConv2` are the autograd Functions; the
-backward differentiates x, styles and resid only (latent projection), and
-raises for the weight, bias and noise, which belong to training.
+The weight cotangent of every role is one more kernel (`conv_dw`): on the TPU
+it rides the adjoint launch as in-kernel taps, carried across the sequential
+grid; Hopper blocks cannot carry a sum, so the port launches it on its own
+and sums per-slice partials in a fixed order. The per-parity cotangent is
+folded back onto w through the vjp of the (linear) map from w to the parity
+weights, the port's `jax.linear_transpose(w_to_blk)`; the demodulation adds
+2 w (s^2^T de). dbias and dnoise are plain reductions, as in JAX.
+
+`FusedModConv3x3`, `FusedUpConv2` and `FusedDownConv2` are the autograd
+Functions; each computes only the cotangents that `ctx.needs_input_grad`
+asks for (JAX's symbolic zeros). Noise is batch-shared [H,W] or per-sample
+[N,H,W] (random noise mode).
 
 Activations are NHWC and weights HWIO, as in JAX; the TPU's lane packing is
 not carried over. Each kernel wrapper takes its plain PyTorch version for a
 CPU tensor and launches the CUDA kernel (csrc/fused_conv.cu) for a CUDA
 tensor; there is no fallback between the two. `plain=True` runs the plain
-forward and the plain adjoint on any device. The plain forwards follow
-`second_order.py::modconv_ref` / `upconv_ref`. `launch_counts` counts kernel
-launches (never plain calls).
+forward and the plain backward on any device. The plain forwards follow
+`second_order.py::modconv_ref` / `upconv_ref` / `dconv_ref`.
+`launch_counts` counts kernel launches (never plain calls), one key per role.
 """
 
 from __future__ import annotations
@@ -37,7 +52,12 @@ from torch.autograd.function import once_differentiable
 from morphganformer_tpu_torch.ops.conv2d_resample import _compose_kernel_fir
 from morphganformer_tpu_torch.ops.modulated_conv import demod_coef
 
-launch_counts = {"modconv3x3": 0, "upconv2": 0, "modconv3x3_adj": 0, "upconv2_adj": 0}
+launch_counts = {"modconv3x3": 0, "upconv2": 0, "modconv3x3_adj": 0, "upconv2_adj": 0,
+                 "downconv2": 0, "downconv2_adj": 0, "modconv3x3_dw": 0, "upconv2_dw": 0,
+                 "downconv2_dw": 0}
+
+# Blocks of one dw launch the slice count aims at: 8 per SM of an H100.
+_DW_BLOCKS = 8 * 132
 
 
 def reset_launch_counts():
@@ -49,11 +69,16 @@ def _lrelu(y, gain, alpha):
     return torch.where(y >= 0, y, y * alpha) * gain
 
 
+def _noise_nhwc(noise):
+    """[H,W] (batch-shared) or [N,H,W] (per-sample) -> broadcastable NHWC."""
+    return noise[None, :, :, None] if noise.dim() == 2 else noise[:, :, :, None]
+
+
 def _epilogue(y, d, noise, bias, gain, alpha):
     if d is not None:
         y = y * d[:, None, None, :]
     if noise is not None:
-        y = y + noise[None, :, :, None]
+        y = y + _noise_nhwc(noise)
     if bias is not None:
         y = y + bias
     return _lrelu(y, gain, alpha)
@@ -67,20 +92,39 @@ def _nhwc(t):
     return t.permute(0, 2, 3, 1)
 
 
-# ---------------------------------------------------------------------------
-# Plain forwards.
-# ---------------------------------------------------------------------------
+def _phase_upconv(x, wp, hb):
+    """Output parity (ry, rx) of pixel (2n+ry, 2m+rx) is the correlation of
+    x (zero-padded by one) with wp[ry, rx], its window starting at hb[r].
+    x [N,H,W,I]; wp [2,2,NT,NT,I,O] -> [N,2H,2W,O]."""
+    n, h, wd, _ = x.shape
+    nt, co = wp.shape[2], wp.shape[-1]
+    xp = F.pad(_nchw(x), [1, 1, 1, 1])
+    phases = [F.conv2d(xp[:, :, hb[ry]:hb[ry] + h + nt - 1, hb[rx]:hb[rx] + wd + nt - 1],
+                       wp[ry, rx].permute(3, 2, 0, 1))
+              for ry in (0, 1) for rx in (0, 1)]
+    y = torch.stack(phases, dim=2).reshape(n, co, 2, 2, h, wd)      # [N,O,ry,rx,H,W]
+    return y.permute(0, 4, 2, 5, 3, 1).reshape(n, 2 * h, 2 * wd, co)
 
 
-def modconv3x3_plain(x, w, styles, noise=None, bias=None, resid=None,
-                     gain=1.0, alpha=0.2, demodulate=True):
-    """Plain K1. x [N,H,W,C]; w [3,3,C,O]; styles [N,C]; noise [H,W] (already
-    scaled by its strength) or None; bias [O] or None; resid [N,H,W,O] or None."""
-    xs = _nchw(x * styles[:, None, None, :])
-    y = _nhwc(F.conv2d(xs, w.permute(3, 2, 0, 1), padding=1))
-    d = demod_coef(w, styles) if demodulate else None
-    y = _epilogue(y, d, noise, bias, gain, alpha)
-    return y if resid is None else y + resid
+def _parity_downconv(x, wt, hb):
+    """The sum over input parities (ry, rx) of plane x[:, ry::2, rx::2]
+    (zero-padded by one) correlated with wt[ry, rx] from hb[r]: the stride-2
+    correlation in the parity form. x [N,2H,2W,I]; wt [2,2,NT,NT,I,O] ->
+    [N,H,W,O]."""
+    h, wd = x.shape[1] // 2, x.shape[2] // 2
+    nt = wt.shape[2]
+    out = 0
+    for ry in (0, 1):
+        for rx in (0, 1):
+            xp = F.pad(_nchw(x[:, ry::2, rx::2]), [1, 1, 1, 1])
+            win = xp[:, :, hb[ry]:hb[ry] + h + nt - 1, hb[rx]:hb[rx] + wd + nt - 1]
+            out = out + F.conv2d(win, wt[ry, rx].permute(3, 2, 0, 1))
+    return _nhwc(out)
+
+
+# ---------------------------------------------------------------------------
+# Weights of each role: linear functions of w.
+# ---------------------------------------------------------------------------
 
 
 def upconv2_phase_kernels(w, f, flip_weight=False):
@@ -107,33 +151,124 @@ def upconv2_phase_kernels(w, f, flip_weight=False):
     return wp.contiguous(), hb
 
 
+def downconv2_parity_kernels(w, f, flip_weight=True):
+    """Input-parity weights of the 2x-down conv (conv2d_resample down=2,
+    padding kh//2): y[m] = sum_t K[t] x[2m + t - q0] with K = compose(w, f)
+    and q0 = kh//2 + (fw-1)//2 (`_dconv_compose`, pallas_conv.py:2040-2051:
+    K 6x6, q0 2 for the 3x3 conv1; K 4x4, q0 1 for the 1x1 skip). Input
+    pixel 2(m+a)+q is parity plane q at m+a, reached through tap
+    t = q0 + q + 2a.
+
+    Returns (wf [2,2,NT,NT,I,O], (hb0, hb1)): parity q's taps read plane
+    positions m + hb[q] - 1 + ta (conv1: NT 3, hb 0,0; skip: NT 2, hb 1,0)."""
+    kh = int(w.shape[0])
+    if f is None:
+        k, fw = (w if flip_weight else w.flip((0, 1))), 1
+    else:
+        k, fw = _compose_kernel_fir(w, f, flip_weight, False), int(f.shape[-1])
+    L = int(k.shape[0])
+    q0 = kh // 2 + (fw - 1) // 2
+    amin = [-((q0 + q) // 2) for q in (0, 1)]
+    nt = max((L - 1 - q0 - q) // 2 - amin[q] + 1 for q in (0, 1))
+    hb = tuple(1 + amin[q] for q in (0, 1))
+    if min(hb) < 0 or max(hb) + nt > 3:
+        raise ValueError(f"down-conv taps outside a 3x3 neighbourhood (L={L}, q0={q0})")
+    # Parity q's taps are t0, t0 + 2, ... from t0 = (q0 + q) % 2; a parity
+    # with fewer taps (odd L, without the FIR) reads zero taps past L.
+    k = F.pad(k, (0, 0, 0, 0, 0, 2, 0, 2))
+    t0 = [(q0 + q) % 2 for q in (0, 1)]
+    wf = torch.stack([torch.stack([k[t0[py]:t0[py] + 2 * nt:2, t0[px]:t0[px] + 2 * nt:2]
+                                   for px in (0, 1)]) for py in (0, 1)])
+    return wf.contiguous(), hb
+
+
+def _flipped_taps(wk, hb):
+    """Read parity weights back for the adjoint: flip each parity's taps and
+    swap I and O; the window of parity r then starts at 3 - hb[r] - NT."""
+    nt = int(wk.shape[2])
+    return wk.flip((2, 3)).transpose(4, 5).contiguous(), tuple(3 - b - nt for b in hb)
+
+
+def modconv3x3_adjoint_weights(w):
+    """flip(w)^T: [3,3,C,O] -> [3,3,O,C], so that du = conv3x3_same(gd, .)."""
+    return w.flip((0, 1)).transpose(2, 3).contiguous()
+
+
+def upconv2_adjoint_kernels(w, f, flip_weight=False):
+    """The K2 phase weights read back for the adjoint: input pixel j gathers,
+    for each parity r, the NT taps whose output 2n+r lands on it, so
+    du[j] = sum_r sum_a gd_r[j + hbt[r] - 1 + a] @ wt[r, a] with
+    wt = flip(wp)^T over each parity's taps and hbt[r] = 3 - hb[r] - NT.
+
+    Returns (wt [2,2,NT,NT,O,I], (hbt0, hbt1))."""
+    return _flipped_taps(*upconv2_phase_kernels(w, f, flip_weight))
+
+
+def downconv2_adjoint_kernels(w, f, flip_weight=True):
+    """The K3-forward parity weights read back for the adjoint (K2's use_dw
+    role): output parity r of dx gathers the taps of parity r whose output m
+    reads it, so dx = `_phase_upconv(gz, wt, hbt)` with wt = flip(wf)^T over
+    each parity's taps and hbt[r] = 3 - hb[r] - NT.
+
+    Returns (wt [2,2,NT,NT,O,I], (hbt0, hbt1))."""
+    return _flipped_taps(*downconv2_parity_kernels(w, f, flip_weight))
+
+
+def _fold(weights_of, w, dk):
+    """The cotangent of w through the linear map `weights_of` (w -> parity
+    weights) at dk: the vjp, the port's `jax.linear_transpose`."""
+    with torch.enable_grad():
+        w_ = w.detach().requires_grad_(True)
+        return torch.autograd.grad(weights_of(w_), w_, dk)[0]
+
+
+# ---------------------------------------------------------------------------
+# Plain forwards.
+# ---------------------------------------------------------------------------
+
+
+def modconv3x3_plain(x, w, styles, noise=None, bias=None, resid=None,
+                     gain=1.0, alpha=0.2, demodulate=True):
+    """Plain K1. x [N,H,W,C]; w [3,3,C,O]; styles [N,C]; noise [H,W] or
+    [N,H,W] (already scaled by its strength) or None; bias [O] or None;
+    resid [N,H,W,O] or None."""
+    xs = _nchw(x * styles[:, None, None, :])
+    y = _nhwc(F.conv2d(xs, w.permute(3, 2, 0, 1), padding=1))
+    d = demod_coef(w, styles) if demodulate else None
+    y = _epilogue(y, d, noise, bias, gain, alpha)
+    return y if resid is None else y + resid
+
+
 def upconv2_plain(x, w, styles, f, noise=None, bias=None, gain=1.0, alpha=0.2,
                   demodulate=True, flip_weight=False):
     """Plain K2. x [N,H,W,I]; w [kh,kw,I,O] with kh in (1, 3); styles [N,I]
     or None (unmodulated, no demodulation); f: FIR from setup_filter;
-    noise [2H,2W] or None; bias [O] or None. Returns [N,2H,2W,O]."""
-    n, h, wd, _ = x.shape
+    noise [2H,2W] or [N,2H,2W] or None; bias [O] or None. Returns
+    [N,2H,2W,O]."""
     wp, hb = upconv2_phase_kernels(w, f, flip_weight)
-    nt, co = wp.shape[2], wp.shape[-1]
     xs = x if styles is None else x * styles[:, None, None, :]
-    xp = F.pad(_nchw(xs), [1, 1, 1, 1])
-    phases = []
-    for ry in (0, 1):
-        for rx in (0, 1):
-            win = xp[:, :, hb[ry]:hb[ry] + h + nt - 1, hb[rx]:hb[rx] + wd + nt - 1]
-            phases.append(F.conv2d(win, wp[ry, rx].permute(3, 2, 0, 1)))
-    y = torch.stack(phases, dim=2).reshape(n, co, 2, 2, h, wd)      # [N,O,ry,rx,H,W]
-    y = y.permute(0, 4, 2, 5, 3, 1).reshape(n, 2 * h, 2 * wd, co)
+    y = _phase_upconv(xs, wp, hb)
     d = demod_coef(w, styles) if (styles is not None and demodulate) else None
     return _epilogue(y, d, noise, bias, gain, alpha)
 
 
+def downconv2_plain(x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2, flip_weight=True):
+    """Plain K3 forward (the D down-conv). x [N,2H,2W,I]; w [kh,kw,I,O] with
+    kh in (1, 3); f: FIR from setup_filter (or None); bias [O] or None;
+    resid [N,H,W,O] or None, added after the activation. Returns [N,H,W,O],
+    equal to conv2d_resample(x, w, f, down=2, padding=kh//2) + bias_act."""
+    wf, hb = downconv2_parity_kernels(w, f, flip_weight)
+    y = _lrelu(_parity_downconv(x, wf, hb) + (0 if bias is None else bias), gain, alpha)
+    return y if resid is None else y + resid
+
+
 # ---------------------------------------------------------------------------
-# Plain adjoints. Both split as the TPU backward does: torch forms
+# Plain adjoints and dw taps. The split is the TPU backward's: torch forms
 # gd = g * lrelu'(.) * d (`_modconv_bwd_impl` :842-847), the adjoint launch
 # (plain here, the kernel in the wrappers below) gives du = conv^T(gd), dx =
 # du * s, the ds dot tap sum x*du and the dd taps dd1 = sum gd*(y/mask -
-# noise), dd2 = sum gd, and torch closes the demod chain (:921-931).
+# noise), dd2 = sum gd; the dw launch gives the per-parity weight cotangent;
+# torch closes the demod chain (:921-931) and folds dw back onto w.
 # ---------------------------------------------------------------------------
 
 
@@ -153,40 +288,42 @@ def _dd_taps_plain(gd, y, mask, noise):
     """dd1 = sum_hw gd*(y/mask - noise), dd2 = sum_hw gd, each [N, O]."""
     t = y / mask
     if noise is not None:
-        t = t - noise[None, :, :, None]
+        t = t - _noise_nhwc(noise)
     return (gd * t).sum(dim=(1, 2)), gd.sum(dim=(1, 2))
 
 
-def _demod_chain(ds, dd1, dd2, d, w, styles, bias):
-    """ds += 2 s (de @ wsq^T) with de = -0.5 (dd1 - b dd2) d: the cotangent
-    through d = rsqrt(s^2 @ wsq + 1e-8) (`_modconv_bwd_impl` :921-929)."""
+def _demod_de(dd1, dd2, d, bias):
+    """de = -0.5 (dd1 - b dd2) d: the cotangent of e = s^2 @ wsq through
+    d = rsqrt(e + 1e-8) (`_modconv_bwd_impl` :921-929)."""
     raw = dd1 if bias is None else dd1 - bias[None] * dd2
-    de = -0.5 * raw * d
-    wsq = w.to(de.dtype).square().sum(dim=(0, 1))
-    return ds + 2.0 * styles * (de @ wsq.T)
+    return -0.5 * raw * d
 
 
-def modconv3x3_adjoint_weights(w):
-    """flip(w)^T: [3,3,C,O] -> [3,3,O,C], so that du = conv3x3_same(gd, .)."""
-    return w.flip((0, 1)).transpose(2, 3).contiguous()
-
-
-def upconv2_adjoint_kernels(w, f, flip_weight=False):
-    """The K2 phase weights read back for the adjoint: input pixel j gathers,
-    for each parity r, the NT taps whose output 2n+r lands on it, so
-    du[j] = sum_r sum_a gd_r[j + hbt[r] - 1 + a] @ wt[r, a] with
-    wt = flip(wp)^T over each parity's taps and hbt[r] = 3 - hb[r] - NT.
-
-    Returns (wt [2,2,NT,NT,O,I], (hbt0, hbt1))."""
-    wp, hb = upconv2_phase_kernels(w, f, flip_weight)
-    nt = int(wp.shape[2])
-    return wp.flip((2, 3)).transpose(4, 5).contiguous(), tuple(3 - b - nt for b in hb)
+def _demod_chain(ds, de, w, styles):
+    """ds += 2 s (de @ wsq^T): the styles' share through the demodulation."""
+    return ds + 2.0 * styles * (de @ w.to(de.dtype).square().sum(dim=(0, 1)).T)
 
 
 def _taps_result(du, x, styles, want_dx, want_dot):
     dx = du if styles is None else du * styles[:, None, None, :]
     dot = (x * du).sum(dim=(1, 2)) if want_dot else None
     return (dx if want_dx else None), dot
+
+
+def _k1_taps_plain(gd, x, w, styles, y, mask, noise, need_dx, need_ds, need_dd):
+    du = _nhwc(F.conv2d(_nchw(gd), modconv3x3_adjoint_weights(w).permute(3, 2, 0, 1),
+                        padding=1))
+    dx, dot = _taps_result(du, x, styles, need_dx, need_ds)
+    dd1, dd2 = _dd_taps_plain(gd, y, mask, noise) if need_dd else (None, None)
+    return dx, dot, dd1, dd2
+
+
+def _k3_taps_plain(gd, x, w, styles, f, flip_weight, y, mask, noise, need_dx, need_ds,
+                   need_dd):
+    du = _parity_downconv(gd, *upconv2_adjoint_kernels(w, f, flip_weight))
+    dx, dot = _taps_result(du, x, styles, need_dx, need_ds)
+    dd1, dd2 = _dd_taps_plain(gd, y, mask, noise) if need_dd else (None, None)
+    return dx, dot, dd1, dd2
 
 
 def modconv3x3_adjoint_plain(g, x, w, styles, y, noise=None, bias=None, resid=None,
@@ -200,13 +337,11 @@ def modconv3x3_adjoint_plain(g, x, w, styles, y, noise=None, bias=None, resid=No
     if resid is not None:
         y = y - resid
     mask, gd, d = _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)
-    wt = modconv3x3_adjoint_weights(w)
-    du = _nhwc(F.conv2d(_nchw(gd), wt.permute(3, 2, 0, 1), padding=1))
-    dx, ds = _taps_result(du, x, styles, need_dx, need_ds)
-    dd1 = dd2 = None
-    if need_ds and d is not None:
-        dd1, dd2 = _dd_taps_plain(gd, y, mask, noise)
-        ds = _demod_chain(ds, dd1, dd2, d, w, styles, bias)
+    need_dd = need_ds and d is not None
+    dx, ds, dd1, dd2 = _k1_taps_plain(gd, x, w, styles, y, mask, noise, need_dx, need_ds,
+                                      need_dd)
+    if need_dd:
+        ds = _demod_chain(ds, _demod_de(dd1, dd2, d, bias), w, styles)
     return dx, ds, dd1, dd2
 
 
@@ -217,23 +352,46 @@ def upconv2_adjoint_plain(g, x, w, styles, f, y, noise=None, bias=None, gain=1.0
     `upconv2_plain` for output cotangent g [N,2H,2W,O], from its inputs and
     its output y. Returns (dx, ds, dd1, dd2) as `modconv3x3_adjoint_plain`;
     the unmodulated skip (styles None) gives dx only."""
-    n, h, wd, _ = x.shape
     need_ds = need_ds and styles is not None
     mask, gd, d = _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)
-    wt, hbt = upconv2_adjoint_kernels(w, f, flip_weight)
-    nt = int(wt.shape[2])
-    du = 0
-    for ry in (0, 1):
-        for rx in (0, 1):
-            gp = F.pad(_nchw(gd[:, ry::2, rx::2]), [1, 1, 1, 1])
-            win = gp[:, :, hbt[ry]:hbt[ry] + h + nt - 1, hbt[rx]:hbt[rx] + wd + nt - 1]
-            du = du + F.conv2d(win, wt[ry, rx].permute(3, 2, 0, 1))
-    dx, ds = _taps_result(_nhwc(du), x, styles, need_dx, need_ds)
-    dd1 = dd2 = None
-    if need_ds and d is not None:
-        dd1, dd2 = _dd_taps_plain(gd, y, mask, noise)
-        ds = _demod_chain(ds, dd1, dd2, d, w, styles, bias)
+    need_dd = need_ds and d is not None
+    dx, ds, dd1, dd2 = _k3_taps_plain(gd, x, w, styles, f, flip_weight, y, mask, noise,
+                                      need_dx, need_ds, need_dd)
+    if need_dd:
+        ds = _demod_chain(ds, _demod_de(dd1, dd2, d, bias), w, styles)
     return dx, ds, dd1, dd2
+
+
+def downconv2_adjoint_plain(gz, w, f, flip_weight=True):
+    """Plain K2 in its use_dw role: dx of `downconv2_plain` from gz [N,H,W,O],
+    the cotangent of the conv output (g * lrelu'), as the up-conv of gz with
+    the flipped, transposed parity taps. Returns [N,2H,2W,I]."""
+    return _phase_upconv(gz, *downconv2_adjoint_kernels(w, f, flip_weight))
+
+
+_PARITIES = ((0, 0), (0, 1), (1, 0), (1, 1))
+
+
+def conv_dw_plain(a, b, s, pa, pb, nt, hb):
+    """The dw taps: dW[p, ta, tb] = sum_{n,iy,ix} A_p[n, iy + hb[qy] + ta - 1,
+    ix + hb[qx] + tb - 1, :]^T B_p[n, iy, ix, :] over a base grid, A zero
+    outside it. A_p is a * s (pa = 1) or parity plane p = (qy, qx) of a
+    (pa = 2); B_p is b (pb = 1) or its parity plane p (pb = 2); one p when
+    both are 1. a [N,pa*H,pa*W,I]; b [N,pb*H,pb*W,O]; s [N,I] or None.
+    Returns [NP,NT,NT,I,O]."""
+    if s is not None:
+        a = a * s[:, None, None, :]
+    out = []
+    for qy, qx in (_PARITIES if max(pa, pb) == 2 else ((0, 0),)):
+        ap = a[:, qy::2, qx::2] if pa == 2 else a
+        bp = b[:, qy::2, qx::2] if pb == 2 else b
+        h, wd = bp.shape[1:3]
+        apad = F.pad(ap, (0, 0, 1, 1, 1, 1))
+        out.append(torch.stack([torch.stack([
+            torch.einsum("nhwc,nhwo->co",
+                         apad[:, hb[qy] + ta:hb[qy] + ta + h, hb[qx] + tb:hb[qx] + tb + wd], bp)
+            for tb in range(nt)]) for ta in range(nt)]))
+    return torch.stack(out)
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +422,16 @@ def _check(name, t, shape, device):
     return t.data_ptr()
 
 
+def _check_noise(name, noise, n, h, wd, device):
+    """(pointer, per-sample stride) of batch-shared [H,W] or per-sample
+    [N,H,W] noise."""
+    if noise is None:
+        return None, 0
+    if noise.dim() == 3:
+        return _check(name, noise, (n, h, wd), device), h * wd
+    return _check(name, noise, (h, wd), device), 0
+
+
 def _library():
     from morphganformer_tpu_torch.ops._build import library
 
@@ -289,14 +457,30 @@ def _modconv3x3_forward(x, w, styles, noise=None, bias=None, resid=None,
     o = w.shape[-1]
     dev = x.device
     d = demod_coef(w, styles).contiguous() if demodulate else None
+    noise_p, noise_ns = _check_noise("noise", noise, n, h, wd, dev)
     ptrs = [_check("x", x, (n, h, wd, c), dev), _check("w", w, (3, 3, c, o), dev),
             _check("styles", styles, (n, c), dev), _check("d", d, (n, o), dev),
-            _check("noise", noise, (h, wd), dev), _check("bias", bias, (o,), dev),
+            noise_p, _check("bias", bias, (o,), dev),
             _check("resid", resid, (n, h, wd, o), dev)]
     y = torch.empty((n, h, wd, o), device=dev, dtype=torch.float32)
     _launch("mgt_modconv3x3_fwd", *ptrs, y.data_ptr(), n, h, wd, c, o,
-            float(gain), float(alpha), *_stream(dev))
+            float(gain), float(alpha), noise_ns, *_stream(dev))
     launch_counts["modconv3x3"] += 1
+    return y
+
+
+def _phase_upconv_launch(x, wp, hb, styles, d, noise, bias, gain, alpha):
+    """One launch of the K2 template: [N,H,W,I] -> [N,2H,2W,O]."""
+    n, h, wd, ci = x.shape
+    nt, co = wp.shape[2], wp.shape[-1]
+    dev = x.device
+    noise_p, noise_ns = _check_noise("noise", noise, n, 2 * h, 2 * wd, dev)
+    ptrs = [_check("x", x, (n, h, wd, ci), dev), _check("wp", wp, (2, 2, nt, nt, ci, co), dev),
+            _check("styles", styles, (n, ci), dev), _check("d", d, (n, co), dev),
+            noise_p, _check("bias", bias, (co,), dev)]
+    y = torch.empty((n, 2 * h, 2 * wd, co), device=dev, dtype=torch.float32)
+    _launch("mgt_upconv2_fwd", *ptrs, y.data_ptr(), n, h, wd, ci, co, nt, hb[0], hb[1],
+            float(gain), float(alpha), noise_ns, *_stream(dev))
     return y
 
 
@@ -306,19 +490,29 @@ def _upconv2_forward(x, w, styles, f, noise=None, bias=None, gain=1.0, alpha=0.2
     if _on_cpu(x):
         return upconv2_plain(x, w, styles, f, noise, bias, gain, alpha,
                              demodulate, flip_weight)
-    n, h, wd, ci = x.shape
-    co = w.shape[-1]
-    dev = x.device
-    wp, (hb0, hb1) = upconv2_phase_kernels(w, f, flip_weight)
-    nt = wp.shape[2]
+    wp, hb = upconv2_phase_kernels(w, f, flip_weight)
     d = demod_coef(w, styles).contiguous() if (styles is not None and demodulate) else None
-    ptrs = [_check("x", x, (n, h, wd, ci), dev), _check("wp", wp, (2, 2, nt, nt, ci, co), dev),
-            _check("styles", styles, (n, ci), dev), _check("d", d, (n, co), dev),
-            _check("noise", noise, (2 * h, 2 * wd), dev), _check("bias", bias, (co,), dev)]
-    y = torch.empty((n, 2 * h, 2 * wd, co), device=dev, dtype=torch.float32)
-    _launch("mgt_upconv2_fwd", *ptrs, y.data_ptr(), n, h, wd, ci, co, nt, hb0, hb1,
-            float(gain), float(alpha), *_stream(dev))
+    y = _phase_upconv_launch(x, wp, hb, styles, d, noise, bias, gain, alpha)
     launch_counts["upconv2"] += 1
+    return y
+
+
+def _downconv2_forward(x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2, flip_weight=True):
+    """K3 forward: the plain version for a CPU tensor, the kernel for a CUDA one."""
+    if _on_cpu(x):
+        return downconv2_plain(x, w, f, bias, resid, gain, alpha, flip_weight)
+    n, h2, w2, ci = x.shape
+    h, wd = h2 // 2, w2 // 2
+    dev = x.device
+    wf, hb = downconv2_parity_kernels(w, f, flip_weight)
+    nt, co = wf.shape[2], wf.shape[-1]
+    ptrs = [_check("x", x, (n, 2 * h, 2 * wd, ci), dev),
+            _check("wf", wf, (2, 2, nt, nt, ci, co), dev), _check("bias", bias, (co,), dev),
+            _check("resid", resid, (n, h, wd, co), dev)]
+    y = torch.empty((n, h, wd, co), device=dev, dtype=torch.float32)
+    _launch("mgt_downconv2_fwd", *ptrs, y.data_ptr(), n, h, wd, ci, co, nt, hb[0], hb[1],
+            float(gain), float(alpha), *_stream(dev))
+    launch_counts["downconv2"] += 1
     return y
 
 
@@ -336,15 +530,41 @@ def _adjoint_launch(fn, gd, wt, styles, x, y_dd, noise, mask_args, need_dx, need
     dd = [torch.empty((n, nblk, o), device=dev, dtype=torch.float32)
           if y_dd is not None else None for _ in range(2)]
     ho, wo = gd.shape[1:3]
+    noise_p, noise_ns = _check_noise("noise", noise, n, ho, wo, dev)
     ptrs = [_check("gd", gd, (n, ho, wo, o), dev), _check("wt", wt, wt.shape, dev),
             _check("styles", styles, (n, c), dev),
             _check("x", x if need_ds else None, (n, h, wd, c), dev),
-            _check("y", y_dd, (n, ho, wo, o), dev), _check("noise", noise, (ho, wo), dev)]
+            _check("y", y_dd, (n, ho, wo, o), dev), noise_p]
     outs = [None if t is None else t.data_ptr() for t in (dx, dot, *dd)]
     _launch(fn, *ptrs, *outs, n, h, wd, o, c, *shape_args,
-            *(float(v) for v in mask_args), *_stream(dev))
+            *(float(v) for v in mask_args), noise_ns, *_stream(dev))
     return (dx, None if dot is None else dot.sum(1),
             *(None if t is None else t.sum(1) for t in dd))
+
+
+def _k1_taps(gd, x, w, styles, y, mask, noise, gain, alpha, need_dx, need_ds, need_dd):
+    """The K1 adjoint launch: (dx, ds dot, dd1, dd2), plain on a CPU tensor."""
+    if _on_cpu(x):
+        return _k1_taps_plain(gd, x, w, styles, y, mask, noise, need_dx, need_ds, need_dd)
+    out = _adjoint_launch("mgt_modconv3x3_bwd", gd.contiguous(), modconv3x3_adjoint_weights(w),
+                          styles, x, y.contiguous() if need_dd else None,
+                          noise if need_dd else None, (gain, alpha), need_dx, need_ds, ())
+    launch_counts["modconv3x3_adj"] += 1
+    return out
+
+
+def _k3_taps(gd, x, w, styles, f, flip_weight, y, mask, noise, gain, alpha, need_dx,
+             need_ds, need_dd):
+    """The K3 adjoint launch: (dx, ds dot, dd1, dd2), plain on a CPU tensor."""
+    if _on_cpu(x):
+        return _k3_taps_plain(gd, x, w, styles, f, flip_weight, y, mask, noise, need_dx,
+                              need_ds, need_dd)
+    wt, (hb0, hb1) = upconv2_adjoint_kernels(w, f, flip_weight)
+    out = _adjoint_launch("mgt_upconv2_bwd", gd.contiguous(), wt, styles, x,
+                          y.contiguous() if need_dd else None, noise if need_dd else None,
+                          (gain, alpha), need_dx, need_ds, (int(wt.shape[2]), hb0, hb1))
+    launch_counts["upconv2_adj"] += 1
+    return out
 
 
 def modconv3x3_adjoint(g, x, w, styles, y, noise=None, bias=None, resid=None,
@@ -357,15 +577,12 @@ def modconv3x3_adjoint(g, x, w, styles, y, noise=None, bias=None, resid=None,
                                         alpha, demodulate, need_dx, need_ds)
     if resid is not None:
         y = y - resid
-    _, gd, d = _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)
+    mask, gd, d = _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)
     need_dd = need_ds and d is not None
-    dx, ds, dd1, dd2 = _adjoint_launch(
-        "mgt_modconv3x3_bwd", gd.contiguous(), modconv3x3_adjoint_weights(w), styles, x,
-        y.contiguous() if need_dd else None, noise if need_dd else None,
-        (gain, alpha), need_dx, need_ds, ())
-    launch_counts["modconv3x3_adj"] += 1
+    dx, ds, dd1, dd2 = _k1_taps(gd, x, w, styles, y, mask, noise, gain, alpha, need_dx,
+                                need_ds, need_dd)
     if need_dd:
-        ds = _demod_chain(ds, dd1, dd2, d, w, styles, bias)
+        ds = _demod_chain(ds, _demod_de(dd1, dd2, d, bias), w, styles)
     return dx, ds, dd1, dd2
 
 
@@ -377,17 +594,169 @@ def upconv2_adjoint(g, x, w, styles, f, y, noise=None, bias=None, gain=1.0, alph
         return upconv2_adjoint_plain(g, x, w, styles, f, y, noise, bias, gain, alpha,
                                      demodulate, flip_weight, need_dx, need_ds)
     need_ds = need_ds and styles is not None
-    _, gd, d = _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)
+    mask, gd, d = _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)
     need_dd = need_ds and d is not None
-    wt, (hb0, hb1) = upconv2_adjoint_kernels(w, f, flip_weight)
-    dx, ds, dd1, dd2 = _adjoint_launch(
-        "mgt_upconv2_bwd", gd.contiguous(), wt, styles, x,
-        y.contiguous() if need_dd else None, noise if need_dd else None,
-        (gain, alpha), need_dx, need_ds, (int(wt.shape[2]), hb0, hb1))
-    launch_counts["upconv2_adj"] += 1
+    dx, ds, dd1, dd2 = _k3_taps(gd, x, w, styles, f, flip_weight, y, mask, noise, gain,
+                                alpha, need_dx, need_ds, need_dd)
     if need_dd:
-        ds = _demod_chain(ds, dd1, dd2, d, w, styles, bias)
+        ds = _demod_chain(ds, _demod_de(dd1, dd2, d, bias), w, styles)
     return dx, ds, dd1, dd2
+
+
+def downconv2_adjoint(gz, w, f, flip_weight=True):
+    """K2 in its use_dw role (dx of the D down-conv): `downconv2_adjoint_plain`
+    for a CPU tensor; for a CUDA tensor one launch of the K2 template with
+    the down-conv's adjoint taps, no scale and no epilogue."""
+    if _on_cpu(gz):
+        return downconv2_adjoint_plain(gz, w, f, flip_weight)
+    wt, hb = downconv2_adjoint_kernels(w, f, flip_weight)
+    dx = _phase_upconv_launch(gz.contiguous(), wt, hb, None, None, None, None, 1.0, 1.0)
+    launch_counts["downconv2_adj"] += 1
+    return dx
+
+
+def conv_dw(a, b, s, pa, pb, nt, hb, role):
+    """The dw taps (`conv_dw_plain`): the plain version for a CPU tensor; for
+    a CUDA tensor one launch of `mgt_conv_dw`, counted under `role`, whose
+    per-slice partials are summed here in a fixed order. The kernel tiles
+    (Cin, Cout) by 32: other widths are padded with zero channels, whose
+    cotangent entries are cut off."""
+    if _on_cpu(a):
+        return conv_dw_plain(a, b, s, pa, pb, nt, hb)
+    n, ci, co = a.shape[0], a.shape[-1], b.shape[-1]
+    if ci % 32 or co % 32:
+        pad_a, pad_b = (0, -ci % 32), (0, -co % 32)
+        s = None if s is None else F.pad(s, pad_a)
+        return conv_dw(F.pad(a, pad_a), F.pad(b, pad_b), s, pa, pb, nt, hb,
+                       role)[..., :ci, :co]
+    h, wd = a.shape[1] // pa, a.shape[2] // pa
+    dev = a.device
+    if n * h * wd >= 2 ** 31:
+        raise ValueError(f"mgt_conv_dw takes under 2^31 positions, got {n * h * wd}")
+    np_ = 4 if max(pa, pb) == 2 else 1
+    ptrs = [_check("a", a, (n, pa * h, pa * wd, ci), dev),
+            _check("b", b, (n, pb * h, pb * wd, co), dev), _check("s", s, (n, ci), dev)]
+    if any(p is not None and p % 16 for p in ptrs):
+        raise ValueError("mgt_conv_dw reads 16-byte vectors: operands must be 16-byte aligned")
+    chunks = -(-n * h * wd // _library().mgt_dw_chunk())
+    per_slice = np_ * nt * nt * (ci // 32) * (co // 32)
+    per = -(-chunks // max(1, min(chunks, -(-_DW_BLOCKS // per_slice))))
+    slices = -(-chunks // per)
+    part = torch.empty((slices, np_, nt, nt, ci, co), device=dev, dtype=torch.float32)
+    _launch("mgt_conv_dw", *ptrs, part.data_ptr(), n, h, wd, ci, co, pa, pb, nt, hb[0], hb[1],
+            slices, per, *_stream(dev))
+    launch_counts[role] += 1
+    return part.sum(0)
+
+
+# ---------------------------------------------------------------------------
+# Backward passes of the Functions: every cotangent asked for, nothing else.
+# ---------------------------------------------------------------------------
+
+
+def _noise_grad(g_pre, noise):
+    """dnoise: the pre-activation cotangent summed over channels, and over
+    the batch for batch-shared noise."""
+    dn = g_pre.sum(dim=3)
+    return dn if noise.dim() == 3 else dn.sum(dim=0)
+
+
+def _modulated_backward(g, y, w, styles, noise, bias, gain, alpha, demodulate, needs, taps,
+                        dw_taps):
+    """Cotangents (dx, dw, ds, dnoise, dbias) of K1 or K2 for output
+    cotangent g, with y peeled of resid; `needs` flags them in that order,
+    None where not asked. `taps(gd, mask, need_dx, need_ds, need_dd)` is the
+    adjoint launch, run when dx, ds or the demod taps (for ds or dw) are
+    needed; `dw_taps(gd)` the dw launch, folded onto w, run when dw is."""
+    need_dx, need_dw, need_ds, need_dn, need_db = needs
+    mask, gd, d = _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)
+    need_dd = d is not None and (need_ds or need_dw)
+    dx = ds = dd1 = dd2 = dw = None
+    if need_dx or need_ds or need_dd:
+        dx, ds, dd1, dd2 = taps(gd, mask, need_dx, need_ds, need_dd)
+    de = _demod_de(dd1, dd2, d, bias) if need_dd else None
+    if need_ds and de is not None:
+        ds = _demod_chain(ds, de, w, styles)
+    if need_dw:
+        dw = dw_taps(gd.contiguous())
+        if de is not None:
+            dw = dw + 2.0 * w * (styles.square().T @ de)[None, None]
+    g_pre = g * mask if (need_dn or need_db) else None
+    dn = _noise_grad(g_pre, noise) if need_dn else None
+    db = g_pre.sum(dim=(0, 1, 2)) if need_db else None
+    return dx, dw, ds, dn, db
+
+
+def modconv3x3_backward(g, x, w, styles, y, noise, bias, resid, gain, alpha, demodulate,
+                        needs, plain=False):
+    """Cotangents (dx, dw, ds, dnoise, dbias) of K1: its adjoint launch and
+    its dw taps (`_modulated_backward`)."""
+    if resid is not None:
+        y = y - resid
+
+    def taps(gd, mask, *need):
+        if plain:
+            return _k1_taps_plain(gd, x, w, styles, y, mask, noise, *need)
+        return _k1_taps(gd, x, w, styles, y, mask, noise, gain, alpha, *need)
+
+    def dw_taps(gd):
+        if plain:
+            return conv_dw_plain(x, gd, styles, 1, 1, 3, (0, 0))[0]
+        return conv_dw(x, gd, styles, 1, 1, 3, (0, 0), "modconv3x3_dw")[0]
+
+    return _modulated_backward(g, y, w, styles, noise, bias, gain, alpha, demodulate, needs,
+                               taps, dw_taps)
+
+
+def upconv2_backward(g, x, w, styles, f, y, noise, bias, gain, alpha, demodulate,
+                     flip_weight, needs, plain=False):
+    """Cotangents (dx, dw, ds, dnoise, dbias) of K2: K3's adjoint launch and
+    K3's dw taps, folded back onto w through the vjp of
+    `upconv2_phase_kernels` (`_modulated_backward`)."""
+    need_dx, need_dw, need_ds, need_dn, need_db = needs
+    needs = (need_dx, need_dw, need_ds and styles is not None, need_dn, need_db)
+
+    def taps(gd, mask, *need):
+        if plain:
+            return _k3_taps_plain(gd, x, w, styles, f, flip_weight, y, mask, noise, *need)
+        return _k3_taps(gd, x, w, styles, f, flip_weight, y, mask, noise, gain, alpha, *need)
+
+    def dw_taps(gd):
+        wp, hb = upconv2_phase_kernels(w, f, flip_weight)
+        nt = int(wp.shape[2])
+        dwp = (conv_dw_plain(x, gd, styles, 1, 2, nt, hb) if plain
+               else conv_dw(x, gd, styles, 1, 2, nt, hb, "upconv2_dw"))
+        return _fold(lambda w_: upconv2_phase_kernels(w_, f, flip_weight)[0], w,
+                     dwp.reshape(wp.shape))
+
+    return _modulated_backward(g, y, w, styles, noise, bias, gain, alpha, demodulate, needs,
+                               taps, dw_taps)
+
+
+def downconv2_backward(g, x, w, f, y, bias, resid, gain, alpha, flip_weight, needs,
+                       plain=False):
+    """Cotangents (dx, dw, dbias) of K3-forward for output cotangent g: gz =
+    g * lrelu'(y - resid) (resid is added after the activation, so y is
+    peeled of it first, `_dconv_bwd_impl` :2131-2137); dx is K2's use_dw
+    launch, dw the dw taps of x against gz per input parity, folded back
+    onto w through the vjp of `downconv2_parity_kernels`."""
+    need_dx, need_dw, need_db = needs
+    if resid is not None:
+        y = y - resid
+    gz = g * torch.where(y >= 0, g.new_tensor(gain), g.new_tensor(gain * alpha))
+    dx = dw = db = None
+    if need_dx:
+        dx = (downconv2_adjoint_plain if plain else downconv2_adjoint)(gz, w, f, flip_weight)
+    if need_dw:
+        wf, hb = downconv2_parity_kernels(w, f, flip_weight)
+        nt = int(wf.shape[2])
+        dwf = (conv_dw_plain(x, gz, None, 2, 1, nt, hb) if plain
+               else conv_dw(x, gz.contiguous(), None, 2, 1, nt, hb, "downconv2_dw"))
+        dw = _fold(lambda w_: downconv2_parity_kernels(w_, f, flip_weight)[0], w,
+                   dwf.reshape(wf.shape))
+    if need_db:
+        db = gz.sum(dim=(0, 1, 2))
+    return dx, dw, db
 
 
 # ---------------------------------------------------------------------------
@@ -395,16 +764,9 @@ def upconv2_adjoint(g, x, w, styles, f, y, noise=None, bias=None, gain=1.0, alph
 # ---------------------------------------------------------------------------
 
 
-def _refuse_training_grads(name, needs, which):
-    asked = [arg for arg, need in zip(which, needs) if need]
-    if asked:
-        raise NotImplementedError(
-            f"{name}: gradients of {', '.join(asked)} are not ported (training); "
-            "freeze the generator's weights (G.requires_grad_(False))")
-
-
 class FusedModConv3x3(torch.autograd.Function):
-    """K1 with its adjoint: gradients of x, styles and resid."""
+    """K1 with its adjoint and dw taps: gradients of x, w, styles, noise,
+    bias and resid, each only when asked for."""
 
     @staticmethod
     def forward(ctx, x, w, styles, noise, bias, resid, gain, alpha, demodulate, plain):
@@ -418,22 +780,17 @@ class FusedModConv3x3(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         need = ctx.needs_input_grad
-        _refuse_training_grads("FusedModConv3x3", (need[1], need[3], need[4]),
-                               ("w", "noise", "bias"))
         x, w, styles, noise, bias, resid, y = ctx.saved_tensors
         gain, alpha, demodulate, plain = ctx.opts
-        g = g.contiguous()
-        dx = ds = None
-        if need[0] or need[2]:
-            adjoint = modconv3x3_adjoint_plain if plain else modconv3x3_adjoint
-            dx, ds, _, _ = adjoint(g, x, w, styles, y, noise, bias, resid, gain, alpha,
-                                   demodulate, need[0], need[2])
-        dresid = g if need[5] else None
-        return dx, None, ds, None, None, dresid, None, None, None, None
+        dx, dw, ds, dn, db = modconv3x3_backward(
+            g.contiguous(), x, w, styles, y, noise, bias, resid, gain, alpha, demodulate,
+            (need[0], need[1], need[2], need[3], need[4]), plain)
+        return dx, dw, ds, dn, db, (g if need[5] else None), None, None, None, None
 
 
 class FusedUpConv2(torch.autograd.Function):
-    """K2 with K3 as its adjoint: gradients of x and styles."""
+    """K2 with K3 as its adjoint and K3's dw taps: gradients of x, w,
+    styles, noise and bias (not of the FIR), each only when asked for."""
 
     @staticmethod
     def forward(ctx, x, w, styles, f, noise, bias, gain, alpha, demodulate, flip_weight,
@@ -448,25 +805,45 @@ class FusedUpConv2(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         need = ctx.needs_input_grad
-        _refuse_training_grads("FusedUpConv2", (need[1], need[3], need[4], need[5]),
-                               ("w", "f", "noise", "bias"))
         x, w, styles, f, noise, bias, y = ctx.saved_tensors
         gain, alpha, demodulate, flip_weight, plain = ctx.opts
-        dx = ds = None
-        if need[0] or need[2]:
-            adjoint = upconv2_adjoint_plain if plain else upconv2_adjoint
-            dx, ds, _, _ = adjoint(g.contiguous(), x, w, styles, f, y, noise, bias, gain,
-                                   alpha, demodulate, flip_weight, need[0], need[2])
-        return dx, None, ds, None, None, None, None, None, None, None, None
+        dx, dw, ds, dn, db = upconv2_backward(
+            g.contiguous(), x, w, styles, f, y, noise, bias, gain, alpha, demodulate,
+            flip_weight, (need[0], need[1], need[2], need[4], need[5]), plain)
+        return dx, dw, ds, None, dn, db, None, None, None, None, None
+
+
+class FusedDownConv2(torch.autograd.Function):
+    """K3-forward with K2's use_dw role as its adjoint and the down-conv's dw
+    taps: gradients of x, w, bias and resid (not of the FIR), each only when
+    asked for."""
+
+    @staticmethod
+    def forward(ctx, x, w, f, bias, resid, gain, alpha, flip_weight, plain):
+        fwd = downconv2_plain if plain else _downconv2_forward
+        y = fwd(x, w, f, bias, resid, gain, alpha, flip_weight)
+        ctx.save_for_backward(x, w, f, bias, resid, y)
+        ctx.opts = (gain, alpha, flip_weight, plain)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        need = ctx.needs_input_grad
+        x, w, f, bias, resid, y = ctx.saved_tensors
+        gain, alpha, flip_weight, plain = ctx.opts
+        dx, dw, db = downconv2_backward(g.contiguous(), x, w, f, y, bias, resid, gain, alpha,
+                                        flip_weight, (need[0], need[1], need[3]), plain)
+        return dx, dw, None, db, (g if need[4] else None), None, None, None, None
 
 
 def fused_modconv3x3(x, w, styles, noise=None, bias=None, resid=None,
                      gain=1.0, alpha=0.2, demodulate=True, plain=False):
     """K1: y = lrelu(d * conv3x3_same(x * s, w) + noise + bias, alpha) * gain
     [+ resid], with d = rsqrt(s^2 . sum w^2 + 1e-8) when `demodulate`.
-    Shapes as `modconv3x3_plain`; float32, contiguous. Differentiable in x,
-    styles and resid (`FusedModConv3x3`); `plain=True` runs the plain
-    forward and adjoint on any device."""
+    Shapes as `modconv3x3_plain`; float32, contiguous. Differentiable in
+    every tensor input (`FusedModConv3x3`); `plain=True` runs the plain
+    forward and backward on any device."""
     return FusedModConv3x3.apply(x, w, styles, noise, bias, resid, gain, alpha,
                                  demodulate, plain)
 
@@ -475,8 +852,19 @@ def fused_upconv2(x, w, styles, f, noise=None, bias=None, gain=1.0, alpha=0.2,
                   demodulate=True, flip_weight=False, plain=False):
     """K2: 2x-up modulated conv with the FIR composed in, then demod (when
     styles are given and `demodulate`), noise, bias and lrelu * gain.
-    Shapes as `upconv2_plain`; float32, contiguous. Differentiable in x and
-    styles (`FusedUpConv2`, whose backward is K3); `plain=True` runs the
-    plain forward and adjoint on any device."""
+    Shapes as `upconv2_plain`; float32, contiguous. Differentiable in x, w,
+    styles, noise and bias (`FusedUpConv2`, whose backward is K3);
+    `plain=True` runs the plain forward and backward on any device."""
     return FusedUpConv2.apply(x, w, styles, f, noise, bias, gain, alpha, demodulate,
                               flip_weight, plain)
+
+
+def fused_downconv2(x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2, flip_weight=True,
+                    plain=False):
+    """K3 forward: the D tower's 2x-down conv with the FIR composed in, bias,
+    lrelu * gain and the resnet skip added after. Shapes as
+    `downconv2_plain`; float32, contiguous. Differentiable in x, w, bias and
+    resid (`FusedDownConv2`, whose backward is K2's use_dw role);
+    `plain=True` runs the plain forward and backward on any device."""
+    return FusedDownConv2.apply(x, w, f, bias, resid, gain, alpha, flip_weight, plain)
+

@@ -1,0 +1,225 @@
+"""The first-order adversarial training step (port of
+morphganformer_tpu/training/train_step.py:53-391, without the mesh and the
+regularisation stages).
+
+One iteration runs G_main, then D_main with the EMA tail, on one batch split
+into `batch_size // batch_gpu` accumulation rounds. Each stage's gradient is
+the MEAN of its rounds' gradients (the JAX form, which keeps accumulation
+exact), NaN-scrubbed, then one Adam step with the lazy-regularisation
+rescale of lr and betas by r/(r+1) (reference training_loop.py:162-174).
+w_avg is a buffer that each G_main round's mapping moves in place, so the
+rounds see it in sequence as the JAX scan threads it. optax's `adam` and
+torch's Adam compute the same bias-corrected step.
+
+The G_reg (path length) and D_reg (R1) stages are the next slice:
+`train_iteration` raises when one is due (`step % interval == 0`), so with
+the reference intervals 4 and 16 the steps that are not multiples of 4 run.
+One `torch.Generator` on the device, seeded by `init_state`, makes every
+random draw of the step.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Optional
+
+import torch
+
+from morphganformer_tpu_torch.models.config import DiscriminatorConfig, GANformerConfig
+from morphganformer_tpu_torch.models.discriminator import Discriminator, init_discriminator
+from morphganformer_tpu_torch.models.generator import Generator, init_generator
+from morphganformer_tpu_torch.training.loss import LossConfig, d_main_loss, g_main_loss
+from morphganformer_tpu_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Reference training defaults (run_network.py:463-468, :37)."""
+    batch_size: int = 32           # global batch
+    batch_gpu: int = 4             # microbatch per accumulation round
+    g_lr: float = 0.002
+    d_lr: float = 0.002
+    beta1: float = 0.0
+    beta2: float = 0.99
+    eps: float = 1e-8
+    g_reg_interval: Optional[int] = 4
+    d_reg_interval: Optional[int] = 16
+    ema_kimg: float = 10.0
+    ema_rampup: Optional[float] = None
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The nets, the EMA generator, the two optimizers and the generator of
+    random draws. The modules are updated in place."""
+    G: Generator
+    D: Discriminator
+    G_ema: Generator
+    g_opt: torch.optim.Adam
+    d_opt: torch.optim.Adam
+    gen: torch.Generator
+    cur_nimg: int = 0
+
+
+def _nan_scrub(g):
+    """nan -> 0, +-inf -> +-1e5 on grads (reference training_loop.py:203-205)."""
+    return torch.nan_to_num(g, nan=0.0, posinf=1e5, neginf=-1e5)
+
+
+def make_optimizer(params, lr, beta1, beta2, eps, reg_interval):
+    """Adam with the lazy-regularisation rescale (training_loop.py:166-170)."""
+    if reg_interval is not None:
+        mb_ratio = reg_interval / (reg_interval + 1)
+        lr = lr * mb_ratio
+        beta1, beta2 = beta1 ** mb_ratio, beta2 ** mb_ratio
+    return torch.optim.Adam(params, lr=lr, betas=(beta1, beta2), eps=eps)
+
+
+def ema_beta(batch_size, cur_nimg, ema_kimg, ema_rampup):
+    """Reference update_ema_network beta (training_loop.py:212-224)."""
+    ema_nimg = ema_kimg * 1000
+    if ema_rampup is not None:
+        ema_nimg = min(ema_nimg, cur_nimg * ema_rampup)
+    return 0.5 ** (batch_size / max(ema_nimg, 1e-8))
+
+
+@torch.no_grad()
+def ema_update(G_ema, G, beta):
+    """p_ema <- p + beta (p_ema - p) for every parameter, in place."""
+    for e, p in zip(G_ema.parameters(), G.parameters()):
+        e.copy_(p + beta * (e - p))
+
+
+def stage_grads(params, rounds):
+    """The mean over accumulation rounds of each round's gradient of its
+    loss w.r.t. `params` (zeros for a parameter a round does not reach),
+    NaN-scrubbed, and the rounds' mean stats. `rounds` yields
+    (loss, stats) one round at a time."""
+    acc = [torch.zeros_like(p) for p in params]
+    stats, n = {}, 0
+    for loss, aux in rounds:
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        for a, g in zip(acc, grads):
+            if g is not None:
+                a.add_(g)
+        for k, v in aux.items():
+            stats[k] = stats.get(k, 0.0) + v
+        n += 1
+    return [_nan_scrub(a / n) for a in acc], {k: float(v / n) for k, v in stats.items()}
+
+
+def _apply(opt, params, grads):
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt.step()
+    for p in params:
+        p.grad = None
+
+
+class GANTrainer:
+    """The G_main and D_main stages and the EMA for one (G, D) pair, on
+    `device`: the card unless the caller asks for the CPU."""
+
+    def __init__(self, g_cfg: GANformerConfig, d_cfg: DiscriminatorConfig, cfg: TrainConfig,
+                 device="cuda"):
+        self.g_cfg, self.d_cfg, self.cfg = g_cfg, d_cfg, cfg
+        self.device = resolve_device(device)
+        per_step = cfg.batch_gpu or 0
+        self.n_accum = max(1, cfg.batch_size // per_step) if per_step else 1
+        if cfg.batch_size % self.n_accum:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible into "
+                             f"{self.n_accum} accumulation rounds")
+
+    # -------------- state --------------
+
+    def init_state(self, seed=0):
+        """G from `seed`, D from `seed + 4` (as JAX keys them), the EMA copy
+        of G, the optimizers, and the step's generator seeded with `seed`."""
+        G = init_generator(self.g_cfg, seed=seed, device=self.device)
+        D = init_discriminator(self.d_cfg, seed=seed + 4, device=self.device)
+        return self.make_state(G, D, seed)
+
+    def make_state(self, G, D, seed=0):
+        """A state around existing nets (e.g. carried from JAX)."""
+        cfg = self.cfg
+        G_ema = copy.deepcopy(G).requires_grad_(False)
+        return TrainState(
+            G=G, D=D, G_ema=G_ema,
+            g_opt=make_optimizer(G.parameters(), cfg.g_lr, cfg.beta1, cfg.beta2, cfg.eps,
+                                 cfg.g_reg_interval),
+            d_opt=make_optimizer(D.parameters(), cfg.d_lr, cfg.beta1, cfg.beta2, cfg.eps,
+                                 cfg.d_reg_interval),
+            gen=torch.Generator(device=self.device).manual_seed(seed))
+
+    # -------------- stages --------------
+
+    def g_main_grads(self, state, z, gen=None, plain=False):
+        """G_main's round-mean gradients w.r.t. G's parameters (D frozen, so
+        its weight cotangents are never formed) and its stats. z: [n_accum,
+        micro, k, z_dim]. `gen` replaces the state's generator and
+        `plain=True` runs the fused blocks on the plain versions of the
+        kernels (both to check the kernels on the same draws)."""
+        gen = state.gen if gen is None else gen
+        params = list(state.G.parameters())
+        state.D.requires_grad_(False)
+        try:
+            return stage_grads(params, (
+                g_main_loss(state.G, state.D, z_r, self.cfg.loss, gen, plain) for z_r in z))
+        finally:
+            state.D.requires_grad_(True)
+
+    def d_main_grads(self, state, real_img, z, gen=None, plain=False):
+        """D_main's round-mean gradients w.r.t. D's parameters and its stats,
+        as `g_main_grads`. real_img: [n_accum, micro, R, R, C]."""
+        gen = state.gen if gen is None else gen
+        params = list(state.D.parameters())
+        return stage_grads(params, (
+            d_main_loss(state.G, state.D, real_r, z_r, self.cfg.loss, gen, plain)
+            for real_r, z_r in zip(real_img, z)))
+
+    def g_main_step(self, state, z):
+        """One G_main update; returns its stats."""
+        grads, stats = self.g_main_grads(state, z)
+        _apply(state.g_opt, list(state.G.parameters()), grads)
+        return stats
+
+    def d_main_step(self, state, real_img, z):
+        """One D_main update, then the end-of-iteration EMA (JAX folds it
+        into this stage's tail; G changes only in the G stages, which ran
+        before); returns its stats."""
+        grads, stats = self.d_main_grads(state, real_img, z)
+        _apply(state.d_opt, list(state.D.parameters()), grads)
+        self._ema_tail(state)
+        return stats
+
+    def _ema_tail(self, state):
+        cfg = self.cfg
+        beta = ema_beta(cfg.batch_size, state.cur_nimg, cfg.ema_kimg, cfg.ema_rampup)
+        ema_update(state.G_ema, state.G, beta)
+        with torch.no_grad():
+            state.G_ema.mapping.w_avg.copy_(state.G.mapping.w_avg)
+        state.cur_nimg += cfg.batch_size
+
+    # -------------- one full iteration --------------
+
+    def train_iteration(self, state, real_img, step: int):
+        """G_main and D_main (with the EMA) on one batch of real images
+        [B, R, R, C], split into the accumulation rounds (reference
+        training_loop.py:186-209). Raises before any update when a
+        regularisation stage is due at `step`."""
+        cfg = self.cfg
+        for name, interval in (("G_reg", cfg.g_reg_interval), ("D_reg", cfg.d_reg_interval)):
+            if interval and step % interval == 0:
+                raise NotImplementedError(
+                    f"{name} is due at step {step} (every {interval}); the regularisation "
+                    "stages are not ported yet (next training slice)")
+        batch = real_img.shape[0]
+        n = self.n_accum if batch % self.n_accum == 0 else 1
+        real = real_img.reshape((n, batch // n) + tuple(real_img.shape[1:]))
+        z = torch.randn((n, batch // n, self.g_cfg.k, self.g_cfg.z_dim), generator=state.gen,
+                        device=real_img.device)
+        stats = self.g_main_step(state, z)
+        stats.update(self.d_main_step(state, real, z))
+        return stats

@@ -108,11 +108,15 @@ def test_k1_function_gradcheck_float64(noise, bias, resid, alpha):
 
 
 def test_k1_function_refuses_training_gradients():
+    """Since training was ported the Function no longer refuses the
+    gradients of w, noise and bias: each, asked for alone, equals autograd
+    of the plain forward."""
     rng = np.random.RandomState(3)
     x, w, s, nz, b, r = (_t(a) for a in _k1_inputs(rng, 1, 4, 3, 2, True, True, True))
     for name, t in (("w", w), ("noise", nz), ("bias", b)):
         t.requires_grad_(True)
-        y = fc.fused_modconv3x3(x.requires_grad_(), w, s, nz, b, r)
-        with pytest.raises(NotImplementedError, match=name):
-            y.sum().backward()
+        y = fc.fused_modconv3x3(x, w, s, nz, b, r)
+        (got,) = torch.autograd.grad(y.sum(), t)
+        (want,) = torch.autograd.grad(fc.modconv3x3_plain(x, w, s, nz, b, r).sum(), t)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5, msg=name)
         t.requires_grad_(False)

@@ -154,12 +154,16 @@ def test_k3_gathers_each_parity_tap_by_hand(kh, pixel):
 
 
 def test_k3_function_refuses_training_gradients():
+    """Since training was ported the Function no longer refuses the
+    gradients of w, noise and bias: each, asked for alone, equals autograd
+    of the plain forward."""
     rng = np.random.RandomState(5)
     x, w, s, nz, b = (_t(a) for a in _k2_inputs(rng, 1, 3, 4, 2, 3, True, True, True))
     f = setup_filter(FIR)
     for name, t in (("w", w), ("noise", nz), ("bias", b)):
         t.requires_grad_(True)
-        y = fc.fused_upconv2(x.requires_grad_(), w, s, f, nz, b)
-        with pytest.raises(NotImplementedError, match=name):
-            y.sum().backward()
+        y = fc.fused_upconv2(x, w, s, f, nz, b)
+        (got,) = torch.autograd.grad(y.sum(), t)
+        (want,) = torch.autograd.grad(fc.upconv2_plain(x, w, s, f, nz, b).sum(), t)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5, msg=name)
         t.requires_grad_(False)

@@ -1,5 +1,7 @@
-"""K1 and K2 CUDA kernels, and their adjoints (the K1 adjoint launch and
-K3), against their plain PyTorch versions, on a card.
+"""The CUDA kernels against their plain PyTorch versions, on a card: K1 and
+K2, their adjoints (the K1 adjoint launch and K3), K3's D-tower forward,
+K2's use_dw role (the D down-conv's dx), the dw taps of all three weight
+roles, and per-sample noise.
 
 This file imports no JAX, so it runs on the GPU machine, where JAX is not
 installed; tests/conftest.py imports JAX, so run it there with
@@ -9,9 +11,10 @@ installed; tests/conftest.py imports JAX, so run it there with
 Without a card every test skips. The cases are the flag combinations of the
 1024^2 path at small sizes (the CPU tests in test_torch_fused_conv.py hold
 the plain versions against the JAX package on the same cases; the adjoint
-tests in test_torch_adjoint_k1.py / _k3.py). Tolerance 1e-4: float32 sums of
-the same terms in another order; for the adjoints relative to each output's
-largest entry, since ds, dd1 and dd2 are sums over every pixel."""
+tests in test_torch_adjoint_k1.py / _k3.py, the training roles in
+test_torch_training_ops.py). Tolerance 1e-4: float32 sums of the same terms
+in another order; for the adjoints and the dw taps relative to each output's
+largest entry, since ds, dd1, dd2 and dw are sums over every pixel."""
 
 import math
 
@@ -175,3 +178,144 @@ def test_k3_adjoint_kernel_matches_plain(cuda_device, cin, kh, styles, noise, bi
                                alpha, demod, False, plain=plain)
         grads.append(torch.autograd.grad(out, inputs, g))
     _adjoint_close(grads[0], grads[1])
+
+
+# The D down-conv: conv1 (3x3, bias, lrelu, resid) and the skip (1x1, linear,
+# no bias), at the 1024^2 path's channel doubling.
+DCONV_CASES = [(32, 3, True, True, 1.0, 0.2), (32, 1, False, False, math.sqrt(0.5), 1.0),
+               (64, 3, True, False, math.sqrt(2), 0.2)]
+
+
+def _dconv_inputs(rng, dev, n, h, cin, kh, bias, resid):
+    x = torch.from_numpy(rng.randn(n, 2 * h, 2 * h, cin).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(kh, kh, cin, 2 * cin) / math.sqrt(kh * kh * cin))
+                         .astype(np.float32)).to(dev)
+    b = torch.from_numpy((rng.randn(2 * cin) * 0.1).astype(np.float32)).to(dev) if bias else None
+    r = (torch.from_numpy(rng.randn(n, h, h, 2 * cin).astype(np.float32)).to(dev)
+         if resid else None)
+    return x, w, b, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,kh,bias,resid,gain,alpha", DCONV_CASES)
+def test_k3_forward_and_k2_use_dw_kernels_match_plain(cuda_device, cin, kh, bias, resid, gain,
+                                                      alpha):
+    rng = np.random.RandomState(2)
+    x, w, b, r = _dconv_inputs(rng, cuda_device, 2, 9, cin, kh, bias, resid)
+    f = setup_filter(FIR).to(cuda_device)
+    before = dict(fc.launch_counts)
+    y = fc.fused_downconv2(x, w, f, b, r, gain, alpha)
+    assert fc.launch_counts["downconv2"] == before["downconv2"] + 1
+    torch.testing.assert_close(y, fc.downconv2_plain(x, w, f, b, r, gain, alpha),
+                               rtol=1e-4, atol=1e-4)
+    gz = torch.randn(y.shape, generator=torch.Generator(cuda_device).manual_seed(0),
+                     device=cuda_device)
+    _rel_close(fc.downconv2_adjoint(gz, w, f), fc.downconv2_adjoint_plain(gz, w, f))
+    assert fc.launch_counts["downconv2_adj"] == before["downconv2_adj"] + 1
+    # Through the Function, every input differentiated: kernels against plain.
+    grads = []
+    for plain in (False, True):
+        ins = [t.clone().requires_grad_() for t in (x, w, b, r) if t is not None]
+        it = iter(ins)
+        xi, wi = next(it), next(it)
+        bi, ri = (next(it) if t is not None else None for t in (b, r))
+        out = fc.fused_downconv2(xi, wi, f, bi, ri, gain, alpha, plain=plain)
+        grads.append(torch.autograd.grad(out, ins, gz))
+    _adjoint_close(grads[0], grads[1])
+    assert fc.launch_counts["downconv2_dw"] == before["downconv2_dw"] + 1
+
+
+# (pa, pb, nt, hb, cin, cout, scaled): K1 dw, K3 dw (conv0, skip), the D
+# down-conv's dw (conv1, skip); odd sizes leave a ragged last chunk. The last
+# two have widths the kernel's 32-wide tiles do not divide (the wrapper pads).
+DW_CASES = [(1, 1, 3, (0, 0), 32, 64, True), (1, 2, 3, (0, 0), 64, 32, True),
+            (1, 2, 2, (0, 1), 64, 32, False), (2, 1, 3, (0, 0), 32, 64, False),
+            (2, 1, 2, (1, 0), 32, 64, False), (1, 1, 3, (0, 0), 16, 48, True),
+            (2, 1, 2, (1, 0), 8, 16, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pa,pb,nt,hb,cin,cout,scaled", DW_CASES)
+def test_dw_kernel_matches_plain(cuda_device, pa, pb, nt, hb, cin, cout, scaled):
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    n, h = 2, 13
+    a = torch.randn((n, pa * h, pa * h, cin), generator=gen, device=cuda_device)
+    b = torch.randn((n, pb * h, pb * h, cout), generator=gen, device=cuda_device)
+    s = torch.rand((n, cin), generator=gen, device=cuda_device) + 0.5 if scaled else None
+    before = fc.launch_counts["modconv3x3_dw"]
+    got = fc.conv_dw(a, b, s, pa, pb, nt, hb, "modconv3x3_dw")
+    assert fc.launch_counts["modconv3x3_dw"] == before + 1
+    want = fc.conv_dw_plain(a, b, s, pa, pb, nt, hb)
+    assert got.shape == want.shape == (4 if max(pa, pb) == 2 else 1, nt, nt, cin, cout)
+    _rel_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["k1", "k2", "k2_skip"])
+def test_training_grads_with_per_sample_noise_match_plain(cuda_device, op):
+    """Every input of K1 / K2 differentiated, with per-sample noise [N,H,W]:
+    the kernels' forward, adjoint (dd taps over the per-sample noise) and dw
+    taps against the plain versions."""
+    rng = np.random.RandomState(4)
+    dev = cuda_device
+    f = setup_filter(FIR).to(dev)
+    if op == "k1":
+        x, w, s, _, b, r = [None if a is None else torch.from_numpy(a).to(dev)
+                            for a in _k1_inputs(rng, 2, 16, 32, 32, False, True, True)]
+        nz = torch.from_numpy((rng.randn(2, 16, 16) * 0.1).astype(np.float32)).to(dev)
+        tensors = [x, w, s, nz, b, r]
+        run = lambda t, plain: fc.fused_modconv3x3(*t, 1.0, 0.2, True, plain=plain)  # noqa: E731
+        keys = ("modconv3x3", "modconv3x3_adj", "modconv3x3_dw")
+    else:
+        skip = op == "k2_skip"
+        kh = 1 if skip else 3
+        x, w, s, _, b = [None if a is None else torch.from_numpy(a).to(dev)
+                         for a in _k2_inputs(rng, 2, 8, 64, 32, kh, not skip, False, not skip)]
+        nz = None if skip else torch.from_numpy((rng.randn(2, 16, 16) * 0.1)
+                                                .astype(np.float32)).to(dev)
+        tensors = [x, w, s, nz, b]
+        gain, alpha = (math.sqrt(0.5), 1.0) if skip else (math.sqrt(2), 0.2)
+
+        def run(t, plain):
+            return fc.fused_upconv2(t[0], t[1], t[2], f, t[3], t[4], gain, alpha, not skip,
+                                    False, plain=plain)
+        keys = ("upconv2", "upconv2_adj", "upconv2_dw")
+    before = [fc.launch_counts[k] for k in keys]
+    outs, grads = [], []
+    for plain in (False, True):
+        ins = [None if t is None else t.clone().requires_grad_() for t in tensors]
+        out = run(ins, plain)
+        g = torch.randn(out.shape, generator=torch.Generator(dev).manual_seed(5), device=dev)
+        outs.append(out.detach())
+        grads.append(torch.autograd.grad(out, [t for t in ins if t is not None], g))
+    assert [fc.launch_counts[k] - v for k, v in zip(keys, before)] == [1, 1, 1]
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+    _adjoint_close(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+def test_d_gradients_at_unaligned_widths_match_plain(cuda_device, monkeypatch):
+    """A D whose fused blocks have 8 and 16 input channels, widths that the
+    dw kernel's 32-wide tiles do not divide: the image's and every
+    parameter's gradient on the kernels against the plain path, to 1e-3 of
+    each one's largest entry (several layers of float32 sums in another
+    order)."""
+    from morphganformer_tpu_torch.models import discriminator as tdisc
+    from morphganformer_tpu_torch.models.config import DiscriminatorConfig
+
+    monkeypatch.setattr(tdisc, "packed_d_block_eligible",
+                        lambda cfg, res: res >= 16 and tdisc.packed_d_structural_ok(cfg, res))
+    cfg = DiscriminatorConfig(img_resolution=32, channel_base=256, channel_max=64,
+                              mbstd_group_size=2)
+    D = tdisc.init_discriminator(cfg, seed=0, device=cuda_device)
+    img = torch.randn((2, 32, 32, 3), generator=torch.Generator(cuda_device).manual_seed(6),
+                      device=cuda_device)
+    before = dict(fc.launch_counts)
+    grads = []
+    for plain in (False, True):
+        x = img.clone().requires_grad_()
+        grads.append(torch.autograd.grad(D(x, plain=plain).sum(), [x, *D.parameters()]))
+    assert fc.launch_counts["modconv3x3_dw"] == before["modconv3x3_dw"] + 2
+    assert fc.launch_counts["downconv2_dw"] == before["downconv2_dw"] + 4
+    for g, w in zip(*grads):
+        _rel_close(g, w, tol=1e-3)

@@ -73,7 +73,7 @@ def test_to_uint8_and_crop():
 
 @pytest.fixture(scope="module")
 def small_model():
-    return cli.get_model("init:8", device="cpu", seed=0)
+    return cli.get_model("init:8", device="cpu")
 
 
 def test_generate_entry_point(tmp_path, small_model):
@@ -129,7 +129,9 @@ def test_main_dispatches_each_command(tmp_path):
                                load_latent_mat(tmp_path / "b.mat"), rtol=0, atol=1e-6)
     with pytest.raises(NotImplementedError, match="init:<res>"):
         cli.get_model("checkpoints/ffhq", device="cpu")
+    # Random noise is a training mode since the training step was ported; a
+    # mode the generator does not know is still refused.
     with pytest.raises(ValueError, match="noise_mode"):
         with torch.no_grad():
             cfg, G = cli.get_model("init:8", device="cpu")
-            G(z=torch.zeros(1, cfg.k, cfg.z_dim), noise_mode="random")
+            G(z=torch.zeros(1, cfg.k, cfg.z_dim), noise_mode="gaussian")
