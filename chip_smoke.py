@@ -53,6 +53,33 @@ Phases, each printing its wall time:
               and exact launch counts per iteration, one iteration in two
               accumulation rounds (batch 8), stage times and peak memory,
               and one iteration under torch.profiler.
+  8. layouts  K4 (`mgt_conv3x3_fwd`) and its dx role against the plain
+              version at its five call shapes (G b512 conv1, b1024 conv1 and
+              conv_last; D b1024 and b512 conv0) at batch 1 and 4, to 1e-5
+              of the output's largest entry, with kernel, plain and one
+              cuDNN call's times (`F.conv2d`; `conv2d_input` for dx) beside
+              the bound. Then, with MGT_PALLAS_CONV=1, the `skip` layouts at
+              FFHQ-1024 widths from seed 0: one forward at batch 1 with
+              exactly 3 K4 launches, agreeing with the switch off (cuDNN) to
+              1e-3; train_iteration at batch 4 on main-only steps with
+              finite losses and exact K4 forward and dx launches per
+              iteration; one G_main and one D_main round's gradients, K4 on
+              against K4 off (every leaf within 1e-3 of its largest entry,
+              floored; the noise strengths as one); stage times, peak memory.
+  9. reg      train_iteration at steps 0 and 16, where all four stages are
+              due, at batch 4, on the resnet pair of phase train and on the
+              skip pair: finite losses, pl_mean moved off 0, no kernel
+              launch inside G_reg or D_reg (the unpacked route), the exact
+              main-stage launches, G_reg and D_reg times and peak memory;
+              each reg stage's parameter gradients in float32 against the
+              same stage in float64 (penalties within 1e-3, every leaf
+              within 1e-2 (R1) and 5e-2 (path length) of the stage's
+              largest entry; each leaf's own error printed beside a control
+              of float64 with the weights nudged by 1e-7); central
+              differences in float64 along random directions against the
+              autograd directional derivative (held to 1e-5 where no lrelu
+              follows the parameters: G's torgb, D's output layer); one
+              G_reg and one D_reg of the resnet pair under torch.profiler.
 
 The last line is {"ok": true, "device": {...}}; any failure raises before it
 and exits non-zero. Nothing is written inside the repository except the
@@ -69,6 +96,7 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+DEV = "cuda"
 
 # H100 SXM data-sheet peaks: fp32 on the FMA pipes, HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
@@ -79,6 +107,7 @@ K3_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:1263"
 K1_DW_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:256"
 K3_DW_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:1387"
 K2_DW_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:1225"
+K4_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:74"
 SOURCE = "morphganformer_tpu_torch/csrc/fused_conv.cu"
 PROJECT_STEPS = 100
 MORPH_STEPS = 50
@@ -113,15 +142,16 @@ def cuda_ms(torch, fn, reps=10, warmup=2):
     return e0.elapsed_time(e1) / reps
 
 
-def traced_forward(torch, fn, label):
+def traced_forward(torch, fn, label, shapes=False):
     """One call of `fn` (a forward, or a projection step) under
     torch.profiler. The device's busy time (its kernels and copies, summed)
     and the host window it lies in come from the same traced run; the
     tracer's host overhead widens the window, so the idle share is an upper
-    bound."""
+    bound. `shapes` also prints the ops' device time by input shape."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=shapes) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -132,6 +162,10 @@ def traced_forward(torch, fn, label):
                   for e in device) / 1e3
     launches = sum(e.count for e in device)
     print(averages.table(sort_by="self_cuda_time_total", row_limit=12), flush=True)
+    if shapes:
+        print(prof.key_averages(group_by_input_shape=True).table(
+            sort_by="self_cuda_time_total", row_limit=10, max_name_column_width=30,
+            max_shapes_column_width=140), flush=True)
     print(f"  traced {label}: window {window_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / window_ms:.4f}, "
           f"{launches} device ops", flush=True)
@@ -361,7 +395,7 @@ def _steady_rate(stamps):
 def _per_step(steps, forwards):
     return {"modconv3x3": 4 * (steps + forwards), "upconv2": 6 * (steps + forwards),
             "modconv3x3_adj": 4 * steps, "upconv2_adj": 6 * steps,
-            **dict.fromkeys(TRAIN_KEYS.values(), 0)}
+            **dict.fromkeys(TRAIN_KEYS.values(), 0), **dict.fromkeys(K4_KEYS, 0)}
 
 
 TRAIN_BATCH = 4
@@ -388,6 +422,7 @@ def train_calls():
 
 TRAIN_KEYS = {"K3-forward": "downconv2", "K2-use_dw": "downconv2_adj",
               "K2-use_dw-dw": "downconv2_dw", "K1-dw": "modconv3x3_dw", "K3-dw": "upconv2_dw"}
+K4_KEYS = ("conv3x3", "conv3x3_adj")
 
 
 def check_train_kernel(torch, fc, gen, call):
@@ -509,7 +544,8 @@ def per_iteration(rounds=1):
     d_main = {"modconv3x3": 4 + 2 * 2, "upconv2": 6, "downconv2": 2 * 4,
               "modconv3x3_adj": 2 * 2, "upconv2_adj": 0, "downconv2_adj": 2 * 4,
               "modconv3x3_dw": 2 * 2, "upconv2_dw": 0, "downconv2_dw": 2 * 4}
-    return {k: rounds * (g_main[k] + d_main[k]) for k in g_main}
+    counts = {k: rounds * (g_main[k] + d_main[k]) for k in g_main}
+    return {**counts, **dict.fromkeys(K4_KEYS, 0)}
 
 
 def check_per_sample_noise(torch, fc, gen):
@@ -659,11 +695,8 @@ def train_phase(torch, fc):
     z = torch.randn((1, TRAIN_BATCH, g_cfg.k, g_cfg.z_dim), generator=gen, device="cuda")
     real = reals[None, :TRAIN_BATCH]
     w_avg = state.G.mapping.w_avg.clone()
-    strengths = [p for n, p in state.G.named_parameters() if n.endswith("noise_strength")]
+    strengths = set_noise_strengths(torch, state.G, gen)
     assert strengths
-    with torch.no_grad():
-        for p in strengths:
-            p.copy_(0.05 + 0.1 * torch.rand((), generator=gen, device="cuda"))
 
     def one_round(stage, plain=False):
         state.G.mapping.w_avg.copy_(w_avg)
@@ -728,18 +761,7 @@ def train_phase(torch, fc):
             p.zero_()
     state.G.mapping.w_avg.copy_(w_avg)
 
-    stage_ms = {"g_main": [], "d_main": []}
-    for name in ("g_main", "d_main"):
-        inner = getattr(trainer, f"{name}_step")
-
-        def timed(*a, _inner=inner, _name=name):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = _inner(*a)
-            torch.cuda.synchronize()
-            stage_ms[_name].append((time.perf_counter() - t) * 1e3)
-            return out
-        setattr(trainer, f"{name}_step", timed)
+    stage_ms, _ = timed_stages(torch, trainer, ("g_main", "d_main"))
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -785,6 +807,436 @@ def train_phase(torch, fc):
     return rows, total, stats
 
 
+def k4_calls():
+    """K4's five call shapes at FFHQ-1024 widths in the `skip` and `orig`
+    layouts: (net and block, layer, H, C, O)."""
+    return [("G b512", "conv1", 512, 64, 64), ("G b1024", "conv1", 1024, 32, 32),
+            ("G b1024", "conv_last", 1024, 32, 32), ("D b1024", "conv0", 1024, 32, 32),
+            ("D b512", "conv0", 512, 64, 64)]
+
+
+def check_k4(torch, k4, fc, gen, call, n, role):
+    """K4's forward ("fwd") or dx role at one call shape and batch against
+    the plain version on random inputs: error, times, the bound, and one
+    cuDNN call of the same convolution (`F.conv2d`; `conv2d_input` for dx)."""
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input
+
+    block, layer, h, c, o = call
+    dev = torch.device(DEV)
+    x = torch.randn((n, h, h, c), generator=gen, device=dev)
+    w = torch.randn((3, 3, c, o), generator=gen, device=dev) / math.sqrt(9 * c)
+    w_lib = w.permute(3, 2, 0, 1).contiguous()
+    if role == "fwd":
+        key, name = "conv3x3", "K4 fwd"
+        run_k = lambda: k4.conv3x3_forward(x, w)                             # noqa: E731
+        run_p = lambda: k4.conv3x3_same_plain(x, w)                          # noqa: E731
+        x_nchw = x.permute(0, 3, 1, 2)
+        run_lib = lambda: F.conv2d(x_nchw, w_lib, padding=1)                 # noqa: E731
+        tensors, out_numel = [x, w], n * h * h * o
+    else:
+        key, name = "conv3x3_adj", "K4 dx"
+        g = torch.randn((n, h, h, o), generator=gen, device=dev)
+        wt = k4.conv3x3_adjoint_weights(w)
+        run_k = lambda: k4.conv3x3_dx(g, w)                                  # noqa: E731
+        run_p = lambda: k4.conv3x3_same_plain(g, wt)                         # noqa: E731
+        g_nchw = g.permute(0, 3, 1, 2)
+        run_lib = lambda: conv2d_input((n, c, h, h), w_lib, g_nchw, padding=1)  # noqa: E731
+        tensors, out_numel = [g, w], n * h * h * c
+    before = fc.launch_counts[key]
+    got = run_k()
+    assert fc.launch_counts[key] == before + 1, (name, fc.launch_counts)
+    want = run_p()
+    torch.cuda.synchronize()
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    print(f"  {name} {block} {layer} batch {n}: out {tuple(got.shape)} max_abs_err {err:.3e} "
+          f"(largest entry {scale:.3e})", flush=True)
+    assert got.shape == want.shape and torch.isfinite(got).all().item()
+    assert err <= 1e-5 * scale, f"{name} {block} {layer} batch {n}: {err} > 1e-5 of {scale}"
+    flops = 2 * n * h * h * 9 * c * o
+    nbytes = 4 * (sum(t.numel() for t in tensors) + out_numel)
+    bound_ms, bound_by = bound(flops, nbytes)
+    ms = cuda_ms(torch, run_k)
+    plain_ms = cuda_ms(torch, run_p)
+    library_ms = cuda_ms(torch, run_lib)
+    print(f"  {name} {block} {layer} batch {n}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
+    return dict(kernel=name, block=block, role=layer, batch=n, max_abs_err=err, ref_scale=scale,
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6)
+
+
+def layout_per_iteration(rounds=1):
+    """Exact launches of one training iteration of the `skip` layouts at
+    FFHQ-1024 widths with MGT_PALLAS_CONV=1: no block is fused, so only K4
+    launches. G_main: G's forward (b512 conv1, b1024 conv1, conv_last) and
+    its backward (their 3 dx; dw is torch's), D's forward (b1024 and b512
+    conv0) and its backward to the image (2 dx). D_main: G's forward without
+    a graph (3), then D forward and backward on fakes and on reals (2 and 2
+    dx each: the conv0 inputs depend on the fromrgb weights)."""
+    counts = dict.fromkeys(per_iteration(), 0)
+    counts.update(conv3x3=rounds * (3 + 2 + 3 + 2 * 2), conv3x3_adj=rounds * (3 + 2 + 2 * 2))
+    return counts
+
+
+@contextlib.contextmanager
+def pallas_conv(on):
+    """MGT_PALLAS_CONV=1 (K4 on) or unset (K4 off, cuDNN) inside the block."""
+    saved = os.environ.pop("MGT_PALLAS_CONV", None)
+    if on:
+        os.environ["MGT_PALLAS_CONV"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("MGT_PALLAS_CONV", None)
+        if saved is not None:
+            os.environ["MGT_PALLAS_CONV"] = saved
+
+
+def timed_stages(torch, trainer, names, launches_of=None):
+    """Wrap the trainer's `<name>_step` methods: each call appends its
+    milliseconds (synchronised) to times[name] and, with `launches_of`, the
+    launch counts it made to launches[name]."""
+    times = {n: [] for n in names}
+    launches = {n: [] for n in names}
+    for name in names:
+        inner = getattr(trainer, f"{name}_step")
+
+        def timed(*a, _inner=inner, _name=name):
+            torch.cuda.synchronize()
+            before = dict(launches_of) if launches_of is not None else None
+            t = time.perf_counter()
+            out = _inner(*a)
+            torch.cuda.synchronize()
+            times[_name].append((time.perf_counter() - t) * 1e3)
+            if before is not None:
+                launches[_name].append({k: launches_of[k] - before[k] for k in before})
+            return out
+        setattr(trainer, f"{name}_step", timed)
+    return times, launches
+
+
+def set_noise_strengths(torch, G, gen):
+    """Every noise strength (0 at init) to U(0.05, 0.15), so the per-sample
+    noise reaches the gradients; returns the parameters."""
+    strengths = [p for n, p in G.named_parameters() if n.endswith("noise_strength")]
+    with torch.no_grad():
+        for p in strengths:
+            p.copy_(0.05 + 0.1 * torch.rand((), generator=gen, device=p.device))
+    return strengths
+
+
+def layouts_phase(torch, fc, k4):
+    """Phase 8: K4 at its call shapes, then the `skip` layouts at 1024^2."""
+    from morphganformer_tpu_torch import cli
+    from morphganformer_tpu_torch.models.config import DiscriminatorConfig, ffhq1024_config
+    from morphganformer_tpu_torch.training import GANTrainer, TrainConfig
+
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    rows = [check_k4(torch, k4, fc, gen, call, n, role)
+            for n in (1, TRAIN_BATCH) for call in k4_calls() for role in ("fwd", "dx")]
+
+    g_cfg, d_cfg = ffhq1024_config(architecture="skip"), DiscriminatorConfig(architecture="skip")
+    trainer = GANTrainer(g_cfg, d_cfg, TrainConfig(batch_size=TRAIN_BATCH, batch_gpu=4),
+                         device=DEV)
+    state = trainer.init_state(seed=0)
+    G, D = state.G, state.D
+    print(f"  skip G (FFHQ-1024 widths) and skip D (1024^2) from seed 0: "
+          f"{sum(p.numel() for p in G.parameters())} G and "
+          f"{sum(p.numel() for p in D.parameters())} D parameters", flush=True)
+    zeros = dict.fromkeys(fc.launch_counts, 0)
+
+    z = torch.randn((1, g_cfg.k, g_cfg.z_dim), generator=torch.Generator().manual_seed(0))
+    with pallas_conv(True):
+        fc.reset_launch_counts()
+        y_on = cli.synthesize(G, z)
+        torch.cuda.synchronize()
+        fwd_launches = dict(fc.launch_counts)
+    with pallas_conv(False):
+        y_off = cli.synthesize(G, z)
+    diff = (y_on - y_off).abs().max().item()
+    fwd_ms = {}
+    for on in (True, False):
+        with pallas_conv(on):
+            fwd_ms["k4" if on else "cudnn"] = cuda_ms(torch, lambda: cli.synthesize(G, z),
+                                                      reps=3, warmup=1)
+    print(f"  forward batch 1, K4 on vs off: max abs diff {diff:.3e} (|img| max "
+          f"{y_off.abs().max().item():.3f}); launches {fwd_launches}; ms K4 {fwd_ms['k4']:.3f}, "
+          f"cuDNN {fwd_ms['cudnn']:.3f}", flush=True)
+    res = g_cfg.img_resolution
+    assert y_on.shape == (1, res, res, 3) and torch.isfinite(y_on).all().item()
+    assert fwd_launches == {**zeros, "conv3x3": 3}, fwd_launches
+    assert diff <= 1e-3, f"skip forward, K4 on vs off: {diff}"
+
+    # One G_main and one D_main round, K4 on against K4 off, from the same
+    # draws, with non-zero noise strengths; checked as phase train checks
+    # the kernels against the plain path.
+    res = d_cfg.img_resolution
+    reals = torch.rand((TRAIN_BATCH, res, res, 3), generator=gen, device=DEV) * 2 - 1
+    z4 = torch.randn((1, TRAIN_BATCH, g_cfg.k, g_cfg.z_dim), generator=gen, device=DEV)
+    w_avg = G.mapping.w_avg.clone()
+    strengths = set_noise_strengths(torch, G, gen)
+
+    def one_round(stage, on):
+        G.mapping.w_avg.copy_(w_avg)
+        rng = torch.Generator(device=DEV).manual_seed(11)
+        with pallas_conv(on):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if stage == "g":
+                out = trainer.g_main_grads(state, z4, gen=rng)
+            else:
+                out = trainer.d_main_grads(state, reals[None], z4, gen=rng)
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    grads = {}
+    for stage, net in (("g", G), ("d", D)):
+        before = fc.launch_counts["conv3x3"]
+        (got, stats_k), ms_k = one_round(stage, True)
+        assert fc.launch_counts["conv3x3"] > before
+        (want, stats_p), ms_p = one_round(stage, False)
+        names = [n for n, _ in net.named_parameters()]
+        assert all(torch.isfinite(t).all().item() for t in got)
+        floor = 1e-3 * max(t.abs().max().item() for t in want)
+        full = leaf_errors(names, got, want, floor)
+        others = [r for r in full if not r[4]]
+        loss_key = next(k for k in stats_p if k.endswith("/loss"))
+        grads[stage] = dict(other_leaves=others[0][0], noise_strengths_pooled=pooled_strengths(full),
+                            noise_strength_worst=max((r[0] for r in full if r[4]), default=0.0),
+                            loss_abs_err=abs(stats_k[loss_key] - stats_p[loss_key]),
+                            ms_k4=ms_k, ms_cudnn=ms_p)
+        print(f"  one {stage.upper()}_main round, K4 on vs off ({len(names)} leaves; floor "
+              f"{floor:.3e}): other leaves worst {others[0][0]:.3e} {_fmt(others)}; noise "
+              f"strengths as one {grads[stage]['noise_strengths_pooled']:.3e}, worst on its own "
+              f"{grads[stage]['noise_strength_worst']:.3e}; {loss_key} {stats_k[loss_key]:.6f} "
+              f"vs {stats_p[loss_key]:.6f}; ms K4 {ms_k:.3f}, cuDNN {ms_p:.3f}", flush=True)
+        assert others[0][0] <= 1e-3, f"{stage.upper()}_main K4 on vs off: {grads[stage]}"
+        assert grads[stage]["noise_strengths_pooled"] <= 1e-3, grads[stage]
+        assert grads[stage]["loss_abs_err"] <= 1e-4 * max(1.0, abs(stats_p[loss_key]))
+    with torch.no_grad():
+        for p in strengths:
+            p.zero_()
+    G.mapping.w_avg.copy_(w_avg)
+
+    stage_ms, _ = timed_stages(torch, trainer, ("g_main", "d_main"))
+    total = dict(zeros)
+    iter_ms = []
+    with pallas_conv(True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for step in (1, 2, 3):
+            fc.reset_launch_counts()
+            t0 = time.perf_counter()
+            stats = trainer.train_iteration(state, reals, step)
+            torch.cuda.synchronize()
+            iter_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = dict(fc.launch_counts)
+            print(f"  skip step {step}: {iter_ms[-1]:.3f} ms (G_main "
+                  f"{stage_ms['g_main'][-1]:.3f}, D_main {stage_ms['d_main'][-1]:.3f}); "
+                  f"{json.dumps(stats)}; launches {launches}", flush=True)
+            assert all(math.isfinite(v) for v in stats.values()), stats
+            assert launches == layout_per_iteration(), (launches, layout_per_iteration())
+            for k, v in launches.items():
+                total[k] += v
+        peak = torch.cuda.max_memory_allocated()
+    print(f"  skip peak memory over steps 1-3: {peak / 2**30:.3f} GiB", flush=True)
+    stats = dict(forward_diff=diff, forward_ms=fwd_ms, iteration_ms=iter_ms,
+                 g_main_ms=stage_ms["g_main"], d_main_ms=stage_ms["d_main"],
+                 peak_gib=peak / 2**30, grads=grads)
+    return rows, total, stats
+
+
+def reg_checks(torch, trainer, state, reals, gen):
+    """Each reg stage's parameter gradients (one round of batch 4) in
+    float32 against the same stage in float64 on float64 copies of the
+    nets, beside a control (float64 with every weight nudged by 1e-7 of
+    itself, about float32's rounding, against float64): the penalties within
+    1e-3 of each other, every leaf within 1e-2 (R1) and 5e-2 (path length)
+    of the stage's largest entry. Each leaf's error over its own largest
+    entry (floored at 1e-3 of the stage's) and over the stage's are printed
+    beside the control's. A tighter bound does not hold for a float32 run
+    (measured on an H100, PERF.md section 6): on the 1024^2 nets after two
+    iterations the control alone moves path
+    length's gradient by up to 2.7e-3 of the stage's largest entry and
+    single leaves (noise strengths, torgb and attention leaves of the
+    low-resolution blocks, whose few units each carry a large share across
+    an lrelu kink) by up to 0.33 of themselves, and float32, which rounds
+    every activation and sum and not only the weights, reached 1.3e-3 to
+    1.6e-2 of the stage's largest entry for path length and 2.1e-4 to
+    1.1e-3 for R1. Central
+    differences of its float64 loss along two random directions against the
+    autograd directional derivative: one over the parameters that no lrelu
+    follows (every torgb of G; D's output layer), along which the loss is
+    smooth, and one over all parameters, printed only (there the steps flip
+    lrelu masks, and the penalties, which hold lrelu's derivative, jump).
+    Returns (results, failures): the caller fails after both pairs."""
+    import copy
+    import dataclasses
+
+    from morphganformer_tpu_torch.training import loss as tloss
+
+    cfg = trainer.cfg
+    g_cfg = trainer.g_cfg
+    z = torch.randn((1, TRAIN_BATCH, g_cfg.k, g_cfg.z_dim), generator=gen, device=DEV)
+    real = reals[None]
+    state64 = dataclasses.replace(state, G=copy.deepcopy(state.G).double(),
+                                  D=copy.deepcopy(state.D).double(),
+                                  pl_mean=state.pl_mean.double())
+    seed = 13
+    out, failures = {}, []
+    for stage in ("g_reg", "d_reg"):
+        def grads_of(st, dtype):
+            if stage == "g_reg":
+                rng = torch.Generator(device=DEV).manual_seed(seed)
+                g, stats, _ = trainer.g_reg_grads(st, z.to(dtype), gen=rng)
+                return g, stats
+            return trainer.d_reg_grads(st, real.to(dtype))
+
+        def loss_of(st):
+            if stage == "g_reg":
+                rng = torch.Generator(device=DEV).manual_seed(seed)
+                loss = tloss.g_pl_loss(st.G, z[0].double(), cfg.loss, rng, st.pl_mean)[0]
+                return loss.item() * float(cfg.g_reg_interval)
+            loss = tloss.d_r1_loss(st.D, real[0].double(), cfg.loss)[0]
+            return loss.item() * float(cfg.d_reg_interval)
+
+        net, net64 = ((state.G, state64.G) if stage == "g_reg" else (state.D, state64.D))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g32, s32 = grads_of(state, torch.float32)
+        torch.cuda.synchronize()
+        ms32 = (time.perf_counter() - t0) * 1e3
+        peak32 = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        g64, s64 = grads_of(state64, torch.float64)
+        torch.cuda.synchronize()
+        ms64 = (time.perf_counter() - t0) * 1e3
+        names = [n for n, _ in net.named_parameters()]
+        assert all(torch.isfinite(t).all().item() for t in g32)
+        floor = 1e-3 * max(t.abs().max().item() for t in g64)
+        full = leaf_errors(names, g32, g64, floor)
+        others = [r for r in full if not r[4]]
+        pooled = pooled_strengths(full)
+        stage_max = max(t.abs().max().item() for t in g64)
+        of_stage = max(r[3] for r in full) / stage_max
+        with nudged(torch, (net64,), torch.Generator(device=DEV).manual_seed(3), 1e-7):
+            g_ctrl, _ = grads_of(state64, torch.float64)
+        ctrl = leaf_errors(names, g_ctrl, g64, floor)
+        del g_ctrl
+
+        params64 = list(net64.parameters())
+        smooth = [("torgb" in n) if stage == "g_reg" else n.startswith("b4.out")
+                  for n in names]
+        fd = {}
+        for label, chosen in (("smooth", smooth), ("all", [True] * len(names))):
+            dgen = torch.Generator(device=DEV).manual_seed(17)
+            v = [(torch.randn(p.shape, generator=dgen, device=p.device, dtype=p.dtype)
+                  * (p.detach().square().mean().sqrt() + 1e-2)) if c else torch.zeros_like(p)
+                 for p, c in zip(params64, chosen)]
+            directional = sum((g * d).sum().item() for g, d in zip(g64, v))
+            eps = 1e-4
+            saved = [p.detach().clone() for p in params64]
+            vals = []
+            for sign in (1, -1):
+                with torch.no_grad():
+                    for p, p0, d in zip(params64, saved, v):
+                        p.copy_(p0 + sign * eps * d)
+                vals.append(loss_of(state64))
+            with torch.no_grad():
+                for p, p0 in zip(params64, saved):
+                    p.copy_(p0)
+            central = (vals[0] - vals[1]) / (2 * eps)
+            fd[label] = dict(directional=directional, central=central,
+                             rel_err=abs(central - directional) / max(abs(directional), 1e-30),
+                             leaves=int(sum(chosen)), eps=eps)
+        key = "Loss/pl_penalty" if stage == "g_reg" else "Loss/r1_penalty"
+        out[stage] = dict(of_stage_max=of_stage, other_leaves=others[0][0],
+                          noise_strengths_pooled=pooled, control_worst=ctrl[0][0],
+                          control_of_stage_max=max(r[3] for r in ctrl) / stage_max,
+                          penalty32=s32[key], penalty64=s64[key],
+                          ms32=ms32, ms64=ms64, peak32_gib=peak32 / 2**30, fd=fd)
+        print(f"  {stage} float32 vs float64 ({len(names)} leaves; stage max {stage_max:.3e}): "
+              f"worst {of_stage:.3e} of the stage max; each leaf over its own largest entry "
+              f"(floor {floor:.3e}): other leaves worst {others[0][0]:.3e} {_fmt(others)}; "
+              f"noise strengths as one "
+              f"{pooled:.3e}; control (float64 nudged by 1e-7) worst {ctrl[0][0]:.3e} "
+              f"{_fmt(ctrl)}; {key} {s32[key]:.6f} vs {s64[key]:.9f}; ms float32 {ms32:.3f}, "
+              f"float64 {ms64:.3f}; peak float32 {peak32 / 2**30:.3f} GiB\n"
+              f"    central difference (float64, eps {fd['smooth']['eps']}): "
+              + "; ".join(f"{k} ({d['leaves']} leaves) {d['central']:.9e} vs autograd "
+                          f"{d['directional']:.9e}, rel err {d['rel_err']:.3e}"
+                          for k, d in fd.items()), flush=True)
+        bound = 5e-2 if stage == "g_reg" else 1e-2
+        if of_stage > bound or abs(s32[key] - s64[key]) > 1e-3 * abs(s64[key]):
+            failures.append(f"{stage} float32 vs float64: {out[stage]}")
+        if fd["smooth"]["rel_err"] > 1e-5:
+            failures.append(f"{stage} central difference: {fd}")
+    del state64
+    return out, failures
+
+
+def reg_phase(torch, fc):
+    """Phase 9: the lazily regularised iteration at steps 0 and 16 on the
+    resnet pair and on the skip pair, then `reg_checks`."""
+    from morphganformer_tpu_torch.models.config import DiscriminatorConfig, ffhq1024_config
+    from morphganformer_tpu_torch.training import GANTrainer, TrainConfig
+
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    zeros = dict.fromkeys(fc.launch_counts, 0)
+    out, failures = {}, []
+    for arch, main in (("resnet", per_iteration()), ("skip", layout_per_iteration())):
+        d_cfg = DiscriminatorConfig(architecture=arch)
+        trainer = GANTrainer(ffhq1024_config(architecture=arch), d_cfg,
+                             TrainConfig(batch_size=TRAIN_BATCH, batch_gpu=4), device=DEV)
+        res = d_cfg.img_resolution
+        reals = torch.rand((TRAIN_BATCH, res, res, 3), generator=gen, device=DEV) * 2 - 1
+        state = trainer.init_state(seed=0)
+        names = ("g_main", "g_reg", "d_main", "d_reg")
+        times, launches = timed_stages(torch, trainer, names, fc.launch_counts)
+        steps = {}
+        with pallas_conv(arch == "skip"):
+            for step in (0, 16):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                fc.reset_launch_counts()
+                t0 = time.perf_counter()
+                stats = trainer.train_iteration(state, reals, step)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                peak = torch.cuda.max_memory_allocated()
+                total = dict(fc.launch_counts)
+                steps[step] = dict(iteration_ms=ms, peak_gib=peak / 2**30,
+                                   stage_ms={n: times[n][-1] for n in names},
+                                   pl_mean=state.pl_mean.item(), stats=stats)
+                print(f"  {arch} step {step}: {ms:.3f} ms ("
+                      + ", ".join(f"{n} {times[n][-1]:.3f}" for n in names)
+                      + f"); peak {peak / 2**30:.3f} GiB; pl_mean {state.pl_mean.item():.6f}; "
+                      f"{json.dumps(stats)}; launches {total}", flush=True)
+                assert all(math.isfinite(v) for v in stats.values()), stats
+                assert {"Loss/pl_penalty", "Loss/G/reg", "Loss/r1_penalty",
+                        "Loss/D/reg"} <= set(stats), stats
+                for n in ("g_reg", "d_reg"):
+                    assert launches[n][-1] == zeros, (n, launches[n][-1])
+                assert total == main, (total, main)
+                assert state.pl_mean.item() != 0.0
+            if arch == "resnet":
+                # Where the unpacked reg stages spend their time.
+                traced_forward(torch, lambda: trainer.g_reg_grads(state, reals.new_empty(
+                    (1, TRAIN_BATCH, trainer.g_cfg.k, trainer.g_cfg.z_dim)).normal_()),
+                    "G_reg (resnet, unpacked)", shapes=True)
+                traced_forward(torch, lambda: trainer.d_reg_grads(state, reals[None]),
+                               "D_reg (resnet, unpacked)", shapes=True)
+            checks, failed = reg_checks(torch, trainer, state, reals, gen)
+            out[arch] = dict(steps=steps, checks=checks)
+            failures += [f"{arch}: {f}" for f in failed]
+        del trainer, state
+        torch.cuda.empty_cache()
+    assert not failures, failures
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -795,6 +1247,7 @@ def main():
     sys.path.insert(0, REPO)
     from morphganformer_tpu_torch import cli
     from morphganformer_tpu_torch.ops import _build
+    from morphganformer_tpu_torch.ops import conv3x3 as k4
     from morphganformer_tpu_torch.ops import fused_conv as fc
 
     t_start = time.perf_counter()
@@ -1011,10 +1464,20 @@ def main():
         train_rows, train_launches, train_stats = train_phase(torch, fc)
     phases["train"] = ph.seconds
 
-    print("kernel_calls " + json.dumps(rows + train_rows), flush=True)
+    with Phase("layouts") as ph:
+        k4_rows, k4_launches, layout_stats = layouts_phase(torch, fc, k4)
+    phases["layouts"] = ph.seconds
+
+    with Phase("reg") as ph:
+        reg_stats = reg_phase(torch, fc)
+    phases["reg"] = ph.seconds
+
+    print("kernel_calls " + json.dumps(rows + train_rows + k4_rows), flush=True)
     print("projection " + json.dumps(proj_stats), flush=True)
     print("morph " + json.dumps(morph_stats), flush=True)
     print("train " + json.dumps(train_stats), flush=True)
+    print("layouts " + json.dumps(layout_stats), flush=True)
+    print("reg " + json.dumps(reg_stats), flush=True)
     kernels = []
     for kernel, name, replaces, key in (
             ("K1", "fused_modconv3x3", K1_REPLACES, "modconv3x3"),
@@ -1060,6 +1523,26 @@ def main():
             "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": train_launches[TRAIN_KEYS[role]],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": sum(r["ms"] for r in mine),
+            "plain_ms": sum(r["plain_ms"] for r in mine),
+            "bound_ms": b_ms,
+            "bound_by": "operations" if 2 * ops_ms >= b_ms else "bytes",
+            "library_ms": sum(r["library_ms"] for r in mine),
+        })
+    for role, name in (("K4 fwd", "mgt_conv3x3_fwd (pallas_conv.py:74-111, :322-353)"),
+                       ("K4 dx", "mgt_conv3x3_fwd in the dx role (the custom VJP, "
+                                 "pallas_conv.py:356-370)")):
+        mine = [r for r in k4_rows if r["kernel"] == role and r["batch"] == TRAIN_BATCH]
+        b_ms = sum(r["bound_ms"] for r in mine)
+        ops_ms = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")
+        kernels.append({
+            "name": f"{role} {name}: the SAME 3x3 convs of the skip/orig layouts with "
+                    f"MGT_PALLAS_CONV=1 (the call shapes of one 1024^2 training iteration, batch "
+                    f"{TRAIN_BATCH}: " + ", ".join(f"{r['block']} {r['role']}" for r in mine)
+                    + "; launches over the skip layouts' train_iteration steps 1-3)",
+            "route": "cuda", "source": SOURCE, "replaces": K4_REPLACES,
+            "launches": k4_launches["conv3x3" if role == "K4 fwd" else "conv3x3_adj"],
+            "max_abs_err": max(r["max_abs_err"] for r in k4_rows if r["kernel"] == role),
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": b_ms,

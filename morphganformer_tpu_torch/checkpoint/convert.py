@@ -10,6 +10,12 @@ onto the state_dict key that joins its path with dots:
     moving_stats/mapping/w_avg                   -> mapping.w_avg
     params/b1024/conv1/biasAct/bias (D)          -> b1024.conv1.biasAct.bias
 
+The `skip` and `orig` layouts carry the same way: a `skip` G's ToRGB of
+every block (params/synthesis/b512/torgb/... -> synthesis.b512.torgb...),
+a `skip` D's fromrgb of every block and of the epilogue
+(params/b512/fromrgb/... -> b512.fromrgb..., params/b4/fromrgb/... ->
+b4.fromrgb...).
+
 Reading `.msgpack` checkpoints is not ported yet; callers pass the variables
 as nested dicts of numpy arrays.
 """

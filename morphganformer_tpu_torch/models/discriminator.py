@@ -13,9 +13,15 @@ package runs them on its Pallas kernels:
 so one 1024^2 forward makes 2 K1 and 4 K3-forward launches; its backward
 makes the K1 adjoint and K2 use_dw launches for dx and the dw launches for
 the weights that are differentiated. The other blocks run the unfused plain
-PyTorch path, as JAX runs XLA there. `plain=True` runs the fused blocks on
-the plain versions of the kernels. The conditional projection (c_dim > 0)
-and the skip architecture are not ported.
+PyTorch path, as JAX runs XLA there, and so does every block under
+`force_unpacked()` (ops/packed_override.py; the R1 stage). `plain=True` runs
+the fused blocks on the plain versions of the kernels.
+
+The `orig` and `skip` layouts (JAX `discriminator.py:94-117`) run unfused;
+`skip` adds a `fromrgb` of the image, down-sampled by the FIR once per
+block, at every block and in the epilogue. Their conv0 at 512^2 and above
+(b1024 and b512 at 1024^2) runs on K4 when MGT_PALLAS_CONV=1
+(ops/conv3x3.py). The conditional projection (c_dim > 0) is not ported.
 """
 
 from __future__ import annotations
@@ -25,7 +31,10 @@ from torch import nn
 
 from morphganformer_tpu_torch.models.config import DiscriminatorConfig
 from morphganformer_tpu_torch.models.layers import Conv2dLayer, FullyConnected, get_gain
+from morphganformer_tpu_torch.ops.packed_override import packed_paths_disabled
+from morphganformer_tpu_torch.ops.upfirdn2d import downsample2d, setup_filter
 from morphganformer_tpu_torch.utils.device import resolve_device
+from morphganformer_tpu_torch.utils.dtype import at_least_f32
 
 
 def packed_d_structural_ok(cfg: DiscriminatorConfig, res: int) -> bool:
@@ -49,7 +58,7 @@ class DiscriminatorBlock(nn.Module):
         self.cfg, self.res = cfg, res
         in_ch, out_ch = cfg.channels(res), cfg.channels(res // 2)
         self.stem = res == cfg.img_resolution
-        if self.stem:
+        if self.stem or cfg.architecture == "skip":
             self.fromrgb = Conv2dLayer(cfg.img_channels, in_ch, 1, act=cfg.act)
         if cfg.architecture == "resnet":
             self.skip = Conv2dLayer(in_ch, out_ch, 1, use_bias=False, down=2,
@@ -58,16 +67,23 @@ class DiscriminatorBlock(nn.Module):
         self.conv0 = Conv2dLayer(in_ch, in_ch, 3, act=cfg.act)
         self.conv1 = Conv2dLayer(in_ch, out_ch, 3, down=2, resample_kernel=cfg.resample_kernel,
                                  act=cfg.act, gain=get_gain(cfg.architecture))
+        self.register_buffer("resample_filter", setup_filter(list(cfg.resample_kernel)),
+                             persistent=False)
 
     def forward(self, x, img, fused=None):
-        if self.stem:
+        """(x, img) -> (x at half the resolution, img): `skip` hands the next
+        block the image down-sampled, the other layouts hand `img` on."""
+        skip = self.cfg.architecture == "skip"
+        if self.stem or skip:
             y = self.fromrgb(img)
             x = y if x is None else x + y
+            if skip:
+                img = downsample2d(img, self.resample_filter)
         if self.cfg.architecture == "resnet":
             y = self.skip(x, fused=fused)
             x = self.conv0(x, fused=fused)
-            return self.conv1(x, fused=fused, resid=y)
-        return self.conv1(self.conv0(x, fused=fused), fused=fused)
+            return self.conv1(x, fused=fused, resid=y), img
+        return self.conv1(self.conv0(x, fused=fused), fused=fused), img
 
 
 def minibatch_std(x, group_size, num_channels):
@@ -78,7 +94,7 @@ def minibatch_std(x, group_size, num_channels):
     if n % g:
         raise ValueError(f"batch {n} not divisible by mbstd group {g}")
     f = num_channels
-    y = x.float().reshape(g, n // g, h, w, f, c // f)
+    y = at_least_f32(x).reshape(g, n // g, h, w, f, c // f)
     y = y - y.mean(dim=0, keepdim=True)
     y = torch.sqrt(y.square().mean(dim=0) + 1e-8)      # [n/g, h, w, f, cc]
     y = y.mean(dim=(1, 2, 4))                            # [n/g, f]
@@ -91,13 +107,17 @@ class DiscriminatorEpilogue(nn.Module):
         super().__init__()
         self.cfg = cfg
         in_ch = cfg.channels(4)
+        if cfg.architecture == "skip":
+            self.fromrgb = Conv2dLayer(cfg.img_channels, in_ch, 1, act=cfg.act)
         self.conv = Conv2dLayer(in_ch + cfg.mbstd_num_channels, in_ch, 3, act=cfg.act)
         self.fc = FullyConnected(in_ch * 16, in_ch, act=cfg.act)
         self.out = FullyConnected(in_ch, max(cfg.c_dim, 1))
 
-    def forward(self, x):
+    def forward(self, x, img):
         cfg = self.cfg
-        x = x.float()
+        x = at_least_f32(x)
+        if cfg.architecture == "skip":
+            x = x + self.fromrgb(at_least_f32(img))
         if cfg.mbstd_num_channels > 0:
             x = minibatch_std(x, cfg.mbstd_group_size, cfg.mbstd_num_channels)
         x = self.conv(x)
@@ -107,9 +127,8 @@ class DiscriminatorEpilogue(nn.Module):
 class Discriminator(nn.Module):
     def __init__(self, cfg: DiscriminatorConfig):
         super().__init__()
-        if cfg.c_dim > 0 or cfg.architecture not in ("resnet", "orig"):
-            raise NotImplementedError("the port's discriminator is unconditional, "
-                                      "resnet or orig")
+        if cfg.c_dim > 0:
+            raise NotImplementedError("the port's discriminator is unconditional")
         self.cfg = cfg
         for res in cfg.block_resolutions:
             setattr(self, f"b{res}", DiscriminatorBlock(cfg, res))
@@ -124,9 +143,10 @@ class Discriminator(nn.Module):
         x = None
         for res in cfg.block_resolutions:
             fused = (("plain" if plain else "kernel")
-                     if packed_d_block_eligible(cfg, res) else None)
-            x = getattr(self, f"b{res}")(x, img, fused=fused)
-        return self.b4(x)
+                     if packed_d_block_eligible(cfg, res) and not packed_paths_disabled()
+                     else None)
+            x, img = getattr(self, f"b{res}")(x, img, fused=fused)
+        return self.b4(x, img)
 
 
 def init_discriminator(cfg: DiscriminatorConfig, seed: int = 0, device="cuda") -> Discriminator:

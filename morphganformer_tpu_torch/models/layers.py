@@ -24,11 +24,12 @@ from morphganformer_tpu_torch.ops.fused_conv import (
     fused_upconv2,
 )
 from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter
+from morphganformer_tpu_torch.utils.dtype import at_least_f32
 
 
 def normalize_l2(x, eps=1e-8):
     """Scale so the mean square over all non-batch dims is 1 (float32)."""
-    x = x.float()
+    x = at_least_f32(x)
     dims = tuple(range(1, x.ndim))
     return x * torch.rsqrt(x.square().mean(dim=dims, keepdim=True) + eps)
 

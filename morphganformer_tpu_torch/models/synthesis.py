@@ -13,7 +13,11 @@ ops/fused_conv.py, as the JAX package runs them on its Pallas kernels:
 so one 1024^2 forward makes 4 K1 and 6 K2 launches, and its backward 4
 K1-adjoint and 6 K3 launches, plus, when the weights are differentiated
 (training), 4 K1-dw and 6 K3-dw launches. The other blocks run the unfused
-plain PyTorch path. Training runs `noise_mode="random"`: per-sample noise
+plain PyTorch path, as does every block under `force_unpacked()`
+(ops/packed_override.py; the path-length stage), and so do the `skip` and
+`orig` layouts, whose SAME 3x3 convs at 512^2 and above (b512 conv1, b1024
+conv1 and conv_last at FFHQ-1024 widths) run on K4 when MGT_PALLAS_CONV=1
+(ops/conv3x3.py). Training runs `noise_mode="random"`: per-sample noise
 [N,H,W] drawn from an explicit `torch.Generator`; `train=True` applies the
 attention dropout. `plain=True` runs the fused blocks
 on the plain versions of the kernels and of their adjoints even on a card
@@ -44,7 +48,9 @@ from morphganformer_tpu_torch.models.transformer import TransformerLayer
 from morphganformer_tpu_torch.ops.bias_act import activation_funcs
 from morphganformer_tpu_torch.ops.fused_conv import fused_modconv3x3, fused_upconv2
 from morphganformer_tpu_torch.ops.modulated_conv import modulated_conv2d
+from morphganformer_tpu_torch.ops.packed_override import packed_paths_disabled
 from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter, upsample2d
+from morphganformer_tpu_torch.utils.dtype import at_least_f32
 
 NOISE_MODES = ("const", "none", "random")
 
@@ -108,7 +114,7 @@ class SynthesisLayer(nn.Module):
         Random noise and the attention dropout draw from `gen`."""
         if noise_mode not in NOISE_MODES:
             raise ValueError(f"noise_mode must be one of {NOISE_MODES}, got {noise_mode!r}")
-        styles = self.affine(get_global(y).float())
+        styles = self.affine(at_least_f32(get_global(y)))
         w = self.weight * self.w_gain
         f = self.resample_filter
         noise = None
@@ -168,7 +174,7 @@ class ToRGBLayer(nn.Module):
         _normal_(self.weight, gen)
 
     def forward(self, x, y):
-        styles = self.affine(get_global(y).float())
+        styles = self.affine(at_least_f32(get_global(y)))
         w = self.weight
         if self.cfg.style:
             styles = styles * self.w_gain
@@ -176,7 +182,7 @@ class ToRGBLayer(nn.Module):
             w = w * self.w_gain
         x = modulated_conv2d(x, w.to(x.dtype), styles=styles, modulate=self.cfg.style,
                              demodulate=False)
-        return self.biasAct(x).float()
+        return at_least_f32(self.biasAct(x))
 
 
 class SynthesisBlock(nn.Module):
@@ -264,11 +270,12 @@ class SynthesisNetwork(nn.Module):
         if tuple(ws.shape[1:]) != (cfg.k, cfg.num_ws, cfg.w_dim):
             raise ValueError(f"ws must be [B,{cfg.k},{cfg.num_ws},{cfg.w_dim}], "
                              f"got {tuple(ws.shape)}")
-        ws = ws.float()
+        ws = at_least_f32(ws)
         x = img = None
         for res, (start, count) in zip(cfg.block_resolutions, cfg.block_w_slices()):
             fused = (("plain" if plain else "kernel")
-                     if packed_structural_ok(cfg, res, noise_mode) else None)
+                     if packed_structural_ok(cfg, res, noise_mode)
+                     and not packed_paths_disabled() else None)
             x, img = getattr(self, f"b{res}")(x, img, ws[:, :, start:start + count],
                                               pos=pos, mask=mask, noise_mode=noise_mode,
                                               fused=fused, train=train, gen=gen)

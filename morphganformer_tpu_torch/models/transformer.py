@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from morphganformer_tpu_torch.models.layers import FullyConnected, _fill_, _normal_, logits_mask
+from morphganformer_tpu_torch.utils.dtype import at_least_f32
 
 
 def _to_heads(x, num_heads, head_size):
@@ -63,7 +64,7 @@ def att_norm(x, integration: str, norm: Optional[str]):
     """Normalise without scale/bias; 'instance' over L, 'layer' over C."""
     if norm is None:
         return x
-    x = x.float()
+    x = at_least_f32(x)
     dim = 1 if norm == "instance" else 2
     if integration in ("add", "both"):
         x = x - x.mean(dim=dim, keepdim=True)
@@ -141,7 +142,7 @@ class TransformerLayer(nn.Module):
         att_scores = att_scores * scale
         if att_mask is not None:
             att_scores = logits_mask(att_scores, att_mask[:, None, None, :])
-        att_probs = torch.softmax(att_scores.float(), dim=-1)
+        att_probs = torch.softmax(at_least_f32(att_scores), dim=-1)
         if train and self.attention_dropout > 0:
             att_probs = attention_dropout(
                 att_probs, self.attention_dropout,

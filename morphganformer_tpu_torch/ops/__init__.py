@@ -10,8 +10,11 @@ from morphganformer_tpu_torch.ops.fused_conv import (  # noqa: F401
     reset_launch_counts,
     upconv2_plain,
 )
+from morphganformer_tpu_torch.ops.conv3x3 import conv3x3_same, conv3x3_same_plain  # noqa: F401
 from morphganformer_tpu_torch.ops.modulated_conv import modulated_conv2d  # noqa: F401
+from morphganformer_tpu_torch.ops.packed_override import force_unpacked  # noqa: F401
 from morphganformer_tpu_torch.ops.upfirdn2d import (  # noqa: F401
+    downsample2d,
     nearest_neighbors_kernel,
     setup_filter,
     upfirdn2d,

@@ -29,6 +29,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w, s, d, noise, bias, resid, y, N, H, W, C, O, gain, alpha, noise_ns, device, stream
     "mgt_modconv3x3_fwd": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _I, _P],
+    # x, w, y, N, H, W, C, O, device, stream
+    "mgt_conv3x3_fwd": [_P] * 3 + [_I] * 5 + [_I, _P],
     # x, wp, s, d, noise, bias, y, N, H, W, Cin, Cout, nt, hb0, hb1, gain, alpha, noise_ns,
     # device, stream
     "mgt_upconv2_fwd": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _P],

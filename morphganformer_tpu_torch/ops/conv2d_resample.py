@@ -6,9 +6,13 @@ NHWC activations, HWIO weights at the interface; the convolutions run as
 1x1 kernels reorder conv and resampling, other kernels fold the FIR into the
 conv weights (`_compose_kernel_fir`), and the synthesis up-conv (3x3 kernel,
 4-tap FIR, SAME padding) runs as one polyphase conv at input resolution.
+With MGT_PALLAS_CONV=1, an eligible plain SAME 3x3 conv runs on K4
+(ops/conv3x3.py).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -137,8 +141,15 @@ def conv2d_resample(x, w, f=None, up=1, down=1, padding=0, groups=1,
             x = upfirdn2d(x, f, down=down, flip_filter=flip_filter)
         return x
 
-    # Plain conv with symmetric non-negative padding.
+    # Plain conv with symmetric non-negative padding. Opt-in, as in JAX
+    # (conv2d_resample.py:236-251): MGT_PALLAS_CONV=1 sends an eligible SAME
+    # 3x3 conv to K4 (ops/conv3x3.py).
     if up == 1 and down == 1 and px0 == px1 and py0 == py1 and px0 >= 0 and py0 >= 0:
+        if px0 == 1 and py0 == 1 and os.environ.get("MGT_PALLAS_CONV") == "1":
+            from morphganformer_tpu_torch.ops.conv3x3 import conv3x3_eligible, conv3x3_same
+
+            if conv3x3_eligible(x, w, groups):
+                return conv3x3_same(x, w if flip_weight else w.flip((0, 1)))
         return _conv(x, w, padding=(px0, px0, py0, py0), groups=groups,
                      flip_weight=flip_weight)
 

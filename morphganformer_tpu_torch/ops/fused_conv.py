@@ -45,6 +45,8 @@ forward and the plain backward on any device. The plain forwards follow
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
@@ -52,9 +54,10 @@ from torch.autograd.function import once_differentiable
 from morphganformer_tpu_torch.ops.conv2d_resample import _compose_kernel_fir
 from morphganformer_tpu_torch.ops.modulated_conv import demod_coef
 
+# One key per role; "conv3x3" and "conv3x3_adj" are K4's (ops/conv3x3.py).
 launch_counts = {"modconv3x3": 0, "upconv2": 0, "modconv3x3_adj": 0, "upconv2_adj": 0,
                  "downconv2": 0, "downconv2_adj": 0, "modconv3x3_dw": 0, "upconv2_dw": 0,
-                 "downconv2_dw": 0}
+                 "downconv2_dw": 0, "conv3x3": 0, "conv3x3_adj": 0}
 
 # Blocks of one dw launch the slice count aims at: 8 per SM of an H100.
 _DW_BLOCKS = 8 * 132
@@ -764,6 +767,23 @@ def downconv2_backward(g, x, w, f, y, bias, resid, gain, alpha, flip_weight, nee
 # ---------------------------------------------------------------------------
 
 
+def first_order_only(backward):
+    """`once_differentiable`, and a raise as soon as the backward runs under
+    create_graph=True. `once_differentiable` alone defers its error to a
+    node that `torch.autograd.grad(..., allow_unused=True)` never runs, and
+    the second derivative then comes back as None, a wrong zero. Second
+    derivatives go through the unpacked route (`force_unpacked()`)."""
+    inner = once_differentiable(backward)
+
+    @functools.wraps(backward)
+    def wrapper(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise RuntimeError("this kernel's backward is differentiable once; take second "
+                               "derivatives under force_unpacked() (ops/packed_override.py)")
+        return inner(ctx, *grads)
+    return wrapper
+
+
 class FusedModConv3x3(torch.autograd.Function):
     """K1 with its adjoint and dw taps: gradients of x, w, styles, noise,
     bias and resid, each only when asked for."""
@@ -777,7 +797,7 @@ class FusedModConv3x3(torch.autograd.Function):
         return y
 
     @staticmethod
-    @once_differentiable
+    @first_order_only
     def backward(ctx, g):
         need = ctx.needs_input_grad
         x, w, styles, noise, bias, resid, y = ctx.saved_tensors
@@ -802,7 +822,7 @@ class FusedUpConv2(torch.autograd.Function):
         return y
 
     @staticmethod
-    @once_differentiable
+    @first_order_only
     def backward(ctx, g):
         need = ctx.needs_input_grad
         x, w, styles, f, noise, bias, y = ctx.saved_tensors
@@ -827,7 +847,7 @@ class FusedDownConv2(torch.autograd.Function):
         return y
 
     @staticmethod
-    @once_differentiable
+    @first_order_only
     def backward(ctx, g):
         need = ctx.needs_input_grad
         x, w, f, bias, resid, y = ctx.saved_tensors

@@ -11,12 +11,14 @@ from __future__ import annotations
 import torch
 
 from morphganformer_tpu_torch.ops.conv2d_resample import conv2d_resample
+from morphganformer_tpu_torch.utils.dtype import at_least_f32
 
 
 def demod_coef(w, styles):
-    """d[n,o] = rsqrt(s^2 @ sum_{kh,kw} w^2 + 1e-8), float32."""
-    wsq = w.float().square().sum(dim=(0, 1))                    # [I, O]
-    return torch.rsqrt(styles.float().square() @ wsq + 1e-8)   # [N, O]
+    """d[n,o] = rsqrt(s^2 @ sum_{kh,kw} w^2 + 1e-8), float32 (float64 for
+    float64 operands)."""
+    wsq = at_least_f32(w).square().sum(dim=(0, 1))                    # [I, O]
+    return torch.rsqrt(at_least_f32(styles).square() @ wsq + 1e-8)   # [N, O]
 
 
 def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,

@@ -126,3 +126,17 @@ def upsample2d(x, f, up=2, padding=0, flip_filter=False, gain=1):
     ]
     return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter,
                      gain=gain * upx * upy)
+
+
+def downsample2d(x, f, down=2, padding=0, flip_filter=False, gain=1):
+    """FIR downsampling (the `skip` discriminator's image path)."""
+    downx, downy = _parse_scaling(down)
+    px0, px1, py0, py1 = _parse_padding(padding)
+    fw, fh = _get_filter_size(f)
+    p = [
+        px0 + (fw - downx + 1) // 2,
+        px1 + (fw - downx) // 2,
+        py0 + (fh - downy + 1) // 2,
+        py1 + (fh - downy) // 2,
+    ]
+    return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter, gain=gain)

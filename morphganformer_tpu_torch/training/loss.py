@@ -1,32 +1,45 @@
-"""StyleGAN2/GANformer adversarial losses (port of
-morphganformer_tpu/training/loss.py, first-order stages).
+"""StyleGAN2/GANformer adversarial losses and regularisers (port of
+morphganformer_tpu/training/loss.py).
 
 `run_G` maps z (with style and component mixing through a second mapping
 run) and synthesises with random noise under `train`; `g_main_loss` and
-`d_main_loss` are the G_main and D_main stages. Every random draw (mixing
-cutoffs, the second z, the component mask, attention dropout, noise) comes
-from one explicit `torch.Generator`, in an order that does not depend on
-whether the fused blocks run on the kernels or on their plain versions.
-The regularisation stages (path length, R1) belong to the next training
-slice and raise.
+`d_main_loss` are the G_main and D_main stages, `g_pl_loss` (path length)
+and `d_r1_loss` (R1) the G_reg and D_reg stages. Every random draw (mixing
+cutoffs, the second z, the component mask, attention dropout, noise, the
+path-length noise) comes from one explicit `torch.Generator`, in an order
+that does not depend on whether the fused blocks run on the kernels or on
+their plain versions.
+
+The regularisers take a second derivative, so their forwards run on the
+unpacked route (`force_unpacked()`, ops/packed_override.py), JAX's
+MGT_PACKED_SECOND_ORDER=0 fallback: every block unfused, K4 off, all plain
+autograd. JAX's default scoped second-order route computes the same
+function on its packed kernels, and JAX's `_reg_remat` is an XLA memory
+policy; neither has a counterpart here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 
+from morphganformer_tpu_torch.ops.packed_override import force_unpacked
+
 
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
-    """The mixing probabilities of the reference loss (training/loss.py:20-27).
-    The adversarial losses are the reference defaults, non-saturating
-    logistic for G and logistic for D; the R1 and path-length settings come
-    with the regularisation stages."""
+    """The mixing probabilities and the regularisers' settings of the
+    reference loss (training/loss.py:20-27). The adversarial losses are the
+    reference defaults, non-saturating logistic for G and logistic for D."""
     style_mixing: float = 0.9
     component_mixing: float = 0.0
+    r1_gamma: float = 10.0
+    pl_batch_shrink: int = 2
+    pl_decay: float = 0.01
+    pl_weight: float = 2.0
 
 
 def draw_cutoff(n, prob, gen, device):
@@ -46,11 +59,9 @@ def _mix_axis(ws, ws2, cutoff, axis):
     return torch.where(idx < cutoff, ws, ws2)
 
 
-def run_G(G, z, cfg: LossConfig, gen, train=True, update_w_avg=False, plain=False):
-    """Mapping (with mixing) and synthesis (reference loss.py:41-56). One
-    component mask serves the mapping runs and the synthesis, as one JAX
-    key does. Returns (img, ws)."""
-    mask = G.component_mask(z.shape[0], z.device, train, gen)
+def _mixed_ws(G, z, cfg: LossConfig, gen, mask, train, update_w_avg):
+    """The mapping of z with style and component mixing (reference
+    loss.py:41-53)."""
     ws = G.run_mapping(z, train=train, skip_w_avg_update=not update_w_avg, gen=gen, mask=mask)
     if cfg.style_mixing > 0 or cfg.component_mixing > 0:
         z2 = torch.randn(z.shape, generator=gen, device=z.device)
@@ -60,6 +71,15 @@ def run_G(G, z, cfg: LossConfig, gen, train=True, update_w_avg=False, plain=Fals
         if cfg.component_mixing > 0:
             ws = _mix_axis(ws, ws2, draw_cutoff(ws.shape[1], cfg.component_mixing, gen,
                                                 z.device), 1)
+    return ws
+
+
+def run_G(G, z, cfg: LossConfig, gen, train=True, update_w_avg=False, plain=False):
+    """Mapping (with mixing) and synthesis (reference loss.py:41-56). One
+    component mask serves the mapping runs and the synthesis, as one JAX
+    key does. Returns (img, ws)."""
+    mask = G.component_mask(z.shape[0], z.device, train, gen)
+    ws = _mixed_ws(G, z, cfg, gen, mask, train, update_w_avg)
     img = G.run_synthesis(ws, noise_mode="random", plain=plain, train=train, gen=gen, mask=mask)
     return img, ws
 
@@ -100,13 +120,45 @@ def d_main_loss(G, D, real_img, z, cfg: LossConfig, gen, plain=False):
                   "Loss/scores/real": real_logits.detach().mean()}
 
 
-def g_pl_loss(*args, **kwargs):
-    """Path-length regularisation (reference loss.py:92-107): not ported."""
-    raise NotImplementedError("the path-length stage (G_reg) is not ported yet: it is the "
-                              "next training slice (R1/PL on the plain route)")
+def g_pl_loss(G, z, cfg: LossConfig, gen, pl_mean, pl_noise=None):
+    """Path-length regularisation (reference loss.py:92-107; JAX
+    `_g_pl_loss`), on the unpacked route. On the first
+    max(B // pl_batch_shrink, 1) latents: ws from the mapping with mixing
+    (w_avg not moved), the image G(ws) with fresh noise, dropout and
+    component mask (JAX re-synthesises under new keys), the gradient of
+    sum(img * pl_noise) w.r.t. ws with its graph kept, and per sample
+    sqrt(mean over k of the sum over num_ws of g^2). `pl_noise`
+    [b, R, R, C] is N(0, 1) / sqrt(R * R) from `gen` unless given. The
+    pl_mean EMA enters the penalty undetached, as in JAX. Returns (scalar,
+    stats with the new pl_mean, detached)."""
+    cfg_g = G.cfg
+    batch = max(z.shape[0] // cfg.pl_batch_shrink, 1)
+    z = z[:batch]
+    with force_unpacked():
+        mask = G.component_mask(batch, z.device, True, gen)
+        ws = _mixed_ws(G, z, cfg, gen, mask, train=True, update_w_avg=False)
+        if pl_noise is None:
+            shape = (batch, cfg_g.img_resolution, cfg_g.img_resolution, cfg_g.img_channels)
+            pl_noise = torch.randn(shape, generator=gen, device=z.device)
+            pl_noise = pl_noise / math.sqrt(shape[1] * shape[2])
+        img = G.run_synthesis(ws, noise_mode="random", train=True, gen=gen)
+        pl_grads, = torch.autograd.grad((img * pl_noise).sum(), ws, create_graph=True)
+    pl_lengths = pl_grads.square().sum(dim=2).mean(dim=1).sqrt()
+    new_pl_mean = pl_mean + cfg.pl_decay * (pl_lengths.mean() - pl_mean)
+    pl_penalty = (pl_lengths - new_pl_mean).square()
+    loss = pl_penalty.mean() * cfg.pl_weight
+    return loss, {"Loss/pl_penalty": pl_penalty.detach().mean(), "Loss/G/reg": loss.detach(),
+                  "pl_mean": new_pl_mean.detach()}
 
 
-def d_r1_loss(*args, **kwargs):
-    """R1 gradient penalty (reference loss.py:149-159): not ported."""
-    raise NotImplementedError("the R1 stage (D_reg) is not ported yet: it is the next "
-                              "training slice (R1/PL on the plain route)")
+def d_r1_loss(D, real_img, cfg: LossConfig):
+    """R1 gradient penalty (reference loss.py:149-159; JAX `_d_r1_loss`), on
+    the unpacked route: the gradient of sum(D(real)) w.r.t. the reals with
+    its graph kept; r1_gamma / 2 times the batch mean of its squared norm.
+    Returns (scalar, stats)."""
+    real = real_img.detach().requires_grad_(True)
+    with force_unpacked():
+        r1_grads, = torch.autograd.grad(D(real).sum(), real, create_graph=True)
+    r1_penalty = r1_grads.square().sum(dim=(1, 2, 3))
+    loss = r1_penalty.mean() * (cfg.r1_gamma / 2)
+    return loss, {"Loss/r1_penalty": r1_penalty.detach().mean(), "Loss/D/reg": loss.detach()}

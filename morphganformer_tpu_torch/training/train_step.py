@@ -1,21 +1,21 @@
-"""The first-order adversarial training step (port of
-morphganformer_tpu/training/train_step.py:53-391, without the mesh and the
-regularisation stages).
+"""The lazily regularised adversarial training step (port of
+morphganformer_tpu/training/train_step.py:53-391, without the mesh).
 
-One iteration runs G_main, then D_main with the EMA tail, on one batch split
-into `batch_size // batch_gpu` accumulation rounds. Each stage's gradient is
-the MEAN of its rounds' gradients (the JAX form, which keeps accumulation
+One iteration runs G_main, G_reg (path length) when `step % g_reg_interval
+== 0`, D_main with the EMA tail, then D_reg (R1) when `step %
+d_reg_interval == 0`, in JAX's order, on one batch split into
+`batch_size // batch_gpu` accumulation rounds. Each stage's gradient is the
+MEAN of its rounds' gradients (the JAX form, which keeps accumulation
 exact), NaN-scrubbed, then one Adam step with the lazy-regularisation
-rescale of lr and betas by r/(r+1) (reference training_loop.py:162-174).
-w_avg is a buffer that each G_main round's mapping moves in place, so the
-rounds see it in sequence as the JAX scan threads it. optax's `adam` and
-torch's Adam compute the same bias-corrected step.
-
-The G_reg (path length) and D_reg (R1) stages are the next slice:
-`train_iteration` raises when one is due (`step % interval == 0`), so with
-the reference intervals 4 and 16 the steps that are not multiples of 4 run.
+rescale of lr and betas by r/(r+1) (reference training_loop.py:162-174);
+the reg stages scale their loss by the interval and share their net's
+Adam state with its main stage. w_avg is a buffer that each G_main round's
+mapping moves in place, and pl_mean a tensor of the state that each G_reg
+round moves, so the rounds see both in sequence as the JAX scan threads
+them. optax's `adam` and torch's Adam compute the same bias-corrected step.
 One `torch.Generator` on the device, seeded by `init_state`, makes every
-random draw of the step.
+random draw of the step. The reg stages run on the unpacked route
+(training/loss.py).
 """
 
 from __future__ import annotations
@@ -29,7 +29,13 @@ import torch
 from morphganformer_tpu_torch.models.config import DiscriminatorConfig, GANformerConfig
 from morphganformer_tpu_torch.models.discriminator import Discriminator, init_discriminator
 from morphganformer_tpu_torch.models.generator import Generator, init_generator
-from morphganformer_tpu_torch.training.loss import LossConfig, d_main_loss, g_main_loss
+from morphganformer_tpu_torch.training.loss import (
+    LossConfig,
+    d_main_loss,
+    d_r1_loss,
+    g_main_loss,
+    g_pl_loss,
+)
 from morphganformer_tpu_torch.utils.device import resolve_device
 
 
@@ -52,14 +58,16 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class TrainState:
-    """The nets, the EMA generator, the two optimizers and the generator of
-    random draws. The modules are updated in place."""
+    """The nets, the EMA generator, the two optimizers, the generator of
+    random draws and the path-length mean (a 0-d tensor). The modules are
+    updated in place."""
     G: Generator
     D: Discriminator
     G_ema: Generator
     g_opt: torch.optim.Adam
     d_opt: torch.optim.Adam
     gen: torch.Generator
+    pl_mean: torch.Tensor
     cur_nimg: int = 0
 
 
@@ -119,8 +127,8 @@ def _apply(opt, params, grads):
 
 
 class GANTrainer:
-    """The G_main and D_main stages and the EMA for one (G, D) pair, on
-    `device`: the card unless the caller asks for the CPU."""
+    """The G_main, G_reg, D_main and D_reg stages and the EMA for one (G, D)
+    pair, on `device`: the card unless the caller asks for the CPU."""
 
     def __init__(self, g_cfg: GANformerConfig, d_cfg: DiscriminatorConfig, cfg: TrainConfig,
                  device="cuda"):
@@ -151,7 +159,8 @@ class GANTrainer:
                                  cfg.g_reg_interval),
             d_opt=make_optimizer(D.parameters(), cfg.d_lr, cfg.beta1, cfg.beta2, cfg.eps,
                                  cfg.d_reg_interval),
-            gen=torch.Generator(device=self.device).manual_seed(seed))
+            gen=torch.Generator(device=self.device).manual_seed(seed),
+            pl_mean=torch.zeros((), device=self.device))
 
     # -------------- stages --------------
 
@@ -179,10 +188,54 @@ class GANTrainer:
             d_main_loss(state.G, state.D, real_r, z_r, self.cfg.loss, gen, plain)
             for real_r, z_r in zip(real_img, z)))
 
+    def g_reg_grads(self, state, z, gen=None):
+        """G_reg's round-mean gradients w.r.t. G's parameters, its stats and
+        the pl_mean after the rounds (JAX `g_reg_step`): each round's
+        path-length loss times `g_reg_interval`, pl_mean carried from round
+        to round. z: [n_accum, micro, k, z_dim]."""
+        gen = state.gen if gen is None else gen
+        gain = float(self.cfg.g_reg_interval or 1)
+        pl_mean = state.pl_mean
+
+        def rounds():
+            nonlocal pl_mean
+            for z_r in z:
+                loss, aux = g_pl_loss(state.G, z_r, self.cfg.loss, gen, pl_mean)
+                pl_mean = aux.pop("pl_mean")
+                yield loss * gain, aux
+
+        grads, stats = stage_grads(list(state.G.parameters()), rounds())
+        return grads, stats, pl_mean
+
+    def d_reg_grads(self, state, real_img):
+        """D_reg's round-mean gradients w.r.t. D's parameters and its stats
+        (JAX `d_reg_step`): each round's R1 loss times `d_reg_interval`.
+        real_img: [n_accum, micro, R, R, C]."""
+        gain = float(self.cfg.d_reg_interval or 1)
+
+        def rounds():
+            for real_r in real_img:
+                loss, aux = d_r1_loss(state.D, real_r, self.cfg.loss)
+                yield loss * gain, aux
+
+        return stage_grads(list(state.D.parameters()), rounds())
+
     def g_main_step(self, state, z):
         """One G_main update; returns its stats."""
         grads, stats = self.g_main_grads(state, z)
         _apply(state.g_opt, list(state.G.parameters()), grads)
+        return stats
+
+    def g_reg_step(self, state, z):
+        """One G_reg update and the new pl_mean; returns its stats."""
+        grads, stats, state.pl_mean = self.g_reg_grads(state, z)
+        _apply(state.g_opt, list(state.G.parameters()), grads)
+        return stats
+
+    def d_reg_step(self, state, real_img):
+        """One D_reg update; returns its stats."""
+        grads, stats = self.d_reg_grads(state, real_img)
+        _apply(state.d_opt, list(state.D.parameters()), grads)
         return stats
 
     def d_main_step(self, state, real_img, z):
@@ -204,22 +257,25 @@ class GANTrainer:
 
     # -------------- one full iteration --------------
 
-    def train_iteration(self, state, real_img, step: int):
-        """G_main and D_main (with the EMA) on one batch of real images
-        [B, R, R, C], split into the accumulation rounds (reference
-        training_loop.py:186-209). Raises before any update when a
-        regularisation stage is due at `step`."""
+    def train_iteration(self, state, real_img, step: int, z=None):
+        """The stages due at `step` on one batch of real images [B, R, R, C],
+        split into the accumulation rounds (reference training_loop.py:186-209,
+        JAX `train_iteration`): G_main, G_reg every `g_reg_interval` steps,
+        D_main with the EMA, D_reg every `d_reg_interval` steps. z [B, k,
+        z_dim], the iteration's latents, is drawn from the state's generator
+        unless given."""
         cfg = self.cfg
-        for name, interval in (("G_reg", cfg.g_reg_interval), ("D_reg", cfg.d_reg_interval)):
-            if interval and step % interval == 0:
-                raise NotImplementedError(
-                    f"{name} is due at step {step} (every {interval}); the regularisation "
-                    "stages are not ported yet (next training slice)")
         batch = real_img.shape[0]
         n = self.n_accum if batch % self.n_accum == 0 else 1
         real = real_img.reshape((n, batch // n) + tuple(real_img.shape[1:]))
-        z = torch.randn((n, batch // n, self.g_cfg.k, self.g_cfg.z_dim), generator=state.gen,
-                        device=real_img.device)
+        if z is None:
+            z = torch.randn((batch, self.g_cfg.k, self.g_cfg.z_dim), generator=state.gen,
+                            device=real_img.device)
+        z = z.reshape((n, batch // n) + tuple(z.shape[1:]))
         stats = self.g_main_step(state, z)
+        if cfg.g_reg_interval and step % cfg.g_reg_interval == 0:
+            stats.update(self.g_reg_step(state, z))
         stats.update(self.d_main_step(state, real, z))
+        if cfg.d_reg_interval and step % cfg.d_reg_interval == 0:
+            stats.update(self.d_reg_step(state, real))
         return stats

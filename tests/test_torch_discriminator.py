@@ -10,6 +10,8 @@ JAX suite's tolerance); the gradients of a scalar of the logits w.r.t. the
 image and every parameter within 1e-4 of each leaf's largest entry (float32
 sums over every pixel, in another order)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -129,3 +131,41 @@ def test_minibatch_std_matches_jax():
         np.testing.assert_allclose(
             tdisc.minibatch_std(torch.from_numpy(x), group, 2).numpy(),
             np.asarray(jmbstd(jnp.asarray(x), group, 2)), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["skip", "orig"])
+def test_layouts_match_jax(arch):
+    """The `skip` layout (a fromrgb of the FIR-down-sampled image in every
+    block and in the epilogue) and `orig`, unfused, against JAX with carried
+    weights: logits, and the gradients w.r.t. the image and every
+    parameter (as test_discriminator_matches_jax)."""
+    cfgs = [dataclasses.replace(_cfg(m), architecture=arch) for m in (jcfg, tcfg)]
+    model = JDiscriminator(cfgs[0])
+    variables = jax.jit(model.init)(jax.random.PRNGKey(1), jnp.zeros((4, 32, 32, 3)))
+    rng = np.random.RandomState(3)
+    variables = jax.tree_util.tree_map_with_path(
+        lambda p, x: x + (0.1 * rng.randn(*np.shape(x))).astype(np.float32)
+        if "bias" in jax.tree_util.keystr(p) else x, variables)
+    D = load_flax(tdisc.init_discriminator(cfgs[1], seed=3, device="cpu"),
+                  jax.device_get(variables))
+    fromrgb = sorted({k.split(".")[0] for k in D.state_dict() if ".fromrgb." in k})
+    assert fromrgb == (sorted(f"b{r}" for r in (*cfgs[1].block_resolutions, 4))
+                       if arch == "skip" else ["b32"])
+    img = np.random.RandomState(1).randn(4, 32, 32, 3).astype(np.float32)
+
+    def loss(params, im):
+        return jnp.sum(jnp.sin(model.apply({"params": params}, im)))
+
+    logits_j = model.apply(variables, jnp.asarray(img))
+    gp, gi = jax.grad(loss, argnums=(0, 1))(variables["params"], jnp.asarray(img))
+    x = torch.from_numpy(img).requires_grad_(True)
+    logits_t = D(x)
+    np.testing.assert_allclose(logits_t.detach().numpy(), np.asarray(logits_j),
+                               rtol=2e-4, atol=2e-4)
+    names, params = zip(*D.named_parameters())
+    grads = torch.autograd.grad(torch.sin(logits_t).sum(), (x,) + params)
+    assert rel_err(grads[0], gi) <= 1e-4
+    want = _flat_params(gp)
+    assert set(want) == set(names)
+    for name, g in zip(names, grads[1:]):
+        assert rel_err(g, want[name]) <= 1e-4, name

@@ -8,6 +8,8 @@ the wiring of every kernel call site is under test here. Tolerance 2e-4,
 the JAX suite's own for packed vs unpacked generators
 (tests/test_packed_pipeline.py:95)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -94,6 +96,32 @@ def test_fused_blocks_call_each_kernel_site(carried, monkeypatch):
         b = G(z=z, truncation_psi=0.7, plain=True)
     assert calls == {"k1": len(fused) + 1, "k2": 2 * len(fused)}
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["skip", "orig"])
+def test_layouts_match_jax(arch):
+    """The `skip` layout (a ToRGB in every block, the image up-sampled by
+    the FIR from block to block, each ToRGB sharing the next block's first
+    w) and `orig` (ToRGB in the last block only), unfused, against JAX with
+    carried weights; the ws slicing follows `block_w_slices`."""
+    jc, tc = _cfg(jcfg, "small"), _cfg(tcfg, "small")
+    jc, tc = (dataclasses.replace(c, architecture=arch) for c in (jc, tc))
+    model = JGenerator(jc)
+    rngs = {k: jax.random.PRNGKey(i) for i, k in enumerate(("params", "noise", "mask", "dropout"))}
+    variables = model.init(rngs, jnp.zeros((1, jc.k, jc.z_dim)), noise_mode="const")
+    variables = jax.tree_util.tree_map_with_path(
+        lambda p, x: x + 0.3 if any(s in jax.tree_util.keystr(p)
+                                    for s in ("noise_strength", "w_avg")) else x, variables)
+    G = load_flax(init_generator(tc, seed=5, device="cpu"), jax.device_get(variables))
+    assert tc.num_ws == jc.num_ws and tc.block_w_slices() == jc.block_w_slices()
+    torgb = sorted(k for k in G.state_dict() if "torgb" in k and k.endswith(".weight")
+                   and "affine" not in k)
+    assert len(torgb) == (len(tc.block_resolutions) if arch == "skip" else 1)
+    z = np.random.RandomState(0).randn(2, tc.k, tc.z_dim).astype(np.float32)
+    img_j = model.apply(variables, jnp.asarray(z), truncation_psi=0.7, noise_mode="const")
+    with torch.no_grad():
+        img_t = G(z=torch.from_numpy(z), truncation_psi=0.7, noise_mode="const")
+    np.testing.assert_allclose(img_t.numpy(), np.asarray(img_j), rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("noise_mode,blocks", [("const", [256, 512, 1024]),

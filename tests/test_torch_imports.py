@@ -28,11 +28,13 @@ def test_port_imports_nothing_forbidden(path):
 
 
 def test_training_modules_are_checked():
-    """The discriminator and the training package are on the list above."""
+    """The discriminator, the training package, K4's module and the
+    unpacked override are on the list above."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {f"morphganformer_tpu_torch/{m}" for m in (
         "models/discriminator.py", "training/__init__.py", "training/loss.py",
-        "training/train_step.py")} <= names
+        "training/train_step.py", "ops/conv3x3.py", "ops/packed_override.py",
+        "utils/dtype.py")} <= names
 
 
 def test_build_is_one_plain_nvcc_call_for_sm_90a():

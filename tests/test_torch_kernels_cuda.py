@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on a card: K1 and
 K2, their adjoints (the K1 adjoint launch and K3), K3's D-tower forward,
 K2's use_dw role (the D down-conv's dx), the dw taps of all three weight
-roles, and per-sample noise.
+roles, per-sample noise, and K4 (forward and dx) with its route.
 
 This file imports no JAX, so it runs on the GPU machine, where JAX is not
 installed; tests/conftest.py imports JAX, so run it there with
@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from morphganformer_tpu_torch.ops import conv3x3 as k4
 from morphganformer_tpu_torch.ops import fused_conv as fc
 from morphganformer_tpu_torch.ops import setup_filter
 
@@ -319,3 +320,62 @@ def test_d_gradients_at_unaligned_widths_match_plain(cuda_device, monkeypatch):
     assert fc.launch_counts["downconv2_dw"] == before["downconv2_dw"] + 4
     for g, w in zip(*grads):
         _rel_close(g, w, tol=1e-3)
+
+
+# K4: its call shapes at FFHQ-1024 widths (64 -> 64 at 512^2: G b512 conv1,
+# D b512 conv0; 32 -> 32 at 1024^2: G b1024 conv1 and conv_last, D b1024
+# conv0) and unaligned widths (C 3, 17, 48; odd O).
+K4_CASES = [(1, 512, 512, 64, 64), (1, 1024, 1024, 32, 32), (2, 24, 40, 3, 5),
+            (1, 16, 16, 17, 33), (2, 12, 20, 48, 7), (1, 8, 8, 64, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,o", K4_CASES)
+def test_k4_kernel_and_dx_match_plain(cuda_device, n, h, w, c, o):
+    """Forward and dx within 1e-5 of the output's largest entry (float32
+    sums of the same nine taps in another order)."""
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randn(n, h, w, c).astype(np.float32)).to(cuda_device)
+    wt = torch.from_numpy((rng.randn(3, 3, c, o) / math.sqrt(9 * c)).astype(np.float32))
+    wt = wt.to(cuda_device)
+    g = torch.from_numpy(rng.randn(n, h, w, o).astype(np.float32)).to(cuda_device)
+    before = dict(fc.launch_counts)
+    y, dx = k4.conv3x3_forward(x, wt), k4.conv3x3_dx(g, wt)
+    assert fc.launch_counts["conv3x3"] == before["conv3x3"] + 1
+    assert fc.launch_counts["conv3x3_adj"] == before["conv3x3_adj"] + 1
+    _rel_close(y, k4.conv3x3_same_plain(x, wt), 1e-5)
+    _rel_close(dx, k4.conv3x3_same_plain(g, k4.conv3x3_adjoint_weights(wt)), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flip_weight", [True, False])
+def test_k4_route_and_gradients_match_the_cudnn_path(cuda_device, monkeypatch, flip_weight):
+    """conv2d_resample under MGT_PALLAS_CONV=1 launches K4 forward and dx
+    once each; the output, dx and dw equal the F.conv2d path's (switch off)
+    within 1e-5, dw (a sum over every pixel) within 1e-4 of its largest
+    entry. A second derivative through it raises."""
+    from morphganformer_tpu_torch.ops.conv2d_resample import conv2d_resample
+
+    gen = torch.Generator(cuda_device).manual_seed(8)
+    x = torch.randn((2, 512, 512, 17), generator=gen, device=cuda_device)
+    w = torch.randn((3, 3, 17, 9), generator=gen, device=cuda_device) / 12
+    g = torch.randn((2, 512, 512, 9), generator=gen, device=cuda_device)
+
+    def run():
+        xt, wt = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = conv2d_resample(xt, wt, padding=1, flip_weight=flip_weight)
+        return (y.detach(), *torch.autograd.grad(y, (xt, wt), g))
+
+    monkeypatch.delenv("MGT_PALLAS_CONV", raising=False)
+    want = run()
+    monkeypatch.setenv("MGT_PALLAS_CONV", "1")
+    before = dict(fc.launch_counts)
+    got = run()
+    assert fc.launch_counts["conv3x3"] == before["conv3x3"] + 1
+    assert fc.launch_counts["conv3x3_adj"] == before["conv3x3_adj"] + 1
+    for a, b, tol in zip(got, want, (1e-5, 1e-5, 1e-4)):
+        _rel_close(a, b, tol)
+    xt = x.clone().requires_grad_(True)
+    y = conv2d_resample(xt, w, padding=1, flip_weight=flip_weight)
+    with pytest.raises(RuntimeError, match="differentiable once"):
+        torch.autograd.grad(y.square().sum(), xt, create_graph=True)

@@ -20,6 +20,7 @@ above the tolerance, up to 2 lr where it is not, since a gradient that
 rounds to the other sign flips its element's step."""
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -232,19 +233,30 @@ def test_train_iteration_applies_one_reference_ema_update():
     torch.testing.assert_close(state.G_ema.mapping.w_avg, state.G.mapping.w_avg, rtol=0, atol=0)
 
 
-def test_train_iteration_raises_when_a_reg_stage_is_due():
+def test_train_iteration_runs_reg_stages_when_due():
+    """G_reg every 4 steps and D_reg every 16, in JAX's order: G_main,
+    G_reg, D_main (with the EMA), D_reg; pl_mean moves when G_reg runs."""
     tg, td = _cfgs(tcfg)
     trainer = tts.GANTrainer(tg, td, tts.TrainConfig(batch_size=4, batch_gpu=4), device="cpu")
     state = trainer.init_state(seed=0)
-    real = torch.zeros(4, 16, 16, 3)
-    for step in (0, 4, 16):
-        with pytest.raises(NotImplementedError, match="G_reg"):
-            trainer.train_iteration(state, real, step)
-    assert state.cur_nimg == 0
-    with pytest.raises(NotImplementedError, match="path-length"):
-        tloss.g_pl_loss()
-    with pytest.raises(NotImplementedError, match="R1"):
-        tloss.d_r1_loss()
+    real = torch.from_numpy(_inputs(1, 4)[1][0])
+    ran = []
+    for name in ("g_main", "g_reg", "d_main", "d_reg"):
+        inner = getattr(trainer, f"{name}_step")
+        setattr(trainer, f"{name}_step",
+                lambda *a, _inner=inner, _name=name: ran.append(_name) or _inner(*a))
+    want = {0: ["g_main", "g_reg", "d_main", "d_reg"], 1: ["g_main", "d_main"],
+            4: ["g_main", "g_reg", "d_main"], 16: ["g_main", "g_reg", "d_main", "d_reg"]}
+    for step, stages in want.items():
+        ran.clear()
+        pl_mean = state.pl_mean.clone()
+        stats = trainer.train_iteration(state, real, step)
+        assert ran == stages, (step, ran)
+        assert all(np.isfinite(v) for v in stats.values()), stats
+        assert ("Loss/G/reg" in stats) == ("g_reg" in stages)
+        assert ("Loss/D/reg" in stats) == ("d_reg" in stages)
+        assert (state.pl_mean != pl_mean).item() == ("g_reg" in stages)
+    assert state.cur_nimg == 4 * len(want)
 
 
 def test_train_iterations_with_randomness_on():
@@ -274,6 +286,48 @@ def test_train_iterations_with_randomness_on():
         tsyn.packed_structural_ok = gate
     for a, b in zip(fused, unfused):
         assert rel_err(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["skip", "orig"])
+def test_layout_stage_grads_match_jax(arch):
+    """One G_main and one D_main gradient of the `skip` and `orig` layouts
+    (unfused; per-block ToRGB and, for skip, per-block fromrgb) against
+    JAX, as test_g_main_step_matches_jax and test_d_main_step_matches_jax
+    hold the resnet pair."""
+    jg, jd = (dataclasses.replace(c, architecture=arch) for c in _cfgs(jcfg))
+    tg, td = (dataclasses.replace(c, architecture=arch) for c in _cfgs(tcfg))
+    jtrainer = jts.GANTrainer(jg, jd, _train_cfg(jts, jloss))
+    jstate = jtrainer.init_state(seed=0)
+    host = jax.device_get({"g": jstate["g"], "d": jstate["d"]})
+    ttrainer = tts.GANTrainer(tg, td, _train_cfg(tts, tloss), device="cpu")
+    G = load_flax(init_generator(tg, seed=1, device="cpu"), host["g"])
+    D = load_flax(tdisc.init_discriminator(td, seed=1, device="cpu"), host["d"])
+    tstate = ttrainer.make_state(G, D, seed=0)
+    z, real = _inputs(1, 4)
+
+    def g_loss(params):
+        g_vars = {"params": params, "moving_stats": host["g"]["moving_stats"]}
+        return jloss.g_main_loss(jtrainer.G, jtrainer.D, g_vars, {"params": host["d"]["params"]},
+                                 jnp.asarray(z[0]), None, jax.random.PRNGKey(0),
+                                 jtrainer.cfg.loss)
+
+    def d_loss(params):
+        return jloss.d_main_loss(jtrainer.G, jtrainer.D, host["g"], {"params": params},
+                                 jnp.asarray(real[0]), jnp.asarray(z[0]), None,
+                                 jax.random.PRNGKey(0), jtrainer.cfg.loss)
+
+    for loss_fn, net, key, run in (
+            (g_loss, tstate.G, "g", lambda: ttrainer.g_main_grads(tstate, torch.from_numpy(z))),
+            (d_loss, tstate.D, "d", lambda: ttrainer.d_main_grads(
+                tstate, torch.from_numpy(real), torch.from_numpy(z)))):
+        (loss_j, _), grads_j = jax.value_and_grad(loss_fn, has_aux=True)(host[key]["params"])
+        grads_j = _flat(grads_j)
+        grads_t, stats = run()
+        names = [n for n, _ in net.named_parameters()]
+        assert set(names) == set(grads_j)
+        np.testing.assert_allclose(stats[f"Loss/{key.upper()}/loss"], float(loss_j), rtol=1e-5)
+        for name, g in zip(names, grads_t):
+            assert rel_err(g, grads_j[name]) <= 1e-4, (arch, name)
 
 
 @pytest.mark.parametrize("axis,prob", [(1, 1.0), (2, 0.9), (2, 0.0)])
@@ -401,3 +455,41 @@ def test_smoke_checks_every_training_call_shape():
                      ("K1-dw", f"G b{res}", "conv1", res, cout, cout, 3)]
     want.append(("K1-dw", f"G b{g.img_resolution}", "conv_last", g.img_resolution, 32, 32, 3))
     assert sorted(smoke.train_calls()) == sorted(want)
+
+
+def test_smoke_layout_launch_counts_match_the_dispatch(monkeypatch):
+    """chip_smoke.py asserts the exact K4 launches of a `skip` iteration with
+    MGT_PALLAS_CONV=1. On the CPU, with K4's rule read at 32 times the side
+    (so 16^2 stands for 512^2) and its card test taken as passed, count the launches of a small skip
+    pair whose blocks of 16^2 and up mirror the 1024^2 structure (G b16
+    conv1, b32 conv1 and conv_last; D b32 and b16 conv0), one iteration and
+    one in two rounds; and none in the reg stages."""
+    from morphganformer_tpu_torch.ops import conv3x3 as k4
+    from morphganformer_tpu_torch.ops import fused_conv as fc
+
+    monkeypatch.setenv("MGT_PALLAS_CONV", "1")
+    monkeypatch.setattr(k4, "_on_card", lambda t: True)
+    real_rule = k4.conv3x3_eligible
+
+    def at_scale(x, w, groups):                  # the rule at 32x the side
+        n, h, wd, c = x.shape
+        return real_rule(types.SimpleNamespace(shape=(n, 32 * h, 32 * wd, c)), w, groups)
+    monkeypatch.setattr(k4, "conv3x3_eligible", at_scale)
+
+    def fake_launch(x, w, key):
+        fc.launch_counts[key] += 1
+        return k4.conv3x3_same_plain(x, w)
+    monkeypatch.setattr(k4, "_conv3x3", fake_launch)
+    smoke = _smoke()
+    tg = tcfg.GANformerConfig(img_resolution=32, z_dim=8, w_dim=8, k=3, channel_base=256,
+                              channel_max=32, end_res=3, mapping=tcfg.MappingConfig(num_layers=2),
+                              attention=tcfg.AttentionConfig(), architecture="skip")
+    td = tcfg.DiscriminatorConfig(img_resolution=32, channel_base=256, channel_max=64,
+                                  mbstd_group_size=2, architecture="skip")
+    for batch, rounds, step in ((4, 1, 1), (8, 2, 1), (4, 1, 0)):
+        trainer = tts.GANTrainer(tg, td, tts.TrainConfig(batch_size=batch, batch_gpu=4),
+                                 device="cpu")
+        state = trainer.init_state(seed=0)
+        fc.reset_launch_counts()
+        trainer.train_iteration(state, torch.zeros(batch, 32, 32, 3), step=step)
+        assert dict(fc.launch_counts) == smoke.layout_per_iteration(rounds), (batch, step)
