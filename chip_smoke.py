@@ -13,10 +13,12 @@ Phases, each printing its wall time:
               and their adjoints (the K1 adjoint launch, and K3 for K2) at
               the same shapes against the plain adjoints, to 1e-4 of each
               output's largest entry (dx; ds, dd1, dd2); CUDA-event times of
-              the kernel, the plain version and one cuDNN call of the bare
-              convolution (the yardstick, never used by the port), beside
-              the least time the card could take for the function's least
-              work.
+              the kernel, the plain version, one cuDNN call of the bare
+              convolution and, for K2 and K3, one call of the same
+              convolution with the FIR composed in (`F.conv_transpose2d` /
+              `F.conv2d` at stride 2, `bench_k3.same_function_call`): the
+              yardsticks, never used by the port; beside the least time the
+              card could take for the function's least work.
   4. generate FFHQ-1024 (`init:1024`, random weights from seed 0) through the
               generate entry point: 2 images, exactly 4 K1 and 6 K2 launches
               per forward, agreement with the same forward on the plain
@@ -40,6 +42,7 @@ Phases, each printing its wall time:
               D down-conv, to 1e-3 max abs), K2's use_dw role (its dx), the
               dw taps of K1, K3 and the down-conv (relative to the largest
               entry, 1e-4), with kernel, plain and one cuDNN call's times
+              (and the same-function call's for K3-forward and K2 use_dw)
               beside the bound; K1 and K2 forward and adjoint with
               per-sample noise [4,H,W] at the noisy call shapes. Then
               GANTrainer on FFHQ-1024 and a 1024^2 D from seed 0: one
@@ -172,6 +175,13 @@ def traced_forward(torch, fn, label, shapes=False):
     assert 0 < busy_ms <= window_ms, f"device busy {busy_ms} ms outside its {window_ms} ms window"
 
 
+def _same_sum(rows):
+    """The same-function call's time summed over rows, or None where a role
+    has none (K1, K4, the dw taps)."""
+    ms = [r.get("same_function_ms") for r in rows]
+    return None if None in ms else sum(ms)
+
+
 def bound(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -193,6 +203,7 @@ def check_kernel(torch, fc, gen, call):
     """Kernel vs plain on random inputs at one call shape; times and bound."""
     import torch.nn.functional as F
 
+    from morphganformer_tpu_torch.bench_k3 import same_function_call
     from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter
 
     kernel, block, role, h, cin, cout = call
@@ -218,6 +229,7 @@ def check_kernel(torch, fc, gen, call):
         flops = 2 * h * h * 9 * cin * cout
         tensors = [x, w, s, noise, bias, resid]
         ho = h
+        run_same = None
     else:
         skip = role == "skip"
         kh = 1 if skip else 3
@@ -240,6 +252,10 @@ def check_kernel(torch, fc, gen, call):
         else:
             w_lib = w.permute(2, 3, 0, 1).contiguous()
             run_lib = lambda: F.conv_transpose2d(x_nchw, w_lib, stride=2)
+        # The same function's convolution in one call: the transposed conv
+        # with the FIR-composed kernel.
+        op, w_same, pad_same = same_function_call("K2", w, f, False)
+        run_same = lambda: op(x_nchw, w_same, stride=2, padding=pad_same)
         # Least work of the function: that convolution at input resolution,
         # then the separable 4-tap FIR (4 + 4 multiply-adds per output value).
         flops = 2 * h * h * kh * kh * cin * cout + 2 * (2 * h) ** 2 * 8 * cout
@@ -262,12 +278,18 @@ def check_kernel(torch, fc, gen, call):
     ms = cuda_ms(torch, run_k)
     plain_ms = cuda_ms(torch, run_p)
     library_ms = cuda_ms(torch, run_lib)
+    same_ms = None if run_same is None else cuda_ms(torch, run_same)
     row = dict(kernel=kernel, block=block, role=role, max_abs_err=err, ms=ms,
-               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-               bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6)
+               plain_ms=plain_ms, library_ms=library_ms, same_function_ms=same_ms,
+               bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6)
     print(f"  {kernel} {block} {role}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
-          f"library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
+          f"library_ms {library_ms:.4f}{_same(same_ms)} bound_ms {bound_ms:.4f} ({bound_by})",
+          flush=True)
     return row
+
+
+def _same(ms):
+    return "" if ms is None else f" same_function_ms {ms:.4f}"
 
 
 def _rel_err(got, want):
@@ -280,6 +302,7 @@ def check_adjoint(torch, fc, gen, call):
     the bound of the function's least work."""
     import torch.nn.functional as F
 
+    from morphganformer_tpu_torch.bench_k3 import same_function_call
     from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter
 
     kernel, block, role, h, cin, cout = call
@@ -312,6 +335,7 @@ def check_adjoint(torch, fc, gen, call):
         flops = 2 * h * h * 9 * cin * cout + 2 * h * h * cin + 4 * h * h * cout
         tensors = [g, x, y, noise, x]                          # the last: dx
         ho = h
+        run_same = None
     else:
         name = "K3-adjoint"
         skip = role == "skip"
@@ -338,6 +362,11 @@ def check_adjoint(torch, fc, gen, call):
             g_nchw = g.permute(0, 3, 1, 2)
             w_lib = w.permute(2, 3, 0, 1).contiguous()
             run_lib = lambda: F.conv2d(g_nchw, w_lib, stride=2, padding=1)
+        # The same function's convolution in one call: the stride-2
+        # correlation with the FIR-composed kernel read back.
+        g_same = g.permute(0, 3, 1, 2)
+        op, w_same, pad_same = same_function_call("K3-adjoint", w, f, False)
+        run_same = lambda: op(g_same, w_same, stride=2, padding=pad_same)
         # Least work: the FIR's adjoint at output resolution (separable
         # 4-tap), the conv at input resolution, and for conv0 the dot and dd
         # taps; gd in and dx out, and for conv0 x, y and noise in.
@@ -370,11 +399,14 @@ def check_adjoint(torch, fc, gen, call):
     ms = cuda_ms(torch, run_k)
     plain_ms = cuda_ms(torch, run_p)
     library_ms = cuda_ms(torch, run_lib)
+    same_ms = None if run_same is None else cuda_ms(torch, run_same)
     row = dict(kernel=name, block=block, role=role, max_abs_err=max_abs, dx_rel_err=dx_err,
                reduction_rel_err=red_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6)
+               same_function_ms=same_ms, bound_ms=bound_ms, bound_by=bound_by,
+               gflop=flops / 1e9, mbytes=nbytes / 1e6)
     print(f"  {name} {block} {role}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
-          f"library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
+          f"library_ms {library_ms:.4f}{_same(same_ms)} bound_ms {bound_ms:.4f} ({bound_by})",
+          flush=True)
     return row
 
 
@@ -432,6 +464,7 @@ def check_train_kernel(torch, fc, gen, call):
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_weight
 
+    from morphganformer_tpu_torch.bench_k3 import same_function_call
     from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter
 
     role, block, layer, h, cin, cout, kh = call
@@ -445,6 +478,7 @@ def check_train_kernel(torch, fc, gen, call):
     w = randn(kh, kh, cin, cout, scale=1 / math.sqrt(kh * kh * cin))
     nchw = lambda t: t.permute(0, 3, 1, 2)                              # noqa: E731
     pad = kh // 2
+    run_same = None
     if role in ("K3-forward", "K2-use_dw", "K2-use_dw-dw"):
         conv1 = layer == "conv1"
         x = randn(n, 2 * h, 2 * h, cin)
@@ -462,6 +496,8 @@ def check_train_kernel(torch, fc, gen, call):
             run_p = lambda: fc.downconv2_plain(x, w, f, b, r, gain, alpha)        # noqa: E731
             w_lib = w.permute(3, 2, 0, 1).contiguous()
             run_lib = lambda: F.conv2d(nchw(x), w_lib, stride=2, padding=pad)    # noqa: E731
+            op, w_same, pad_same = same_function_call("K3-forward", w, f, True)
+            run_same = lambda: op(nchw(x), w_same, stride=2, padding=pad_same)   # noqa: E731
             tensors, out_numel, rel = [x, w, b, r], n * h * h * cout, False
         elif role == "K2-use_dw":
             run_k = lambda: fc.downconv2_adjoint(gz, w, f)                         # noqa: E731
@@ -469,6 +505,8 @@ def check_train_kernel(torch, fc, gen, call):
             w_lib = w.permute(3, 2, 0, 1).contiguous()
             run_lib = lambda: F.conv_transpose2d(nchw(gz), w_lib, stride=2, padding=pad,  # noqa
                                                  output_padding=1)
+            op, w_same, pad_same = same_function_call("K2-use_dw", w, f, True)
+            run_same = lambda: op(nchw(gz), w_same, stride=2, padding=pad_same)  # noqa: E731
             tensors, out_numel, rel = [gz, w], n * 4 * h * h * cin, True
         else:
             wf, hb = fc.downconv2_parity_kernels(w, f)
@@ -523,11 +561,12 @@ def check_train_kernel(torch, fc, gen, call):
     ms = cuda_ms(torch, run_k, reps=5, warmup=1)
     plain_ms = cuda_ms(torch, run_p, reps=3, warmup=1)
     library_ms = cuda_ms(torch, run_lib, reps=5, warmup=1)
+    same_ms = None if run_same is None else cuda_ms(torch, run_same, reps=5, warmup=1)
     print(f"  {role} {block} {layer}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-          f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
+          f"{library_ms:.4f}{_same(same_ms)} bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
     return dict(kernel=role, block=block, role=layer, max_abs_err=err, ref_scale=scale, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                gflop=flops / 1e9, mbytes=nbytes / 1e6)
+                plain_ms=plain_ms, library_ms=library_ms, same_function_ms=same_ms,
+                bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6)
 
 
 def per_iteration(rounds=1):
@@ -1484,7 +1523,8 @@ def main():
             ("K2", "fused_upconv2", K2_REPLACES, "upconv2"),
             ("K1-adjoint", "mgt_modconv3x3_bwd (adjoint launch, pallas_conv.py:858-908)",
              K1_REPLACES, "modconv3x3_adj"),
-            ("K3-adjoint", "mgt_upconv2_bwd (adjoint of K2, pallas_conv.py:1786-1851)",
+            ("K3-adjoint", "mgt_upconv2_bwd (adjoint of K2, pallas_conv.py:1786-1851; least "
+             "work: the FIR in shared memory, then a stride-2 conv)",
              K3_REPLACES, "upconv2_adj")):
         mine = [r for r in rows if r["kernel"] == kernel]
         b_ms = sum(r["bound_ms"] for r in mine)
@@ -1501,9 +1541,11 @@ def main():
             "bound_ms": b_ms,
             "bound_by": "operations" if 2 * ops_ms >= b_ms else "bytes",
             "library_ms": sum(r["library_ms"] for r in mine),
+            "same_function_ms": _same_sum(mine),
         })
     for role, name, replaces, what in (
-            ("K3-forward", "mgt_downconv2_fwd (D-tower forward, pallas_conv.py:2054-2072)",
+            ("K3-forward", "mgt_downconv2_fwd (D-tower forward, pallas_conv.py:2054-2072; "
+             "least work, as K3-adjoint)",
              K3_REPLACES, "the D down-conv"),
             ("K2-use_dw", "mgt_upconv2_fwd in the use_dw role (dx of the D down-conv, "
              "pallas_conv.py:2121-2157)", K2_REPLACES, "the D down-conv's dx"),
@@ -1528,6 +1570,7 @@ def main():
             "bound_ms": b_ms,
             "bound_by": "operations" if 2 * ops_ms >= b_ms else "bytes",
             "library_ms": sum(r["library_ms"] for r in mine),
+            "same_function_ms": _same_sum(mine),
         })
     for role, name in (("K4 fwd", "mgt_conv3x3_fwd (pallas_conv.py:74-111, :322-353)"),
                        ("K4 dx", "mgt_conv3x3_fwd in the dx role (the custom VJP, "
@@ -1548,6 +1591,7 @@ def main():
             "bound_ms": b_ms,
             "bound_by": "operations" if 2 * ops_ms >= b_ms else "bytes",
             "library_ms": sum(r["library_ms"] for r in mine),
+            "same_function_ms": _same_sum(mine),
         })
     phases["total"] = time.perf_counter() - t_start
     print("phases " + json.dumps(phases), flush=True)

@@ -34,16 +34,18 @@ _SIGNATURES = {
     # x, wp, s, d, noise, bias, y, N, H, W, Cin, Cout, nt, hb0, hb1, gain, alpha, noise_ns,
     # device, stream
     "mgt_upconv2_fwd": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _P],
-    # x, wf, bias, resid, y, N, H, W, Cin, Cout, nt, hb0, hb1, gain, alpha, device, stream
-    "mgt_downconv2_fwd": [_P] * 5 + [_I] * 8 + [_F, _F, _I, _P],
-    # H, W of dx -> the number of spatial blocks of an adjoint launch
+    # x, wk, fir, bias, resid, y, N, H, W, Cin, Cout, kh, pad, gain, alpha, device, stream
+    "mgt_downconv2_fwd": [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P],
+    # H, W of the output -> the number of spatial blocks of a K3 launch
+    "mgt_downconv2_tiles": [_I, _I],
+    # H, W of dx -> the number of spatial blocks of a K1 adjoint launch
     "mgt_bwd_tiles": [_I, _I],
     # gd, wt, s, x, y, noise, dx, dot, dd1, dd2, N, H, W, O, C, gain, alpha, noise_ns,
     # device, stream
     "mgt_modconv3x3_bwd": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _I, _P],
-    # gd, wt, s, x, y, noise, dx, dot, dd1, dd2, N, H, W, O, C, nt, hb0, hb1, gain, alpha,
+    # gd, wk, fir, s, x, y, noise, dx, dot, dd1, dd2, N, H, W, O, C, kh, pad, gain, alpha,
     # noise_ns, device, stream
-    "mgt_upconv2_bwd": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _I, _P],
+    "mgt_upconv2_bwd": [_P] * 11 + [_I] * 7 + [_F, _F, _I, _I, _P],
     # a, b, s, part, N, H, W, Cin, Cout, pa, pb, nt, hb0, hb1, slices, chunks_per_slice,
     # device, stream
     "mgt_conv_dw": [_P] * 4 + [_I] * 12 + [_I, _P],

@@ -17,9 +17,15 @@ training step needs:
     adjoint role (`_packed_upconv_bwd_impl`), and K3's dw taps.
   * K3 `fused_downconv2` <- `fused_packed_dconv2` (`_packed_downconv_kernel`,
     D-tower forward): lrelu(conv_down2(x, compose(w, f)) + bias) * gain
-    [+ resid], evaluated per input parity. Its backward is K2 in its
-    `use_dw` role (`_dconv_bwd_impl`): dx = upconv(gz) with the flipped,
-    transposed parity taps, and the block cotangent.
+    [+ resid]. Its backward is K2 in its `use_dw` role (`_dconv_bwd_impl`):
+    dx = upconv(gz) with the flipped, transposed parity taps, and the block
+    cotangent.
+
+K3's kernel takes, in both roles, the least-work operands
+(`downconv2_leastwork`, `upconv2_adjoint_leastwork`): the small weight, the
+4x4 FIR and a pad, for the FIR at input resolution followed by a stride-2
+conv. The plain versions evaluate the same functions per input parity from
+the composed kernel.
 
 The weight cotangent of every role is one more kernel (`conv_dw`): on the TPU
 it rides the adjoint launch as in-kernel taps, carried across the sequential
@@ -215,6 +221,48 @@ def downconv2_adjoint_kernels(w, f, flip_weight=True):
 
     Returns (wt [2,2,NT,NT,O,I], (hbt0, hbt1))."""
     return _flipped_taps(*downconv2_parity_kernels(w, f, flip_weight))
+
+
+def _fir_4x4(f):
+    """The FIR as a [4,4] tensor; K3's kernel takes no other size."""
+    if f is None:
+        raise ValueError("K3's kernel takes a 4x4 FIR, got None")
+    f2 = torch.outer(f, f) if f.dim() == 1 else f
+    if tuple(f2.shape) != (4, 4):
+        raise ValueError(f"K3's kernel takes a 4x4 FIR, got {tuple(f.shape)}")
+    return f2.to(dtype=torch.float32)
+
+
+def downconv2_leastwork(w, f, flip_weight=True):
+    """K3-forward's operands in least-work form: (wk [kh,kh,I,O], fk [4,4],
+    pad) with, in each spatial dimension,
+        y[m] = sum_a sum_i wk[a] fk[i] x[2m + a + i - pad],
+    x zero outside the image: the FIR at input resolution (fk), then a
+    stride-2 correlation with the small weight. This is the composed
+    correlation of `downconv2_parity_kernels` (K[t] = sum_i fk[i] wk[t - i],
+    left pad q0 = kh//2 + (fw-1)//2; conv2d_resample down=2, padding kh//2,
+    flip_filter False) factored back into its two parts."""
+    kh = int(w.shape[0])
+    fk = _fir_4x4(f).flip((0, 1))
+    wk = w if flip_weight else w.flip((0, 1))
+    return wk.contiguous(), fk.contiguous(), kh // 2 + 1
+
+
+def upconv2_adjoint_leastwork(w, f, flip_weight=False):
+    """K3-adjoint's operands in least-work form: (wk [kh,kh,O,I], fk [4,4],
+    pad) with du[m] = sum_a sum_i wk[a] fk[i] gd[2m + a + i - pad] (each
+    spatial dimension, gd zero outside the image). The up-conv is y[o] =
+    sum_t K[t] xz[o + t - p0] with xz the zero-inserted input, K[t] =
+    sum_i fz[i] wz[t - i] (fz the flipped FIR times the gain 4, wz the
+    correlation taps) and p0 = kh//2 + (fw+1)//2 (`upconv2_phase_kernels`);
+    its adjoint du[m] = sum_t K[t]^T gd[2m + p0 - t] reads, with a and i
+    counted from the other end, wk = flip(wz)^T, fk = flip(fz) = 4 f and
+    pad = kh + fw - 2 - p0."""
+    kh = int(w.shape[0])
+    fk = _fir_4x4(f) * 4.0
+    wz = w if flip_weight else w.flip((0, 1))
+    wk = wz.flip((0, 1)).transpose(2, 3)
+    return wk.contiguous(), fk.contiguous(), kh - kh // 2
 
 
 def _fold(weights_of, w, dk):
@@ -500,6 +548,23 @@ def _upconv2_forward(x, w, styles, f, noise=None, bias=None, gain=1.0, alpha=0.2
     return y
 
 
+def _aligned(name, ptr):
+    if ptr is not None and ptr % 16:
+        raise ValueError(f"{name}: K3's kernel reads 16-byte vectors, must be 16-byte aligned")
+    return ptr
+
+
+def _k3_weights(wk, fk, dev):
+    """Pointers of K3's small weight and FIR. The kernel takes a 1x1 or 3x3
+    weight and channel counts in fours, and reads them with 16-byte copies."""
+    kh, ci, co = int(wk.shape[0]), int(wk.shape[2]), int(wk.shape[3])
+    if kh not in (1, 3) or wk.shape[1] != kh:
+        raise ValueError(f"K3's kernel takes a 1x1 or 3x3 weight, got {tuple(wk.shape[:2])}")
+    if ci % 4 or co % 4:
+        raise ValueError(f"K3's kernel takes channel counts in fours, got {ci} -> {co}")
+    return [_aligned("wk", _check("wk", wk, wk.shape, dev)), _check("fir", fk, (4, 4), dev)]
+
+
 def _downconv2_forward(x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2, flip_weight=True):
     """K3 forward: the plain version for a CPU tensor, the kernel for a CUDA one."""
     if _on_cpu(x):
@@ -507,34 +572,35 @@ def _downconv2_forward(x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2, flip
     n, h2, w2, ci = x.shape
     h, wd = h2 // 2, w2 // 2
     dev = x.device
-    wf, hb = downconv2_parity_kernels(w, f, flip_weight)
-    nt, co = wf.shape[2], wf.shape[-1]
-    ptrs = [_check("x", x, (n, 2 * h, 2 * wd, ci), dev),
-            _check("wf", wf, (2, 2, nt, nt, ci, co), dev), _check("bias", bias, (co,), dev),
-            _check("resid", resid, (n, h, wd, co), dev)]
+    wk, fk, pad = downconv2_leastwork(w, f, flip_weight)
+    kh, co = int(wk.shape[0]), int(wk.shape[-1])
+    ptrs = [_aligned("x", _check("x", x, (n, 2 * h, 2 * wd, ci), dev)),
+            *_k3_weights(wk, fk, dev), _check("bias", bias, (co,), dev),
+            _aligned("resid", _check("resid", resid, (n, h, wd, co), dev))]
     y = torch.empty((n, h, wd, co), device=dev, dtype=torch.float32)
-    _launch("mgt_downconv2_fwd", *ptrs, y.data_ptr(), n, h, wd, ci, co, nt, hb[0], hb[1],
+    _launch("mgt_downconv2_fwd", *ptrs, y.data_ptr(), n, h, wd, ci, co, kh, pad,
             float(gain), float(alpha), *_stream(dev))
     launch_counts["downconv2"] += 1
     return y
 
 
-def _adjoint_launch(fn, gd, wt, styles, x, y_dd, noise, mask_args, need_dx, need_ds,
+def _adjoint_launch(fn, tiles, gd, weights, styles, x, y_dd, noise, mask_args, need_dx, need_ds,
                     shape_args):
     """Allocate dx and the per-block partials, launch one adjoint kernel and
     sum the partials (in a fixed order: the result does not depend on how
-    the blocks were scheduled). Returns (dx, dot, dd1, dd2)."""
+    the blocks were scheduled). `weights` are the kernel's weight pointers,
+    `tiles` names its count of spatial blocks. Returns (dx, dot, dd1, dd2)."""
     n, h, wd, c = x.shape
     o = gd.shape[-1]
     dev = x.device
-    nblk = _library().mgt_bwd_tiles(h, wd)
+    nblk = getattr(_library(), tiles)(h, wd)
     dx = torch.empty((n, h, wd, c), device=dev, dtype=torch.float32) if need_dx else None
     dot = torch.empty((n, nblk, c), device=dev, dtype=torch.float32) if need_ds else None
     dd = [torch.empty((n, nblk, o), device=dev, dtype=torch.float32)
           if y_dd is not None else None for _ in range(2)]
     ho, wo = gd.shape[1:3]
     noise_p, noise_ns = _check_noise("noise", noise, n, ho, wo, dev)
-    ptrs = [_check("gd", gd, (n, ho, wo, o), dev), _check("wt", wt, wt.shape, dev),
+    ptrs = [_check("gd", gd, (n, ho, wo, o), dev), *weights,
             _check("styles", styles, (n, c), dev),
             _check("x", x if need_ds else None, (n, h, wd, c), dev),
             _check("y", y_dd, (n, ho, wo, o), dev), noise_p]
@@ -549,7 +615,9 @@ def _k1_taps(gd, x, w, styles, y, mask, noise, gain, alpha, need_dx, need_ds, ne
     """The K1 adjoint launch: (dx, ds dot, dd1, dd2), plain on a CPU tensor."""
     if _on_cpu(x):
         return _k1_taps_plain(gd, x, w, styles, y, mask, noise, need_dx, need_ds, need_dd)
-    out = _adjoint_launch("mgt_modconv3x3_bwd", gd.contiguous(), modconv3x3_adjoint_weights(w),
+    wt = modconv3x3_adjoint_weights(w)
+    out = _adjoint_launch("mgt_modconv3x3_bwd", "mgt_bwd_tiles", gd.contiguous(),
+                          [_check("wt", wt, wt.shape, x.device)],
                           styles, x, y.contiguous() if need_dd else None,
                           noise if need_dd else None, (gain, alpha), need_dx, need_ds, ())
     launch_counts["modconv3x3_adj"] += 1
@@ -562,10 +630,14 @@ def _k3_taps(gd, x, w, styles, f, flip_weight, y, mask, noise, gain, alpha, need
     if _on_cpu(x):
         return _k3_taps_plain(gd, x, w, styles, f, flip_weight, y, mask, noise, need_dx,
                               need_ds, need_dd)
-    wt, (hb0, hb1) = upconv2_adjoint_kernels(w, f, flip_weight)
-    out = _adjoint_launch("mgt_upconv2_bwd", gd.contiguous(), wt, styles, x,
+    wk, fk, pad = upconv2_adjoint_leastwork(w, f, flip_weight)
+    gd = gd.contiguous()
+    for name, t in (("gd", gd), ("x", x if need_ds else None), ("styles", styles)):
+        _aligned(name, None if t is None else t.data_ptr())
+    out = _adjoint_launch("mgt_upconv2_bwd", "mgt_downconv2_tiles", gd,
+                          _k3_weights(wk, fk, x.device), styles, x,
                           y.contiguous() if need_dd else None, noise if need_dd else None,
-                          (gain, alpha), need_dx, need_ds, (int(wt.shape[2]), hb0, hb1))
+                          (gain, alpha), need_dx, need_ds, (int(wk.shape[0]), pad))
     launch_counts["upconv2_adj"] += 1
     return out
 

@@ -226,6 +226,85 @@ def test_k3_forward_and_k2_use_dw_kernels_match_plain(cuda_device, cin, kh, bias
     assert fc.launch_counts["downconv2_dw"] == before["downconv2_dw"] + 1
 
 
+# K3 at sizes off its tiles (8 x 16 base positions, 64 output channels, 8
+# input channels a chunk): (N, H, W, up-conv Cin, Cout) for the adjoint role
+# (the kernel's input channels are the up-conv's Cout), then the flag sets
+# of the ds/dd path, the dx-only path without ds, and the skip; per-sample
+# noise in the last conv0 case.
+K3_ODD_ADJ = [(2, 20, 36, 20, 12, 3, "ds"), (1, 9, 17, 68, 36, 3, "ds"),
+              (2, 20, 36, 20, 12, 3, "dx"), (1, 9, 17, 68, 36, 1, "skip"),
+              (2, 11, 5, 8, 4, 3, "noise")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,kh,path", K3_ODD_ADJ)
+def test_k3_adjoint_kernel_at_odd_sizes(cuda_device, n, h, w, cin, cout, kh, path):
+    """One launch per call; dx, ds, dd1 and dd2 within 1e-4 of each one's
+    largest entry of the plain adjoint."""
+    rng = np.random.RandomState(9)
+    dev = cuda_device
+    skip = path == "skip"
+    x = torch.from_numpy(rng.randn(n, h, w, cin).astype(np.float32)).to(dev)
+    wt = torch.from_numpy((rng.randn(kh, kh, cin, cout) / math.sqrt(kh * kh * cin))
+                          .astype(np.float32)).to(dev)
+    s = None if skip else torch.from_numpy((rng.rand(n, cin) + 0.5).astype(np.float32)).to(dev)
+    nshape = (n, 2 * h, 2 * w) if path == "noise" else (2 * h, 2 * w)
+    nz = None if skip else torch.from_numpy((rng.randn(*nshape) * 0.1).astype(np.float32)).to(dev)
+    b = None if skip else torch.from_numpy((rng.randn(cout) * 0.1).astype(np.float32)).to(dev)
+    gain, alpha = (math.sqrt(0.5), 1.0) if skip else (math.sqrt(2), 0.2)
+    f = setup_filter(FIR).to(dev)
+    y = fc.upconv2_plain(x, wt, s, f, nz, b, gain, alpha, not skip, False)
+    g = torch.from_numpy(rng.randn(*y.shape).astype(np.float32)).to(dev)
+    args = (g, x, wt, s, f, y, nz, b, gain, alpha, not skip, False, True, path != "dx")
+    before = fc.launch_counts["upconv2_adj"]
+    got = fc.upconv2_adjoint(*args)
+    assert fc.launch_counts["upconv2_adj"] == before + 1
+    want = fc.upconv2_adjoint_plain(*args)
+    assert (got[1] is None) == (path in ("dx", "skip"))
+    _adjoint_close(got, want)
+
+
+# (N, H, W of the output, Cin, Cout, kh, bias, resid): off the tiles and the
+# chunk; the last with a single output row and column group.
+K3_ODD_FWD = [(2, 20, 36, 12, 24, 3, True, True), (2, 20, 36, 12, 24, 1, False, False),
+              (1, 9, 17, 20, 68, 3, True, False), (3, 5, 3, 4, 8, 1, True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,kh,bias,resid", K3_ODD_FWD)
+def test_k3_forward_kernel_at_odd_sizes(cuda_device, n, h, w, cin, cout, kh, bias, resid):
+    rng = np.random.RandomState(10)
+    dev = cuda_device
+    x = torch.from_numpy(rng.randn(n, 2 * h, 2 * w, cin).astype(np.float32)).to(dev)
+    wt = torch.from_numpy((rng.randn(kh, kh, cin, cout) / math.sqrt(kh * kh * cin))
+                          .astype(np.float32)).to(dev)
+    b = torch.from_numpy((rng.randn(cout) * 0.1).astype(np.float32)).to(dev) if bias else None
+    r = torch.from_numpy(rng.randn(n, h, w, cout).astype(np.float32)).to(dev) if resid else None
+    f = setup_filter(FIR).to(dev)
+    for flip_weight in (True, False):
+        before = fc.launch_counts["downconv2"]
+        y = fc.fused_downconv2(x, wt, f, b, r, 1.3, 0.2, flip_weight)
+        assert fc.launch_counts["downconv2"] == before + 1
+        torch.testing.assert_close(y, fc.downconv2_plain(x, wt, f, b, r, 1.3, 0.2, flip_weight),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k3_kernel_refuses_what_it_does_not_take(cuda_device):
+    """Channel counts not in fours and a FIR that is not 4x4 raise; nothing
+    launches and nothing falls back."""
+    dev = cuda_device
+    f = setup_filter(FIR).to(dev)
+    before = dict(fc.launch_counts)
+    with pytest.raises(ValueError, match="in fours"):
+        fc.fused_downconv2(torch.randn(1, 8, 8, 6, device=dev),
+                           torch.randn(3, 3, 6, 12, device=dev), f)
+    with pytest.raises(ValueError, match="4x4 FIR"):
+        fc.fused_downconv2(torch.randn(1, 8, 8, 4, device=dev),
+                           torch.randn(3, 3, 4, 8, device=dev), setup_filter([1, 2, 1]).to(dev))
+    assert dict(fc.launch_counts) == before
+
+
 # (pa, pb, nt, hb, cin, cout, scaled): K1 dw, K3 dw (conv0, skip), the D
 # down-conv's dw (conv1, skip); odd sizes leave a ragged last chunk. The last
 # two have widths the kernel's 32-wide tiles do not divide (the wrapper pads).
