@@ -1520,7 +1520,8 @@ def main():
     kernels = []
     for kernel, name, replaces, key in (
             ("K1", "fused_modconv3x3", K1_REPLACES, "modconv3x3"),
-            ("K2", "fused_upconv2", K2_REPLACES, "upconv2"),
+            ("K2", "fused_upconv2 (mgt_upconv2_fwd; least work: a stride-2 transposed conv, "
+             "then the FIR in shared memory)", K2_REPLACES, "upconv2"),
             ("K1-adjoint", "mgt_modconv3x3_bwd (adjoint launch, pallas_conv.py:858-908)",
              K1_REPLACES, "modconv3x3_adj"),
             ("K3-adjoint", "mgt_upconv2_bwd (adjoint of K2, pallas_conv.py:1786-1851; least "
@@ -1548,7 +1549,8 @@ def main():
              "least work, as K3-adjoint)",
              K3_REPLACES, "the D down-conv"),
             ("K2-use_dw", "mgt_upconv2_fwd in the use_dw role (dx of the D down-conv, "
-             "pallas_conv.py:2121-2157)", K2_REPLACES, "the D down-conv's dx"),
+             "pallas_conv.py:2121-2157; least work, as K2)", K2_REPLACES,
+             "the D down-conv's dx"),
             ("K2-use_dw-dw", "mgt_conv_dw (the D down-conv's block cotangent, "
              "pallas_conv.py:1225-1246, :2161-2173)", K2_DW_REPLACES, "the D down-conv's dw"),
             ("K1-dw", "mgt_conv_dw (K1's dw taps, pallas_conv.py:256-285, :894-905)",

@@ -76,17 +76,19 @@ def same_function_call(role, w, f, flip_weight):
     return op, k.permute(3, 2, 0, 1).contiguous(), kh // 2 + 1
 
 
-def load_parent(source):
-    out = _build.BUILD_DIR / "libmgt_k3_parent.so"
+def load_parent(source, signatures=PARENT_SIGNATURES, name="libmgt_k3_parent.so"):
+    """Build an earlier fused_conv.cu with the same nvcc flags into
+    morphganformer_tpu_torch/_build/`name` and set `signatures` on it."""
+    out = _build.BUILD_DIR / name
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run(_build.build_command(out, _build.nvcc_path(), source),
                           capture_output=True, text=True, timeout=_build.BUILD_TIMEOUT_S)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}\n{proc.stderr}")
     lib = ctypes.CDLL(str(out))
-    for name, argtypes in PARENT_SIGNATURES.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = ctypes.c_int
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
@@ -156,10 +158,10 @@ def cuda_ms(fn, reps=10, warmup=2):
     return e0.elapsed_time(e1) / reps
 
 
-def device_split(fn):
-    """(the least-work kernel's device ms, every device op's ms) of one call
-    of `fn` under torch.profiler, after one warm call: how much of the
-    wrapper's time is the kernel and how much the torch around it."""
+def device_split(fn, kernel="downconv2_lw_kernel"):
+    """(the device ms of the kernel named `kernel`, every device op's ms) of
+    one call of `fn` under torch.profiler, after one warm call: how much of
+    the wrapper's time is the kernel and how much the torch around it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -167,14 +169,14 @@ def device_split(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernel = total = 0.0
+    own = total = 0.0
     for e in prof.key_averages():
         if e.device_type.name != "CUDA":
             continue
         ms = (getattr(e, "self_device_time_total", None) or e.self_cuda_time_total) / 1e3
         total += ms
-        kernel += ms if "downconv2_lw_kernel" in e.key else 0.0
-    return kernel, total
+        own += ms if kernel in e.key else 0.0
+    return own, total
 
 
 def _rel_err(got, want):

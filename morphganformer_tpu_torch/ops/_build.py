@@ -31,9 +31,9 @@ _SIGNATURES = {
     "mgt_modconv3x3_fwd": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _I, _P],
     # x, w, y, N, H, W, C, O, device, stream
     "mgt_conv3x3_fwd": [_P] * 3 + [_I] * 5 + [_I, _P],
-    # x, wp, s, d, noise, bias, y, N, H, W, Cin, Cout, nt, hb0, hb1, gain, alpha, noise_ns,
+    # x, wk, fir, s, d, noise, bias, y, N, H, W, Cin, Cout, kh, pad, gain, alpha, noise_ns,
     # device, stream
-    "mgt_upconv2_fwd": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _P],
+    "mgt_upconv2_fwd": [_P] * 8 + [_I] * 7 + [_F, _F, _I, _I, _P],
     # x, wk, fir, bias, resid, y, N, H, W, Cin, Cout, kh, pad, gain, alpha, device, stream
     "mgt_downconv2_fwd": [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P],
     # H, W of the output -> the number of spatial blocks of a K3 launch

@@ -11,21 +11,21 @@ training step needs:
     (`_modconv_bwd_impl`): dx = s * conv3x3(gd, flip(w)^T) with the ds dot
     tap and the demod-chain dd taps; and the dw taps.
   * K2 `fused_upconv2` <- `fused_packed_upconv2` / `fused_packed_upconv2_c256`
-    (`_packed_upconv_kernel`): the 2x-up modulated conv with the 4-tap FIR
-    composed into the weights, evaluated per output parity, then the same
-    epilogue (no resid). Its backward is K3 `_packed_downconv_kernel` in its
-    adjoint role (`_packed_upconv_bwd_impl`), and K3's dw taps.
+    (`_packed_upconv_kernel`): the 2x-up modulated conv with the 4-tap FIR,
+    then the same epilogue (no resid). Its backward is K3
+    `_packed_downconv_kernel` in its adjoint role (`_packed_upconv_bwd_impl`),
+    and K3's dw taps.
   * K3 `fused_downconv2` <- `fused_packed_dconv2` (`_packed_downconv_kernel`,
     D-tower forward): lrelu(conv_down2(x, compose(w, f)) + bias) * gain
     [+ resid]. Its backward is K2 in its `use_dw` role (`_dconv_bwd_impl`):
-    dx = upconv(gz) with the flipped, transposed parity taps, and the block
-    cotangent.
+    dx = the down-conv read back, an up-conv of gz; and the block cotangent.
 
-K3's kernel takes, in both roles, the least-work operands
-(`downconv2_leastwork`, `upconv2_adjoint_leastwork`): the small weight, the
-4x4 FIR and a pad, for the FIR at input resolution followed by a stride-2
-conv. The plain versions evaluate the same functions per input parity from
-the composed kernel.
+K2's and K3's kernels take, in both roles, least-work operands: the small
+weight, the 4x4 FIR and a pad. K3 (`downconv2_leastwork`,
+`upconv2_adjoint_leastwork`) runs the FIR at input resolution, then a
+stride-2 conv; K2 (`upconv2_leastwork`, `downconv2_adjoint_leastwork`) a
+stride-2 transposed conv, then the FIR at output resolution. The plain
+versions evaluate the same functions per parity from the composed kernel.
 
 The weight cotangent of every role is one more kernel (`conv_dw`): on the TPU
 it rides the adjoint launch as in-kernel taps, carried across the sequential
@@ -224,12 +224,12 @@ def downconv2_adjoint_kernels(w, f, flip_weight=True):
 
 
 def _fir_4x4(f):
-    """The FIR as a [4,4] tensor; K3's kernel takes no other size."""
+    """The FIR as a [4,4] tensor; the least-work kernels take no other size."""
     if f is None:
-        raise ValueError("K3's kernel takes a 4x4 FIR, got None")
+        raise ValueError("the least-work kernels take a 4x4 FIR, got None")
     f2 = torch.outer(f, f) if f.dim() == 1 else f
     if tuple(f2.shape) != (4, 4):
-        raise ValueError(f"K3's kernel takes a 4x4 FIR, got {tuple(f.shape)}")
+        raise ValueError(f"the least-work kernels take a 4x4 FIR, got {tuple(f.shape)}")
     return f2.to(dtype=torch.float32)
 
 
@@ -246,6 +246,36 @@ def downconv2_leastwork(w, f, flip_weight=True):
     fk = _fir_4x4(f).flip((0, 1))
     wk = w if flip_weight else w.flip((0, 1))
     return wk.contiguous(), fk.contiguous(), kh // 2 + 1
+
+
+def upconv2_leastwork(w, f, flip_weight=False):
+    """K2-forward's operands in least-work form: (wk [kh,kh,I,O], fk [4,4],
+    pad) with, in each spatial dimension,
+        Z[q] = sum_a wk[a] xz[q - a],    y[o] = sum_i fk[i] Z[o + i - pad],
+    xz the zero-inserted input (xz[2m] = x[m], zero between and outside):
+    the stride-2 transposed conv with the small weight, then the FIR at
+    output resolution. The up-conv is y[o] = sum_t K[t] xz[o + t - p0] with
+    K[t] = sum_i fz[i] wz[t - i] (fz the flipped FIR times the gain 4, wz
+    the correlation taps) and p0 = kh//2 + (fw+1)//2 (`upconv2_phase_kernels`,
+    conv2d_resample up=2, padding kh//2); with a counted from the other end,
+    wk = flip(wz), fk = fz and pad = p0 - (kh - 1): 1 for the 3x3, 2 for
+    the 1x1."""
+    kh = int(w.shape[0])
+    fk = _fir_4x4(f).flip((0, 1)) * 4.0
+    wk = w.flip((0, 1)) if flip_weight else w
+    return wk.contiguous(), fk.contiguous(), kh // 2 + 2 - (kh - 1)
+
+
+def downconv2_adjoint_leastwork(w, f, flip_weight=True):
+    """K2-use_dw's operands (dx of the D down-conv) in the form of
+    `upconv2_leastwork`: (wk [kh,kh,O,I], fk [4,4], pad) with dx[p] =
+    sum_i fk[i] Z[p + i - pad], Z[r] = sum_a wk[a] gzz[r - a] and gzz the
+    zero-inserted cotangent gz. `downconv2_leastwork`'s y[m] = sum_a sum_i
+    wd[a] fd[i] x[2m + a + i - q] read back: the transposed stride-2 conv
+    with wd^T (I and O swapped), then the FIR fd from the other end (fk =
+    flip(fd) = f, gain 1) and pad = 3 - q."""
+    wd, fd, q = downconv2_leastwork(w, f, flip_weight)
+    return wd.transpose(2, 3).contiguous(), fd.flip((0, 1)).contiguous(), 3 - q
 
 
 def upconv2_adjoint_leastwork(w, f, flip_weight=False):
@@ -520,17 +550,39 @@ def _modconv3x3_forward(x, w, styles, noise=None, bias=None, resid=None,
     return y
 
 
-def _phase_upconv_launch(x, wp, hb, styles, d, noise, bias, gain, alpha):
-    """One launch of the K2 template: [N,H,W,I] -> [N,2H,2W,O]."""
+def _aligned(name, ptr):
+    if ptr is not None and ptr % 16:
+        raise ValueError(f"{name}: the least-work kernels read 16-byte vectors, must be "
+                         "16-byte aligned")
+    return ptr
+
+
+def _lw_weights(wk, fk, dev):
+    """Pointers of the least-work kernels' (K2, K3) small weight and FIR.
+    They take a 1x1 or 3x3 weight and channel counts in fours, and read
+    them with 16-byte copies."""
+    kh, ci, co = int(wk.shape[0]), int(wk.shape[2]), int(wk.shape[3])
+    if kh not in (1, 3) or wk.shape[1] != kh:
+        raise ValueError(f"the least-work kernels take a 1x1 or 3x3 weight, got "
+                         f"{tuple(wk.shape[:2])}")
+    if ci % 4 or co % 4:
+        raise ValueError(f"the least-work kernels take channel counts in fours, got {ci} -> {co}")
+    return [_aligned("wk", _check("wk", wk, wk.shape, dev)), _check("fir", fk, (4, 4), dev)]
+
+
+def _upconv2_launch(x, operands, styles, d, noise, bias, gain, alpha):
+    """One launch of K2's least-work kernel (`mgt_upconv2_fwd`, either
+    role): x [N,H,W,I] -> [N,2H,2W,O]; `operands` are (wk, fk, pad)."""
+    wk, fk, pad = operands
     n, h, wd, ci = x.shape
-    nt, co = wp.shape[2], wp.shape[-1]
+    kh, co = int(wk.shape[0]), int(wk.shape[-1])
     dev = x.device
     noise_p, noise_ns = _check_noise("noise", noise, n, 2 * h, 2 * wd, dev)
-    ptrs = [_check("x", x, (n, h, wd, ci), dev), _check("wp", wp, (2, 2, nt, nt, ci, co), dev),
-            _check("styles", styles, (n, ci), dev), _check("d", d, (n, co), dev),
-            noise_p, _check("bias", bias, (co,), dev)]
+    ptrs = [_aligned("x", _check("x", x, (n, h, wd, ci), dev)), *_lw_weights(wk, fk, dev),
+            _check("styles", styles, (n, ci), dev), _aligned("d", _check("d", d, (n, co), dev)),
+            noise_p, _aligned("bias", _check("bias", bias, (co,), dev))]
     y = torch.empty((n, 2 * h, 2 * wd, co), device=dev, dtype=torch.float32)
-    _launch("mgt_upconv2_fwd", *ptrs, y.data_ptr(), n, h, wd, ci, co, nt, hb[0], hb[1],
+    _launch("mgt_upconv2_fwd", *ptrs, y.data_ptr(), n, h, wd, ci, co, kh, pad,
             float(gain), float(alpha), noise_ns, *_stream(dev))
     return y
 
@@ -541,28 +593,11 @@ def _upconv2_forward(x, w, styles, f, noise=None, bias=None, gain=1.0, alpha=0.2
     if _on_cpu(x):
         return upconv2_plain(x, w, styles, f, noise, bias, gain, alpha,
                              demodulate, flip_weight)
-    wp, hb = upconv2_phase_kernels(w, f, flip_weight)
     d = demod_coef(w, styles).contiguous() if (styles is not None and demodulate) else None
-    y = _phase_upconv_launch(x, wp, hb, styles, d, noise, bias, gain, alpha)
+    y = _upconv2_launch(x, upconv2_leastwork(w, f, flip_weight), styles, d, noise, bias, gain,
+                        alpha)
     launch_counts["upconv2"] += 1
     return y
-
-
-def _aligned(name, ptr):
-    if ptr is not None and ptr % 16:
-        raise ValueError(f"{name}: K3's kernel reads 16-byte vectors, must be 16-byte aligned")
-    return ptr
-
-
-def _k3_weights(wk, fk, dev):
-    """Pointers of K3's small weight and FIR. The kernel takes a 1x1 or 3x3
-    weight and channel counts in fours, and reads them with 16-byte copies."""
-    kh, ci, co = int(wk.shape[0]), int(wk.shape[2]), int(wk.shape[3])
-    if kh not in (1, 3) or wk.shape[1] != kh:
-        raise ValueError(f"K3's kernel takes a 1x1 or 3x3 weight, got {tuple(wk.shape[:2])}")
-    if ci % 4 or co % 4:
-        raise ValueError(f"K3's kernel takes channel counts in fours, got {ci} -> {co}")
-    return [_aligned("wk", _check("wk", wk, wk.shape, dev)), _check("fir", fk, (4, 4), dev)]
 
 
 def _downconv2_forward(x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2, flip_weight=True):
@@ -575,7 +610,7 @@ def _downconv2_forward(x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2, flip
     wk, fk, pad = downconv2_leastwork(w, f, flip_weight)
     kh, co = int(wk.shape[0]), int(wk.shape[-1])
     ptrs = [_aligned("x", _check("x", x, (n, 2 * h, 2 * wd, ci), dev)),
-            *_k3_weights(wk, fk, dev), _check("bias", bias, (co,), dev),
+            *_lw_weights(wk, fk, dev), _check("bias", bias, (co,), dev),
             _aligned("resid", _check("resid", resid, (n, h, wd, co), dev))]
     y = torch.empty((n, h, wd, co), device=dev, dtype=torch.float32)
     _launch("mgt_downconv2_fwd", *ptrs, y.data_ptr(), n, h, wd, ci, co, kh, pad,
@@ -635,7 +670,7 @@ def _k3_taps(gd, x, w, styles, f, flip_weight, y, mask, noise, gain, alpha, need
     for name, t in (("gd", gd), ("x", x if need_ds else None), ("styles", styles)):
         _aligned(name, None if t is None else t.data_ptr())
     out = _adjoint_launch("mgt_upconv2_bwd", "mgt_downconv2_tiles", gd,
-                          _k3_weights(wk, fk, x.device), styles, x,
+                          _lw_weights(wk, fk, x.device), styles, x,
                           y.contiguous() if need_dd else None, noise if need_dd else None,
                           (gain, alpha), need_dx, need_ds, (int(wk.shape[0]), pad))
     launch_counts["upconv2_adj"] += 1
@@ -680,12 +715,12 @@ def upconv2_adjoint(g, x, w, styles, f, y, noise=None, bias=None, gain=1.0, alph
 
 def downconv2_adjoint(gz, w, f, flip_weight=True):
     """K2 in its use_dw role (dx of the D down-conv): `downconv2_adjoint_plain`
-    for a CPU tensor; for a CUDA tensor one launch of the K2 template with
-    the down-conv's adjoint taps, no scale and no epilogue."""
+    for a CPU tensor; for a CUDA tensor one launch of K2's least-work kernel
+    with the down-conv's operands read back, no scale and no epilogue."""
     if _on_cpu(gz):
         return downconv2_adjoint_plain(gz, w, f, flip_weight)
-    wt, hb = downconv2_adjoint_kernels(w, f, flip_weight)
-    dx = _phase_upconv_launch(gz.contiguous(), wt, hb, None, None, None, None, 1.0, 1.0)
+    dx = _upconv2_launch(gz.contiguous(), downconv2_adjoint_leastwork(w, f, flip_weight),
+                         None, None, None, None, 1.0, 1.0)
     launch_counts["downconv2_adj"] += 1
     return dx
 

@@ -207,6 +207,6 @@ def test_what_the_kernel_does_not_take_raises():
     f = setup_filter(FIR)
     cpu = torch.device("cpu")
     with pytest.raises(ValueError, match="in fours"):
-        fc._k3_weights(*fc.downconv2_leastwork(torch.randn(3, 3, 6, 12), f)[:2], cpu)
+        fc._lw_weights(*fc.downconv2_leastwork(torch.randn(3, 3, 6, 12), f)[:2], cpu)
     with pytest.raises(ValueError, match="1x1 or 3x3"):
-        fc._k3_weights(torch.randn(2, 2, 4, 8), f, cpu)
+        fc._lw_weights(torch.randn(2, 2, 4, 8), f, cpu)

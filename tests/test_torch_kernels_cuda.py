@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on a card: K1 and
 K2, their adjoints (the K1 adjoint launch and K3), K3's D-tower forward,
-K2's use_dw role (the D down-conv's dx), the dw taps of all three weight
-roles, per-sample noise, and K4 (forward and dx) with its route.
+K2's use_dw role (the D down-conv's dx), K2 and K3 at sizes off their tiles,
+the dw taps of all three weight roles, per-sample noise, and K4 (forward
+and dx) with its route.
 
 This file imports no JAX, so it runs on the GPU machine, where JAX is not
 installed; tests/conftest.py imports JAX, so run it there with
@@ -302,6 +303,76 @@ def test_k3_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="4x4 FIR"):
         fc.fused_downconv2(torch.randn(1, 8, 8, 4, device=dev),
                            torch.randn(3, 3, 4, 8, device=dev), setup_filter([1, 2, 1]).to(dev))
+    assert dict(fc.launch_counts) == before
+
+
+# K2 at sizes off its tiles (6 x 16 base positions, 32 output channels, 16
+# input channels a chunk), both roles: (N, H, W of the input, Cin, Cout, kh,
+# path). "conv0" has styles, demodulation, batch-shared noise, bias and
+# lrelu; "noise" the same with per-sample noise; "skip" none of them;
+# "use_dw" is the D down-conv's dx from gz [N,H,W,Cin] (the down-conv's
+# Cout) to [N,2H,2W,Cout].
+K2_ODD = [(2, 20, 36, 20, 12, 3, "conv0"), (1, 9, 17, 68, 36, 3, "conv0"),
+          (2, 11, 5, 4, 36, 3, "noise"), (1, 9, 17, 12, 68, 1, "skip"),
+          (2, 20, 36, 36, 4, 3, "use_dw"), (1, 9, 17, 12, 20, 1, "use_dw")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,kh,path", K2_ODD)
+def test_k2_kernel_at_odd_sizes(cuda_device, n, h, w, cin, cout, kh, path):
+    """One launch per call, for both flip_weight values; the forward within
+    1e-4 abs of the plain version, the use_dw role within 1e-4 of the
+    largest entry of the plain dx."""
+    rng = np.random.RandomState(11)
+    dev = cuda_device
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+
+    f = setup_filter(FIR).to(dev)
+    x = rand(n, h, w, cin)
+    if path == "use_dw":
+        wd = rand(kh, kh, cout, cin, scale=1 / math.sqrt(kh * kh * cout))
+        for flip_weight in (True, False):
+            before = fc.launch_counts["downconv2_adj"]
+            got = fc.downconv2_adjoint(x, wd, f, flip_weight)
+            assert fc.launch_counts["downconv2_adj"] == before + 1
+            _rel_close(got, fc.downconv2_adjoint_plain(x, wd, f, flip_weight))
+        return
+    skip = path == "skip"
+    wt = rand(kh, kh, cin, cout, scale=1 / math.sqrt(kh * kh * cin))
+    s = None if skip else torch.from_numpy((rng.rand(n, cin) + 0.5).astype(np.float32)).to(dev)
+    nz = None if skip else rand(*((n,) if path == "noise" else ()), 2 * h, 2 * w, scale=0.1)
+    b = None if skip else rand(cout, scale=0.1)
+    gain, alpha = (math.sqrt(0.5), 1.0) if skip else (math.sqrt(2), 0.2)
+    for flip_weight in (False, True):
+        args = (x, wt, s, f, nz, b, gain, alpha, not skip, flip_weight)
+        before = fc.launch_counts["upconv2"]
+        got = fc.fused_upconv2(*args)
+        assert fc.launch_counts["upconv2"] == before + 1
+        torch.testing.assert_close(got, fc.upconv2_plain(*args), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k2_kernel_refuses_what_it_does_not_take(cuda_device):
+    """In both roles, channel counts not in fours and a FIR that is not 4x4
+    raise; nothing launches and nothing falls back."""
+    dev = cuda_device
+    f = setup_filter(FIR).to(dev)
+    f3 = setup_filter([1, 2, 1]).to(dev)
+    before = dict(fc.launch_counts)
+    with pytest.raises(ValueError, match="in fours"):
+        fc.fused_upconv2(torch.randn(1, 8, 8, 6, device=dev), torch.randn(3, 3, 6, 12, device=dev),
+                         None, f, demodulate=False)
+    with pytest.raises(ValueError, match="4x4 FIR"):
+        fc.fused_upconv2(torch.randn(1, 8, 8, 4, device=dev), torch.randn(3, 3, 4, 8, device=dev),
+                         None, f3, demodulate=False)
+    with pytest.raises(ValueError, match="in fours"):
+        fc.downconv2_adjoint(torch.randn(1, 8, 8, 8, device=dev),
+                             torch.randn(1, 1, 6, 8, device=dev), f)
+    with pytest.raises(ValueError, match="4x4 FIR"):
+        fc.downconv2_adjoint(torch.randn(1, 8, 8, 8, device=dev),
+                             torch.randn(3, 3, 4, 8, device=dev), f3)
     assert dict(fc.launch_counts) == before
 
 
