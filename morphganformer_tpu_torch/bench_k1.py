@@ -1,0 +1,271 @@
+"""K1 in both roles, and K4, on one card: the tree's kernels against an
+earlier build of the same library.
+
+    mkdir -p build
+    git show 4256d78:morphganformer_tpu_torch/csrc/fused_conv.cu > build/k1_parent.cu
+    python -m morphganformer_tpu_torch.bench_k1 build/k1_parent.cu
+
+The earlier source is that of commit 4256d78, whose K1 forward, K1 adjoint
+and K4 launches are one template (`fused_conv_kernel`): its adjoint takes
+gd = g * lrelu' * d formed in torch and a torch copy of flip(w)^T. It is
+built with the same nvcc flags into morphganformer_tpu_torch/_build/ under a
+name of its own and reached only from here, through a copy of that commit's
+wrapper.
+
+At each call shape (the K1 forward and adjoint at the 4 K1 call shapes of a
+1024^2 forward at batch 1; K4's forward and dx at its 5 call shapes of the
+`skip` layouts at batch 4) both builds are held against the plain version
+on the same random inputs (the K1 forward within 1e-4 abs, its adjoint's
+dx, ds, dd1 and dd2 within 1e-4 of each one's largest entry, K4 within
+1e-5 of its largest entry, as chip_smoke.py holds them), then timed with
+CUDA events in the order earlier, new, new, earlier, beside the plain
+version and one cuDNN call of the bare convolution (`F.conv2d`; for the
+adjoint and K4's dx the same call on the cotangent with flip(w)^T). One
+call of each wrapper under torch.profiler splits its device time into the
+kernel's own and the torch ops around it. Prints the compiler's register
+and spill report of the tree's kernels, one JSON line per shape, then the
+card and the sums; exits non-zero if a check fails or the tree's kernel is
+not faster than the earlier one at some shape. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from morphganformer_tpu_torch.bench_k3 import (PEAK_BYTES, PEAK_FP32_FLOPS, _call, _ptr,
+                                               _rel_err, _stream, cuda_ms, device_split,
+                                               load_parent)
+from morphganformer_tpu_torch.ops import _build
+from morphganformer_tpu_torch.ops import conv3x3 as k4
+from morphganformer_tpu_torch.ops import fused_conv as fc
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+PARENT_SIGNATURES = {
+    # x, w, s, d, noise, bias, resid, y, N, H, W, C, O, gain, alpha, noise_ns, device, stream
+    "mgt_modconv3x3_fwd": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _I, _P],
+    # x, w, y, N, H, W, C, O, device, stream
+    "mgt_conv3x3_fwd": [_P] * 3 + [_I] * 5 + [_I, _P],
+    "mgt_bwd_tiles": [_I, _I],
+    # gd, wt, s, x, y, noise, dx, dot, dd1, dd2, N, H, W, O, C, gain, alpha, noise_ns,
+    # device, stream
+    "mgt_modconv3x3_bwd": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _I, _P],
+}
+PARENT_KERNEL = "fused_conv_kernel"
+KERNEL = "conv3x3_lw_kernel"
+
+
+def parent_forward(lib, x, w, s, noise, bias, resid, gain, alpha, demod):
+    """The earlier K1 forward launch (its wrapper at commit 4256d78)."""
+    n, h, wd, c = x.shape
+    o = w.shape[-1]
+    d = fc.demod_coef(w, s).contiguous() if demod else None
+    y = torch.empty((n, h, wd, o), device=x.device)
+    _call(lib, "mgt_modconv3x3_fwd", x.data_ptr(), w.data_ptr(), _ptr(s), _ptr(d), _ptr(noise),
+          _ptr(bias), _ptr(resid), y.data_ptr(), n, h, wd, c, o, float(gain), float(alpha), 0,
+          *_stream(x.device))
+    return y
+
+
+def parent_adjoint(lib, g, x, w, s, y, noise, bias, resid, gain, alpha, demod):
+    """The earlier K1 adjoint (its wrapper at commit 4256d78): y - resid, gd
+    and flip(w)^T in torch, one launch, the partials summed in torch."""
+    if resid is not None:
+        y = y - resid
+    mask, gd, d = fc._adjoint_gd(g, y, w, s, gain, alpha, demod)
+    need_dd = d is not None
+    n, h, wd, c = x.shape
+    o = gd.shape[-1]
+    dev = x.device
+    wt = fc.modconv3x3_adjoint_weights(w)
+    nblk = lib.mgt_bwd_tiles(h, wd)
+    dx = torch.empty((n, h, wd, c), device=dev)
+    dot = torch.empty((n, nblk, c), device=dev)
+    dd = [torch.empty((n, nblk, o), device=dev) if need_dd else None for _ in range(2)]
+    _call(lib, "mgt_modconv3x3_bwd", gd.contiguous().data_ptr(), wt.data_ptr(), _ptr(s),
+          x.data_ptr(), _ptr(y.contiguous() if need_dd else None),
+          _ptr(noise if need_dd else None), dx.data_ptr(), dot.data_ptr(), _ptr(dd[0]),
+          _ptr(dd[1]), n, h, wd, o, c, float(gain), float(alpha), 0, *_stream(dev))
+    ds, dd1, dd2 = dot.sum(1), None, None
+    if need_dd:
+        dd1, dd2 = dd[0].sum(1), dd[1].sum(1)
+        ds = fc._demod_chain(ds, fc._demod_de(dd1, dd2, d, bias), w, s)
+    return dx, ds, dd1, dd2
+
+
+def parent_k4(lib, x, w):
+    """The earlier K4 launch (forward, or dx on the cotangent with flip(w)^T)."""
+    n, h, wd, c = x.shape
+    o = w.shape[-1]
+    y = torch.empty((n, h, wd, o), device=x.device)
+    _call(lib, "mgt_conv3x3_fwd", x.data_ptr(), w.contiguous().data_ptr(), y.data_ptr(), n, h, wd,
+          c, o, *_stream(x.device))
+    return y
+
+
+def _k1_operands(gen, res, c, last):
+    """Random K1 operands at one G call (conv1 or conv_last), batch 1, as
+    chip_smoke.py phase kernels makes them."""
+    dev = torch.device("cuda")
+    randn = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale  # noqa: E731
+    x = randn(1, res, res, c)
+    s = torch.rand((1, c), generator=gen, device=dev) + 0.5
+    w = randn(3, 3, c, c, scale=1 / math.sqrt(9 * c))
+    noise = None if last else randn(res, res, scale=0.1)
+    bias = None if last else randn(c, scale=0.1)
+    resid = None if last else randn(1, res, res, c)
+    gain, alpha = 1.0, (1.0 if last else 0.2)
+    return x, w, s, noise, bias, resid, gain, alpha
+
+
+def forward_case(lib, gen, res, c, last):
+    x, w, s, noise, bias, resid, gain, alpha = _k1_operands(gen, res, c, last)
+    args = (x, w, s, noise, bias, resid, gain, alpha, True)
+    want = fc.modconv3x3_plain(*args)
+    runs = {"new": lambda: fc.fused_modconv3x3(*args),
+            "earlier": lambda: parent_forward(lib, *args),
+            "plain": lambda: fc.modconv3x3_plain(*args)}
+    errs = {name: (runs[name]() - want).abs().max().item() for name in ("new", "earlier")}
+    x_nchw, w_lib = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
+    runs["library"] = lambda: F.conv2d(x_nchw, w_lib, padding=1)
+    flops = 2 * res * res * 9 * c * c
+    nbytes = 4 * (sum(t.numel() for t in (x, w, s, noise, bias, resid) if t is not None)
+                  + want.numel())
+    return dict(role="K1-forward", block=f"G b{res}", layer="conv_last" if last else "conv1",
+                batch=1, err_new=errs["new"], err_earlier=errs["earlier"], tol=1e-4,
+                rel=False), runs, flops, nbytes
+
+
+def adjoint_case(lib, gen, res, c, last):
+    x, w, s, noise, bias, resid, gain, alpha = _k1_operands(gen, res, c, last)
+    y = fc.modconv3x3_plain(x, w, s, noise, bias, resid, gain, alpha, True)
+    g = torch.randn(y.shape, generator=gen, device=y.device)
+    args = (g, x, w, s, y, noise, bias, resid, gain, alpha, True)
+    want = fc.modconv3x3_adjoint_plain(*args)
+    runs = {"new": lambda: fc.modconv3x3_adjoint(*args),
+            "earlier": lambda: parent_adjoint(lib, *args),
+            "plain": lambda: fc.modconv3x3_adjoint_plain(*args)}
+    errs = {}
+    for name in ("new", "earlier"):
+        got = runs[name]()
+        errs[name] = max(_rel_err(a, b) for a, b in zip(got, want) if b is not None)
+    g_nchw = g.permute(0, 3, 1, 2)
+    w_lib = fc.modconv3x3_adjoint_weights(w).permute(3, 2, 0, 1).contiguous()
+    runs["library"] = lambda: F.conv2d(g_nchw, w_lib, padding=1)
+    # One 3x3 conv, the ds dot (2 per dx value) and the dd taps (4 per gd
+    # value); g, y, resid, noise and x in, dx out.
+    flops = 2 * res * res * 9 * c * c + 2 * res * res * c + 4 * res * res * c
+    nbytes = 4 * (sum(t.numel() for t in (g, y, resid, noise, x, w, s) if t is not None)
+                  + x.numel())
+    return dict(role="K1-adjoint", block=f"G b{res}", layer="conv_last" if last else "conv1",
+                batch=1, err_new=errs["new"], err_earlier=errs["earlier"], tol=1e-4,
+                rel=True), runs, flops, nbytes
+
+
+def k4_case(lib, gen, block, layer, res, c, o, dx):
+    """K4 at one call shape of the `skip` layouts, batch 4: the forward, or
+    dx (the launch on the cotangent with flip(w)^T)."""
+    dev = torch.device("cuda")
+    n = 4
+    w = torch.randn((3, 3, c, o), generator=gen, device=dev) / math.sqrt(9 * c)
+    wt = k4.conv3x3_adjoint_weights(w)
+    if dx:
+        t = torch.randn((n, res, res, o), generator=gen, device=dev)
+        runs = {"new": lambda: k4.conv3x3_dx(t, w),
+                "earlier": lambda: parent_k4(lib, t, wt.contiguous()),
+                "plain": lambda: k4.conv3x3_same_plain(t, wt)}
+        w_lib = wt.permute(3, 2, 0, 1).contiguous()
+    else:
+        t = torch.randn((n, res, res, c), generator=gen, device=dev)
+        runs = {"new": lambda: k4.conv3x3_forward(t, w),
+                "earlier": lambda: parent_k4(lib, t, w),
+                "plain": lambda: k4.conv3x3_same_plain(t, w)}
+        w_lib = w.permute(3, 2, 0, 1).contiguous()
+    want = runs["plain"]()
+    errs = {name: _rel_err(runs[name](), want) for name in ("new", "earlier")}
+    t_nchw = t.permute(0, 3, 1, 2)
+    runs["library"] = lambda: F.conv2d(t_nchw, w_lib, padding=1)
+    flops = 2 * n * res * res * 9 * c * o
+    nbytes = 4 * (t.numel() + w.numel() + want.numel())
+    return dict(role="K4-dx" if dx else "K4-forward", block=block, layer=layer, batch=n,
+                err_new=errs["new"], err_earlier=errs["earlier"], tol=1e-5,
+                rel=True), runs, flops, nbytes
+
+
+def traced(fn, kernel):
+    """`device_split`, once more if a trace came back without the kernel's
+    device events (the profiler drops them now and then)."""
+    own, total = device_split(fn, kernel)
+    return device_split(fn, kernel) if own == 0.0 else (own, total)
+
+
+def ptxas_report(log):
+    """The compiler's lines on registers, shared memory and spills."""
+    return [line.strip() for line in log.splitlines()
+            if "registers" in line or "spill" in line or "Compiling entry" in line]
+
+
+def main(argv):
+    if len(argv) != 2 or not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    lib = load_parent(Path(argv[1]), PARENT_SIGNATURES, "libmgt_k1_parent.so")
+    _, build_s, log = _build.build()
+    print(json.dumps({"build_s": build_s, "ptxas": ptxas_report(log)}), flush=True)
+    _build.library()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k1_shapes = [(256, 128, False), (512, 64, False), (1024, 32, False), (1024, 32, True)]
+    cases = [forward_case(lib, gen, *shape) for shape in k1_shapes]
+    cases += [adjoint_case(lib, gen, *shape) for shape in k1_shapes]
+    k4_shapes = [("G b512", "conv1", 512, 64, 64), ("G b1024", "conv1", 1024, 32, 32),
+                 ("G b1024", "conv_last", 1024, 32, 32), ("D b1024", "conv0", 1024, 32, 32),
+                 ("D b512", "conv0", 512, 64, 64)]
+    cases += [k4_case(lib, gen, *shape, dx) for dx in (False, True) for shape in k4_shapes]
+    rows, failed = [], []
+    for row, runs, flops, nbytes in cases:
+        t = {}
+        for name in ("earlier", "new", "new", "earlier"):
+            t.setdefault(name, []).append(cuda_ms(runs[name]))
+        for name in ("plain", "library"):
+            t[name] = [cuda_ms(runs[name], reps=5, warmup=1)]
+        kernel_ms, device_ms = traced(runs["new"], KERNEL)
+        earlier_kernel_ms, earlier_device_ms = traced(runs["earlier"], PARENT_KERNEL)
+        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+        row.update({f"{k}_ms": sum(v) / len(v) for k, v in t.items()},
+                   new_ms_runs=t["new"], earlier_ms_runs=t["earlier"],
+                   new_kernel_device_ms=kernel_ms, new_all_device_ms=device_ms,
+                   earlier_kernel_device_ms=earlier_kernel_ms,
+                   earlier_all_device_ms=earlier_device_ms,
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        row["speedup"] = row["earlier_ms"] / row["new_ms"]
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        for k in ("err_new", "err_earlier"):
+            if not row[k] <= row["tol"]:
+                failed.append(f"{row['role']} {row['block']} {row['layer']} {k} {row[k]}")
+        if not max(t["new"]) < min(t["earlier"]):
+            failed.append(f"{row['role']} {row['block']} {row['layer']}: new {t['new']} "
+                          f"not faster than earlier {t['earlier']}")
+    print(smi, flush=True)
+    keys = ("new_ms", "earlier_ms", "plain_ms", "library_ms", "bound_ms", "new_kernel_device_ms",
+            "new_all_device_ms", "earlier_kernel_device_ms", "earlier_all_device_ms")
+    sums = {role: {k: sum(r[k] for r in rows if r["role"] == role) for k in keys}
+            for role in ("K1-forward", "K1-adjoint", "K4-forward", "K4-dx")}
+    print(json.dumps({"sums": sums, "failed": failed}), flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -7,7 +7,7 @@ package runs them on its Pallas kernels:
 
     fromrgb     plain 1x1 conv + bias + lrelu (the stem's entry)
     skip        K3-forward (1x1 down-conv, FIR composed in, linear, no bias)
-    conv0       K1 (styles 1, no demodulation, bias, lrelu)
+    conv0       K1 (no styles, no demodulation, bias, lrelu)
     conv1       K3-forward (3x3 down-conv, bias, lrelu, the skip added in-kernel)
 
 so one 1024^2 forward makes 2 K1 and 4 K3-forward launches; its backward
@@ -31,6 +31,7 @@ from torch import nn
 
 from morphganformer_tpu_torch.models.config import DiscriminatorConfig
 from morphganformer_tpu_torch.models.layers import Conv2dLayer, FullyConnected, get_gain
+from morphganformer_tpu_torch.ops.fused_conv import lw_fir_ok, lw_widths_ok
 from morphganformer_tpu_torch.ops.packed_override import packed_paths_disabled
 from morphganformer_tpu_torch.ops.upfirdn2d import downsample2d, setup_filter
 from morphganformer_tpu_torch.utils.device import resolve_device
@@ -48,8 +49,12 @@ def packed_d_structural_ok(cfg: DiscriminatorConfig, res: int) -> bool:
 
 def packed_d_block_eligible(cfg: DiscriminatorConfig, res: int) -> bool:
     """Which blocks run on the fused kernels: those of 512^2 and above, as in
-    JAX (`discriminator.py:31-49`, without its TPU check)."""
-    return res >= 512 and packed_d_structural_ok(cfg, res)
+    JAX (`discriminator.py:31-49`, without its TPU check), that the kernels
+    take: a 4-tap FIR (K2, K3) and channel counts in fours (K1, K2, K3).
+    Other blocks run unfused, as JAX sends them to XLA off the TPU."""
+    return (res >= 512 and packed_d_structural_ok(cfg, res)
+            and lw_fir_ok(cfg.resample_kernel)
+            and lw_widths_ok(cfg.channels(res), cfg.channels(res // 2)))
 
 
 class DiscriminatorBlock(nn.Module):

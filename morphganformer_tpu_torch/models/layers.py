@@ -144,7 +144,7 @@ class Conv2dLayer(nn.Module):
         """The fused branches (JAX `layers.py:170-227`): the unmodulated 1x1
         up-conv skip on K2, the 2x-down conv on K3-forward (bias, lrelu and
         the resnet skip-add in its epilogue), the same-res 3x3 conv on K1
-        with styles 1 and no demodulation."""
+        with no styles (JAX's styles 1) and no demodulation."""
         act = self.biasAct.act
         if act not in ("lrelu", "linear"):
             raise ValueError(f"the fused branches take lrelu or linear, got {act!r}")
@@ -162,8 +162,7 @@ class Conv2dLayer(nn.Module):
         if self.down == 2:
             return fused_downconv2(x, w, f, b, resid, gain, alpha, True, plain=plain)
         if self.kernel_size == 3 and self.down == 1:
-            ones = x.new_ones((x.shape[0], x.shape[-1]))
-            return fused_modconv3x3(x, w, ones, None, b, resid, gain, alpha, False, plain=plain)
+            return fused_modconv3x3(x, w, None, None, b, resid, gain, alpha, False, plain=plain)
         raise ValueError("no fused branch for this layer")
 
     def forward(self, x, fused=None, resid=None):

@@ -46,7 +46,12 @@ from morphganformer_tpu_torch.models.layers import (
 )
 from morphganformer_tpu_torch.models.transformer import TransformerLayer
 from morphganformer_tpu_torch.ops.bias_act import activation_funcs
-from morphganformer_tpu_torch.ops.fused_conv import fused_modconv3x3, fused_upconv2
+from morphganformer_tpu_torch.ops.fused_conv import (
+    fused_modconv3x3,
+    fused_upconv2,
+    lw_fir_ok,
+    lw_widths_ok,
+)
 from morphganformer_tpu_torch.ops.modulated_conv import modulated_conv2d
 from morphganformer_tpu_torch.ops.packed_override import packed_paths_disabled
 from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter, upsample2d
@@ -58,10 +63,15 @@ NOISE_MODES = ("const", "none", "random")
 def packed_structural_ok(cfg: GANformerConfig, res: int, noise_mode: str) -> bool:
     """Which blocks run on the fused kernels: the structural part of the JAX
     gate of the same name without its lane-alignment terms, which only the
-    TPU's [N, H, G, 128] packing needs. The kernels take batch-shared
-    [H, W] (const) and per-sample [N, H, W] (random) noise."""
+    TPU's [N, H, G, 128] packing needs, and what the kernels take: a 4-tap
+    FIR (K2, K3) and channel counts in fours (K1, K2, K3). A block they
+    would refuse runs unfused, as JAX's gate sends it to XLA off the TPU.
+    The kernels take batch-shared [H, W] (const) and per-sample [N, H, W]
+    (random) noise."""
     return (cfg.architecture == "resnet" and cfg.style and cfg.act == "lrelu"
-            and res > 4 and not cfg.use_attention(res) and noise_mode in NOISE_MODES)
+            and res > 4 and not cfg.use_attention(res) and noise_mode in NOISE_MODES
+            and lw_fir_ok(cfg.resample_kernel)
+            and lw_widths_ok(cfg.channels(res // 2), cfg.channels(res)))
 
 
 class SynthesisLayer(nn.Module):

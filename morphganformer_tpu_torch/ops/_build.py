@@ -31,6 +31,8 @@ _SIGNATURES = {
     "mgt_modconv3x3_fwd": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _I, _P],
     # x, w, y, N, H, W, C, O, device, stream
     "mgt_conv3x3_fwd": [_P] * 3 + [_I] * 5 + [_I, _P],
+    # g, w, dx, N, H, W, C, O, device, stream
+    "mgt_conv3x3_dx": [_P] * 3 + [_I] * 5 + [_I, _P],
     # x, wk, fir, s, d, noise, bias, y, N, H, W, Cin, Cout, kh, pad, gain, alpha, noise_ns,
     # device, stream
     "mgt_upconv2_fwd": [_P] * 8 + [_I] * 7 + [_F, _F, _I, _I, _P],
@@ -38,11 +40,11 @@ _SIGNATURES = {
     "mgt_downconv2_fwd": [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P],
     # H, W of the output -> the number of spatial blocks of a K3 launch
     "mgt_downconv2_tiles": [_I, _I],
-    # H, W of dx -> the number of spatial blocks of a K1 adjoint launch
-    "mgt_bwd_tiles": [_I, _I],
-    # gd, wt, s, x, y, noise, dx, dot, dd1, dd2, N, H, W, O, C, gain, alpha, noise_ns,
-    # device, stream
-    "mgt_modconv3x3_bwd": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _I, _P],
+    # H, W, C of dx -> the number of spatial blocks of a K1 adjoint launch
+    "mgt_bwd_tiles": [_I, _I, _I],
+    # g, w, s, d, x, y, resid, noise, dx, dot, dd1, dd2, N, H, W, O, C, gain, alpha,
+    # noise_ns, device, stream
+    "mgt_modconv3x3_bwd": [_P] * 12 + [_I] * 5 + [_F, _F, _I, _I, _P],
     # gd, wk, fir, s, x, y, noise, dx, dot, dd1, dd2, N, H, W, O, C, kh, pad, gain, alpha,
     # noise_ns, device, stream
     "mgt_upconv2_bwd": [_P] * 11 + [_I] * 7 + [_F, _F, _I, _I, _P],

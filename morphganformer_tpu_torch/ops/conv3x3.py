@@ -10,9 +10,12 @@ b1024 conv1 and b1024 conv_last (on x * s: the unfused modulated conv
 scales x before the conv) and D b1024 and b512 conv0.
 
 `Conv3x3Same` is the autograd Function. On a CUDA tensor its forward is
-the kernel `mgt_conv3x3_fwd` (csrc/fused_conv.cu: the K1 template with no
-scale slot, no demodulation and no epilogue) and its dx the same kernel on
-the cotangent with flip(w)^T, as JAX's VJP reuses K4. Its dw is nine tap
+the kernel `mgt_conv3x3_fwd` (csrc/fused_conv.cu: K1's least-work forward
+with no scale slot, no demodulation and no epilogue) and its dx
+`mgt_conv3x3_dx`, K1's adjoint launch on the cotangent with no mask, scale
+or taps, which reads flip(w)^T from w by index, as JAX's VJP reuses K4.
+Both sum in cuDNN's order, so the route gives the F.conv2d path's results
+to the bit; like K1, they take channel counts in fours. Its dw is nine tap
 sums, one matrix product per tap: JAX forms them with an XLA einsum outside
 any Pallas kernel, so there is no TPU kernel to port, and the products take
 any C and O without the padding that `mgt_conv_dw` needs. On a CPU tensor
@@ -34,12 +37,15 @@ import torch
 import torch.nn.functional as F
 
 from morphganformer_tpu_torch.ops.fused_conv import (
+    _aligned,
     _check,
     _launch,
     _on_cpu,
     _stream,
     first_order_only,
+    k1_widths,
     launch_counts,
+    lw_widths_ok,
 )
 from morphganformer_tpu_torch.ops.packed_override import packed_paths_disabled
 
@@ -72,37 +78,47 @@ def _on_card(x):
 def conv3x3_eligible(x, w, groups) -> bool:
     """JAX's rule (`pallas_conv_eligible`): groups 1, a 3x3 kernel, square
     input of side >= 512, C <= 64, O <= 64, even width; the tensor on a card
-    in place of the TPU backend; never under `force_unpacked()`."""
+    in place of the TPU backend; never under `force_unpacked()`. And what
+    the kernel takes: C and O in fours (the rest runs on cuDNN, as JAX's
+    ineligible convs run on XLA)."""
     if packed_paths_disabled() or not _on_card(x) or groups != 1:
         return False
     kh, kw, _, co = w.shape
     _, h, wd, c = x.shape
     return (kh, kw) == (3, 3) and h == wd and h >= 512 and c <= 64 and co <= 64 \
-        and wd % 2 == 0
+        and wd % 2 == 0 and lw_widths_ok(c, co)
 
 
-def _conv3x3(x, w, key):
-    """One K4 launch, counted under `key`; the plain version for a CPU tensor."""
-    if _on_cpu(x):
-        return conv3x3_same_plain(x, w)
-    n, h, wd, c = x.shape
-    o = w.shape[-1]
-    dev = x.device
-    ptrs = [_check("x", x, (n, h, wd, c), dev), _check("w", w, (3, 3, c, o), dev)]
-    y = torch.empty((n, h, wd, o), device=dev, dtype=torch.float32)
-    _launch("mgt_conv3x3_fwd", *ptrs, y.data_ptr(), n, h, wd, c, o, *_stream(dev))
+def _conv3x3(t, w, key):
+    """One K4 launch, counted under `key`: the forward conv3x3_same(t, w)
+    ("conv3x3", `mgt_conv3x3_fwd`), or the dx of the cotangent t,
+    conv3x3_same(t, flip(w)^T) ("conv3x3_adj", `mgt_conv3x3_dx`); the plain
+    version for a CPU tensor."""
+    t, w = t.contiguous(), w.contiguous()
+    dx = key == "conv3x3_adj"
+    if _on_cpu(t):
+        return conv3x3_same_plain(t, conv3x3_adjoint_weights(w) if dx else w)
+    n, h, wd, _ = t.shape
+    c, o = w.shape[2], w.shape[3]
+    dev = t.device
+    k1_widths(c, o)
+    ptrs = [_aligned("t", _check("t", t, (n, h, wd, o if dx else c), dev)),
+            _aligned("w", _check("w", w, (3, 3, c, o), dev))]
+    out = torch.empty((n, h, wd, c if dx else o), device=dev, dtype=torch.float32)
+    _launch("mgt_conv3x3_dx" if dx else "mgt_conv3x3_fwd", *ptrs, out.data_ptr(), n, h, wd, c,
+            o, *_stream(dev))
     launch_counts[key] += 1
-    return y
+    return out
 
 
 def conv3x3_forward(x, w):
     """K4 forward: the kernel on a CUDA tensor, the plain version on a CPU one."""
-    return _conv3x3(x.contiguous(), w.contiguous(), "conv3x3")
+    return _conv3x3(x, w, "conv3x3")
 
 
 def conv3x3_dx(g, w):
-    """K4's dx: the kernel on g with flip(w)^T."""
-    return _conv3x3(g.contiguous(), conv3x3_adjoint_weights(w), "conv3x3_adj")
+    """K4's dx: the kernel on g, reading flip(w)^T from w by index."""
+    return _conv3x3(g, w, "conv3x3_adj")
 
 
 class Conv3x3Same(torch.autograd.Function):

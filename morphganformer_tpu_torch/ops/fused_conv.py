@@ -8,8 +8,9 @@ training step needs:
   * K1 `fused_modconv3x3` <- `fused_modconv3x3_lrelu` (`_modconv_epilogue_kernel`):
         y = lrelu(d * conv3x3_same(x * s, w) + noise + bias, alpha) * gain [+ resid]
     Its backward launches the same kernel in its adjoint role
-    (`_modconv_bwd_impl`): dx = s * conv3x3(gd, flip(w)^T) with the ds dot
-    tap and the demod-chain dd taps; and the dw taps.
+    (`_modconv_bwd_impl`): the kernel forms gd = g * lrelu'(y - resid) * d
+    itself and gives dx = s * conv3x3(gd, flip(w)^T) with the ds dot tap and
+    the demod-chain dd taps; and the dw taps.
   * K2 `fused_upconv2` <- `fused_packed_upconv2` / `fused_packed_upconv2_c256`
     (`_packed_upconv_kernel`): the 2x-up modulated conv with the 4-tap FIR,
     then the same epilogue (no resid). Its backward is K3
@@ -20,6 +21,9 @@ training step needs:
     [+ resid]. Its backward is K2 in its `use_dw` role (`_dconv_bwd_impl`):
     dx = the down-conv read back, an up-conv of gz; and the block cotangent.
 
+K1's kernel (both roles, and K4's) is one least-work template: the style
+folded into the weights in the forward, gd formed in shared memory and
+flip(w)^T read by index in the adjoint.
 K2's and K3's kernels take, in both roles, least-work operands: the small
 weight, the 4x4 FIR and a pad. K3 (`downconv2_leastwork`,
 `upconv2_adjoint_leastwork`) runs the FIR at input resolution, then a
@@ -223,13 +227,23 @@ def downconv2_adjoint_kernels(w, f, flip_weight=True):
     return _flipped_taps(*downconv2_parity_kernels(w, f, flip_weight))
 
 
+def lw_fir_ok(f):
+    """Whether K2 and K3 take the FIR `f` (taps, a 1-d or 2-d filter): 4 taps."""
+    return f is not None and tuple(torch.as_tensor(f).shape) in ((4,), (4, 4))
+
+
+def lw_widths_ok(*widths):
+    """Whether the kernels (K1, K2, K3 and K4) take these channel counts: they
+    read channels with 16-byte copies, so each is a positive multiple of 4."""
+    return all(int(c) >= 4 and int(c) % 4 == 0 for c in widths)
+
+
 def _fir_4x4(f):
     """The FIR as a [4,4] tensor; the least-work kernels take no other size."""
-    if f is None:
-        raise ValueError("the least-work kernels take a 4x4 FIR, got None")
+    if not lw_fir_ok(f):
+        raise ValueError(f"the least-work kernels take a 4x4 FIR, got "
+                         f"{None if f is None else tuple(f.shape)}")
     f2 = torch.outer(f, f) if f.dim() == 1 else f
-    if tuple(f2.shape) != (4, 4):
-        raise ValueError(f"the least-work kernels take a 4x4 FIR, got {tuple(f.shape)}")
     return f2.to(dtype=torch.float32)
 
 
@@ -310,10 +324,10 @@ def _fold(weights_of, w, dk):
 
 def modconv3x3_plain(x, w, styles, noise=None, bias=None, resid=None,
                      gain=1.0, alpha=0.2, demodulate=True):
-    """Plain K1. x [N,H,W,C]; w [3,3,C,O]; styles [N,C]; noise [H,W] or
-    [N,H,W] (already scaled by its strength) or None; bias [O] or None;
-    resid [N,H,W,O] or None."""
-    xs = _nchw(x * styles[:, None, None, :])
+    """Plain K1. x [N,H,W,C]; w [3,3,C,O]; styles [N,C] or None (unscaled, no
+    demodulation); noise [H,W] or [N,H,W] (already scaled by its strength)
+    or None; bias [O] or None; resid [N,H,W,O] or None."""
+    xs = _nchw(x if styles is None else x * styles[:, None, None, :])
     y = _nhwc(F.conv2d(xs, w.permute(3, 2, 0, 1), padding=1))
     d = demod_coef(w, styles) if demodulate else None
     y = _epilogue(y, d, noise, bias, gain, alpha)
@@ -412,9 +426,10 @@ def modconv3x3_adjoint_plain(g, x, w, styles, y, noise=None, bias=None, resid=No
                              need_ds=True):
     """Plain K1 adjoint: the cotangents of x and styles of `modconv3x3_plain`
     for output cotangent g, from its inputs and its output y. Returns
-    (dx, ds, dd1, dd2); dx / ds are None unless asked for, dd1 / dd2 (the
-    demod-chain taps, [N,O]) are None without demodulation or ds. The resid
-    cotangent is g itself."""
+    (dx, ds, dd1, dd2); dx / ds are None unless asked for (ds never without
+    styles), dd1 / dd2 (the demod-chain taps, [N,O]) are None without
+    demodulation or ds. The resid cotangent is g itself."""
+    need_ds = need_ds and styles is not None
     if resid is not None:
         y = y - resid
     mask, gd, d = _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)
@@ -529,17 +544,33 @@ def _stream(dev):
     return dev.index or 0, torch.cuda.current_stream(dev).cuda_stream
 
 
+def _aligned(name, ptr):
+    if ptr is not None and ptr % 16:
+        raise ValueError(f"{name}: the least-work kernels read 16-byte vectors, must be "
+                         "16-byte aligned")
+    return ptr
+
+
+def k1_widths(c, o):
+    """K1's kernel (and K4's) takes channel counts in fours (16-byte copies)."""
+    if not lw_widths_ok(c, o):
+        raise ValueError(f"K1 takes channel counts in fours, got {c} -> {o}")
+
+
 def _modconv3x3_forward(x, w, styles, noise=None, bias=None, resid=None,
                         gain=1.0, alpha=0.2, demodulate=True):
-    """K1 forward: the plain version for a CPU tensor, the kernel for a CUDA one."""
+    """K1 forward: the plain version for a CPU tensor; for a CUDA one a launch
+    of `mgt_modconv3x3_fwd`, which folds the style into the weights."""
     if _on_cpu(x):
         return modconv3x3_plain(x, w, styles, noise, bias, resid, gain, alpha, demodulate)
     n, h, wd, c = x.shape
     o = w.shape[-1]
     dev = x.device
+    k1_widths(c, o)
     d = demod_coef(w, styles).contiguous() if demodulate else None
     noise_p, noise_ns = _check_noise("noise", noise, n, h, wd, dev)
-    ptrs = [_check("x", x, (n, h, wd, c), dev), _check("w", w, (3, 3, c, o), dev),
+    ptrs = [_aligned("x", _check("x", x, (n, h, wd, c), dev)),
+            _aligned("w", _check("w", w, (3, 3, c, o), dev)),
             _check("styles", styles, (n, c), dev), _check("d", d, (n, o), dev),
             noise_p, _check("bias", bias, (o,), dev),
             _check("resid", resid, (n, h, wd, o), dev)]
@@ -550,13 +581,6 @@ def _modconv3x3_forward(x, w, styles, noise=None, bias=None, resid=None,
     return y
 
 
-def _aligned(name, ptr):
-    if ptr is not None and ptr % 16:
-        raise ValueError(f"{name}: the least-work kernels read 16-byte vectors, must be "
-                         "16-byte aligned")
-    return ptr
-
-
 def _lw_weights(wk, fk, dev):
     """Pointers of the least-work kernels' (K2, K3) small weight and FIR.
     They take a 1x1 or 3x3 weight and channel counts in fours, and read
@@ -565,7 +589,7 @@ def _lw_weights(wk, fk, dev):
     if kh not in (1, 3) or wk.shape[1] != kh:
         raise ValueError(f"the least-work kernels take a 1x1 or 3x3 weight, got "
                          f"{tuple(wk.shape[:2])}")
-    if ci % 4 or co % 4:
+    if not lw_widths_ok(ci, co):
         raise ValueError(f"the least-work kernels take channel counts in fours, got {ci} -> {co}")
     return [_aligned("wk", _check("wk", wk, wk.shape, dev)), _check("fir", fk, (4, 4), dev)]
 
@@ -619,78 +643,102 @@ def _downconv2_forward(x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2, flip
     return y
 
 
-def _adjoint_launch(fn, tiles, gd, weights, styles, x, y_dd, noise, mask_args, need_dx, need_ds,
-                    shape_args):
-    """Allocate dx and the per-block partials, launch one adjoint kernel and
-    sum the partials (in a fixed order: the result does not depend on how
-    the blocks were scheduled). `weights` are the kernel's weight pointers,
-    `tiles` names its count of spatial blocks. Returns (dx, dot, dd1, dd2)."""
-    n, h, wd, c = x.shape
-    o = gd.shape[-1]
-    dev = x.device
-    nblk = getattr(_library(), tiles)(h, wd)
-    dx = torch.empty((n, h, wd, c), device=dev, dtype=torch.float32) if need_dx else None
-    dot = torch.empty((n, nblk, c), device=dev, dtype=torch.float32) if need_ds else None
-    dd = [torch.empty((n, nblk, o), device=dev, dtype=torch.float32)
-          if y_dd is not None else None for _ in range(2)]
-    ho, wo = gd.shape[1:3]
-    noise_p, noise_ns = _check_noise("noise", noise, n, ho, wo, dev)
-    ptrs = [_check("gd", gd, (n, ho, wo, o), dev), *weights,
-            _check("styles", styles, (n, c), dev),
+def _adjoint_outputs(n, h, wd, c, o, nblk, need_dx, need_ds, need_dd, dev):
+    """dx [N,H,W,C] and the per-block partials of an adjoint launch, dot
+    [N,nblk,C] and dd1, dd2 [N,nblk,O]; None where not asked."""
+    def empty(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.float32)
+    return (empty(n, h, wd, c) if need_dx else None, empty(n, nblk, c) if need_ds else None,
+            *(empty(n, nblk, o) if need_dd else None for _ in range(2)))
+
+
+def _summed(dx, dot, dd1, dd2):
+    """(dx, dot, dd1, dd2) with the partials summed over the blocks in a
+    fixed order: the result does not depend on how the blocks were
+    scheduled."""
+    return (dx, *(None if t is None else t.sum(1) for t in (dot, dd1, dd2)))
+
+
+def _k1_adjoint_launch(g, w, styles, d, x, y, resid, noise, gain, alpha, need_dx, need_ds,
+                       need_dd):
+    """One launch of K1's adjoint (`mgt_modconv3x3_bwd`): the kernel forms gd
+    = g * mask(y - resid) * d itself (no scale without d) and reads
+    flip(w)^T from w by index, so no elementwise pass over g, y or resid
+    runs here. g [N,H,W,O]; w [3,3,C,O]; x [N,H,W,C] for the ds dot
+    (need_ds). Returns (dx, dot, dd1, dd2), the per-block partials summed
+    here in a fixed order; None where not asked."""
+    n, h, wd, o = g.shape
+    c = w.shape[2]
+    dev = g.device
+    k1_widths(c, o)
+    outs = _adjoint_outputs(n, h, wd, c, o, _library().mgt_bwd_tiles(h, wd, c), need_dx,
+                            need_ds, need_dd, dev)
+    noise_p, noise_ns = _check_noise("noise", noise if need_dd else None, n, h, wd, dev)
+    ptrs = [_aligned("g", _check("g", g, (n, h, wd, o), dev)),
+            _aligned("w", _check("w", w, (3, 3, c, o), dev)),
+            _check("styles", styles if need_dx else None, (n, c), dev),
+            _aligned("d", _check("d", d, (n, o), dev)),
             _check("x", x if need_ds else None, (n, h, wd, c), dev),
-            _check("y", y_dd, (n, ho, wo, o), dev), noise_p]
-    outs = [None if t is None else t.data_ptr() for t in (dx, dot, *dd)]
-    _launch(fn, *ptrs, *outs, n, h, wd, o, c, *shape_args,
-            *(float(v) for v in mask_args), noise_ns, *_stream(dev))
-    return (dx, None if dot is None else dot.sum(1),
-            *(None if t is None else t.sum(1) for t in dd))
-
-
-def _k1_taps(gd, x, w, styles, y, mask, noise, gain, alpha, need_dx, need_ds, need_dd):
-    """The K1 adjoint launch: (dx, ds dot, dd1, dd2), plain on a CPU tensor."""
-    if _on_cpu(x):
-        return _k1_taps_plain(gd, x, w, styles, y, mask, noise, need_dx, need_ds, need_dd)
-    wt = modconv3x3_adjoint_weights(w)
-    out = _adjoint_launch("mgt_modconv3x3_bwd", "mgt_bwd_tiles", gd.contiguous(),
-                          [_check("wt", wt, wt.shape, x.device)],
-                          styles, x, y.contiguous() if need_dd else None,
-                          noise if need_dd else None, (gain, alpha), need_dx, need_ds, ())
+            _aligned("y", _check("y", y, (n, h, wd, o), dev)),
+            _aligned("resid", _check("resid", resid, (n, h, wd, o), dev)),
+            noise_p]
+    _launch("mgt_modconv3x3_bwd", *ptrs, *(None if t is None else t.data_ptr() for t in outs),
+            n, h, wd, o, c, float(gain), float(alpha), noise_ns, *_stream(dev))
     launch_counts["modconv3x3_adj"] += 1
-    return out
+    return _summed(*outs)
+
+
+def _k1_taps(g, x, w, styles, d, y, resid, noise, gain, alpha, slope, need_dx, need_ds,
+             need_dd):
+    """The K1 adjoint launch: (dx, ds dot, dd1, dd2). On a CPU tensor the
+    plain version, on gd formed in torch (`slope()`, `_modulated_backward`);
+    on a CUDA tensor the kernel, which forms gd itself."""
+    if _on_cpu(x):
+        y_, mask, _, gd = slope()
+        return _k1_taps_plain(gd, x, w, styles, y_, mask, noise, need_dx, need_ds, need_dd)
+    return _k1_adjoint_launch(g, w, styles, None if d is None else d.contiguous(), x, y, resid,
+                              noise, gain, alpha, need_dx, need_ds, need_dd)
 
 
 def _k3_taps(gd, x, w, styles, f, flip_weight, y, mask, noise, gain, alpha, need_dx,
              need_ds, need_dd):
-    """The K3 adjoint launch: (dx, ds dot, dd1, dd2), plain on a CPU tensor."""
+    """The K3 adjoint launch (`mgt_upconv2_bwd`): (dx, ds dot, dd1, dd2), plain
+    on a CPU tensor."""
     if _on_cpu(x):
         return _k3_taps_plain(gd, x, w, styles, f, flip_weight, y, mask, noise, need_dx,
                               need_ds, need_dd)
     wk, fk, pad = upconv2_adjoint_leastwork(w, f, flip_weight)
     gd = gd.contiguous()
-    for name, t in (("gd", gd), ("x", x if need_ds else None), ("styles", styles)):
-        _aligned(name, None if t is None else t.data_ptr())
-    out = _adjoint_launch("mgt_upconv2_bwd", "mgt_downconv2_tiles", gd,
-                          _lw_weights(wk, fk, x.device), styles, x,
-                          y.contiguous() if need_dd else None, noise if need_dd else None,
-                          (gain, alpha), need_dx, need_ds, (int(wk.shape[0]), pad))
+    n, h, wd, c = x.shape
+    ho, wo, o = gd.shape[1:]
+    dev = x.device
+    outs = _adjoint_outputs(n, h, wd, c, o, _library().mgt_downconv2_tiles(h, wd), need_dx,
+                            need_ds, need_dd, dev)
+    noise_p, noise_ns = _check_noise("noise", noise if need_dd else None, n, ho, wo, dev)
+    ptrs = [_aligned("gd", _check("gd", gd, (n, ho, wo, o), dev)), *_lw_weights(wk, fk, dev),
+            _aligned("styles", _check("styles", styles, (n, c), dev)),
+            _aligned("x", _check("x", x if need_ds else None, (n, h, wd, c), dev)),
+            _check("y", y.contiguous() if need_dd else None, (n, ho, wo, o), dev), noise_p]
+    _launch("mgt_upconv2_bwd", *ptrs, *(None if t is None else t.data_ptr() for t in outs),
+            n, h, wd, o, c, int(wk.shape[0]), pad, float(gain), float(alpha), noise_ns,
+            *_stream(dev))
     launch_counts["upconv2_adj"] += 1
-    return out
+    return _summed(*outs)
 
 
 def modconv3x3_adjoint(g, x, w, styles, y, noise=None, bias=None, resid=None,
                        gain=1.0, alpha=0.2, demodulate=True, need_dx=True, need_ds=True):
     """K1 adjoint: `modconv3x3_adjoint_plain` for a CPU tensor; for a CUDA
-    tensor one launch of `mgt_modconv3x3_bwd` gives dx, the ds dot and the
-    dd taps as per-block partials, summed here. Same returns."""
+    tensor one launch of `mgt_modconv3x3_bwd` forms gd and gives dx, the ds
+    dot and the dd taps as per-block partials, summed here. Same returns."""
     if _on_cpu(x):
         return modconv3x3_adjoint_plain(g, x, w, styles, y, noise, bias, resid, gain,
                                         alpha, demodulate, need_dx, need_ds)
-    if resid is not None:
-        y = y - resid
-    mask, gd, d = _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)
+    d = demod_coef(w, styles).contiguous() if demodulate else None
+    need_ds = need_ds and styles is not None
     need_dd = need_ds and d is not None
-    dx, ds, dd1, dd2 = _k1_taps(gd, x, w, styles, y, mask, noise, gain, alpha, need_dx,
-                                need_ds, need_dd)
+    dx, ds, dd1, dd2 = _k1_adjoint_launch(g.contiguous(), w, styles, d, x, y, resid, noise,
+                                          gain, alpha, need_dx, need_ds, need_dd)
     if need_dd:
         ds = _demod_chain(ds, _demod_de(dd1, dd2, d, bias), w, styles)
     return dx, ds, dd1, dd2
@@ -771,51 +819,64 @@ def _noise_grad(g_pre, noise):
     return dn if noise.dim() == 3 else dn.sum(dim=0)
 
 
-def _modulated_backward(g, y, w, styles, noise, bias, gain, alpha, demodulate, needs, taps,
-                        dw_taps):
+def _modulated_backward(g, y_of, w, styles, noise, bias, gain, alpha, demodulate, needs,
+                        taps, dw_taps):
     """Cotangents (dx, dw, ds, dnoise, dbias) of K1 or K2 for output
-    cotangent g, with y peeled of resid; `needs` flags them in that order,
-    None where not asked. `taps(gd, mask, need_dx, need_ds, need_dd)` is the
-    adjoint launch, run when dx, ds or the demod taps (for ds or dw) are
-    needed; `dw_taps(gd)` the dw launch, folded onto w, run when dw is."""
+    cotangent g; `needs` flags them in that order, None where not asked.
+    `taps(d, slope, need_dx, need_ds, need_dd)` is the adjoint launch, run
+    when dx, ds or the demod taps (for ds or dw) are needed; `dw_taps(gd)`
+    the dw launch, folded onto w, run when dw is. `slope()` gives (y, mask,
+    g * mask, gd = g * mask * d) in torch, formed once on first use from
+    `y_of()`, the output peeled of resid: by the launches that take gd, and
+    for dw, dnoise and dbias (K1's kernel forms gd itself)."""
     need_dx, need_dw, need_ds, need_dn, need_db = needs
-    mask, gd, d = _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)
+    d = demod_coef(w, styles) if (styles is not None and demodulate) else None
     need_dd = d is not None and (need_ds or need_dw)
+
+    @functools.lru_cache(maxsize=None)
+    def slope():
+        y = y_of()
+        mask = torch.where(y >= 0, g.new_tensor(gain), g.new_tensor(gain * alpha))
+        g_pre = g * mask
+        return y, mask, g_pre, (g_pre if d is None else g_pre * d[:, None, None, :])
+
     dx = ds = dd1 = dd2 = dw = None
     if need_dx or need_ds or need_dd:
-        dx, ds, dd1, dd2 = taps(gd, mask, need_dx, need_ds, need_dd)
+        dx, ds, dd1, dd2 = taps(d, slope, need_dx, need_ds, need_dd)
     de = _demod_de(dd1, dd2, d, bias) if need_dd else None
     if need_ds and de is not None:
         ds = _demod_chain(ds, de, w, styles)
     if need_dw:
-        dw = dw_taps(gd.contiguous())
+        dw = dw_taps(slope()[3].contiguous())
         if de is not None:
             dw = dw + 2.0 * w * (styles.square().T @ de)[None, None]
-    g_pre = g * mask if (need_dn or need_db) else None
-    dn = _noise_grad(g_pre, noise) if need_dn else None
-    db = g_pre.sum(dim=(0, 1, 2)) if need_db else None
+    dn = _noise_grad(slope()[2], noise) if need_dn else None
+    db = slope()[2].sum(dim=(0, 1, 2)) if need_db else None
     return dx, dw, ds, dn, db
 
 
 def modconv3x3_backward(g, x, w, styles, y, noise, bias, resid, gain, alpha, demodulate,
                         needs, plain=False):
-    """Cotangents (dx, dw, ds, dnoise, dbias) of K1: its adjoint launch and
-    its dw taps (`_modulated_backward`)."""
-    if resid is not None:
-        y = y - resid
+    """Cotangents (dx, dw, ds, dnoise, dbias) of K1: its adjoint launch, which
+    forms gd from g, y and resid itself, and its dw taps
+    (`_modulated_backward`). Where dw is asked for (training), gd for the dw
+    taps is formed once in torch, with g * mask, which dnoise and dbias need
+    anyway."""
+    needs = (needs[0], needs[1], needs[2] and styles is not None, needs[3], needs[4])
 
-    def taps(gd, mask, *need):
+    def taps(d, slope, *need):
         if plain:
-            return _k1_taps_plain(gd, x, w, styles, y, mask, noise, *need)
-        return _k1_taps(gd, x, w, styles, y, mask, noise, gain, alpha, *need)
+            y_, mask, _, gd = slope()
+            return _k1_taps_plain(gd, x, w, styles, y_, mask, noise, *need)
+        return _k1_taps(g, x, w, styles, d, y, resid, noise, gain, alpha, slope, *need)
 
     def dw_taps(gd):
         if plain:
             return conv_dw_plain(x, gd, styles, 1, 1, 3, (0, 0))[0]
         return conv_dw(x, gd, styles, 1, 1, 3, (0, 0), "modconv3x3_dw")[0]
 
-    return _modulated_backward(g, y, w, styles, noise, bias, gain, alpha, demodulate, needs,
-                               taps, dw_taps)
+    return _modulated_backward(g, lambda: y if resid is None else y - resid, w, styles, noise,
+                               bias, gain, alpha, demodulate, needs, taps, dw_taps)
 
 
 def upconv2_backward(g, x, w, styles, f, y, noise, bias, gain, alpha, demodulate,
@@ -826,10 +887,11 @@ def upconv2_backward(g, x, w, styles, f, y, noise, bias, gain, alpha, demodulate
     need_dx, need_dw, need_ds, need_dn, need_db = needs
     needs = (need_dx, need_dw, need_ds and styles is not None, need_dn, need_db)
 
-    def taps(gd, mask, *need):
+    def taps(d, slope, *need):
+        y_, mask, _, gd = slope()
         if plain:
-            return _k3_taps_plain(gd, x, w, styles, f, flip_weight, y, mask, noise, *need)
-        return _k3_taps(gd, x, w, styles, f, flip_weight, y, mask, noise, gain, alpha, *need)
+            return _k3_taps_plain(gd, x, w, styles, f, flip_weight, y_, mask, noise, *need)
+        return _k3_taps(gd, x, w, styles, f, flip_weight, y_, mask, noise, gain, alpha, *need)
 
     def dw_taps(gd):
         wp, hb = upconv2_phase_kernels(w, f, flip_weight)
@@ -839,8 +901,8 @@ def upconv2_backward(g, x, w, styles, f, y, noise, bias, gain, alpha, demodulate
         return _fold(lambda w_: upconv2_phase_kernels(w_, f, flip_weight)[0], w,
                      dwp.reshape(wp.shape))
 
-    return _modulated_backward(g, y, w, styles, noise, bias, gain, alpha, demodulate, needs,
-                               taps, dw_taps)
+    return _modulated_backward(g, lambda: y, w, styles, noise, bias, gain, alpha, demodulate,
+                               needs, taps, dw_taps)
 
 
 def downconv2_backward(g, x, w, f, y, bias, resid, gain, alpha, flip_weight, needs,

@@ -124,11 +124,13 @@ def test_double_backward_raises():
     assert torch.autograd.grad(y.sum(), xt)[0].shape == xt.shape
 
 
-# (x shape, w shape, groups, eligible) on a card: JAX's rule.
+# (x shape, w shape, groups, eligible) on a card: JAX's rule, and channel
+# counts in fours, which the kernel takes.
 ELIGIBILITY = [
     ((1, 512, 512, 64), (3, 3, 64, 64), 1, True),
     ((4, 1024, 1024, 32), (3, 3, 32, 32), 1, True),
-    ((1, 512, 512, 3), (3, 3, 3, 17), 1, True),
+    ((1, 512, 512, 4), (3, 3, 4, 20), 1, True),
+    ((1, 512, 512, 3), (3, 3, 3, 17), 1, False),        # C, O not in fours: the kernel's
     ((1, 256, 256, 64), (3, 3, 64, 64), 1, False),      # below 512
     ((1, 512, 1024, 32), (3, 3, 32, 32), 1, False),     # not square
     ((1, 512, 512, 128), (3, 3, 128, 64), 1, False),    # C > 64
@@ -161,9 +163,9 @@ def test_route_takes_k4_only_with_the_switch_on(monkeypatch, flip_weight):
     real = k4.conv3x3_same
     monkeypatch.setattr(k4, "conv3x3_same", lambda x, w: calls.append(1) or real(x, w))
     rng = np.random.RandomState(5)
-    x = torch.from_numpy(rng.randn(1, 512, 512, 3).astype(np.float32))
-    w = torch.from_numpy((rng.randn(3, 3, 3, 2) / 5).astype(np.float32))
-    g = torch.from_numpy(rng.randn(1, 512, 512, 2).astype(np.float32))
+    x = torch.from_numpy(rng.randn(1, 512, 512, 4).astype(np.float32))
+    w = torch.from_numpy((rng.randn(3, 3, 4, 4) / 6).astype(np.float32))
+    g = torch.from_numpy(rng.randn(1, 512, 512, 4).astype(np.float32))
 
     def run():
         xt, wt = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
@@ -183,9 +185,11 @@ def test_route_takes_k4_only_with_the_switch_on(monkeypatch, flip_weight):
     with force_unpacked():
         run()
     assert calls == [1]
-    # Not a SAME 3x3 stride-1 conv: never K4.
+    # Not a SAME 3x3 stride-1 conv, or channels the kernel does not take:
+    # never K4.
     conv2d_resample(x, w, padding=1, down=2, f=None)
     conv2d_resample(x, w[:1, :1], padding=0)
+    conv2d_resample(x[..., :3], w[:, :, :3, :2], padding=1)
     assert calls == [1]
 
 

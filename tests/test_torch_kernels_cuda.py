@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on a card: K1 and
 K2, their adjoints (the K1 adjoint launch and K3), K3's D-tower forward,
-K2's use_dw role (the D down-conv's dx), K2 and K3 at sizes off their tiles,
-the dw taps of all three weight roles, per-sample noise, and K4 (forward
-and dx) with its route.
+K2's use_dw role (the D down-conv's dx), K1, K2 and K3 at sizes off their
+tiles and K1 at its 1024^2 call shapes, the dw taps of all three weight
+roles, per-sample noise, K4 (forward and dx) with its route, and generator
+forwards of configs whose blocks the gates send unfused.
 
 This file imports no JAX, so it runs on the GPU machine, where JAX is not
 installed; tests/conftest.py imports JAX, so run it there with
@@ -474,9 +475,9 @@ def test_d_gradients_at_unaligned_widths_match_plain(cuda_device, monkeypatch):
 
 # K4: its call shapes at FFHQ-1024 widths (64 -> 64 at 512^2: G b512 conv1,
 # D b512 conv0; 32 -> 32 at 1024^2: G b1024 conv1 and conv_last, D b1024
-# conv0) and unaligned widths (C 3, 17, 48; odd O).
-K4_CASES = [(1, 512, 512, 64, 64), (1, 1024, 1024, 32, 32), (2, 24, 40, 3, 5),
-            (1, 16, 16, 17, 33), (2, 12, 20, 48, 7), (1, 8, 8, 64, 1)]
+# conv0) and widths in fours off its tiles (C 4, 20, 48; O 8, 36, 12, 4).
+K4_CASES = [(1, 512, 512, 64, 64), (1, 1024, 1024, 32, 32), (2, 24, 40, 4, 8),
+            (1, 16, 16, 20, 36), (2, 12, 20, 48, 12), (1, 8, 8, 64, 4)]
 
 
 @pytest.mark.cuda
@@ -507,9 +508,9 @@ def test_k4_route_and_gradients_match_the_cudnn_path(cuda_device, monkeypatch, f
     from morphganformer_tpu_torch.ops.conv2d_resample import conv2d_resample
 
     gen = torch.Generator(cuda_device).manual_seed(8)
-    x = torch.randn((2, 512, 512, 17), generator=gen, device=cuda_device)
-    w = torch.randn((3, 3, 17, 9), generator=gen, device=cuda_device) / 12
-    g = torch.randn((2, 512, 512, 9), generator=gen, device=cuda_device)
+    x = torch.randn((2, 512, 512, 16), generator=gen, device=cuda_device)
+    w = torch.randn((3, 3, 16, 12), generator=gen, device=cuda_device) / 12
+    g = torch.randn((2, 512, 512, 12), generator=gen, device=cuda_device)
 
     def run():
         xt, wt = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
@@ -525,7 +526,205 @@ def test_k4_route_and_gradients_match_the_cudnn_path(cuda_device, monkeypatch, f
     assert fc.launch_counts["conv3x3_adj"] == before["conv3x3_adj"] + 1
     for a, b, tol in zip(got, want, (1e-5, 1e-5, 1e-4)):
         _rel_close(a, b, tol)
+    # Channels not in fours, which the kernel does not take: cuDNN, no launch.
+    before = dict(fc.launch_counts)
+    conv2d_resample(x[..., :15], w[:, :, :15, :9], padding=1, flip_weight=flip_weight)
+    assert dict(fc.launch_counts) == before
     xt = x.clone().requires_grad_(True)
     y = conv2d_resample(xt, w, padding=1, flip_weight=flip_weight)
     with pytest.raises(RuntimeError, match="differentiable once"):
         torch.autograd.grad(y.square().sum(), xt, create_graph=True)
+
+
+# The K1 kernel (conv3x3_lw_kernel, both roles) at the 4 K1 call shapes of a
+# 1024^2 forward at batch 1: (side, C = O, conv_last).
+K1_CALLS = [(256, 128, False), (512, 64, False), (1024, 32, False), (1024, 32, True)]
+
+
+def _k1_call(rng, dev, n, res, c, o, last, noise="shared"):
+    """Random K1 operands at one G call: conv1 (noise, bias, resid, lrelu) or
+    conv_last (none of them, linear); noise batch-shared or per-sample."""
+    x, w, s, _, b, r = [None if a is None else torch.from_numpy(a).to(dev)
+                        for a in _k1_inputs(rng, n, res, c, o, False, not last, not last)]
+    nz = None
+    if not last:
+        shape = (n, res, res) if noise == "sample" else (res, res)
+        nz = torch.from_numpy((rng.randn(*shape) * 0.1).astype(np.float32)).to(dev)
+    return x, w, s, nz, b, r, 1.0, (1.0 if last else 0.2)
+
+
+def _k1_both_roles(x, w, s, nz, b, r, gain, alpha, demod=True):
+    """One forward and one adjoint launch against the plain versions: y
+    within 1e-4 abs, dx, ds, dd1, dd2 within 1e-4 of each one's largest
+    entry (as chip_smoke.py holds them)."""
+    args = (x, w, s, nz, b, r, gain, alpha, demod)
+    before = dict(fc.launch_counts)
+    y = fc.fused_modconv3x3(*args)
+    torch.testing.assert_close(y, fc.modconv3x3_plain(*args), rtol=0, atol=1e-4)
+    g = torch.randn(y.shape, generator=torch.Generator(y.device).manual_seed(9), device=y.device)
+    adj = (g, x, w, s, y, nz, b, r, gain, alpha, demod)
+    _adjoint_close(fc.modconv3x3_adjoint(*adj), fc.modconv3x3_adjoint_plain(*adj))
+    assert fc.launch_counts["modconv3x3"] == before["modconv3x3"] + 1
+    assert fc.launch_counts["modconv3x3_adj"] == before["modconv3x3_adj"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,c,last", K1_CALLS)
+def test_k1_kernel_at_the_1024_call_shapes(cuda_device, res, c, last):
+    _k1_both_roles(*_k1_call(np.random.RandomState(12), cuda_device, 1, res, c, c, last))
+
+
+# K1 off its tiles (16 x 32 positions at up to 32 output channels, 16 x 16
+# at more): (N, H, W, C, O, noise). Both roles, with resid and bias.
+K1_ODD = [(2, 20, 37, 12, 8, "sample"), (1, 17, 19, 20, 40, "shared"),
+          (3, 9, 50, 36, 36, None), (1, 33, 16, 4, 68, "shared")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,o,noise", K1_ODD)
+def test_k1_kernel_at_odd_sizes(cuda_device, n, h, w, c, o, noise):
+    rng = np.random.RandomState(13)
+    dev = cuda_device
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+
+    x, wt, r = rand(n, h, w, c), rand(3, 3, c, o, scale=1 / math.sqrt(9 * c)), rand(n, h, w, o)
+    s = torch.from_numpy((rng.rand(n, c) + 0.5).astype(np.float32)).to(dev)
+    nz = None if noise is None else rand(*((n,) if noise == "sample" else ()), h, w, scale=0.1)
+    _k1_both_roles(x, wt, s, nz, rand(o, scale=0.1), r, math.sqrt(2), 0.2)
+
+
+@pytest.mark.cuda
+def test_k1_training_at_batch_4_with_per_sample_noise(cuda_device):
+    """G b512 conv1's widths at batch 4 with per-sample noise [4,H,W]: both
+    roles, then every gradient through the Function (the dd taps over the
+    per-sample noise, the dw taps) against plain=True."""
+    x, w, s, nz, b, r, gain, alpha = _k1_call(np.random.RandomState(14), cuda_device, 4, 64,
+                                              64, 64, False, noise="sample")
+    _k1_both_roles(x, w, s, nz, b, r, gain, alpha)
+    grads = []
+    for plain in (False, True):
+        ins = [t.clone().requires_grad_() for t in (x, w, s, nz, b, r)]
+        out = fc.fused_modconv3x3(*ins, gain, alpha, True, plain=plain)
+        g = torch.randn(out.shape, generator=torch.Generator(cuda_device).manual_seed(15),
+                        device=cuda_device)
+        grads.append(torch.autograd.grad(out, ins, g))
+    _adjoint_close(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+def test_k1_without_styles_or_demodulation(cuda_device):
+    """The D conv0 form (no styles, no demodulation, bias, lrelu, no noise):
+    the forward, dx and dw through the Function against plain=True."""
+    rng = np.random.RandomState(16)
+    x, w, _, _, b, r = [None if a is None else torch.from_numpy(a).to(cuda_device)
+                        for a in _k1_inputs(rng, 2, 40, 32, 32, False, True, True)]
+    outs, grads = [], []
+    for plain in (False, True):
+        xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = fc.fused_modconv3x3(xi, wi, None, None, b, r, math.sqrt(2), 0.2, False,
+                                  plain=plain)
+        g = torch.randn(out.shape, generator=torch.Generator(cuda_device).manual_seed(17),
+                        device=cuda_device)
+        outs.append(out.detach())
+        grads.append(torch.autograd.grad(out, [xi, wi], g))
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=1e-4)
+    _adjoint_close(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_dx,need_ds", [(True, False), (False, True)])
+def test_k1_adjoint_asks_for_dx_or_ds_alone(cuda_device, need_dx, need_ds):
+    x, w, s, nz, b, r, gain, alpha = _k1_call(np.random.RandomState(18), cuda_device, 2, 48,
+                                              32, 64, False)
+    y = fc.modconv3x3_plain(x, w, s, nz, b, r, gain, alpha, True)
+    g = torch.randn(y.shape, generator=torch.Generator(cuda_device).manual_seed(19),
+                    device=cuda_device)
+    adj = (g, x, w, s, y, nz, b, r, gain, alpha, True, need_dx, need_ds)
+    got = fc.modconv3x3_adjoint(*adj)
+    assert [t is None for t in got] == [not need_dx] + [not need_ds] * 3
+    _adjoint_close(got, fc.modconv3x3_adjoint_plain(*adj))
+
+
+@pytest.mark.cuda
+def test_k1_adjoint_forms_gd_in_the_kernel(cuda_device):
+    """On the projection path (dx and ds of conv1, no weight, noise or bias
+    gradients) the backward dispatches no torch op over a tensor of the
+    output's size but allocations: gd, the mask and y - resid are the
+    kernel's."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    x, w, s, nz, b, r, gain, alpha = _k1_call(np.random.RandomState(20), cuda_device, 1, 256,
+                                              128, 128, False)
+    xi, si, ri = x.clone().requires_grad_(), s.clone().requires_grad_(), r.clone().requires_grad_()
+    out = fc.fused_modconv3x3(xi, w, si, nz, b, ri, gain, alpha, True)
+    g = torch.randn(out.shape, generator=torch.Generator(cuda_device).manual_seed(21),
+                    device=cuda_device)
+    big = []
+
+    class Spy(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            res = func(*args, **(kwargs or {}))
+            seen = [t for t in (*args, *(kwargs or {}).values(),
+                                *(res if isinstance(res, (tuple, list)) else (res,)))
+                    if isinstance(t, torch.Tensor)]
+            if not func.__name__.startswith(("empty", "detach", "alias", "view")) and \
+                    any(t.numel() >= out.numel() for t in seen):
+                big.append(func.__name__)
+            return res
+
+    before = fc.launch_counts["modconv3x3_adj"]
+    with Spy():
+        grads = torch.autograd.grad(out, [xi, si, ri], g)
+    assert fc.launch_counts["modconv3x3_adj"] == before + 1
+    assert big == [], big
+    want = fc.modconv3x3_adjoint_plain(g, x, w, s, out.detach(), nz, b, r, gain, alpha, True)
+    _adjoint_close(grads[:2], want[:2])
+
+
+@pytest.mark.cuda
+def test_k1_kernel_refuses_what_it_does_not_take(cuda_device):
+    """K1 and K4 with channel counts not in fours raise; nothing launches and
+    nothing falls back."""
+    dev = cuda_device
+    before = dict(fc.launch_counts)
+    x, w = torch.randn(1, 8, 8, 6, device=dev), torch.randn(3, 3, 6, 8, device=dev)
+    with pytest.raises(ValueError, match="in fours"):
+        fc.fused_modconv3x3(x, w, torch.ones(1, 6, device=dev))
+    with pytest.raises(ValueError, match="in fours"):
+        fc.modconv3x3_adjoint(torch.randn(1, 8, 8, 8, device=dev), x, w,
+                              torch.ones(1, 6, device=dev), torch.randn(1, 8, 8, 8, device=dev))
+    with pytest.raises(ValueError, match="in fours"):
+        k4.conv3x3_forward(x, w)
+    with pytest.raises(ValueError, match="in fours"):
+        k4.conv3x3_dx(torch.randn(1, 8, 8, 8, device=dev), w)
+    assert dict(fc.launch_counts) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("override", [dict(resample_kernel=(1, 2, 1)),
+                                      dict(channel_base=1 << 11)])
+def test_generator_of_configs_the_gates_send_unfused(cuda_device, override):
+    """FFHQ-1024 with a 3-tap FIR (no block fused) and with channel_base
+    2^11 (widths 8, 4, 2 at b256-b1024: b1024 unfused): one forward at batch
+    1 on the kernels against plain=True, within 1e-3 of the image's largest
+    entry (many layers of float32 sums in another order)."""
+    from morphganformer_tpu_torch.models import config as tcfg
+    from morphganformer_tpu_torch.models import init_generator
+    from morphganformer_tpu_torch.models import synthesis as tsyn
+
+    cfg = tcfg.ffhq1024_config(**override)
+    fused = [r for r in cfg.block_resolutions if tsyn.packed_structural_ok(cfg, r, "const")]
+    assert fused == ([] if "resample_kernel" in override else [256, 512])
+    G = init_generator(cfg, seed=0, device=cuda_device)
+    z = torch.randn((1, cfg.k, cfg.z_dim), generator=torch.Generator(cuda_device).manual_seed(22),
+                    device=cuda_device)
+    fc.reset_launch_counts()
+    with torch.no_grad():
+        img = G(z, truncation_psi=0.7)
+        counts = dict(fc.launch_counts)
+        want = G(z, truncation_psi=0.7, plain=True)
+    assert counts["modconv3x3"] == len(fused)               # conv1 (conv_last: b1024)
+    assert counts["upconv2"] == 2 * len(fused)
+    _rel_close(img, want, 1e-3)

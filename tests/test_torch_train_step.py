@@ -476,9 +476,11 @@ def test_smoke_layout_launch_counts_match_the_dispatch(monkeypatch):
         return real_rule(types.SimpleNamespace(shape=(n, 32 * h, 32 * wd, c)), w, groups)
     monkeypatch.setattr(k4, "conv3x3_eligible", at_scale)
 
-    def fake_launch(x, w, key):
+    real_launch = k4._conv3x3
+
+    def fake_launch(t, w, key):                  # counted; the plain version on the CPU
         fc.launch_counts[key] += 1
-        return k4.conv3x3_same_plain(x, w)
+        return real_launch(t, w, key)
     monkeypatch.setattr(k4, "_conv3x3", fake_launch)
     smoke = _smoke()
     tg = tcfg.GANformerConfig(img_resolution=32, z_dim=8, w_dim=8, k=3, channel_base=256,
