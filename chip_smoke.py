@@ -41,10 +41,14 @@ Phases, each printing its wall time:
               step at batch 4 against their plain versions: K3-forward (the
               D down-conv, to 1e-3 max abs), K2's use_dw role (its dx), the
               dw taps of K1, K3 and the down-conv (relative to the largest
-              entry, 1e-4), with kernel, plain and one cuDNN call's times
-              (and the same-function call's for K3-forward and K2 use_dw)
-              beside the bound; K1 and K2 forward and adjoint with
-              per-sample noise [4,H,W] at the noisy call shapes. Then
+              entry, 1e-4; K3's and the down-conv's against the composed
+              plain route, conv_dw_plain and its fold onto w), with kernel,
+              plain and one cuDNN call's times (and the same-function
+              call's for K3-forward, K2 use_dw and the dw of K3 and the
+              down-conv: `conv2d_weight` of the FIR-composed kernel, its
+              fold onto w untimed) beside the bound; K1 and K2 forward and
+              adjoint with per-sample noise [4,H,W] at the noisy call
+              shapes. Then
               GANTrainer on FFHQ-1024 and a 1024^2 D from seed 0: one
               G_main and one D_main round's gradients, with non-zero noise
               strengths, on the kernels against the plain path (every leaf
@@ -55,7 +59,8 @@ Phases, each printing its wall time:
               steps 1-3 at batch 4 (G_main, D_main, EMA) with finite losses
               and exact launch counts per iteration, one iteration in two
               accumulation rounds (batch 8), stage times and peak memory,
-              and one iteration under torch.profiler.
+              and one iteration under torch.profiler (with the host time of
+              the FusedUpConv2 and FusedDownConv2 backwards).
   8. layouts  K4 (`mgt_conv3x3_fwd`) and its dx role against the plain
               version at its five call shapes (G b512 conv1, b1024 conv1 and
               conv_last; D b1024 and b512 conv0) at batch 1 and 4, to 1e-5
@@ -115,7 +120,7 @@ K2_DW_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:1225"
 K4_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:74"
 SOURCE = "morphganformer_tpu_torch/csrc/fused_conv.cu"
 HAND_WRITTEN = ("conv3x3_lw_kernel", "upconv2_lw_kernel", "downconv2_lw_kernel",
-                "conv_dw_kernel")
+                "conv_dw_kernel", "fir_dw_kernel")
 PROJECT_STEPS = 100
 MORPH_STEPS = 50
 DEMORPH_STEPS = 5
@@ -149,25 +154,18 @@ def cuda_ms(torch, fn, reps=10, warmup=2):
     return e0.elapsed_time(e1) / reps
 
 
-def traced_forward(torch, fn, label, shapes=False):
+def traced_forward(torch, fn, label, shapes=False, host_of=()):
     """One call of `fn` (a forward, or a projection step) under
-    torch.profiler. The device's busy time (its kernels and copies, summed)
-    and the host window it lies in come from the same traced run; the
-    tracer's host overhead widens the window, so the idle share is an upper
-    bound. `shapes` also prints the ops' device time by input shape."""
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler, through bench_dw.traced_run: the device's busy time and
+    the host window it lies in, from the same traced run (the idle share is
+    an upper bound), and the hand-written kernels' device time. `shapes`
+    also prints the ops' device time by input shape; `host_of` names host
+    events (autograd Functions) whose host time, with their children, is
+    printed and returned."""
+    from morphganformer_tpu_torch.bench_dw import traced_run
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=shapes) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    averages = prof.key_averages()
-    device = [e for e in averages if e.device_type.name == "CUDA"]
-    busy_ms = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-                  for e in device) / 1e3
-    launches = sum(e.count for e in device)
+    prof, averages, r = traced_run(fn, HAND_WRITTEN, host_of, shapes)
+    busy_ms, window_ms, host = r["busy_ms"], r["window_ms"], r["host"]
     print(averages.table(sort_by="self_cuda_time_total", row_limit=12), flush=True)
     if shapes:
         print(prof.key_averages(group_by_input_shape=True).table(
@@ -175,21 +173,20 @@ def traced_forward(torch, fn, label, shapes=False):
             max_shapes_column_width=140), flush=True)
     print(f"  traced {label}: window {window_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / window_ms:.4f}, "
-          f"{launches} device ops", flush=True)
-    mine = {}
-    for e in device:                       # the hand-written kernels, by name
-        name = next((k for k in HAND_WRITTEN if k in e.key), None)
-        if name:
-            ms = (getattr(e, "self_device_time_total", None) or e.self_cuda_time_total) / 1e3
-            mine[name] = [mine.get(name, [0.0, 0])[0] + ms, mine.get(name, [0.0, 0])[1] + e.count]
+          f"{r['launches']} device ops", flush=True)
     print(f"  traced {label}, hand-written kernels (device ms, launches): "
-          + ", ".join(f"{k} {v[0]:.3f} ({v[1]})" for k, v in mine.items()), flush=True)
+          + ", ".join(f"{k} {v[0]:.3f} ({v[1]})" for k, v in r["kernels"].items()), flush=True)
+    if host_of:
+        print(f"  traced {label}, host time of " + ", ".join(
+            f"{k}: {v['host_ms']:.3f} ms in {v['calls']} calls "
+            f"({v['host_ms'] / v['calls']:.3f} a call)" for k, v in host.items()), flush=True)
     assert 0 < busy_ms <= window_ms, f"device busy {busy_ms} ms outside its {window_ms} ms window"
+    return dict(window_ms=window_ms, busy_ms=busy_ms, host=host)
 
 
 def _same_sum(rows):
     """The same-function call's time summed over rows, or None where a role
-    has none (K1, K4, the dw taps)."""
+    has none (K1, K4, K1's dw taps)."""
     ms = [r.get("same_function_ms") for r in rows]
     return None if None in ms else sum(ms)
 
@@ -476,6 +473,7 @@ def check_train_kernel(torch, fc, gen, call):
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_weight
 
+    from morphganformer_tpu_torch.bench_dw import same_function_dw_call
     from morphganformer_tpu_torch.bench_k3 import same_function_call
     from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter
 
@@ -521,36 +519,40 @@ def check_train_kernel(torch, fc, gen, call):
             run_same = lambda: op(nchw(gz), w_same, stride=2, padding=pad_same)  # noqa: E731
             tensors, out_numel, rel = [gz, w], n * 4 * h * h * cin, True
         else:
-            wf, hb = fc.downconv2_parity_kernels(w, f)
-            nt = int(wf.shape[2])
-            run_k = lambda: fc.conv_dw(x, gz, None, 2, 1, nt, hb, "downconv2_dw")  # noqa: E731
-            run_p = lambda: fc.conv_dw_plain(x, gz, None, 2, 1, nt, hb)            # noqa: E731
+            run_k = lambda: fc.downconv2_dw(x, gz, w, f)                            # noqa: E731
+            run_p = lambda: fc.downconv2_dw_plain(x, gz, w, f)                      # noqa: E731
             run_lib = lambda: conv2d_weight(nchw(x), (cout, cin, kh, kh), nchw(gz),  # noqa
                                             stride=2, padding=pad)
-            tensors, out_numel, rel = [x, gz], 4 * nt * nt * cin * cout, True
+            op, _ = same_function_dw_call(role, w, f, True)
+            run_same = lambda: op(nchw(x), nchw(gz))                                # noqa: E731
+            tensors, out_numel, rel = [x, gz], kh * kh * cin * cout, True
     else:
         x = randn(n, h, h, cin)
         s = (torch.rand((n, cin), generator=gen, device=dev) + 0.5) if block[0] == "G" else None
         if role == "K1-dw":
             gd = randn(n, h, h, cout)
-            run_k = lambda: fc.conv_dw(x, gd, s, 1, 1, 3, (0, 0), "modconv3x3_dw")  # noqa: E731
-            run_p = lambda: fc.conv_dw_plain(x, gd, s, 1, 1, 3, (0, 0))             # noqa: E731
+            run_k = lambda: fc.conv_dw(x, gd, s)                                     # noqa: E731
+            run_p = lambda: fc.conv_dw_plain(x, gd, s, 1, 1, 3, (0, 0))[0]          # noqa: E731
             run_lib = lambda: conv2d_weight(nchw(x), (cout, cin, 3, 3), nchw(gd),   # noqa: E731
                                             padding=1)
             flops = 2 * n * h * h * 9 * cin * cout
             tensors, out_numel = [x, gd, s], 9 * cin * cout
         else:
             gd = randn(n, 2 * h, 2 * h, cout)
-            wp, hb = fc.upconv2_phase_kernels(w, f)
-            nt = int(wp.shape[2])
-            run_k = lambda: fc.conv_dw(x, gd, s, 1, 2, nt, hb, "upconv2_dw")       # noqa: E731
-            run_p = lambda: fc.conv_dw_plain(x, gd, s, 1, 2, nt, hb)                # noqa: E731
+            run_k = lambda: fc.upconv2_dw(x, gd, s, w, f)                           # noqa: E731
+            run_p = lambda: fc.upconv2_dw_plain(x, gd, s, w, f)                     # noqa: E731
             run_lib = lambda: conv2d_weight(nchw(gd), (cin, cout, kh, kh), nchw(x),  # noqa
                                             stride=2, padding=pad)
+            op, _ = same_function_dw_call(role, w, f, False)
+            xs = x * s[:, None, None, :]
+            run_same = lambda: op(nchw(gd), nchw(xs))                               # noqa: E731
             # The weight gradient of a transposed conv at input resolution
-            # and the FIR's adjoint over the output-resolution gd.
-            flops = 2 * n * h * h * kh * kh * cin * cout + 2 * n * (2 * h) ** 2 * 8 * cout
-            tensors, out_numel = [x, gd, s], 4 * nt * nt * cin * cout
+            # and the FIR's adjoint, separable: at every output-resolution
+            # gd value before a 3x3's taps, at the even positions only
+            # (3 per gd value) before the 1x1 skip's one tap.
+            fir = 2 * n * (2 * h) ** 2 * (8 if kh == 3 else 3) * cout
+            flops = 2 * n * h * h * kh * kh * cin * cout + fir
+            tensors, out_numel = [x, gd, s], kh * kh * cin * cout
         rel = True
 
     key = TRAIN_KEYS[role]
@@ -708,6 +710,7 @@ def _fmt(rows, k=3):
 
 def train_phase(torch, fc):
     """Phase 7: the training roles' kernels, then train_iteration at 1024^2."""
+    from morphganformer_tpu_torch.bench_dw import HOST_TIMED
     from morphganformer_tpu_torch.models.config import DiscriminatorConfig, ffhq1024_config
     from morphganformer_tpu_torch.training import GANTrainer, TrainConfig
 
@@ -848,9 +851,10 @@ def train_phase(torch, fc):
     assert dict(fc.launch_counts) == per_iteration(2), dict(fc.launch_counts)
     assert state.cur_nimg == 5 * TRAIN_BATCH
 
-    traced_forward(torch, lambda: trainer.train_iteration(state, reals[:TRAIN_BATCH], 6),
-                   "training iteration batch 4")
-    stats = dict(iteration_ms=iter_ms, g_main_ms=stage_ms["g_main"][:3],
+    traced = traced_forward(torch,
+                            lambda: trainer.train_iteration(state, reals[:TRAIN_BATCH], 6),
+                            "training iteration batch 4", host_of=HOST_TIMED)
+    stats = dict(iteration_ms=iter_ms, g_main_ms=stage_ms["g_main"][:3], traced=traced,
                  d_main_ms=stage_ms["d_main"][:3], two_round_ms=two_ms, peak_gib=peak / 2**30,
                  g_grads=errs["g"], d_grads=errs["d"], round_ms=round_ms,
                  per_sample_noise=noise_errs)
@@ -1337,7 +1341,7 @@ def main():
         _build.library()
         print(f"  {os.path.relpath(path, REPO)}: nvcc {build_s:.3f} s", flush=True)
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(k in line for k in ("Compiling entry", "registers", "spill", "error")):
                 print(f"  ptxas: {line.strip()}", flush=True)
     phases["build"] = ph.seconds
 
@@ -1583,12 +1587,14 @@ def main():
             ("K2-use_dw", "mgt_upconv2_fwd in the use_dw role (dx of the D down-conv, "
              "pallas_conv.py:2121-2157; least work, as K2)", K2_REPLACES,
              "the D down-conv's dx"),
-            ("K2-use_dw-dw", "mgt_conv_dw (the D down-conv's block cotangent, "
-             "pallas_conv.py:1225-1246, :2161-2173)", K2_DW_REPLACES, "the D down-conv's dw"),
-            ("K1-dw", "mgt_conv_dw (K1's dw taps, pallas_conv.py:256-285, :894-905)",
-             K1_DW_REPLACES, "G conv1/conv_last and D conv0 dw"),
-            ("K3-dw", "mgt_conv_dw (K3's dw taps in the adjoint role, pallas_conv.py:1387-1416)",
-             K3_DW_REPLACES, "G conv0/skip dw")):
+            ("K2-use_dw-dw", "mgt_fir_dw (the D down-conv's block cotangent, "
+             "pallas_conv.py:1225-1246, :2161-2173; least work: fir_dw_kernel, the FIR once "
+             "in shared memory, then the small weight's stride-2 taps, no fold)", K2_DW_REPLACES,
+             "the D down-conv's dw"),
+            ("K1-dw", "mgt_conv_dw (K1's dw taps, pallas_conv.py:256-285, :894-905; "
+             "conv_dw_kernel)", K1_DW_REPLACES, "G conv1/conv_last and D conv0 dw"),
+            ("K3-dw", "mgt_fir_dw (K3's dw taps in the adjoint role, pallas_conv.py:1387-1416; "
+             "least work: fir_dw_kernel, as K2-use_dw-dw)", K3_DW_REPLACES, "G conv0/skip dw")):
         mine = [r for r in train_rows if r["kernel"] == role]
         b_ms = sum(r["bound_ms"] for r in mine)
         ops_ms = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")

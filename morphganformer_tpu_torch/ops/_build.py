@@ -48,11 +48,15 @@ _SIGNATURES = {
     # gd, wk, fir, s, x, y, noise, dx, dot, dd1, dd2, N, H, W, O, C, kh, pad, gain, alpha,
     # noise_ns, device, stream
     "mgt_upconv2_bwd": [_P] * 11 + [_I] * 7 + [_F, _F, _I, _I, _P],
-    # a, b, s, part, N, H, W, Cin, Cout, pa, pb, nt, hb0, hb1, slices, chunks_per_slice,
-    # device, stream
-    "mgt_conv_dw": [_P] * 4 + [_I] * 12 + [_I, _P],
-    # -> positions per chunk of the dw kernel
+    # x, gd, s, part, N, H, W, Cin, Cout, slices, chunks_per_slice, device, stream
+    "mgt_conv_dw": [_P] * 4 + [_I] * 7 + [_I, _P],
+    # -> positions per chunk of K1's dw kernel
     "mgt_dw_chunk": [],
+    # src, base, s, fir, part, N, H, W, CB, CK, kh, pad, slices, tiles_per_slice, device,
+    # stream
+    "mgt_fir_dw": [_P] * 5 + [_I] * 9 + [_I, _P],
+    # N, H, W of the base grid -> the number of tiles of a mgt_fir_dw launch
+    "mgt_fir_dw_tiles": [_I, _I, _I],
 }
 
 

@@ -31,13 +31,20 @@ stride-2 conv; K2 (`upconv2_leastwork`, `downconv2_adjoint_leastwork`) a
 stride-2 transposed conv, then the FIR at output resolution. The plain
 versions evaluate the same functions per parity from the composed kernel.
 
-The weight cotangent of every role is one more kernel (`conv_dw`): on the TPU
-it rides the adjoint launch as in-kernel taps, carried across the sequential
-grid; Hopper blocks cannot carry a sum, so the port launches it on its own
-and sums per-slice partials in a fixed order. The per-parity cotangent is
-folded back onto w through the vjp of the (linear) map from w to the parity
-weights, the port's `jax.linear_transpose(w_to_blk)`; the demodulation adds
-2 w (s^2^T de). dbias and dnoise are plain reductions, as in JAX.
+The weight cotangent of every role is one more kernel: on the TPU it rides
+the adjoint launch as in-kernel taps, carried across the sequential grid;
+Hopper blocks cannot carry a sum, so the port launches it on its own and
+sums per-slice partials in a fixed order. K1's (`conv_dw`) takes the 3x3
+taps of x against gd. K3's and the D down-conv's (`upconv2_dw`,
+`downconv2_dw`; operands from `upconv2_dw_leastwork`,
+`downconv2_dw_leastwork`) take least-work operands too: the FIR applied once
+to the full-resolution operand, then the small weight's stride-2 taps,
+whose cotangent maps onto w with a flip alone. Only the plain route (a CPU
+tensor, or `plain=True`) still takes the per-parity taps of the composed
+kernel (`conv_dw_plain`) and folds them back onto w through the vjp of the
+(linear) map from w to the parity weights (`_fold`, the port's
+`jax.linear_transpose(w_to_blk)`). The demodulation adds 2 w (s^2^T de).
+dbias and dnoise are plain reductions, as in JAX.
 
 `FusedModConv3x3`, `FusedUpConv2` and `FusedDownConv2` are the autograd
 Functions; each computes only the cotangents that `ctx.needs_input_grad`
@@ -69,8 +76,10 @@ launch_counts = {"modconv3x3": 0, "upconv2": 0, "modconv3x3_adj": 0, "upconv2_ad
                  "downconv2": 0, "downconv2_adj": 0, "modconv3x3_dw": 0, "upconv2_dw": 0,
                  "downconv2_dw": 0, "conv3x3": 0, "conv3x3_adj": 0}
 
-# Blocks of one dw launch the slice count aims at: 8 per SM of an H100.
+# Blocks of one K1 dw launch the slice count aims at: 8 per SM of an H100.
 _DW_BLOCKS = 8 * 132
+# Blocks of one least-work dw launch (`mgt_fir_dw`): one wave at 2 per SM.
+_FD_BLOCKS = 2 * 132
 
 
 def reset_launch_counts():
@@ -309,6 +318,34 @@ def upconv2_adjoint_leastwork(w, f, flip_weight=False):
     return wk.contiguous(), fk.contiguous(), kh - kh // 2
 
 
+def upconv2_dw_leastwork(w, f, flip_weight=False):
+    """K3-dw's operands (the cotangent of K2's weight) in least-work form:
+    (flip, fk [4,4], pad) with, in each spatial dimension,
+        dwk[a] = sum_m xs[m]^T B[2m + a],    B[p] = sum_i fk[i] gd[p + i - pad],
+    xs = x * s the scaled input, gd the pre-activation cotangent (zero
+    outside the image), and dw = flip(dwk) if `flip` else dwk. K2 is Z[q] =
+    sum_a wk[a] xz[q - a], y[o] = sum_i fz[i] Z[o + i - pz]
+    (`upconv2_leastwork`), so dwk[a] = sum_q xz[q - a] gZ[q] = sum_m xs[m]
+    gZ[2m + a] with gZ[q] = sum_o fz[q - o + pz] gd[o]; counted from the
+    other end, gZ = B with fk = flip(fz) = 4 f and pad = 3 - pz = kh -
+    kh//2: the operand that K3's adjoint filters (`upconv2_adjoint_leastwork`).
+    wk = flip(w) when flip_weight, so flip = flip_weight."""
+    _, fk, pad = upconv2_adjoint_leastwork(w, f, flip_weight)
+    return flip_weight, fk, pad
+
+
+def downconv2_dw_leastwork(w, f, flip_weight=True):
+    """The D down-conv's dw operands in least-work form: (flip, fk [4,4],
+    pad) with, in each spatial dimension,
+        dwk[a] = sum_m B[2m + a]^T gz[m],    B[p] = sum_i fk[i] x[p + i - pad],
+    gz the pre-activation cotangent, x zero outside the image, and dw =
+    flip(dwk) if `flip` else dwk: K3-forward's y[m] = sum_a wk[a] B[2m + a]
+    (`downconv2_leastwork`, B the FIR at input resolution) differentiated in
+    wk, which is w when flip_weight and flip(w) otherwise."""
+    _, fk, pad = downconv2_leastwork(w, f, flip_weight)
+    return not flip_weight, fk, pad
+
+
 def _fold(weights_of, w, dk):
     """The cotangent of w through the linear map `weights_of` (w -> parity
     weights) at dk: the vjp, the port's `jax.linear_transpose`."""
@@ -362,8 +399,9 @@ def downconv2_plain(x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2, flip_we
 # gd = g * lrelu'(.) * d (`_modconv_bwd_impl` :842-847), the adjoint launch
 # (plain here, the kernel in the wrappers below) gives du = conv^T(gd), dx =
 # du * s, the ds dot tap sum x*du and the dd taps dd1 = sum gd*(y/mask -
-# noise), dd2 = sum gd; the dw launch gives the per-parity weight cotangent;
-# torch closes the demod chain (:921-931) and folds dw back onto w.
+# noise), dd2 = sum gd; the dw launch gives the weight cotangent (on the
+# plain route per parity, folded back onto w); torch closes the demod chain
+# (:921-931).
 # ---------------------------------------------------------------------------
 
 
@@ -488,6 +526,50 @@ def conv_dw_plain(a, b, s, pa, pb, nt, hb):
                          apad[:, hb[qy] + ta:hb[qy] + ta + h, hb[qx] + tb:hb[qx] + tb + wd], bp)
             for tb in range(nt)]) for ta in range(nt)]))
     return torch.stack(out)
+
+
+def fir_dw_plain(src, base, s, fk, pad, kh):
+    """The function of the least-work dw kernel (`mgt_fir_dw`) in torch, in
+    its order of operations: the FIR once, then the stride-2 taps,
+        out[a, b, u, v] = sum_{n,m,l} B[n, 2m + a, 2l + b, u] (base * s)[n, m, l, v],
+        B[n, p, r, u]   = sum_{iy,ix} fk[iy, ix] src[n, p + iy - pad, r + ix - pad, u],
+    src zero outside the image. src [N,2H,2W,U]; base [N,H,W,V]; s [N,V] or
+    None; fk [4,4] -> [kh,kh,U,V]. The tests hold the kernel's operands with
+    it; the main path never calls it."""
+    n, h, wd, _ = base.shape
+    u = src.shape[-1]
+    if s is not None:
+        base = base * s[:, None, None, :]
+    hi = kh + 2 - pad
+    b = F.conv2d(F.pad(_nchw(src), (pad, hi, pad, hi)), fk.to(src.dtype).expand(u, 1, 4, 4),
+                 groups=u)
+    return torch.stack([torch.stack([
+        torch.einsum("nuhw,nhwv->uv", b[:, :, ta:ta + 2 * h:2, tb:tb + 2 * wd:2], base)
+        for tb in range(kh)]) for ta in range(kh)])
+
+
+def upconv2_dw_plain(x, gd, styles, w, f, flip_weight=False):
+    """The cotangent of K2's weight w from gd [N,2H,2W,O] and x [N,H,W,I]
+    scaled by styles [N,I] (or None), the composed way: the per-parity dw
+    taps of the FIR-composed kernel (`conv_dw_plain`, pb 2) folded back onto
+    w through the vjp of `upconv2_phase_kernels`. The plain route's, and
+    the reference that the kernel (`upconv2_dw`) is held against."""
+    wp, hb = upconv2_phase_kernels(w, f, flip_weight)
+    dwp = conv_dw_plain(x, gd, styles, 1, 2, int(wp.shape[2]), hb)
+    return _fold(lambda w_: upconv2_phase_kernels(w_, f, flip_weight)[0], w,
+                 dwp.reshape(wp.shape))
+
+
+def downconv2_dw_plain(x, gz, w, f, flip_weight=True):
+    """The cotangent of the D down-conv's weight w from gz [N,H,W,O] and x
+    [N,2H,2W,I], the composed way: the per-input-parity dw taps of the
+    FIR-composed kernel (`conv_dw_plain`, pa 2) folded back onto w through
+    the vjp of `downconv2_parity_kernels`. The plain route's, and the
+    reference that the kernel (`downconv2_dw`) is held against."""
+    wf, hb = downconv2_parity_kernels(w, f, flip_weight)
+    dwf = conv_dw_plain(x, gz, None, 2, 1, int(wf.shape[2]), hb)
+    return _fold(lambda w_: downconv2_parity_kernels(w_, f, flip_weight)[0], w,
+                 dwf.reshape(wf.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -773,38 +855,93 @@ def downconv2_adjoint(gz, w, f, flip_weight=True):
     return dx
 
 
-def conv_dw(a, b, s, pa, pb, nt, hb, role):
-    """The dw taps (`conv_dw_plain`): the plain version for a CPU tensor; for
-    a CUDA tensor one launch of `mgt_conv_dw`, counted under `role`, whose
-    per-slice partials are summed here in a fixed order. The kernel tiles
-    (Cin, Cout) by 32: other widths are padded with zero channels, whose
-    cotangent entries are cut off."""
-    if _on_cpu(a):
-        return conv_dw_plain(a, b, s, pa, pb, nt, hb)
-    n, ci, co = a.shape[0], a.shape[-1], b.shape[-1]
+def conv_dw(x, gd, s):
+    """K1's dw taps (`conv_dw_plain` with pa = pb = 1, 3 taps, hb 0): the
+    plain version for a CPU tensor; for a CUDA tensor one launch of
+    `mgt_conv_dw`, whose per-slice partials are summed here in a fixed
+    order. x [N,H,W,C], gd [N,H,W,O], s [N,C] or None -> [3,3,C,O]. The
+    kernel tiles (C, O) by 32: other widths are padded with zero channels,
+    whose cotangent entries are cut off."""
+    if _on_cpu(x):
+        return conv_dw_plain(x, gd, s, 1, 1, 3, (0, 0))[0]
+    n, h, wd, ci = x.shape
+    co = gd.shape[-1]
     if ci % 32 or co % 32:
         pad_a, pad_b = (0, -ci % 32), (0, -co % 32)
         s = None if s is None else F.pad(s, pad_a)
-        return conv_dw(F.pad(a, pad_a), F.pad(b, pad_b), s, pa, pb, nt, hb,
-                       role)[..., :ci, :co]
-    h, wd = a.shape[1] // pa, a.shape[2] // pa
-    dev = a.device
+        return conv_dw(F.pad(x, pad_a), F.pad(gd, pad_b), s)[..., :ci, :co]
+    dev = x.device
     if n * h * wd >= 2 ** 31:
         raise ValueError(f"mgt_conv_dw takes under 2^31 positions, got {n * h * wd}")
-    np_ = 4 if max(pa, pb) == 2 else 1
-    ptrs = [_check("a", a, (n, pa * h, pa * wd, ci), dev),
-            _check("b", b, (n, pb * h, pb * wd, co), dev), _check("s", s, (n, ci), dev)]
-    if any(p is not None and p % 16 for p in ptrs):
-        raise ValueError("mgt_conv_dw reads 16-byte vectors: operands must be 16-byte aligned")
+    ptrs = [_aligned("x", _check("x", x, (n, h, wd, ci), dev)),
+            _aligned("gd", _check("gd", gd, (n, h, wd, co), dev)),
+            _aligned("s", _check("s", s, (n, ci), dev))]
     chunks = -(-n * h * wd // _library().mgt_dw_chunk())
-    per_slice = np_ * nt * nt * (ci // 32) * (co // 32)
+    per_slice = 9 * (ci // 32) * (co // 32)
     per = -(-chunks // max(1, min(chunks, -(-_DW_BLOCKS // per_slice))))
     slices = -(-chunks // per)
-    part = torch.empty((slices, np_, nt, nt, ci, co), device=dev, dtype=torch.float32)
-    _launch("mgt_conv_dw", *ptrs, part.data_ptr(), n, h, wd, ci, co, pa, pb, nt, hb[0], hb[1],
-            slices, per, *_stream(dev))
-    launch_counts[role] += 1
+    part = torch.empty((slices, 3, 3, ci, co), device=dev, dtype=torch.float32)
+    _launch("mgt_conv_dw", *ptrs, part.data_ptr(), n, h, wd, ci, co, slices, per, *_stream(dev))
+    launch_counts["modconv3x3_dw"] += 1
     return part.sum(0)
+
+
+def _fir_dw_launch(src, base, s, fk, pad, kh):
+    """One launch of the least-work dw kernel (`mgt_fir_dw`): `fir_dw_plain`
+    of src [N,2H,2W,U] (filtered), base [N,H,W,V] and s [N,V] or None, with
+    the partials of its slices summed here in a fixed order; [kh,kh,U,V].
+    The kernel tiles U by 32 and V by 64: other widths are padded with zero
+    channels, whose entries are cut off."""
+    n, h, wd, cv = base.shape
+    cu = src.shape[-1]
+    if cu % 32 or cv % 64:
+        pad_u, pad_v = (0, -cu % 32), (0, -cv % 64)
+        out = _fir_dw_launch(F.pad(src, pad_u), F.pad(base, pad_v),
+                             None if s is None else F.pad(s, pad_v), fk, pad, kh)
+        return out[..., :cu, :cv]
+    if kh not in (1, 3):
+        raise ValueError(f"the least-work dw kernel takes a 1x1 or 3x3 weight, got {kh}x{kh}")
+    dev = base.device
+    ptrs = [_aligned("src", _check("src", src, (n, 2 * h, 2 * wd, cu), dev)),
+            _aligned("base", _check("base", base, (n, h, wd, cv), dev)),
+            _check("s", s, (n, cv), dev), _check("fir", fk, (4, 4), dev)]
+    ntiles = _library().mgt_fir_dw_tiles(n, h, wd)
+    per = -(-ntiles // max(1, min(ntiles, _FD_BLOCKS // ((cu // 32) * (cv // 64)))))
+    slices = -(-ntiles // per)
+    part = torch.empty((slices, kh, kh, cu, cv), device=dev, dtype=torch.float32)
+    _launch("mgt_fir_dw", *ptrs, part.data_ptr(), n, h, wd, cu, cv, kh, pad, slices, per,
+            *_stream(dev))
+    return part.sum(0)
+
+
+def upconv2_dw(x, gd, styles, w, f, flip_weight=False):
+    """K3's dw role, the cotangent of K2's weight w [kh,kh,I,O] from the
+    pre-activation cotangent gd [N,2H,2W,O] and x [N,H,W,I] scaled by
+    styles [N,I] (or None): `upconv2_dw_plain` for a CPU tensor; for a CUDA
+    tensor one launch of `mgt_fir_dw` on `upconv2_dw_leastwork`'s operands
+    (gd filtered once, then the small weight's taps against x * s), whose
+    cotangent maps onto w with a flip alone."""
+    if _on_cpu(x):
+        return upconv2_dw_plain(x, gd, styles, w, f, flip_weight)
+    flip, fk, pad = upconv2_dw_leastwork(w, f, flip_weight)
+    dwk = _fir_dw_launch(gd.contiguous(), x, styles, fk, pad, int(w.shape[0])).transpose(2, 3)
+    launch_counts["upconv2_dw"] += 1
+    return dwk.flip((0, 1)) if flip else dwk
+
+
+def downconv2_dw(x, gz, w, f, flip_weight=True):
+    """The D down-conv's dw (the block cotangent of K2's use_dw role), the
+    cotangent of its weight w [kh,kh,I,O] from gz [N,H,W,O] and x
+    [N,2H,2W,I]: `downconv2_dw_plain` for a CPU tensor; for a CUDA tensor
+    one launch of `mgt_fir_dw` on `downconv2_dw_leastwork`'s operands (x
+    filtered once, then the small weight's taps against gz), whose
+    cotangent maps onto w with a flip alone."""
+    if _on_cpu(x):
+        return downconv2_dw_plain(x, gz, w, f, flip_weight)
+    flip, fk, pad = downconv2_dw_leastwork(w, f, flip_weight)
+    dwk = _fir_dw_launch(x, gz.contiguous(), None, fk, pad, int(w.shape[0]))
+    launch_counts["downconv2_dw"] += 1
+    return dwk.flip((0, 1)) if flip else dwk
 
 
 # ---------------------------------------------------------------------------
@@ -825,7 +962,7 @@ def _modulated_backward(g, y_of, w, styles, noise, bias, gain, alpha, demodulate
     cotangent g; `needs` flags them in that order, None where not asked.
     `taps(d, slope, need_dx, need_ds, need_dd)` is the adjoint launch, run
     when dx, ds or the demod taps (for ds or dw) are needed; `dw_taps(gd)`
-    the dw launch, folded onto w, run when dw is. `slope()` gives (y, mask,
+    the dw launch, the cotangent of w, run when dw is. `slope()` gives (y, mask,
     g * mask, gd = g * mask * d) in torch, formed once on first use from
     `y_of()`, the output peeled of resid: by the launches that take gd, and
     for dw, dnoise and dbias (K1's kernel forms gd itself)."""
@@ -873,7 +1010,7 @@ def modconv3x3_backward(g, x, w, styles, y, noise, bias, resid, gain, alpha, dem
     def dw_taps(gd):
         if plain:
             return conv_dw_plain(x, gd, styles, 1, 1, 3, (0, 0))[0]
-        return conv_dw(x, gd, styles, 1, 1, 3, (0, 0), "modconv3x3_dw")[0]
+        return conv_dw(x, gd, styles)
 
     return _modulated_backward(g, lambda: y if resid is None else y - resid, w, styles, noise,
                                bias, gain, alpha, demodulate, needs, taps, dw_taps)
@@ -882,8 +1019,8 @@ def modconv3x3_backward(g, x, w, styles, y, noise, bias, resid, gain, alpha, dem
 def upconv2_backward(g, x, w, styles, f, y, noise, bias, gain, alpha, demodulate,
                      flip_weight, needs, plain=False):
     """Cotangents (dx, dw, ds, dnoise, dbias) of K2: K3's adjoint launch and
-    K3's dw taps, folded back onto w through the vjp of
-    `upconv2_phase_kernels` (`_modulated_backward`)."""
+    K3's dw role (`upconv2_dw`; `upconv2_dw_plain` on the plain route),
+    through `_modulated_backward`."""
     need_dx, need_dw, need_ds, need_dn, need_db = needs
     needs = (need_dx, need_dw, need_ds and styles is not None, need_dn, need_db)
 
@@ -894,12 +1031,7 @@ def upconv2_backward(g, x, w, styles, f, y, noise, bias, gain, alpha, demodulate
         return _k3_taps(gd, x, w, styles, f, flip_weight, y_, mask, noise, gain, alpha, *need)
 
     def dw_taps(gd):
-        wp, hb = upconv2_phase_kernels(w, f, flip_weight)
-        nt = int(wp.shape[2])
-        dwp = (conv_dw_plain(x, gd, styles, 1, 2, nt, hb) if plain
-               else conv_dw(x, gd, styles, 1, 2, nt, hb, "upconv2_dw"))
-        return _fold(lambda w_: upconv2_phase_kernels(w_, f, flip_weight)[0], w,
-                     dwp.reshape(wp.shape))
+        return (upconv2_dw_plain if plain else upconv2_dw)(x, gd, styles, w, f, flip_weight)
 
     return _modulated_backward(g, lambda: y, w, styles, noise, bias, gain, alpha, demodulate,
                                needs, taps, dw_taps)
@@ -910,8 +1042,8 @@ def downconv2_backward(g, x, w, f, y, bias, resid, gain, alpha, flip_weight, nee
     """Cotangents (dx, dw, dbias) of K3-forward for output cotangent g: gz =
     g * lrelu'(y - resid) (resid is added after the activation, so y is
     peeled of it first, `_dconv_bwd_impl` :2131-2137); dx is K2's use_dw
-    launch, dw the dw taps of x against gz per input parity, folded back
-    onto w through the vjp of `downconv2_parity_kernels`."""
+    launch, dw the least-work dw kernel (`downconv2_dw`;
+    `downconv2_dw_plain` on the plain route)."""
     need_dx, need_dw, need_db = needs
     if resid is not None:
         y = y - resid
@@ -920,12 +1052,7 @@ def downconv2_backward(g, x, w, f, y, bias, resid, gain, alpha, flip_weight, nee
     if need_dx:
         dx = (downconv2_adjoint_plain if plain else downconv2_adjoint)(gz, w, f, flip_weight)
     if need_dw:
-        wf, hb = downconv2_parity_kernels(w, f, flip_weight)
-        nt = int(wf.shape[2])
-        dwf = (conv_dw_plain(x, gz, None, 2, 1, nt, hb) if plain
-               else conv_dw(x, gz.contiguous(), None, 2, 1, nt, hb, "downconv2_dw"))
-        dw = _fold(lambda w_: downconv2_parity_kernels(w_, f, flip_weight)[0], w,
-                   dwf.reshape(wf.shape))
+        dw = (downconv2_dw_plain if plain else downconv2_dw)(x, gz, w, f, flip_weight)
     if need_db:
         db = gz.sum(dim=(0, 1, 2))
     return dx, dw, db

@@ -2,8 +2,10 @@
 K2, their adjoints (the K1 adjoint launch and K3), K3's D-tower forward,
 K2's use_dw role (the D down-conv's dx), K1, K2 and K3 at sizes off their
 tiles and K1 at its 1024^2 call shapes, the dw taps of all three weight
-roles, per-sample noise, K4 (forward and dx) with its route, and generator
-forwards of configs whose blocks the gates send unfused.
+roles (K1's taps; the least-work dw of K3 and of the D down-conv, and no
+fold on their backwards), per-sample noise, K4 (forward and dx) with its
+route, and generator forwards of configs whose blocks the gates send
+unfused.
 
 This file imports no JAX, so it runs on the GPU machine, where JAX is not
 installed; tests/conftest.py imports JAX, so run it there with
@@ -377,29 +379,107 @@ def test_k2_kernel_refuses_what_it_does_not_take(cuda_device):
     assert dict(fc.launch_counts) == before
 
 
-# (pa, pb, nt, hb, cin, cout, scaled): K1 dw, K3 dw (conv0, skip), the D
-# down-conv's dw (conv1, skip); odd sizes leave a ragged last chunk. The last
-# two have widths the kernel's 32-wide tiles do not divide (the wrapper pads).
-DW_CASES = [(1, 1, 3, (0, 0), 32, 64, True), (1, 2, 3, (0, 0), 64, 32, True),
-            (1, 2, 2, (0, 1), 64, 32, False), (2, 1, 3, (0, 0), 32, 64, False),
-            (2, 1, 2, (1, 0), 32, 64, False), (1, 1, 3, (0, 0), 16, 48, True),
-            (2, 1, 2, (1, 0), 8, 16, False)]
+# (cin, cout, scaled): K1's dw taps; odd sizes leave a ragged last chunk,
+# and the second case has widths the kernel's 32-wide tiles do not divide
+# (the wrapper pads).
+DW_CASES = [(32, 64, True), (16, 48, True)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pa,pb,nt,hb,cin,cout,scaled", DW_CASES)
-def test_dw_kernel_matches_plain(cuda_device, pa, pb, nt, hb, cin, cout, scaled):
+@pytest.mark.parametrize("cin,cout,scaled", DW_CASES)
+def test_dw_kernel_matches_plain(cuda_device, cin, cout, scaled):
     gen = torch.Generator(cuda_device).manual_seed(3)
     n, h = 2, 13
-    a = torch.randn((n, pa * h, pa * h, cin), generator=gen, device=cuda_device)
-    b = torch.randn((n, pb * h, pb * h, cout), generator=gen, device=cuda_device)
+    a = torch.randn((n, h, h, cin), generator=gen, device=cuda_device)
+    b = torch.randn((n, h, h, cout), generator=gen, device=cuda_device)
     s = torch.rand((n, cin), generator=gen, device=cuda_device) + 0.5 if scaled else None
     before = fc.launch_counts["modconv3x3_dw"]
-    got = fc.conv_dw(a, b, s, pa, pb, nt, hb, "modconv3x3_dw")
+    got = fc.conv_dw(a, b, s)
     assert fc.launch_counts["modconv3x3_dw"] == before + 1
-    want = fc.conv_dw_plain(a, b, s, pa, pb, nt, hb)
-    assert got.shape == want.shape == (4 if max(pa, pb) == 2 else 1, nt, nt, cin, cout)
+    want = fc.conv_dw_plain(a, b, s, 1, 1, 3, (0, 0))[0]
+    assert got.shape == want.shape == (3, 3, cin, cout)
     _rel_close(got, want)
+
+
+# (role, n, h, w, cin, cout, kh, scaled, flip_weight): the least-work dw of
+# K3 (the up-conv's weight; x at h x w, gd at 2h x 2w) and of the D
+# down-conv (x at 2h x 2w, gz at h x w): the 1024^2 widths (K3 64 -> 32, D
+# 32 -> 64), odd and non-square sizes (a ragged last tile), widths the
+# kernel's tiles (32 filtered channels, 64 base channels) do not divide,
+# kh 3 and 1, scaled and unscaled, both weight orientations.
+FIR_DW_CASES = [
+    ("up", 2, 16, 16, 64, 32, 3, True, False), ("up", 2, 16, 16, 64, 32, 1, False, False),
+    ("up", 1, 13, 7, 64, 32, 3, True, True), ("up", 2, 9, 11, 24, 40, 1, True, False),
+    ("up", 1, 5, 6, 100, 12, 3, False, False),
+    ("down", 2, 16, 16, 32, 64, 3, False, True), ("down", 2, 16, 16, 32, 64, 1, False, True),
+    ("down", 1, 13, 7, 32, 64, 3, False, False), ("down", 2, 9, 11, 12, 20, 1, False, True),
+    ("down", 1, 6, 5, 40, 72, 3, False, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role,n,h,w,cin,cout,kh,scaled,flip_weight", FIR_DW_CASES)
+def test_fir_dw_kernel_matches_plain(cuda_device, role, n, h, w, cin, cout, kh, scaled,
+                                     flip_weight):
+    """`upconv2_dw` / `downconv2_dw` (one launch of the least-work dw
+    kernel, the cotangent of the small weight flipped onto w) against the
+    composed plain version (`conv_dw_plain` + `_fold`)."""
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    dev = cuda_device
+    f = setup_filter(FIR).to(dev)
+    wt = torch.randn((kh, kh, cin, cout), generator=gen, device=dev)
+    if role == "up":
+        x = torch.randn((n, h, w, cin), generator=gen, device=dev)
+        t = torch.randn((n, 2 * h, 2 * w, cout), generator=gen, device=dev)
+        s = torch.rand((n, cin), generator=gen, device=dev) + 0.5 if scaled else None
+        key, run = "upconv2_dw", lambda: fc.upconv2_dw(x, t, s, wt, f, flip_weight)  # noqa: E731
+        want = fc.upconv2_dw_plain(x, t, s, wt, f, flip_weight)
+    else:
+        x = torch.randn((n, 2 * h, 2 * w, cin), generator=gen, device=dev)
+        t = torch.randn((n, h, w, cout), generator=gen, device=dev)
+        key, run = "downconv2_dw", lambda: fc.downconv2_dw(x, t, wt, f, flip_weight)  # noqa: E731
+        want = fc.downconv2_dw_plain(x, t, wt, f, flip_weight)
+    before = fc.launch_counts[key]
+    got = run()
+    torch.cuda.synchronize()
+    assert fc.launch_counts[key] == before + 1
+    assert got.shape == want.shape == (kh, kh, cin, cout)
+    _rel_close(got, want)
+
+
+@pytest.mark.cuda
+def test_dw_backwards_run_no_fold(cuda_device, monkeypatch):
+    """On the card the backwards of FusedUpConv2 and FusedDownConv2 take dw
+    from the least-work kernel, with no autograd of the composed kernel
+    (`_fold` raises here), and agree with the plain backwards."""
+    dev = cuda_device
+    gen = torch.Generator(dev).manual_seed(8)
+    f = setup_filter(FIR).to(dev)
+    x = torch.randn((2, 8, 8, 64), generator=gen, device=dev)
+    s = torch.rand((2, 64), generator=gen, device=dev) + 0.5
+    wu = torch.randn((3, 3, 64, 32), generator=gen, device=dev) / 24
+    xd = torch.randn((2, 16, 16, 32), generator=gen, device=dev)
+    wd = torch.randn((3, 3, 32, 64), generator=gen, device=dev) / 17
+    runs = {"up": lambda w_, plain: fc.fused_upconv2(x, w_, s, f, None, None, math.sqrt(2), 0.2,
+                                                     True, False, plain=plain),
+            "down": lambda w_, plain: fc.fused_downconv2(xd, w_, f, None, None, 1.0, 0.2,
+                                                         plain=plain)}
+    want = {}
+    for role, w_ in (("up", wu), ("down", wd)):
+        w_ = w_.clone().requires_grad_()
+        y = runs[role](w_, True)
+        want[role] = torch.autograd.grad(y, w_, torch.ones_like(y))[0]
+
+    def no_fold(*a, **k):
+        raise AssertionError("the kernel path folded a composed-kernel cotangent")
+    monkeypatch.setattr(fc, "_fold", no_fold)
+    before = dict(fc.launch_counts)
+    for role, w_ in (("up", wu), ("down", wd)):
+        w_ = w_.clone().requires_grad_()
+        y = runs[role](w_, False)
+        _rel_close(torch.autograd.grad(y, w_, torch.ones_like(y))[0], want[role])
+    assert fc.launch_counts["upconv2_dw"] == before["upconv2_dw"] + 1
+    assert fc.launch_counts["downconv2_dw"] == before["downconv2_dw"] + 1
 
 
 @pytest.mark.cuda

@@ -401,19 +401,19 @@ def test_smoke_launch_counts_match_the_dispatch(monkeypatch):
 
     counts = {}
 
-    def count(name, key=None):
+    def count(name, key):
         real = getattr(fc, name)
 
         def wrapped(*a, **k):
-            role = key or a[-1]
-            counts[role] = counts.get(role, 0) + 1
+            counts[key] = counts.get(key, 0) + 1
             return real(*a, **k)
         monkeypatch.setattr(fc, name, wrapped)
 
     for name, key in (("_modconv3x3_forward", "modconv3x3"), ("_upconv2_forward", "upconv2"),
                       ("_downconv2_forward", "downconv2"), ("_k1_taps", "modconv3x3_adj"),
                       ("_k3_taps", "upconv2_adj"), ("downconv2_adjoint", "downconv2_adj"),
-                      ("conv_dw", None)):
+                      ("conv_dw", "modconv3x3_dw"), ("upconv2_dw", "upconv2_dw"),
+                      ("downconv2_dw", "downconv2_dw")):
         count(name, key)
     smoke = _smoke()
     tg = tcfg.GANformerConfig(img_resolution=32, z_dim=8, w_dim=8, k=3, channel_base=256,
