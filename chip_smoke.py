@@ -46,7 +46,8 @@ Phases, each printing its wall time:
               plain and one cuDNN call's times (and the same-function
               call's for K3-forward, K2 use_dw and the dw of K3 and the
               down-conv: `conv2d_weight` of the FIR-composed kernel, its
-              fold onto w untimed) beside the bound; K1 and K2 forward and
+              fold onto w untimed; for K1's dw `conv2d_weight` of x * s and
+              gd, the multiply included) beside the bound; K1 and K2 forward and
               adjoint with per-sample noise [4,H,W] at the noisy call
               shapes. Then
               GANTrainer on FFHQ-1024 and a 1024^2 D from seed 0: one
@@ -120,7 +121,7 @@ K2_DW_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:1225"
 K4_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:74"
 SOURCE = "morphganformer_tpu_torch/csrc/fused_conv.cu"
 HAND_WRITTEN = ("conv3x3_lw_kernel", "upconv2_lw_kernel", "downconv2_lw_kernel",
-                "conv_dw_kernel", "fir_dw_kernel")
+                "conv_dw_lw_kernel", "fir_dw_kernel")
 PROJECT_STEPS = 100
 MORPH_STEPS = 50
 DEMORPH_STEPS = 5
@@ -186,7 +187,7 @@ def traced_forward(torch, fn, label, shapes=False, host_of=()):
 
 def _same_sum(rows):
     """The same-function call's time summed over rows, or None where a role
-    has none (K1, K4, K1's dw taps)."""
+    has none (K1, K4)."""
     ms = [r.get("same_function_ms") for r in rows]
     return None if None in ms else sum(ms)
 
@@ -474,6 +475,7 @@ def check_train_kernel(torch, fc, gen, call):
     from torch.nn.grad import conv2d_weight
 
     from morphganformer_tpu_torch.bench_dw import same_function_dw_call
+    from morphganformer_tpu_torch.bench_k1dw import same_function_call as k1_dw_same_call
     from morphganformer_tpu_torch.bench_k3 import same_function_call
     from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter
 
@@ -535,6 +537,7 @@ def check_train_kernel(torch, fc, gen, call):
             run_p = lambda: fc.conv_dw_plain(x, gd, s, 1, 1, 3, (0, 0))[0]          # noqa: E731
             run_lib = lambda: conv2d_weight(nchw(x), (cout, cin, 3, 3), nchw(gd),   # noqa: E731
                                             padding=1)
+            run_same = k1_dw_same_call(x, gd, s)
             flops = 2 * n * h * h * 9 * cin * cout
             tensors, out_numel = [x, gd, s], 9 * cin * cout
         else:
@@ -1591,8 +1594,9 @@ def main():
              "pallas_conv.py:1225-1246, :2161-2173; least work: fir_dw_kernel, the FIR once "
              "in shared memory, then the small weight's stride-2 taps, no fold)", K2_DW_REPLACES,
              "the D down-conv's dw"),
-            ("K1-dw", "mgt_conv_dw (K1's dw taps, pallas_conv.py:256-285, :894-905; "
-             "conv_dw_kernel)", K1_DW_REPLACES, "G conv1/conv_last and D conv0 dw"),
+            ("K1-dw", "mgt_conv_dw (K1's dw taps, pallas_conv.py:256-285, :894-905; least "
+             "work: conv_dw_lw_kernel, all nine taps in a block, x's columns sliding along "
+             "each row)", K1_DW_REPLACES, "G conv1/conv_last and D conv0 dw"),
             ("K3-dw", "mgt_fir_dw (K3's dw taps in the adjoint role, pallas_conv.py:1387-1416; "
              "least work: fir_dw_kernel, as K2-use_dw-dw)", K3_DW_REPLACES, "G conv0/skip dw")):
         mine = [r for r in train_rows if r["kernel"] == role]

@@ -68,6 +68,9 @@ PARENT_SIGNATURES = {
     "mgt_dw_chunk": [],
 }
 PARENT_KERNEL = "conv_dw_kernel"
+# The slice target of the earlier dw wrappers (commits b4619e2 and
+# 9b95557): 8 blocks per SM of an H100.
+PARENT_DW_BLOCKS = 8 * 132
 KERNEL = "fir_dw_kernel"
 BATCH = 4
 # (role, block, layer, base resolution, Cin, Cout, kh): chip_smoke.py's
@@ -111,7 +114,7 @@ def parent_dw(lib, a, b, s, pa, pb, nt, hb):
     h, wd = a.shape[1] // pa, a.shape[2] // pa
     chunks = -(-n * h * wd // lib.mgt_dw_chunk())
     per_slice = 4 * nt * nt * (ci // 32) * (co // 32)
-    per = -(-chunks // max(1, min(chunks, -(-fc._DW_BLOCKS // per_slice))))
+    per = -(-chunks // max(1, min(chunks, -(-PARENT_DW_BLOCKS // per_slice))))
     slices = -(-chunks // per)
     part = torch.empty((slices, 4, nt, nt, ci, co), device=a.device)
     _call(lib, "mgt_conv_dw", a.data_ptr(), b.data_ptr(), None if s is None else s.data_ptr(),
@@ -237,18 +240,14 @@ def traced_run(fn, kernels, host_of=(), shapes=False):
     return prof, averages, out
 
 
-def iteration_ab(lib):
-    """Traced first-order iterations, earlier, new, new, earlier: "earlier"
-    swaps the two dw wrappers for the earlier build's route."""
+def iteration_ab(new, earlier, kernels):
+    """Traced first-order iterations, earlier, new, new, earlier: `new` and
+    `earlier` map names of `fc`'s wrappers to the functions that stand in
+    them on each route; `kernels` are the kernel names whose device time
+    each traced iteration reports."""
     from morphganformer_tpu_torch.models.config import DiscriminatorConfig, ffhq1024_config
     from morphganformer_tpu_torch.training import GANTrainer, TrainConfig
 
-    new = {"upconv2_dw": fc.upconv2_dw, "downconv2_dw": fc.downconv2_dw}
-    earlier = {
-        "upconv2_dw": lambda x, gd, s, w, f, fw=False: parent_route(lib, "K3-dw", x, gd, s, w,
-                                                                    f, fw),
-        "downconv2_dw": lambda x, gz, w, f, fw=True: parent_route(lib, "K2-use_dw-dw", x, gz,
-                                                                  None, w, f, fw)}
     trainer = GANTrainer(ffhq1024_config(), DiscriminatorConfig(),
                          TrainConfig(batch_size=BATCH, batch_gpu=BATCH))
     state = trainer.init_state(seed=0)
@@ -263,13 +262,25 @@ def iteration_ab(lib):
         torch.cuda.synchronize()
         for traced_step in (step + 1, step + 2):
             _, _, out = traced_run(lambda: trainer.train_iteration(state, reals, traced_step),
-                                   (KERNEL, PARENT_KERNEL), HOST_TIMED)
+                                   kernels, HOST_TIMED)
             row = dict(route=name, step=traced_step, **out)
             print(json.dumps(row), flush=True)
             rows.append(row)
     for k, fn in new.items():
         setattr(fc, k, fn)
     return rows
+
+
+def dw_routes(lib):
+    """(new, earlier) for `iteration_ab`: the two dw wrappers, or the
+    earlier build's route with its fold."""
+    new = {"upconv2_dw": fc.upconv2_dw, "downconv2_dw": fc.downconv2_dw}
+    earlier = {
+        "upconv2_dw": lambda x, gd, s, w, f, fw=False: parent_route(lib, "K3-dw", x, gd, s, w,
+                                                                    f, fw),
+        "downconv2_dw": lambda x, gz, w, f, fw=True: parent_route(lib, "K2-use_dw-dw", x, gz,
+                                                                  None, w, f, fw)}
+    return new, earlier
 
 
 def main(argv):
@@ -286,7 +297,7 @@ def main(argv):
     print(json.dumps({"build_s": build_s, "ptxas": ptxas_report(log)}), flush=True)
     _build.library()
     if len(argv) == 3:
-        iteration_ab(lib)
+        iteration_ab(*dw_routes(lib), (KERNEL, PARENT_KERNEL))
         print(smi, flush=True)
         return 0
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -48,10 +48,10 @@ _SIGNATURES = {
     # gd, wk, fir, s, x, y, noise, dx, dot, dd1, dd2, N, H, W, O, C, kh, pad, gain, alpha,
     # noise_ns, device, stream
     "mgt_upconv2_bwd": [_P] * 11 + [_I] * 7 + [_F, _F, _I, _I, _P],
-    # x, gd, s, part, N, H, W, Cin, Cout, slices, chunks_per_slice, device, stream
-    "mgt_conv_dw": [_P] * 4 + [_I] * 7 + [_I, _P],
-    # -> positions per chunk of K1's dw kernel
-    "mgt_dw_chunk": [],
+    # x, gd, s, part, N, H, W, C, O, ot, slices, tiles_per_slice, device, stream
+    "mgt_conv_dw": [_P] * 4 + [_I] * 8 + [_I, _P],
+    # N, H, W, ot -> the number of tiles of a mgt_conv_dw launch
+    "mgt_conv_dw_tiles": [_I] * 4,
     # src, base, s, fir, part, N, H, W, CB, CK, kh, pad, slices, tiles_per_slice, device,
     # stream
     "mgt_fir_dw": [_P] * 5 + [_I] * 9 + [_I, _P],

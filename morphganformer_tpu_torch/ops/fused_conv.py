@@ -76,9 +76,8 @@ launch_counts = {"modconv3x3": 0, "upconv2": 0, "modconv3x3_adj": 0, "upconv2_ad
                  "downconv2": 0, "downconv2_adj": 0, "modconv3x3_dw": 0, "upconv2_dw": 0,
                  "downconv2_dw": 0, "conv3x3": 0, "conv3x3_adj": 0}
 
-# Blocks of one K1 dw launch the slice count aims at: 8 per SM of an H100.
-_DW_BLOCKS = 8 * 132
-# Blocks of one least-work dw launch (`mgt_fir_dw`): one wave at 2 per SM.
+# Blocks of one least-work dw launch (`mgt_conv_dw`, `mgt_fir_dw`): one wave
+# at 2 per SM of an H100.
 _FD_BLOCKS = 2 * 132
 
 
@@ -855,13 +854,27 @@ def downconv2_adjoint(gz, w, f, flip_weight=True):
     return dx
 
 
+def k1_dw_ot(co):
+    """The gd channels of a block of K1's dw kernel for O = co (a multiple
+    of 32): 64 where they divide co, else 32."""
+    return 64 if co % 64 == 0 else 32
+
+
+def dw_slices(ntiles, groups):
+    """(slices, tiles per slice) of one least-work dw launch over ntiles
+    tiles and `groups` channel tiles: one wave of `_FD_BLOCKS` blocks, no
+    slice empty."""
+    per = -(-ntiles // max(1, min(ntiles, _FD_BLOCKS // groups)))
+    return -(-ntiles // per), per
+
+
 def conv_dw(x, gd, s):
     """K1's dw taps (`conv_dw_plain` with pa = pb = 1, 3 taps, hb 0): the
-    plain version for a CPU tensor; for a CUDA tensor one launch of
-    `mgt_conv_dw`, whose per-slice partials are summed here in a fixed
-    order. x [N,H,W,C], gd [N,H,W,O], s [N,C] or None -> [3,3,C,O]. The
-    kernel tiles (C, O) by 32: other widths are padded with zero channels,
-    whose cotangent entries are cut off."""
+    plain version for a CPU tensor; for a CUDA tensor one launch of the
+    least-work kernel (`mgt_conv_dw`), whose per-slice partials are summed
+    here in a fixed order. x [N,H,W,C], gd [N,H,W,O], s [N,C] or None ->
+    [3,3,C,O]. The kernel tiles C and O by 32: other widths are padded with
+    zero channels, whose cotangent entries are cut off."""
     if _on_cpu(x):
         return conv_dw_plain(x, gd, s, 1, 1, 3, (0, 0))[0]
     n, h, wd, ci = x.shape
@@ -871,17 +884,14 @@ def conv_dw(x, gd, s):
         s = None if s is None else F.pad(s, pad_a)
         return conv_dw(F.pad(x, pad_a), F.pad(gd, pad_b), s)[..., :ci, :co]
     dev = x.device
-    if n * h * wd >= 2 ** 31:
-        raise ValueError(f"mgt_conv_dw takes under 2^31 positions, got {n * h * wd}")
     ptrs = [_aligned("x", _check("x", x, (n, h, wd, ci), dev)),
             _aligned("gd", _check("gd", gd, (n, h, wd, co), dev)),
             _aligned("s", _check("s", s, (n, ci), dev))]
-    chunks = -(-n * h * wd // _library().mgt_dw_chunk())
-    per_slice = 9 * (ci // 32) * (co // 32)
-    per = -(-chunks // max(1, min(chunks, -(-_DW_BLOCKS // per_slice))))
-    slices = -(-chunks // per)
+    ot = k1_dw_ot(co)
+    slices, per = dw_slices(_library().mgt_conv_dw_tiles(n, h, wd, ot), (ci // 32) * (co // ot))
     part = torch.empty((slices, 3, 3, ci, co), device=dev, dtype=torch.float32)
-    _launch("mgt_conv_dw", *ptrs, part.data_ptr(), n, h, wd, ci, co, slices, per, *_stream(dev))
+    _launch("mgt_conv_dw", *ptrs, part.data_ptr(), n, h, wd, ci, co, ot, slices, per,
+            *_stream(dev))
     launch_counts["modconv3x3_dw"] += 1
     return part.sum(0)
 
@@ -905,9 +915,7 @@ def _fir_dw_launch(src, base, s, fk, pad, kh):
     ptrs = [_aligned("src", _check("src", src, (n, 2 * h, 2 * wd, cu), dev)),
             _aligned("base", _check("base", base, (n, h, wd, cv), dev)),
             _check("s", s, (n, cv), dev), _check("fir", fk, (4, 4), dev)]
-    ntiles = _library().mgt_fir_dw_tiles(n, h, wd)
-    per = -(-ntiles // max(1, min(ntiles, _FD_BLOCKS // ((cu // 32) * (cv // 64)))))
-    slices = -(-ntiles // per)
+    slices, per = dw_slices(_library().mgt_fir_dw_tiles(n, h, wd), (cu // 32) * (cv // 64))
     part = torch.empty((slices, kh, kh, cu, cv), device=dev, dtype=torch.float32)
     _launch("mgt_fir_dw", *ptrs, part.data_ptr(), n, h, wd, cu, cv, kh, pad, slices, per,
             *_stream(dev))

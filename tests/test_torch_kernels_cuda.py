@@ -379,26 +379,63 @@ def test_k2_kernel_refuses_what_it_does_not_take(cuda_device):
     assert dict(fc.launch_counts) == before
 
 
-# (cin, cout, scaled): K1's dw taps; odd sizes leave a ragged last chunk,
-# and the second case has widths the kernel's 32-wide tiles do not divide
-# (the wrapper pads).
-DW_CASES = [(32, 64, True), (16, 48, True)]
+# (n, h, w, cin, cout, scaled): K1's dw taps (the least-work kernel, a block
+# on 32 x channels and 64 gd channels, or 32 at widths 64 does not divide):
+# the 1024^2 widths 32, 64 and 128, tiles that do and do not divide the
+# image (4 x 16 at 64 gd channels, 8 x 16 at 32), odd and non-square sizes,
+# images smaller than one tile, widths the kernel's 32-wide channel tiles do
+# not divide (the wrapper pads), three gd channel tiles of 32, and no styles
+# (D conv0).
+DW_CASES = [
+    (2, 16, 16, 32, 32, True), (2, 16, 32, 64, 64, True), (1, 12, 16, 128, 128, True),
+    (2, 13, 13, 32, 64, True), (2, 13, 13, 16, 48, True), (1, 9, 21, 32, 32, False),
+    (3, 7, 5, 64, 32, False), (1, 11, 19, 36, 100, True), (2, 5, 34, 96, 96, True),
+]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cin,cout,scaled", DW_CASES)
-def test_dw_kernel_matches_plain(cuda_device, cin, cout, scaled):
+@pytest.mark.parametrize("n,h,w,cin,cout,scaled", DW_CASES)
+def test_dw_kernel_matches_plain(cuda_device, n, h, w, cin, cout, scaled):
     gen = torch.Generator(cuda_device).manual_seed(3)
-    n, h = 2, 13
-    a = torch.randn((n, h, h, cin), generator=gen, device=cuda_device)
-    b = torch.randn((n, h, h, cout), generator=gen, device=cuda_device)
+    a = torch.randn((n, h, w, cin), generator=gen, device=cuda_device)
+    b = torch.randn((n, h, w, cout), generator=gen, device=cuda_device)
     s = torch.rand((n, cin), generator=gen, device=cuda_device) + 0.5 if scaled else None
     before = fc.launch_counts["modconv3x3_dw"]
     got = fc.conv_dw(a, b, s)
+    torch.cuda.synchronize()
     assert fc.launch_counts["modconv3x3_dw"] == before + 1
     want = fc.conv_dw_plain(a, b, s, 1, 1, 3, (0, 0))[0]
     assert got.shape == want.shape == (3, 3, cin, cout)
     _rel_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["x", "gd"])
+@pytest.mark.parametrize("cin,cout", [(32, 32), (64, 64)])
+def test_dw_kernel_single_pixels(cuda_device, cin, cout, operand):
+    """One non-zero pixel of x or of gd at each corner and edge of a
+    non-square image that the tiles do not divide, the other operand
+    random: every tap of K1's dw kernel against the plain version, so a
+    tap read from the wrong side of the halo shows."""
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    h, w = 11, 19
+    s = torch.rand((1, cin), generator=gen, device=cuda_device) + 0.5
+    for py, px in ((0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1), (0, w // 2), (h - 1, w // 2),
+                   (h // 2, 0), (h // 2, w - 1), (h // 2, w // 2)):
+        a = torch.randn((1, h, w, cin), generator=gen, device=cuda_device)
+        b = torch.randn((1, h, w, cout), generator=gen, device=cuda_device)
+        one = a if operand == "x" else b
+        keep = one[0, py, px].clone()
+        one.zero_()
+        one[0, py, px] = keep
+        want = fc.conv_dw_plain(a, b, s, 1, 1, 3, (0, 0))[0]
+        got = fc.conv_dw(a, b, s)
+        torch.cuda.synchronize()
+        assert want.abs().max() > 0
+        # Zero where the plain version is zero: the taps that reach outside
+        # the image from this pixel.
+        assert torch.equal(got.abs().sum((2, 3)) == 0, want.abs().sum((2, 3)) == 0), (py, px)
+        _rel_close(got, want)
 
 
 # (role, n, h, w, cin, cout, kh, scaled, flip_weight): the least-work dw of
