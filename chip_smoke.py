@@ -37,7 +37,14 @@ Phases, each printing its wall time:
               to 1e-5); a 50-step batch-2 projected morph of two G(z)
               targets and an image-mode demorph of its result, with their
               launch counts; pair-steps/s.
-  7. train    the training roles at every call shape of a 1024^2 training
+  7. checkpoint
+              the FFHQ-1024 generator of phase generate and a 1024^2 D
+              (seed 4) saved with save_generator / save_discriminator, loaded
+              back through cli.get_model(<dir>) and load_discriminator: every
+              leaf bit-equal; run_generate from the loaded generator writes
+              phase generate's two PNGs byte for byte; bytes, save and load
+              seconds.
+  8. train    the training roles at every call shape of a 1024^2 training
               step at batch 4 against their plain versions: K3-forward (the
               D down-conv, to 1e-3 max abs), K2's use_dw role (its dx), the
               dw taps of K1, K3 and the down-conv (relative to the largest
@@ -62,7 +69,23 @@ Phases, each printing its wall time:
               accumulation rounds (batch 8), stage times and peak memory,
               and one iteration under torch.profiler (with the host time of
               the FusedUpConv2 and FusedDownConv2 backwards).
-  8. layouts  K4 (`mgt_conv3x3_fwd`) and its dx role against the plain
+  9. loop     16 images of 1024^2 (G(z) from seeds; half of them with every
+              row Paeth-filtered, half Sub-filtered, by the encoder below)
+              under <tmp>/data/1024/; one 1024^2 PNG decoded by the native
+              loader and by read_png, Paeth and Sub; then training_loop at
+              FFHQ-1024 with a 1024^2 D from seed 0, batch 4, 2 iterations a
+              tick, snapshots and image snapshots every tick (grid and
+              interp), tensorboard on: two ticks, then a resumed tick
+              (msgpack), then a resumed tick with the async backend. Checks:
+              the run's files; every iteration launches exactly phase
+              train's kernels of one iteration; each resumed run starts at
+              the saved cur_nimg from a state bit-equal to the saved one;
+              cli.get_model(<snapshot>) gives G_ema's image. Each
+              iteration's seconds inside train_iteration and around it (the
+              feed, the stats copy, the tick), the feed it took, the
+              snapshot's bytes and its synchronous, asynchronous and load
+              seconds.
+  10. layouts K4 (`mgt_conv3x3_fwd`) and its dx role against the plain
               version at its five call shapes (G b512 conv1, b1024 conv1 and
               conv_last; D b1024 and b512 conv0) at batch 1 and 4, to 1e-5
               of the output's largest entry, with kernel, plain and one
@@ -75,7 +98,7 @@ Phases, each printing its wall time:
               iteration; one G_main and one D_main round's gradients, K4 on
               against K4 off (every leaf within 1e-3 of its largest entry,
               floored; the noise strengths as one); stage times, peak memory.
-  9. reg      train_iteration at steps 0 and 16, where all four stages are
+  11. reg     train_iteration at steps 0 and 16, where all four stages are
               due, at batch 4, on the resnet pair of phase train and on the
               skip pair: finite losses, pl_mean moved off 0, no kernel
               launch inside G_reg or D_reg (the unpacked route), the exact
@@ -98,6 +121,7 @@ kernel build in morphganformer_tpu_torch/_build/.
 """
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -105,6 +129,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEV = "cuda"
@@ -296,6 +321,11 @@ def check_kernel(torch, fc, gen, call):
           f"library_ms {library_ms:.4f}{_same(same_ms)} bound_ms {bound_ms:.4f} ({bound_by})",
           flush=True)
     return row
+
+
+def host(stats):
+    """A stage's or an iteration's stats (0-d device tensors) as floats."""
+    return {k: float(v) for k, v in stats.items()}
 
 
 def _same(ms):
@@ -761,11 +791,11 @@ def train_phase(torch, fc):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if stage == "g":
-            out = trainer.g_main_grads(state, z, gen=rng, plain=plain)
+            grads, stats = trainer.g_main_grads(state, z, gen=rng, plain=plain)
         else:
-            out = trainer.d_main_grads(state, real, z, gen=rng, plain=plain)
+            grads, stats = trainer.d_main_grads(state, real, z, gen=rng, plain=plain)
         torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
+        return (grads, host(stats)), (time.perf_counter() - t0) * 1e3
 
     errs, round_ms = {}, {}
     for stage, net in (("g", state.G), ("d", state.D)):
@@ -827,7 +857,7 @@ def train_phase(torch, fc):
     for step in (1, 2, 3):
         fc.reset_launch_counts()
         t0 = time.perf_counter()
-        stats = trainer.train_iteration(state, reals[:TRAIN_BATCH], step)
+        stats = host(trainer.train_iteration(state, reals[:TRAIN_BATCH], step))
         torch.cuda.synchronize()
         iter_ms.append((time.perf_counter() - t0) * 1e3)
         launches = dict(fc.launch_counts)
@@ -845,7 +875,7 @@ def train_phase(torch, fc):
     assert two.n_accum == 2
     fc.reset_launch_counts()
     t0 = time.perf_counter()
-    stats2 = two.train_iteration(state, reals, 5)
+    stats2 = host(two.train_iteration(state, reals, 5))
     torch.cuda.synchronize()
     two_ms = (time.perf_counter() - t0) * 1e3
     print(f"  step 5, batch 8 in two rounds: {two_ms:.3f} ms; {json.dumps(stats2)}; launches "
@@ -1042,11 +1072,11 @@ def layouts_phase(torch, fc, k4):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if stage == "g":
-                out = trainer.g_main_grads(state, z4, gen=rng)
+                grads, stats = trainer.g_main_grads(state, z4, gen=rng)
             else:
-                out = trainer.d_main_grads(state, reals[None], z4, gen=rng)
+                grads, stats = trainer.d_main_grads(state, reals[None], z4, gen=rng)
             torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
+        return (grads, host(stats)), (time.perf_counter() - t0) * 1e3
 
     grads = {}
     for stage, net in (("g", G), ("d", D)):
@@ -1086,7 +1116,7 @@ def layouts_phase(torch, fc, k4):
         for step in (1, 2, 3):
             fc.reset_launch_counts()
             t0 = time.perf_counter()
-            stats = trainer.train_iteration(state, reals, step)
+            stats = host(trainer.train_iteration(state, reals, step))
             torch.cuda.synchronize()
             iter_ms.append((time.perf_counter() - t0) * 1e3)
             launches = dict(fc.launch_counts)
@@ -1148,8 +1178,9 @@ def reg_checks(torch, trainer, state, reals, gen):
             if stage == "g_reg":
                 rng = torch.Generator(device=DEV).manual_seed(seed)
                 g, stats, _ = trainer.g_reg_grads(st, z.to(dtype), gen=rng)
-                return g, stats
-            return trainer.d_reg_grads(st, real.to(dtype))
+                return g, host(stats)
+            g, stats = trainer.d_reg_grads(st, real.to(dtype))
+            return g, host(stats)
 
         def loss_of(st):
             if stage == "g_reg":
@@ -1277,7 +1308,7 @@ def _reg_pairs(torch, fc):
                 torch.cuda.reset_peak_memory_stats()
                 fc.reset_launch_counts()
                 t0 = time.perf_counter()
-                stats = trainer.train_iteration(state, reals, step)
+                stats = host(trainer.train_iteration(state, reals, step))
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
                 peak = torch.cuda.max_memory_allocated()
@@ -1310,6 +1341,294 @@ def _reg_pairs(torch, fc):
         torch.cuda.empty_cache()
     assert not failures, failures
     return out
+
+
+def tree_bits(tree):
+    """{path: (dtype, shape, bytes)} of a flax-form tree (numpy leaves)."""
+    import numpy as np
+
+    from morphganformer_tpu_torch.checkpoint.convert import flatten
+
+    out = {}
+    for path, leaf in flatten(tree):
+        a = np.asarray(leaf)
+        out["/".join(path)] = (a.dtype.str, a.shape, a.tobytes())
+    return out
+
+
+def assert_same_tree(got, want, what):
+    g, w = tree_bits(got), tree_bits(want)
+    assert sorted(g) == sorted(w), f"{what}: leaves differ"
+    bad = [k for k in w if g[k] != w[k]]
+    assert not bad, f"{what}: {len(bad)} leaves differ, e.g. {bad[:3]}"
+    return len(w)
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def checkpoint_phase(torch, fc, cli, G, tmp):
+    """Phase 7: the generator and a 1024^2 D through checkpoint/io.py."""
+    from morphganformer_tpu_torch.checkpoint import to_flax
+    from morphganformer_tpu_torch.checkpoint.io import (load_discriminator,
+                                                        save_discriminator, save_generator)
+    from morphganformer_tpu_torch.models.config import DiscriminatorConfig
+    from morphganformer_tpu_torch.models.discriminator import init_discriminator
+
+    ckpt = os.path.join(tmp, "ckpt")
+    D = init_discriminator(DiscriminatorConfig(), seed=4, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_generator(ckpt, G.cfg, G)
+    save_discriminator(ckpt, D.cfg, D)
+    save_s = time.perf_counter() - t0
+    nbytes = dir_bytes(ckpt)
+    t0 = time.perf_counter()
+    cfg2, G2 = cli.get_model(ckpt, device=DEV)
+    d_cfg2, D2 = load_discriminator(ckpt, device=DEV)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    assert cfg2 == G.cfg and d_cfg2 == D.cfg
+    n = assert_same_tree(to_flax(G2), to_flax(G), "G")
+    n += assert_same_tree(to_flax(D2), to_flax(D), "D")
+    fc.reset_launch_counts()
+    cli.run_generate(G2, os.path.join(tmp, "gen_loaded"), images_num=2, truncation_psi=0.7,
+                     batch_size=2, seed=0)
+    launches = dict(fc.launch_counts)
+    for name in sorted(os.listdir(os.path.join(tmp, "gen"))):
+        with open(os.path.join(tmp, "gen", name), "rb") as a, \
+                open(os.path.join(tmp, "gen_loaded", name), "rb") as b:
+            assert a.read() == b.read(), f"{name}: the loaded generator's PNG differs"
+    assert launches == _per_step(0, 1), launches
+    print(f"  arch.json + Gs.msgpack + D.msgpack: {nbytes} bytes; save {save_s:.3f} s, load "
+          f"(cli.get_model + load_discriminator, to cuda) {load_s:.3f} s; {n} leaves "
+          f"bit-equal; run_generate from the loaded G: the same 2 PNGs byte for byte; "
+          f"launches {launches}", flush=True)
+    return dict(bytes=nbytes, save_s=save_s, load_s=load_s, leaves=n)
+
+
+def write_png_filtered(path, img, filter_type):
+    """An RGB PNG with every row filtered by `filter_type` (1 Sub, 4 Paeth),
+    as libpng's encoders often pick for photographs."""
+    import numpy as np
+
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int16)
+    up = np.vstack([np.zeros((1, w * c), np.int16), x[:-1]])
+    left = np.hstack([np.zeros((h, c), np.int16), x[:, :-c]])
+    if filter_type == 1:
+        pred = left
+    else:
+        upleft = np.hstack([np.zeros((h, c), np.int16), up[:, :-c]])
+        p = left + up - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+        pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    rows = np.hstack([np.full((h, 1), filter_type, np.uint8), ((x - pred) % 256).astype(np.uint8)])
+
+    def chunk(tag, data):
+        return (len(data).to_bytes(4, "big") + tag + data
+                + (zlib.crc32(tag + data) & 0xFFFFFFFF).to_bytes(4, "big"))
+
+    header = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([8, 2, 0, 0, 0])
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+LOOP_IMAGES = 16
+
+
+def loop_phase(torch, fc, cli, G, train_stats):
+    """Phase 9: the data feed and the looping trainer at FFHQ-1024."""
+    import numpy as np
+
+    from morphganformer_tpu_torch.checkpoint.async_io import AsyncSnapshotter
+    from morphganformer_tpu_torch.checkpoint.io import save_discriminator, save_generator
+    from morphganformer_tpu_torch.checkpoint.msgpack_codec import msgpack_restore
+    from morphganformer_tpu_torch.data import native_loader
+    from morphganformer_tpu_torch.models.config import DiscriminatorConfig, ffhq1024_config
+    from morphganformer_tpu_torch.training import GANTrainer, TrainConfig
+    from morphganformer_tpu_torch.training import loop as tloop
+    from morphganformer_tpu_torch.utils.image import read_png, to_uint8, write_png
+
+    g_cfg, d_cfg = ffhq1024_config(), DiscriminatorConfig()
+    res = g_cfg.img_resolution
+    with tempfile.TemporaryDirectory(prefix="mgt_loop_") as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(os.path.join(data, str(res)))
+        t0 = time.perf_counter()
+        z = torch.randn((LOOP_IMAGES, G.cfg.k, G.cfg.z_dim),
+                        generator=torch.Generator().manual_seed(100))
+        imgs = np.concatenate([cli.synthesize(G, z[i:i + 4]).cpu().numpy()
+                               for i in range(0, LOOP_IMAGES, 4)])
+        for i, img in enumerate(imgs):
+            write_png_filtered(os.path.join(data, str(res), f"{i:05d}.png"), to_uint8(img),
+                               4 if i % 2 == 0 else 1)
+        print(f"  {LOOP_IMAGES} PNGs of {res}^2 (Paeth rows: even, Sub rows: odd) written in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+        decode_ms = {}
+        assert native_loader.native_available(), native_loader.build_error()
+        for name, path in (("paeth", "00000.png"), ("sub", "00001.png")):
+            path = os.path.join(data, str(res), path)
+            want = to_uint8(imgs[0 if name == "paeth" else 1])
+            for how, fn in (("native", lambda p: native_loader.decode_png(p, res, res)),
+                            ("read_png", read_png)):
+                t0 = time.perf_counter()
+                got = fn(path)
+                decode_ms[f"{how}_{name}"] = (time.perf_counter() - t0) * 1e3
+                assert np.array_equal(got, want), (how, name)
+        print(f"  decode of one {res}^2 PNG (ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in decode_ms.items()), flush=True)
+
+        t_cfg = TrainConfig(batch_size=TRAIN_BATCH, batch_gpu=4)
+        run_dir = os.path.join(tmp, "run")
+        real_iteration = GANTrainer.train_iteration
+        record = {"calls": [], "first_state": None}
+
+        def recording(self, state, real_img, step, z=None):
+            if record["first_state"] is None:
+                record["first_state"] = tloop.train_state_tree(state)
+            torch.cuda.synchronize()
+            before = dict(fc.launch_counts)
+            t_in = time.perf_counter()
+            out = real_iteration(self, state, real_img, step, z)
+            torch.cuda.synchronize()
+            t_out = time.perf_counter()
+            record["calls"].append(dict(step=step, t_in=t_in, t_out=t_out, launches={
+                k: fc.launch_counts[k] - before[k] for k in before}))
+            return out
+
+        def run(max_ticks, resume, backend):
+            record["calls"], record["first_state"] = [], None
+            l_cfg = tloop.LoopConfig(run_dir=run_dir, total_kimg=1,
+                                     kimg_per_tick=2 * TRAIN_BATCH / 1000, snapshot_ticks=1,
+                                     img_snapshot_ticks=1, vis=("grid", "interp"),
+                                     tensorboard=True, snapshot_backend=backend, seed=0)
+            out = io.StringIO()
+            GANTrainer.train_iteration = recording
+            try:
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    state = tloop.training_loop(g_cfg, d_cfg, t_cfg, l_cfg, data, resume=resume,
+                                                max_ticks=max_ticks, device=DEV)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                GANTrainer.train_iteration = real_iteration
+            text = out.getvalue()
+            for line in text.splitlines():
+                if line.startswith(("feed:", "Resuming", "tick ", "snapshot ")):
+                    print(f"    {line}", flush=True)
+            calls = record["calls"]
+            for i, c in enumerate(calls):
+                c["inside_s"] = c["t_out"] - c["t_in"]
+                c["gap_s"] = c["t_in"] - calls[i - 1]["t_out"] if i else None
+                assert c["launches"] == per_iteration(), (c["step"], c["launches"])
+                print(f"    step {c['step']}: {c['inside_s']:.3f} s in train_iteration"
+                      + (f", {c['gap_s']:.3f} s since the previous one returned"
+                         if i else "") + f"; launches {c['launches']}", flush=True)
+            print(f"    {backend}: {len(calls)} iterations, {wall:.3f} s in training_loop",
+                  flush=True)
+            return state, text, calls, wall
+
+        def saved_tree():
+            path = os.path.join(tloop.latest_snapshot(run_dir), "train_state.msgpack")
+            with open(path, "rb") as f:
+                return msgpack_restore(f.read())
+
+        state1, text1, calls1, wall1 = run(2, None, "msgpack")
+        assert "feed: native" in text1, text1[:2000]
+        assert text1.count("snapshot ") == 2 and state1.cur_nimg == 4 * TRAIN_BATCH
+        lines = open(os.path.join(run_dir, "stats.jsonl")).read().splitlines()
+        assert len(lines) == 2 and all(math.isfinite(json.loads(x)["Loss/D/loss"]["mean"])
+                                       for x in lines)
+        for name in ("fakes000000.png", "vis000000/interpolation.png", "module_summary.txt",
+                     "training_options.json"):
+            assert os.path.exists(os.path.join(run_dir, name)), name
+        assert len([f for f in os.listdir(run_dir) if f.startswith("events.out.tfevents")]) == 1
+        snap = tloop.latest_snapshot(run_dir)
+        assert sorted(os.listdir(snap)) == ["D.msgpack", "G.msgpack", "Gs.msgpack", "arch.json",
+                                            "train_state.msgpack"]
+        saved1 = saved_tree()
+        n_leaves = assert_same_tree(saved1, tloop.train_state_tree(state1), "saved vs in memory")
+
+        state2, text2, calls2, wall2 = run(1, "auto", "msgpack")
+        assert f"at cur_nimg {4 * TRAIN_BATCH}" in text2 and state2.cur_nimg == 6 * TRAIN_BATCH
+        assert_same_tree(record["first_state"], saved1, "resumed (msgpack) vs saved")
+        saved2 = saved_tree()
+        del state1, state2
+        state3, text3, calls3, wall3 = run(1, "auto", "async")
+        assert f"at cur_nimg {6 * TRAIN_BATCH}" in text3 and state3.cur_nimg == 8 * TRAIN_BATCH
+        assert_same_tree(record["first_state"], saved2, "resumed (async) vs saved")
+        assert_same_tree(saved_tree(), tloop.train_state_tree(state3), "async saved vs memory")
+        print(f"  resumed twice from a state bit-equal to the saved one ({n_leaves} leaves)",
+              flush=True)
+
+        _, G_snap = cli.get_model(tloop.latest_snapshot(run_dir), device=DEV)
+        zs = torch.randn((2, g_cfg.k, g_cfg.z_dim), generator=torch.Generator().manual_seed(5))
+        a, b = cli.synthesize(G_snap, zs), cli.synthesize(state3.G_ema, zs)
+        img_diff = (a - b).abs().max().item()
+        assert img_diff <= 1e-6, img_diff
+        assert np.array_equal(to_uint8(a[0].cpu().numpy()), to_uint8(b[0].cpu().numpy()))
+
+        # Snapshot cost on the final state: bytes, the synchronous write, the
+        # asynchronous one (until save returns, then until the write ends),
+        # and a load into a fresh state.
+        snap_dir = os.path.join(tmp, "timed_snapshot")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_generator(snap_dir, g_cfg, state3.G, role="G")
+        save_generator(snap_dir, g_cfg, state3.G_ema, role="Gs")
+        save_discriminator(snap_dir, d_cfg, state3.D)
+        nets_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tloop.save_train_state(os.path.join(snap_dir, "train_state.msgpack"), state3)
+        sync_s = time.perf_counter() - t0
+        nbytes = dir_bytes(snap_dir)
+        writer = AsyncSnapshotter()
+        t0 = time.perf_counter()
+        writer.save(snap_dir, tloop.train_state_tree(state3))
+        async_return_s = time.perf_counter() - t0
+        writer.wait()
+        async_s = time.perf_counter() - t0
+        writer.close()
+        fresh = GANTrainer(g_cfg, d_cfg, t_cfg, device=DEV).init_state(seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tloop.load_train_state(os.path.join(snap_dir, "train_state.msgpack"), fresh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        assert fresh.cur_nimg == state3.cur_nimg
+        state_bytes = os.path.getsize(os.path.join(snap_dir, "train_state.msgpack"))
+        print(f"  snapshot: {nbytes} bytes ({state_bytes} in train_state.msgpack); "
+              f"G + Gs + D {nets_s:.3f} s; "
+              f"train state synchronous {sync_s:.3f} s, async {async_return_s:.3f} s until "
+              f"save returns and {async_s:.3f} s until written; load of the train state "
+              f"{load_s:.3f} s; cli.get_model(snapshot) vs G_ema max abs diff {img_diff:.3e}",
+              flush=True)
+
+    calls = calls1 + calls2 + calls3
+    # Odd steps: no reg stage inside, and no tick (after each odd step) in
+    # the gap before them.
+    steady = [c for c in calls if c["gap_s"] is not None and c["step"] % 2 == 1]
+    inside = [c["inside_s"] for c in steady]
+    gaps = [c["gap_s"] for c in steady]
+    print(f"  loop iterations without reg stages or a tick before them: {len(steady)}; "
+          f"seconds inside "
+          f"train_iteration {_fmt_list(inside)}; since the previous one returned "
+          f"{_fmt_list(gaps)}; phase train's untraced train_iteration "
+          f"{_fmt_list([ms / 1e3 for ms in train_stats['iteration_ms']])} s", flush=True)
+    return dict(decode_ms=decode_ms, iterations=[
+        {k: c[k] for k in ("step", "inside_s", "gap_s")} for c in calls],
+        loop_wall_s=[wall1, wall2, wall3], snapshot_bytes=nbytes, nets_save_s=nets_s,
+        train_state_sync_s=sync_s, train_state_async_return_s=async_return_s,
+        train_state_async_s=async_s, train_state_load_s=load_s, g_snapshot_diff=img_diff)
+
+
+def _fmt_list(xs):
+    return "[" + ", ".join(f"{x:.3f}" for x in xs) + "]"
 
 
 def main():
@@ -1535,9 +1854,17 @@ def main():
         morph_stats = dict(pair_steps_per_s=pair_rate, peak_gib=pair_peak / 2**30,
                            wall_s=pair_s, demorph_image_s=demorph_img_s)
 
+        with Phase("checkpoint") as ph:
+            ckpt_stats = checkpoint_phase(torch, fc, cli, G, tmp)
+        phases["checkpoint"] = ph.seconds
+
     with Phase("train") as ph:
         train_rows, train_launches, train_stats = train_phase(torch, fc)
     phases["train"] = ph.seconds
+
+    with Phase("loop") as ph:
+        loop_stats = loop_phase(torch, fc, cli, G, train_stats)
+    phases["loop"] = ph.seconds
 
     with Phase("layouts") as ph:
         k4_rows, k4_launches, layout_stats = layouts_phase(torch, fc, k4)
@@ -1550,7 +1877,9 @@ def main():
     print("kernel_calls " + json.dumps(rows + train_rows + k4_rows), flush=True)
     print("projection " + json.dumps(proj_stats), flush=True)
     print("morph " + json.dumps(morph_stats), flush=True)
+    print("checkpoint " + json.dumps(ckpt_stats), flush=True)
     print("train " + json.dumps(train_stats), flush=True)
+    print("loop " + json.dumps(loop_stats), flush=True)
     print("layouts " + json.dumps(layout_stats), flush=True)
     print("reg " + json.dumps(reg_stats), flush=True)
     kernels = []

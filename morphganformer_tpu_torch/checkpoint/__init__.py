@@ -1,1 +1,1 @@
-from morphganformer_tpu_torch.checkpoint.convert import from_flax, load_flax  # noqa: F401
+from morphganformer_tpu_torch.checkpoint.convert import from_flax, load_flax, to_flax  # noqa: F401

@@ -16,8 +16,10 @@ a `skip` D's fromrgb of every block and of the epilogue
 (params/b512/fromrgb/... -> b512.fromrgb..., params/b4/fromrgb/... ->
 b4.fromrgb...).
 
-Reading `.msgpack` checkpoints is not ported yet; callers pass the variables
-as nested dicts of numpy arrays.
+`to_flax` is the inverse: every parameter goes to `params`, and each
+persistent buffer to the collection that the flax module keeps it in
+(`noise_const` in `buffers`, `w_avg` in `moving_stats`). The trees are what
+`checkpoint/io.py` reads and writes as msgpack.
 """
 
 from __future__ import annotations
@@ -26,12 +28,15 @@ import numpy as np
 import torch
 
 COLLECTIONS = ("params", "buffers", "moving_stats")
+# The flax collection of each persistent buffer, by the buffer's name.
+BUFFER_COLLECTIONS = {"noise_const": "buffers", "w_avg": "moving_stats"}
 
 
-def _flatten(tree, prefix=()):
+def flatten(tree, prefix=()):
+    """(path tuple, leaf) of every leaf of a nested dict."""
     if isinstance(tree, dict) or hasattr(tree, "items"):
         for k, v in tree.items():
-            yield from _flatten(v, prefix + (str(k),))
+            yield from flatten(v, prefix + (str(k),))
     else:
         yield prefix, tree
 
@@ -40,11 +45,43 @@ def from_flax(variables) -> dict:
     """Nested {collection: {module: ... {leaf: array}}} -> state_dict of
     float32 CPU tensors. Raises on a collection it does not know."""
     state = {}
-    for path, leaf in _flatten(variables):
+    for path, leaf in flatten(variables):
         if path[0] not in COLLECTIONS or len(path) < 2:
             raise KeyError(f"unmapped flax leaf {'/'.join(path)}")
-        state[".".join(path[1:])] = torch.from_numpy(np.array(leaf, dtype=np.float32))
+        if isinstance(leaf, torch.Tensor):
+            state[".".join(path[1:])] = leaf.detach().to("cpu", torch.float32)
+        else:
+            state[".".join(path[1:])] = torch.from_numpy(np.array(leaf, dtype=np.float32))
     return state
+
+
+def set_leaf(tree, path, leaf):
+    """Put `leaf` at `path` of a nested dict, making the dicts on the way."""
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def to_flax(model: torch.nn.Module) -> dict:
+    """A model's state as the nested {params, buffers, moving_stats} tree of
+    its flax counterpart, leaves float32 numpy arrays on the host, copies
+    that later updates of the model leave as they are (the inverse of
+    `from_flax`). Collections that would be empty are left out,
+    as flax leaves them out. Raises on a persistent buffer that has no flax
+    collection."""
+    params = dict(model.named_parameters())
+    tree = {}
+    for key, value in model.state_dict().items():
+        name = key.rsplit(".", 1)[-1]
+        if key in params:
+            collection = "params"
+        elif name in BUFFER_COLLECTIONS:
+            collection = BUFFER_COLLECTIONS[name]
+        else:
+            raise KeyError(f"buffer {key} has no flax collection")
+        leaf = value.detach().to("cpu", torch.float32, copy=True).numpy()
+        set_leaf(tree, (collection, *key.split(".")), leaf)
+    return tree
 
 
 def load_flax(model: torch.nn.Module, variables) -> torch.nn.Module:

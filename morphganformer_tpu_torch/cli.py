@@ -10,13 +10,17 @@
         --morph-latent m.mat --accomplice-latent a.mat --out demorph
     python -m morphganformer_tpu_torch.cli demorph --model init:1024 \
         --morph-img m.png --accomplice-img a.png --out demorph
+    python -m morphganformer_tpu_torch.cli train --data-dir datasets/ffhq --resolution 1024 \
+        --ganformer-default --batch 4 --batch-gpu 4 --expname ffhq
 
 They mirror cli/generate.py, cli/merge.py, cli/project.py, cli/morph.py
-(one pair) and cli/demorph.py of the JAX package. `--model init:<res>`
-builds a randomly initialised FFHQ-style generator at that resolution
-(weights from seed 0 whatever `--seed` says, as the JAX entry points build
-them; `--seed` picks z, the prior statistics and the projection noise);
-reading checkpoints is not ported yet. Everything
+(one pair), cli/demorph.py and cli/train.py of the JAX package. `--model <dir>` loads the
+EMA generator ("Gs") of a checkpoint directory (arch.json + Gs.msgpack,
+written by either package; a training snapshot is one). `--model
+init:<res>` builds a randomly initialised FFHQ-style generator at that
+resolution (weights from seed 0 whatever `--seed` says, as the JAX entry
+points build them; `--seed` picks z, the prior statistics and the
+projection noise). Everything
 runs on the card; `--device cpu` asks for the CPU. Latents are fed to the
 generator as z, as the JAX entry points do. Projection targets are PNGs
 whose shorter side is the model's resolution.
@@ -25,13 +29,16 @@ whose shorter side is the model's resolution.
 from __future__ import annotations
 
 import argparse
+import glob
 import itertools
 import os
+import re
 import zlib
 
 import numpy as np
 import torch
 
+from morphganformer_tpu_torch.checkpoint.io import load_network
 from morphganformer_tpu_torch.losses import build_loss_stack, parse_loss_spec
 from morphganformer_tpu_torch.models import GANformerConfig, init_generator
 from morphganformer_tpu_torch.morph import (
@@ -50,10 +57,11 @@ from morphganformer_tpu_torch.utils.image import (
 
 
 def get_model(model_spec: str, device="cuda"):
-    """`init:<res>` -> (cfg, generator with random weights from seed 0, as
-    JAX's `cli/generate.py:get_model` builds them for every entry point)."""
+    """(cfg, generator) for `--model`, as JAX's `cli/generate.py:get_model`:
+    a checkpoint directory gives its "Gs"; `init:<res>` random weights from
+    seed 0."""
     if not model_spec.startswith("init:"):
-        raise NotImplementedError("loading checkpoints is not ported yet; use init:<res>")
+        return load_network(model_spec, role="Gs", device=device)
     cfg = GANformerConfig(img_resolution=int(model_spec.split(":", 1)[1]))
     return cfg, init_generator(cfg, seed=0, device=device)
 
@@ -217,14 +225,157 @@ def run_demorph(G, morph_latent=None, accomplice_latent=None, out_dir="images/de
     return img[0], w_rec[0]
 
 
+GAMMAS = {"ffhq": 10, "cityscapes": 20, "clevr": 40, "bedrooms": 100}
+METRICS_NOT_PORTED = "metrics are not ported yet (ROADMAP.md queue 1, item 7)"
+PARALLEL_NOT_PORTED = "multi-process training is not ported yet (ROADMAP.md queue 1, item 8)"
+
+
+def make_run_dir(result_dir, expname):
+    """<result_dir>/<expname>-NNN, numbered after the existing ones
+    (reference run_network.py:310-324)."""
+    os.makedirs(result_dir, exist_ok=True)
+    existing = [int(m.group(1)) for d in glob.glob(os.path.join(result_dir, f"{expname}-*"))
+                if (m := re.fullmatch(rf"{re.escape(expname)}-(\d+)", os.path.basename(d)))]
+    run_dir = os.path.join(result_dir, f"{expname}-{max(existing, default=-1) + 1:03d}")
+    os.makedirs(run_dir, exist_ok=True)
+    return run_dir
+
+
+def build_train_configs(args):
+    """(G, D, train) configs of the train flags, as JAX's cli/train.py
+    builds them: the GANformer preset, the per-dataset R1 gamma and the
+    batch and learning-rate heuristics (reference run_network.py:61-85,
+    :162-177)."""
+    from morphganformer_tpu_torch.models.config import (AttentionConfig, DiscriminatorConfig,
+                                                        MappingConfig)
+    from morphganformer_tpu_torch.training.loss import LossConfig
+    from morphganformer_tpu_torch.training.train_step import TrainConfig
+
+    if args.ganformer_default:
+        attention = AttentionConfig(kmeans=True, integration="mul", norm="layer")
+        mapping = MappingConfig(resnet=True, ltnt2ltnt=True, use_pos=True)
+        gamma = args.gamma if args.gamma is not None else GAMMAS.get(args.dataset_name, 10)
+    else:
+        attention = AttentionConfig(kmeans=args.kmeans, integration=args.integration,
+                                    norm=args.normalize)
+        mapping = MappingConfig(resnet=args.mapping_resnet, ltnt2ltnt=args.mapping_ltnt2ltnt,
+                                use_pos=args.use_pos)
+        gamma = args.gamma if args.gamma is not None else 10
+    z_per = args.latent_size // args.components_num
+    g_cfg = GANformerConfig(
+        z_dim=z_per, w_dim=z_per, k=args.components_num + 1, img_resolution=args.resolution,
+        channel_base=args.channel_base, channel_max=args.channel_max,
+        architecture=args.g_arch, transformer=args.transformer, start_res=args.start_res,
+        end_res=args.end_res, component_dropout=args.component_dropout,
+        mapping=mapping, attention=attention)
+    d_cfg = DiscriminatorConfig(img_resolution=args.resolution, channel_base=args.channel_base,
+                                channel_max=args.channel_max, architecture=args.d_arch)
+    batch = args.batch if args.batch is not None else min(min(4096 // args.resolution, 32), 64)
+    lr = args.lrate if args.lrate is not None else (0.002 if args.resolution >= 1024 else 0.0025)
+    t_cfg = TrainConfig(batch_size=batch, batch_gpu=args.batch_gpu, g_lr=lr, d_lr=lr,
+                        loss=LossConfig(r1_gamma=gamma, style_mixing=args.style_mixing,
+                                        component_mixing=args.component_mixing))
+    return g_cfg, d_cfg, t_cfg
+
+
+def run_train(args):
+    """The train subcommand: a numbered run directory, auto-resume from the
+    newest snapshot of the earlier runs of the same name, then the loop."""
+    from morphganformer_tpu_torch.training.loop import LoopConfig, latest_snapshot, training_loop
+
+    if args.eval or args.metrics:
+        raise NotImplementedError(METRICS_NOT_PORTED)
+    if args.multihost or args.coordinator or args.num_processes or args.process_id is not None:
+        raise NotImplementedError(PARALLEL_NOT_PORTED)
+    if args.dtype != "float32":
+        raise NotImplementedError("the port trains in float32 only")
+    if args.raw_cache:
+        os.environ["MGT_RAW_CACHE"] = "1"
+    g_cfg, d_cfg, t_cfg = build_train_configs(args)
+    resume = args.resume
+    if resume == "auto":
+        prev = sorted(glob.glob(os.path.join(args.result_dir, f"{args.expname}-*")))
+        snaps = [s for d in prev if (s := latest_snapshot(d))]
+        resume = snaps[-1] if snaps else None
+        if resume:
+            print(f"auto-resume from {resume}")
+    run_dir = make_run_dir(args.result_dir, args.expname)
+    print(f"run dir: {run_dir}")
+    l_cfg = LoopConfig(run_dir=run_dir, total_kimg=args.total_kimg,
+                       kimg_per_tick=args.kimg_per_tick, snapshot_ticks=args.snapshot_ticks,
+                       img_snapshot_ticks=args.img_snapshot_ticks, vis=tuple(args.vis),
+                       snapshot_backend=args.snapshot_backend)
+    return training_loop(g_cfg, d_cfg, t_cfg, l_cfg, args.data_dir, resume=resume,
+                         max_ticks=args.max_ticks, device=args.device)
+
+
+def train_parser(sub):
+    """The flags of JAX's cli/train.py that the port honours; the others it
+    refuses when they are set."""
+    t = sub.add_parser("train", help="train a GANformer on a folder of PNGs")
+    t.add_argument("--data-dir", required=True, help="dataset root: <data-dir>/<res>/*.png")
+    t.add_argument("--dataset-name", default="ffhq")
+    t.add_argument("--result-dir", default="results")
+    t.add_argument("--expname", default="exp")
+    t.add_argument("--resume", default="auto", help='"auto", a snapshot directory, or ""')
+    t.add_argument("--total-kimg", type=int, default=25000)
+    t.add_argument("--eval", action="store_true", help=f"refused: {METRICS_NOT_PORTED}")
+    t.add_argument("--metrics", nargs="*", default=[], help=f"refused: {METRICS_NOT_PORTED}")
+    t.add_argument("--ganformer-default", action="store_true")
+    t.add_argument("--resolution", type=int, default=256)
+    t.add_argument("--components-num", type=int, default=16)
+    t.add_argument("--latent-size", type=int, default=512)
+    t.add_argument("--transformer", action="store_true", default=True)
+    t.add_argument("--kmeans", action="store_true")
+    t.add_argument("--integration", default="add")
+    t.add_argument("--normalize", default=None)
+    t.add_argument("--use-pos", dest="use_pos", action="store_true")
+    t.add_argument("--mapping-resnet", action="store_true")
+    t.add_argument("--mapping-ltnt2ltnt", action="store_true")
+    t.add_argument("--g-arch", default="resnet", choices=["orig", "skip", "resnet"])
+    t.add_argument("--d-arch", default="resnet", choices=["orig", "skip", "resnet"])
+    t.add_argument("--start-res", type=int, default=0)
+    t.add_argument("--end-res", type=int, default=8)
+    t.add_argument("--component-dropout", type=float, default=0.0)
+    t.add_argument("--channel-base", type=int, default=32 << 10)
+    t.add_argument("--channel-max", type=int, default=512)
+    t.add_argument("--batch", type=int, default=None)
+    t.add_argument("--batch-gpu", type=int, default=4)
+    t.add_argument("--lrate", type=float, default=None)
+    t.add_argument("--gamma", type=float, default=None)
+    t.add_argument("--style-mixing", type=float, default=0.9)
+    t.add_argument("--component-mixing", type=float, default=0.0)
+    t.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="bfloat16 is refused")
+    t.add_argument("--kimg-per-tick", type=float, default=4)
+    t.add_argument("--snapshot-ticks", type=int, default=50)
+    t.add_argument("--img-snapshot-ticks", type=int, default=50)
+    t.add_argument("--vis", nargs="*", default=["grid"],
+                   help="products at image-snapshot ticks: grid interp mixing noise")
+    t.add_argument("--max-ticks", type=int, default=None, help="stop after N ticks")
+    t.add_argument("--snapshot-backend", default="msgpack", choices=["msgpack", "async", "orbax"],
+                   help="async writes train_state.msgpack on a background thread; orbax is "
+                        "refused")
+    t.add_argument("--raw-cache", action="store_true",
+                   help="decode the dataset once into <data-dir>/<res>.rawcache and train from "
+                        "it (else the native loader if it builds, else read_png)")
+    t.add_argument("--device", default="cuda")
+    t.add_argument("--multihost", action="store_true", help=f"refused: {PARALLEL_NOT_PORTED}")
+    t.add_argument("--coordinator", default=None, help=f"refused: {PARALLEL_NOT_PORTED}")
+    t.add_argument("--num-processes", type=int, default=None,
+                   help=f"refused: {PARALLEL_NOT_PORTED}")
+    t.add_argument("--process-id", type=int, default=None, help=f"refused: {PARALLEL_NOT_PORTED}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m morphganformer_tpu_torch.cli",
-                                description="GANformer generation, projection, morphing "
-                                            "and de-morphing")
+                                description="GANformer generation, projection, morphing, "
+                                            "de-morphing and training")
     sub = p.add_subparsers(dest="command", required=True)
 
     def common(sp):
-        sp.add_argument("--model", required=True, help="init:<resolution> (random weights)")
+        sp.add_argument("--model", required=True, help="a checkpoint directory (its Gs), or "
+                        "init:<resolution> (random weights)")
         sp.add_argument("--seed", type=int, default=0, help="seed of the random weights and z")
         sp.add_argument("--device", default="cuda")
         sp.add_argument("--truncation-psi", "--truncation_psi", dest="truncation_psi",
@@ -287,7 +438,12 @@ def main(argv=None):
     d.add_argument("--out", default="images/demorph")
     d.add_argument("--alpha", type=float, default=0.5)
 
+    train_parser(sub)
+
     args = p.parse_args(argv)
+    if args.command == "train":
+        run_train(args)
+        return
     _, G = get_model(args.model, device=args.device)
     if args.command == "generate":
         run_generate(G, args.output_dir, args.images_num, args.truncation_psi,

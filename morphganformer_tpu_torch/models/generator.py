@@ -41,11 +41,12 @@ class Generator(nn.Module):
         return torch.ones(batch, cfg.k - 1, device=device)
 
     def run_mapping(self, z, truncation_psi=1.0, train=False, skip_w_avg_update=False,
-                    gen=None, mask=None):
+                    gen=None, mask=None, truncation_cutoff=None):
         if mask is None:
             mask = self.component_mask(z.shape[0], z.device, train, gen)
         return self.mapping(z, pos=self.pos, mask=mask, truncation_psi=truncation_psi,
-                            train=train, skip_w_avg_update=skip_w_avg_update, gen=gen)
+                            truncation_cutoff=truncation_cutoff, train=train,
+                            skip_w_avg_update=skip_w_avg_update, gen=gen)
 
     def run_synthesis(self, ws, noise_mode="const", plain=False, train=False, gen=None,
                       mask=None):
@@ -55,12 +56,14 @@ class Generator(nn.Module):
                               train=train, gen=gen)
 
     def forward(self, z=None, ws=None, truncation_psi=1.0, noise_mode="const",
-                return_ws=False, plain=False):
+                return_ws=False, plain=False, truncation_cutoff=None, gen=None):
         """Full forward from z (or from ws). `plain=True` runs the fused
-        blocks on the plain versions of their kernels."""
+        blocks on the plain versions of their kernels; random noise draws
+        from `gen`."""
         if ws is None:
-            ws = self.run_mapping(z, truncation_psi=truncation_psi)
-        img = self.run_synthesis(ws, noise_mode=noise_mode, plain=plain)
+            ws = self.run_mapping(z, truncation_psi=truncation_psi,
+                                  truncation_cutoff=truncation_cutoff)
+        img = self.run_synthesis(ws, noise_mode=noise_mode, plain=plain, gen=gen)
         return (img, ws) if return_ws else img
 
 

@@ -72,11 +72,13 @@ class MappingNetwork(nn.Module):
                        attention_dropout=cfg.attention.dropout)
         self.register_buffer("w_avg", torch.zeros(cfg.w_dim))
 
-    def forward(self, z, pos=None, mask=None, truncation_psi=1.0, train=False,
-                skip_w_avg_update=False, gen=None):
+    def forward(self, z, pos=None, mask=None, truncation_psi=1.0, truncation_cutoff=None,
+                train=False, skip_w_avg_update=False, gen=None):
         """`train` applies the attention dropout (masks from `gen`) and,
         unless `skip_w_avg_update`, moves the tracked w_avg towards this
-        batch's mean (JAX `mapping.py:276-281`), in place."""
+        batch's mean (JAX `mapping.py:276-281`), in place. Truncation pulls
+        the first `truncation_cutoff` of the num_ws layers (all of them when
+        None) towards w_avg (JAX `mapping.py:285-298`)."""
         cfg = self.cfg
         m = cfg.mapping
         k = cfg.k
@@ -97,5 +99,9 @@ class MappingNetwork(nn.Module):
         if truncation_psi != 1:
             if m.w_avg_beta is None:
                 raise ValueError("truncation needs a tracked w_avg")
-            x = self.w_avg + truncation_psi * (x - self.w_avg)
+            if truncation_cutoff is None:
+                x = self.w_avg + truncation_psi * (x - self.w_avg)
+            else:
+                head = self.w_avg + truncation_psi * (x[:, :, :truncation_cutoff] - self.w_avg)
+                x = torch.cat([head, x[:, :, truncation_cutoff:]], dim=2)
         return x

@@ -1,0 +1,322 @@
+"""The training loop: ticks, snapshots, auto-resume and stats (port of
+morphganformer_tpu/training/loop.py).
+
+Reference training/training_loop.py: the dataset feed (:41-50), nets and
+resume (:74-111), the kimg tick loop with snapshots and visualisations
+(:384-453), stats.jsonl (:258-302), snapshot retention (:129-130), and
+auto-resume from the newest snapshot, its kimg read from the name
+(run_network.py:327-360).
+
+A snapshot `network-snapshot-<kimg>` holds arch.json, G.msgpack,
+Gs.msgpack (the EMA generator) and D.msgpack, which the JAX package loads
+too, and train_state.msgpack: the port's own tree of G, D and G_ema (flax
+variables trees), both Adams' exp_avg, exp_avg_sq and step keyed by the
+same flax leaf paths, pl_mean and cur_nimg. A resumed run restarts its
+random draws and its batch order from `LoopConfig.seed`, as JAX's does.
+
+The feed is chosen once, before the first step, and printed: the raw cache
+when MGT_RAW_CACHE=1 (`--raw-cache`), else the native C++ loader when its
+library builds, else `read_png` in Python, with the reason. MGT_DEBUG_NANS=1 turns on
+autograd's anomaly mode (a backward that makes a NaN raises), the
+counterpart of JAX's jax_debug_nans.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import glob
+import json
+import os
+import re
+import shutil
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from morphganformer_tpu_torch.checkpoint.async_io import (
+    TRAIN_STATE_FILE,
+    AsyncSnapshotter,
+    write_tree,
+)
+from morphganformer_tpu_torch.checkpoint.convert import flatten, load_flax, set_leaf, to_flax
+from morphganformer_tpu_torch.checkpoint.io import save_discriminator, save_generator
+from morphganformer_tpu_torch.checkpoint.msgpack_codec import msgpack_restore
+from morphganformer_tpu_torch.data.dataset import ImageFolderDataset, infinite_batches
+from morphganformer_tpu_torch.models.config import DiscriminatorConfig, GANformerConfig
+from morphganformer_tpu_torch.training import visualize as vz
+from morphganformer_tpu_torch.training.stats import Collector
+from morphganformer_tpu_torch.training.tensorboard import EventWriter
+from morphganformer_tpu_torch.training.train_step import GANTrainer, TrainConfig, TrainState
+from morphganformer_tpu_torch.utils.summary import discriminator_summary, generator_summary
+
+VIS = ("grid", "interp", "mixing", "attention", "noise")
+BACKENDS = ("msgpack", "async")
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopConfig:
+    run_dir: str = "results/exp"
+    total_kimg: float = 25000
+    kimg_per_tick: float = 4
+    snapshot_ticks: int = 50          # <= 0 disables snapshots
+    img_snapshot_ticks: int = 50      # <= 0 disables image snapshots/vis
+    last_snapshots: int = 10          # retention GC (training_loop.py:129-130)
+    eval_metrics: tuple = ()          # not ported yet: a non-empty tuple raises
+    vis: tuple = ("grid",)            # of: grid, interp, mixing, noise
+    tensorboard: bool = True          # tfevents mirror of stats.jsonl
+    snapshot_backend: str = "msgpack"  # "msgpack" | "async" (background writes)
+    seed: int = 0
+
+
+def _snapshot_kimg(path):
+    m = re.search(r"network-snapshot-(\d+)", path)
+    return int(m.group(1)) if m else -1
+
+
+def latest_snapshot(run_dir):
+    """Auto-resume discovery (reference run_network.py:327-360)."""
+    snaps = sorted(glob.glob(os.path.join(run_dir, "network-snapshot-*")), key=_snapshot_kimg)
+    return snaps[-1] if snaps else None
+
+
+def prune_snapshots(run_dir, keep):
+    """Delete all but the `keep` newest snapshots (keep <= 0 deletes none)."""
+    snaps = sorted(glob.glob(os.path.join(run_dir, "network-snapshot-*")), key=_snapshot_kimg)
+    for old in snaps[:-keep] if keep > 0 else ():
+        shutil.rmtree(old)
+
+
+# ------------------------------------------------------------ train state
+
+ADAM_KEYS = ("exp_avg", "exp_avg_sq", "step")
+
+
+def _host(t):
+    """A host copy (on the CPU too, where .numpy() would share memory)."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def _adam_tree(opt, model):
+    out = {key: {} for key in ADAM_KEYS}
+    for name, p in model.named_parameters():
+        st = opt.state.get(p)
+        for key in (ADAM_KEYS if st else ()):
+            set_leaf(out[key], ("params", *name.split(".")), _host(st[key]))
+    return out
+
+
+def train_state_tree(state: TrainState) -> dict:
+    """The state as a host tree of numpy arrays and ints, copied, so that
+    training on leaves it as it was."""
+    return {"G": to_flax(state.G), "D": to_flax(state.D), "G_ema": to_flax(state.G_ema),
+            "g_opt": _adam_tree(state.g_opt, state.G),
+            "d_opt": _adam_tree(state.d_opt, state.D),
+            "pl_mean": _host(state.pl_mean),
+            "cur_nimg": int(state.cur_nimg)}
+
+
+def _load_adam(opt, model, tree):
+    flat = {key: {".".join(path[1:]): leaf for path, leaf in flatten(tree[key])}
+            for key in ADAM_KEYS}
+    params = dict(model.named_parameters())
+    unknown = sorted(set().union(*flat.values()) - set(params))
+    if unknown:
+        raise KeyError(f"optimizer state of parameters the net does not have: {unknown}")
+    for name, p in params.items():
+        have = [name in flat[key] for key in ADAM_KEYS]
+        if not any(have):
+            opt.state.pop(p, None)
+        elif not all(have):
+            raise KeyError(f"optimizer state of {name} is incomplete")
+        else:
+            opt.state[p] = {"step": torch.tensor(np.array(flat["step"][name])),
+                            **{key: torch.tensor(np.array(flat[key][name]), device=p.device)
+                               for key in ("exp_avg", "exp_avg_sq")}}
+
+
+def apply_train_state(state: TrainState, tree) -> TrainState:
+    """Load a train-state tree into `state` in place (the modules keep their
+    parameters, so the optimizers keep pointing at them)."""
+    for name in ("G", "D", "G_ema"):
+        load_flax(getattr(state, name), tree[name])
+    _load_adam(state.g_opt, state.G, tree["g_opt"])
+    _load_adam(state.d_opt, state.D, tree["d_opt"])
+    state.pl_mean = torch.tensor(np.array(tree["pl_mean"]), device=state.pl_mean.device)
+    state.cur_nimg = int(tree["cur_nimg"])
+    return state
+
+
+def save_train_state(path, state: TrainState) -> None:
+    write_tree(path, train_state_tree(state))
+
+
+def load_train_state(path, state: TrainState) -> TrainState:
+    with open(path, "rb") as f:
+        return apply_train_state(state, msgpack_restore(f.read()))
+
+
+# ------------------------------------------------------------ the feed
+
+def select_feed(dataset: ImageFolderDataset, batch_size: int, seed: int):
+    """(name, batches): the feed of this run, chosen once."""
+    from morphganformer_tpu_torch.data import native_loader
+    from morphganformer_tpu_torch.data.raw_cache import raw_infinite_batches
+
+    path, res = dataset.path, dataset.resolution
+    if os.environ.get("MGT_RAW_CACHE") == "1":
+        return "raw cache", raw_infinite_batches(path, res, batch_size, seed=seed)
+    if native_loader.native_available():
+        return "native", native_loader.native_infinite_batches(path, res, batch_size, seed=seed)
+    print(f"(python feed: the native loader is unavailable: {native_loader.build_error()})",
+          flush=True)
+    return "python", infinite_batches(dataset, batch_size, seed=seed)
+
+
+# ------------------------------------------------------------ the loop
+
+def _check(l_cfg: LoopConfig):
+    if l_cfg.eval_metrics:
+        raise NotImplementedError("metrics in the training loop are not ported yet "
+                                  "(ROADMAP.md queue 1, item 7: metrics)")
+    if l_cfg.snapshot_backend == "orbax":
+        raise ValueError('the port has no Orbax; snapshot_backend="async" writes snapshots '
+                         "on a background thread")
+    if l_cfg.snapshot_backend not in BACKENDS:
+        raise ValueError(f"snapshot_backend must be one of {BACKENDS}, "
+                         f"got {l_cfg.snapshot_backend!r}")
+    unknown = sorted(set(l_cfg.vis) - set(VIS))
+    if unknown:
+        raise ValueError(f"unknown vis products {unknown}; known: {VIS}")
+    if "attention" in l_cfg.vis:
+        raise NotImplementedError(vz.ATTENTION_NOT_PORTED)
+
+
+def training_loop(g_cfg: GANformerConfig, d_cfg: DiscriminatorConfig, t_cfg: TrainConfig,
+                  l_cfg: LoopConfig, dataset_path: str, resume: Optional[str] = "auto",
+                  max_ticks: Optional[int] = None, device="cuda") -> TrainState:
+    """Run (or resume) training until total_kimg or `max_ticks` ticks.
+    Returns the final state."""
+    _check(l_cfg)
+    if os.environ.get("MGT_DEBUG_NANS") == "1":
+        torch.autograd.set_detect_anomaly(True)
+
+    os.makedirs(l_cfg.run_dir, exist_ok=True)
+    with open(os.path.join(l_cfg.run_dir, "training_options.json"), "w") as f:
+        json.dump({"G": json.loads(g_cfg.to_json()),
+                   "D": json.loads(d_cfg.to_json()),
+                   "train": dataclasses.asdict(t_cfg),
+                   "loop": {k: v for k, v in dataclasses.asdict(l_cfg).items()
+                            if not isinstance(v, tuple)}},
+                  f, indent=2, default=str)
+
+    dataset = ImageFolderDataset(dataset_path, g_cfg.img_resolution)
+    feed, batches = select_feed(dataset, t_cfg.batch_size, l_cfg.seed)
+    print(f"feed: {feed} ({len(dataset)} images of {g_cfg.img_resolution}^2 "
+          f"under {dataset_path})", flush=True)
+
+    trainer = GANTrainer(g_cfg, d_cfg, t_cfg, device=device)
+    state = trainer.init_state(seed=l_cfg.seed)
+
+    summary = generator_summary(state.G) + "\n" + discriminator_summary(state.D)
+    with open(os.path.join(l_cfg.run_dir, "module_summary.txt"), "w") as f:
+        f.write(summary)
+    print(summary, flush=True)
+
+    snapshotter = AsyncSnapshotter() if l_cfg.snapshot_backend == "async" else None
+    if resume == "auto":
+        resume = latest_snapshot(l_cfg.run_dir)
+    if resume:
+        if snapshotter is not None:
+            apply_train_state(state, snapshotter.restore(resume))
+        else:
+            load_train_state(os.path.join(resume, TRAIN_STATE_FILE), state)
+        print(f"Resuming from {resume} at cur_nimg {state.cur_nimg}", flush=True)
+
+    collector = Collector()
+    stats_jsonl = os.path.join(l_cfg.run_dir, "stats.jsonl")
+    tb_writer = EventWriter(l_cfg.run_dir) if l_cfg.tensorboard else None
+    dev = trainer.device
+
+    tick = int(state.cur_nimg // (l_cfg.kimg_per_tick * 1000))
+    step = state.cur_nimg // t_cfg.batch_size
+    tick_start = start_time = time.time()
+    last_snap_kimg = -1
+
+    def maybe_snapshot(force=False):
+        """Snapshot unless this kimg has one (a forced one overwrites it)."""
+        nonlocal last_snap_kimg
+        kimg = state.cur_nimg // 1000
+        snap_dir = os.path.join(l_cfg.run_dir, f"network-snapshot-{kimg:06d}")
+        if not force and (kimg == last_snap_kimg or os.path.exists(snap_dir)):
+            return
+        last_snap_kimg = kimg
+        save_generator(snap_dir, g_cfg, state.G, role="G")
+        save_generator(snap_dir, g_cfg, state.G_ema, role="Gs")
+        save_discriminator(snap_dir, d_cfg, state.D)
+        if snapshotter is not None:
+            snapshotter.save(snap_dir, train_state_tree(state))
+        else:
+            save_train_state(os.path.join(snap_dir, TRAIN_STATE_FILE), state)
+        print(f"snapshot {snap_dir} at cur_nimg {state.cur_nimg}", flush=True)
+        prune_snapshots(l_cfg.run_dir, l_cfg.last_snapshots)
+
+    def save_visualizations():
+        """Image-snapshot products (reference training_loop.py -> vis())."""
+        G = state.G_ema
+        kimg = state.cur_nimg // 1000
+        if "grid" in l_cfg.vis:
+            vz.sample_grid(G, g_cfg, num=16, psi=0.7, seed=0,
+                           path=os.path.join(l_cfg.run_dir, f"fakes{kimg:06d}.png"))
+        extras = [v for v in l_cfg.vis if v != "grid"]
+        if not extras:
+            return
+        vis_dir = os.path.join(l_cfg.run_dir, f"vis{kimg:06d}")
+        os.makedirs(vis_dir, exist_ok=True)
+        if "interp" in extras:
+            vz.interpolation_grid(G, g_cfg, path=os.path.join(vis_dir, "interpolation.png"))
+        if "mixing" in extras:
+            vz.style_mixing_table(G, g_cfg, path=os.path.join(vis_dir, "style_mixing.png"))
+        if "noise" in extras and g_cfg.local_noise:
+            vz.noise_variance_map(G, g_cfg, path=os.path.join(vis_dir, "noise_map.png"))
+
+    ticks_done = 0
+    while state.cur_nimg < l_cfg.total_kimg * 1000:
+        real, _ = next(batches)
+        stats = trainer.train_iteration(state, torch.from_numpy(real).to(dev), step)
+        step += 1
+        collector.report_dict(stats)
+
+        if state.cur_nimg >= (tick + 1) * l_cfg.kimg_per_tick * 1000:
+            tick += 1
+            ticks_done += 1
+            now = time.time()
+            fields = [f"tick {tick}", f"kimg {state.cur_nimg / 1000:.1f}",
+                      f"time {now - start_time:.0f}s", f"sec/tick {now - tick_start:.1f}"]
+            fields += [f"{k.split('/')[-1]} {collector.mean(k):.3f}"
+                       for k in collector.names() if k.startswith("Loss/")]
+            print(" | ".join(fields), flush=True)
+            collector.write_jsonl(stats_jsonl, kimg=state.cur_nimg / 1000, tick=tick)
+            if tb_writer is not None:
+                tb_writer.add_scalars(
+                    state.cur_nimg,
+                    {name: collector.mean(name) for name in collector.names()}
+                    | {"Timing/sec_per_tick": now - tick_start,
+                       "Timing/total_sec": now - start_time})
+            collector.reset()
+            tick_start = now
+            if l_cfg.img_snapshot_ticks > 0 and tick % l_cfg.img_snapshot_ticks == 0:
+                save_visualizations()
+            if l_cfg.snapshot_ticks > 0 and tick % l_cfg.snapshot_ticks == 0:
+                maybe_snapshot()
+            if max_ticks is not None and ticks_done >= max_ticks:
+                break
+
+    maybe_snapshot(force=True)
+    batches.close()
+    if snapshotter is not None:
+        snapshotter.close()
+    if tb_writer is not None:
+        tb_writer.close()
+    return state

@@ -103,8 +103,9 @@ def ema_update(G_ema, G, beta):
 def stage_grads(params, rounds):
     """The mean over accumulation rounds of each round's gradient of its
     loss w.r.t. `params` (zeros for a parameter a round does not reach),
-    NaN-scrubbed, and the rounds' mean stats. `rounds` yields
-    (loss, stats) one round at a time."""
+    NaN-scrubbed, and the rounds' mean stats as 0-d tensors on the device
+    (read on the host once per iteration: `training/stats.py`). `rounds`
+    yields (loss, stats) one round at a time."""
     acc = [torch.zeros_like(p) for p in params]
     stats, n = {}, 0
     for loss, aux in rounds:
@@ -115,7 +116,7 @@ def stage_grads(params, rounds):
         for k, v in aux.items():
             stats[k] = stats.get(k, 0.0) + v
         n += 1
-    return [_nan_scrub(a / n) for a in acc], {k: float(v / n) for k, v in stats.items()}
+    return [_nan_scrub(a / n) for a in acc], {k: v / n for k, v in stats.items()}
 
 
 def _apply(opt, params, grads):

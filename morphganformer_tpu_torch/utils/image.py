@@ -42,6 +42,23 @@ def crop_max_rectangle(img_hwc, ratio=1.0):
     return img_hwc[top:top + ch, left:left + cw]
 
 
+def create_img_grid(imgs_nhwc, rows=None, cols=None, drange=(-1.0, 1.0)):
+    """Tile a batch of NHWC float images into one HWC uint8 grid, empty
+    cells at drange's low end (JAX `utils/image.py:73-86`, which returns
+    the same pixels as a PIL image); write it with `write_png`."""
+    imgs = np.asarray(imgs_nhwc)
+    n, h, w, c = imgs.shape
+    if cols is None:
+        cols = int(np.ceil(np.sqrt(n)))
+    if rows is None:
+        rows = int(np.ceil(n / cols))
+    grid = np.full((rows * h, cols * w, c), drange[0], dtype=np.float32)
+    for i in range(n):
+        r, cc = divmod(i, cols)
+        grid[r * h:(r + 1) * h, cc * w:(cc + 1) * w] = imgs[i]
+    return to_uint8(grid, drange)
+
+
 def _chunk(tag: bytes, data: bytes) -> bytes:
     return (struct.pack(">I", len(data)) + tag + data
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
@@ -62,7 +79,7 @@ def write_png(path, img_hwc_uint8):
 
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}      # gray, RGB, RGBA
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}      # gray, RGB, gray + alpha, RGBA
 
 
 def _paeth(a, b, c):
@@ -92,7 +109,8 @@ def _unfilter_row(ft, line, prev, bpp):
 
 
 def read_png(path):
-    """Decode an 8-bit, non-interlaced gray, RGB or RGBA PNG to HWC uint8."""
+    """Decode an 8-bit, non-interlaced gray, RGB, gray + alpha or RGBA PNG
+    to HWC uint8."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIGNATURE:
@@ -110,7 +128,8 @@ def read_png(path):
         pos += 12 + length
     w, h, depth, color, _, _, interlace = hdr
     if depth != 8 or color not in _PNG_CHANNELS or interlace != 0:
-        raise NotImplementedError(f"{path}: only 8-bit non-interlaced gray, RGB and RGBA "
+        raise NotImplementedError(f"{path}: only 8-bit non-interlaced gray, RGB, gray + "
+                                  f"alpha and RGBA "
                                   f"PNGs are read (depth {depth}, color type {color}, "
                                   f"interlace {interlace})")
     c = _PNG_CHANNELS[color]
@@ -132,7 +151,7 @@ def load_target(path, size=1024, drange=(-1.0, 1.0)):
     if min(h, w) != size:
         raise NotImplementedError(f"{path}: shorter side {min(h, w)} != {size}; the Lanczos "
                                   "resize of load_target is not ported yet")
-    img = np.repeat(img, 3, axis=2) if img.shape[2] == 1 else img[:, :, :3]
+    img = np.repeat(img[:, :, :1], 3, axis=2) if img.shape[2] <= 2 else img[:, :, :3]
     left, top = (w - size) // 2, (h - size) // 2
     img = img[top:top + size, left:left + size]
     return adjust_range(img.astype(np.float32), (0, 255), drange)[None]

@@ -28,13 +28,18 @@ def test_port_imports_nothing_forbidden(path):
 
 
 def test_training_modules_are_checked():
-    """The discriminator, the training package, K4's module and the
-    unpacked override are on the list above."""
+    """The discriminator, the training package, K4's module, the unpacked
+    override, the checkpoints, the data feed and the loop are on the list
+    above."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {f"morphganformer_tpu_torch/{m}" for m in (
         "models/discriminator.py", "training/__init__.py", "training/loss.py",
         "training/train_step.py", "ops/conv3x3.py", "ops/packed_override.py",
-        "utils/dtype.py")} <= names
+        "utils/dtype.py", "checkpoint/msgpack_codec.py", "checkpoint/convert.py",
+        "checkpoint/io.py", "checkpoint/async_io.py", "data/__init__.py", "data/dataset.py",
+        "data/native_loader.py", "data/raw_cache.py", "training/stats.py",
+        "training/tensorboard.py", "training/visualize.py", "training/loop.py",
+        "utils/image.py", "utils/summary.py", "models/mapping.py", "cli.py")} <= names
 
 
 def test_build_is_one_plain_nvcc_call_for_sm_90a():

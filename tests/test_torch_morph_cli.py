@@ -127,8 +127,12 @@ def test_main_dispatches_each_command(tmp_path):
               "--out", str(tmp_path / "d")])
     np.testing.assert_allclose(load_latent_mat(tmp_path / "d" / "demorph.mat"),
                                load_latent_mat(tmp_path / "b.mat"), rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="init:<res>"):
-        cli.get_model("checkpoints/ffhq", device="cpu")
+    # A checkpoint directory is loaded (tests/test_torch_checkpoint_io.py);
+    # a missing one, or a reference pickle, is refused.
+    with pytest.raises(FileNotFoundError, match="arch.json"):
+        cli.get_model(str(tmp_path / "no_checkpoint"), device="cpu")
+    with pytest.raises(ValueError, match="convert_checkpoint"):
+        cli.get_model("network-snapshot-000100.pkl", device="cpu")
     # Random noise is a training mode since the training step was ported; a
     # mode the generator does not know is still refused.
     with pytest.raises(ValueError, match="noise_mode"):
