@@ -56,7 +56,14 @@ Phases, each printing its wall time:
               fold onto w untimed; for K1's dw `conv2d_weight` of x * s and
               gd, the multiply included) beside the bound; K1 and K2 forward and
               adjoint with per-sample noise [4,H,W] at the noisy call
-              shapes. Then
+              shapes; the second-order term of each grad Function
+              (ModConv3x3Grad, UpConv2Grad, DownConv2Grad:
+              `ops/second_order.py`) at its 16 call shapes in the reg
+              stages (G's at batch 2, D's at batch 4), at the cotangents
+              its stage feeds, on the kernels against the plain versions
+              (each output within 1e-4 of its largest entry, beside a
+              control of w nudged by 1e-6 at the same y), kernel and
+              plain times. Then
               GANTrainer on FFHQ-1024 and a 1024^2 D from seed 0: one
               G_main and one D_main round's gradients, with non-zero noise
               strengths, on the kernels against the plain path (every leaf
@@ -78,7 +85,9 @@ Phases, each printing its wall time:
               interp), tensorboard on: two ticks, then a resumed tick
               (msgpack), then a resumed tick with the async backend. Checks:
               the run's files; every iteration launches exactly phase
-              train's kernels of one iteration; each resumed run starts at
+              train's kernels of one iteration and, where a reg stage is
+              due (steps 0 and 4), that stage's scoped launches of phase
+              reg; each resumed run starts at
               the saved cur_nimg from a state bit-equal to the saved one;
               cli.get_model(<snapshot>) gives G_ema's image. Each
               iteration's seconds inside train_iteration and around it (the
@@ -100,18 +109,25 @@ Phases, each printing its wall time:
               floored; the noise strengths as one); stage times, peak memory.
   11. reg     train_iteration at steps 0 and 16, where all four stages are
               due, at batch 4, on the resnet pair of phase train and on the
-              skip pair: finite losses, pl_mean moved off 0, no kernel
-              launch inside G_reg or D_reg (the unpacked route), the exact
-              main-stage launches, G_reg and D_reg times and peak memory;
-              each reg stage's parameter gradients in float32 against the
-              same stage in float64 (penalties within 1e-3, every leaf
-              within 1e-2 (R1) and 5e-2 (path length) of the stage's
-              largest entry; each leaf's own error printed beside a control
-              of float64 with the weights nudged by 1e-7); central
+              skip pair, the reg stages on their default scoped
+              second-order route: finite losses, pl_mean moved off 0, the
+              exact launches of G_reg and D_reg by role on the resnet pair
+              (`reg_launches`, printed) and none on the skip pair (K4 is
+              off inside the scope), no dw launch in either stage's inner
+              gradient, the exact main-stage launches, G_reg and D_reg
+              times and peak memory; each reg stage's parameter gradients
+              in float32 on the scoped route against the same stage in
+              float64 on the unpacked route (MGT_PACKED_SECOND_ORDER=0;
+              penalties within 1e-3, every leaf within 1e-2 (R1) and 5e-2
+              (path length) of the stage's largest entry; each leaf's own
+              error printed beside two controls, the float32 unpacked route
+              and float64 with the weights nudged by 1e-7), and the float32
+              stage's time and peak memory on either route; central
               differences in float64 along random directions against the
               autograd directional derivative (held to 1e-5 where no lrelu
               follows the parameters: G's torgb, D's output layer); one
-              G_reg and one D_reg of the resnet pair under torch.profiler.
+              scoped G_reg and one scoped D_reg of the resnet pair under
+              torch.profiler.
               cuDNN runs in deterministic mode through this phase, so the
               trained state that the checks see is the same on every run.
 
@@ -685,6 +701,124 @@ def check_per_sample_noise(torch, fc, gen):
     return worst
 
 
+PL_BATCH = TRAIN_BATCH // 2
+
+
+def grad_calls():
+    """The call shapes of the grad Functions in the reg stages at 1024^2:
+    (kind, block, layer, base resolution, Cin, Cout, kh, batch). Path length
+    runs G's fused blocks at batch 2 (pl_batch_shrink), R1 D's at batch 4.
+    The base resolution is the input's for K1 and K2 and the output's for
+    the D down-conv."""
+    calls = []
+    for res, cin, cout in ((256, 256, 128), (512, 128, 64), (1024, 64, 32)):
+        calls += [("K2", f"G b{res}", "conv0", res // 2, cin, cout, 3, PL_BATCH),
+                  ("K2", f"G b{res}", "skip", res // 2, cin, cout, 1, PL_BATCH),
+                  ("K1", f"G b{res}", "conv1", res, cout, cout, 3, PL_BATCH)]
+    calls.append(("K1", "G b1024", "conv_last", 1024, 32, 32, 3, PL_BATCH))
+    for res, cin in ((1024, 32), (512, 64)):
+        calls += [("K1", f"D b{res}", "conv0", res, cin, cin, 3, TRAIN_BATCH),
+                  ("down", f"D b{res}", "conv1", res // 2, cin, 2 * cin, 3, TRAIN_BATCH),
+                  ("down", f"D b{res}", "skip", res // 2, cin, 2 * cin, 1, TRAIN_BATCH)]
+    return calls
+
+
+def check_grad_vjp(torch, so, gen, call):
+    """The second-order term of one grad Function at one call shape
+    (`modconv3x3_bwd_vjp`, `upconv2_bwd_vjp`, `downconv2_bwd_vjp`, the
+    backwards of ModConv3x3Grad, UpConv2Grad and DownConv2Grad) on the
+    kernels against the plain versions, at the cotangents its stage feeds
+    (path length cdx and cds, R1 cdx alone), on random inputs with y the
+    plain forward's output: each output (c_x, c_w, c_s, c_noise, c_bias,
+    c_resid, c_y, c_g) within 1e-4 of its largest entry. Printed beside
+    it, a control of float32 rounding: plain with w nudged by 1e-6 of
+    itself and the same y (so the same lrelu masks), against plain. Times
+    of either route (CUDA events)."""
+    from morphganformer_tpu_torch.ops import fused_conv as fc
+    from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter
+
+    kind, block, layer, h, cin, cout, kh, n = call
+    dev = torch.device(DEV)
+    f = setup_filter([1, 3, 3, 1]).to(dev)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    w = randn(kh, kh, cin, cout, scale=1 / math.sqrt(kh * kh * cin))
+    styled = block[0] == "G" and layer != "skip"
+    s = (torch.rand((n, cin), generator=gen, device=dev) + 0.5) if styled else None
+    if kind == "K1":
+        x = randn(n, h, h, cin)
+        noisy = layer == "conv1"
+        noise = randn(n, h, h, scale=0.1) if noisy else None
+        bias = randn(cout, scale=0.1) if layer != "conv_last" else None
+        resid = randn(n, h, h, cout) if noisy else None
+        gain, alpha = (math.sqrt(2), 0.2) if layer != "conv_last" else (1.0, 1.0)
+        names = ("c_x", "c_w", "c_s", "c_noise", "c_bias", "c_resid", "c_y", "c_g")
+
+        def fwd(w_):
+            return fc.modconv3x3_plain(x, w_, s, noise, bias, resid, gain, alpha, styled)
+
+        def vjp(w_, y, plain):
+            return so.modconv3x3_bwd_vjp(x, w_, s, noise, bias, resid, y, g, cots, gain, alpha,
+                                         styled, plain)
+        g = randn(n, h, h, cout)
+    elif kind == "K2":
+        x = randn(n, h, h, cin)
+        noise = randn(n, 2 * h, 2 * h, scale=0.1) if styled else None
+        bias = randn(cout, scale=0.1) if styled else None
+        gain, alpha = (math.sqrt(2), 0.2) if styled else (math.sqrt(0.5), 1.0)
+        names = ("c_x", "c_w", "c_s", "c_noise", "c_bias", "c_y", "c_g")
+
+        def fwd(w_):
+            return fc.upconv2_plain(x, w_, s, f, noise, bias, gain, alpha, styled)
+
+        def vjp(w_, y, plain):
+            return so.upconv2_bwd_vjp(x, w_, s, f, noise, bias, y, g, cots, gain, alpha, styled,
+                                      False, plain)
+        g = randn(n, 2 * h, 2 * h, cout)
+    else:
+        x = randn(n, 2 * h, 2 * h, cin)
+        conv1 = layer == "conv1"
+        bias = randn(cout, scale=0.1) if conv1 else None
+        resid = randn(n, h, h, cout) if conv1 else None
+        gain, alpha = (1.0, 0.2) if conv1 else (math.sqrt(0.5), 1.0)
+        names = ("c_x", "c_w", "c_g")
+
+        def fwd(w_):
+            return fc.downconv2_plain(x, w_, f, bias, resid, gain, alpha)
+
+        def vjp(w_, y, plain):
+            return so.downconv2_bwd_vjp(x, w_, f, resid, y, g, cots, gain, alpha, True, plain)
+        g = randn(n, h, h, cout)
+    cdx = randn(*x.shape)
+    if kind == "down":
+        cots = (cdx, None, None)
+    else:
+        cots = (cdx, None, randn(n, cin) if styled else None, None, None)
+    y = fwd(w)
+    got, want = vjp(w, y, False), vjp(w, y, True)
+    ctrl = vjp(w * (1 + 1e-6 * randn(*w.shape)), y, True)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b, c in zip(names, got, want, ctrl):
+        assert (a is None) == (b is None), (block, layer, name)
+        if b is None:
+            continue
+        assert torch.isfinite(a).all().item(), (block, layer, name)
+        scale = max(b.abs().max().item(), 1e-30)
+        errs[name] = ((a - b).abs().max().item() / scale, (c - b).abs().max().item() / scale)
+    ms = cuda_ms(torch, lambda: vjp(w, y, False), reps=3, warmup=1)
+    plain_ms = cuda_ms(torch, lambda: vjp(w, y, True), reps=2, warmup=1)
+    print(f"  grad VJP {kind} {block} {layer} batch {n}: rel err (control) "
+          + ", ".join(f"{k} {e:.3e} ({c:.3e})" for k, (e, c) in errs.items())
+          + f"; ms kernels {ms:.3f}, plain {plain_ms:.3f}", flush=True)
+    for name, (e, c) in errs.items():
+        assert e <= 1e-4, f"grad VJP {kind} {block} {layer} {name}: {e} (control {c})"
+    return dict(kind=kind, block=block, layer=layer, batch=n, errors=errs, ms=ms,
+                plain_ms=plain_ms)
+
+
 @contextlib.contextmanager
 def plain_backwards(fc):
     """The fused Functions' backwards on the plain versions while their
@@ -742,14 +876,16 @@ def _fmt(rows, k=3):
 
 
 def train_phase(torch, fc):
-    """Phase 7: the training roles' kernels, then train_iteration at 1024^2."""
+    """Phase 8: the training roles' kernels, then train_iteration at 1024^2."""
     from morphganformer_tpu_torch.bench_dw import HOST_TIMED
     from morphganformer_tpu_torch.models.config import DiscriminatorConfig, ffhq1024_config
+    from morphganformer_tpu_torch.ops import second_order as so
     from morphganformer_tpu_torch.training import GANTrainer, TrainConfig
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = [check_train_kernel(torch, fc, gen, call) for call in train_calls()]
     noise_errs = check_per_sample_noise(torch, fc, gen)
+    grad_rows = [check_grad_vjp(torch, so, gen, call) for call in grad_calls()]
 
     g_cfg, d_cfg = ffhq1024_config(), DiscriminatorConfig()
     trainer = GANTrainer(g_cfg, d_cfg, TrainConfig(batch_size=TRAIN_BATCH, batch_gpu=4))
@@ -890,7 +1026,7 @@ def train_phase(torch, fc):
     stats = dict(iteration_ms=iter_ms, g_main_ms=stage_ms["g_main"][:3], traced=traced,
                  d_main_ms=stage_ms["d_main"][:3], two_round_ms=two_ms, peak_gib=peak / 2**30,
                  g_grads=errs["g"], d_grads=errs["d"], round_ms=round_ms,
-                 per_sample_noise=noise_errs)
+                 per_sample_noise=noise_errs, grad_vjp=grad_rows)
     print(f"  peak memory over steps 1-3: {peak / 2**30:.3f} GiB", flush=True)
     return rows, total, stats
 
@@ -1015,7 +1151,7 @@ def set_noise_strengths(torch, G, gen):
 
 
 def layouts_phase(torch, fc, k4):
-    """Phase 8: K4 at its call shapes, then the `skip` layouts at 1024^2."""
+    """Phase 10: K4 at its call shapes, then the `skip` layouts at 1024^2."""
     from morphganformer_tpu_torch import cli
     from morphganformer_tpu_torch.models.config import DiscriminatorConfig, ffhq1024_config
     from morphganformer_tpu_torch.training import GANTrainer, TrainConfig
@@ -1135,30 +1271,111 @@ def layouts_phase(torch, fc, k4):
     return rows, total, stats
 
 
+def reg_launches(stage, inner=False):
+    """Exact launches of one G_reg or D_reg round on the scoped route on the
+    resnet pair at FFHQ-1024 (`inner`: those of its inner create_graph
+    gradient alone), derived from the fused nodes: G has 4 K1 nodes (conv1
+    of b256, b512, b1024 and b1024's conv_last, all styled), 3 styled K2
+    nodes (conv0) and 3 unstyled (skip); D's two fused blocks have 2 K1
+    nodes (conv0, no styles) and 4 down-conv nodes (conv1, skip).
+      inner forward    one forward launch a node
+      inner backward   one adjoint a node, dx (and ds) only: no dw
+      outer, the grad Functions' backwards (path length feeds cdx and cds,
+        R1 cdx alone): a styled node the adjoint for dxs, the dw launch for
+        wg(c_dxs, dz) and a forward for conv(c_dxs, w); an unstyled one no
+        adjoint (dxs is unused); a down-conv node the dw launch and a
+        forward (cdw is None, so no adjoint and one forward)
+      outer, the fused nodes' first-order backwards (their y's cotangent,
+        c_y added): one adjoint and one dw launch a node"""
+    counts = dict.fromkeys(per_iteration(), 0)
+    if stage == "g_reg":
+        k1, k2s, k2u = 4, 3, 3
+        counts.update(modconv3x3_adj=k1, upconv2_adj=k2s + k2u)
+        if not inner:
+            counts.update(modconv3x3=k1 + k1, upconv2=(k2s + k2u) * 2,
+                          modconv3x3_adj=k1 * 3, upconv2_adj=(k2s + k2u) * 2 + k2s,
+                          modconv3x3_dw=k1 * 2, upconv2_dw=(k2s + k2u) * 2)
+    else:
+        k1, down = 2, 4
+        counts.update(modconv3x3_adj=k1, downconv2_adj=down)
+        if not inner:
+            counts.update(modconv3x3=k1 * 2, downconv2=down * 2, modconv3x3_adj=k1 * 2,
+                          downconv2_adj=down * 2, modconv3x3_dw=k1 * 2, downconv2_dw=down * 2)
+    return counts
+
+
+def loop_launches(step, g_interval=4, d_interval=16):
+    """Exact launches of one loop iteration at batch 4 on the resnet pair:
+    phase train's per iteration, and each reg stage's round where it is
+    due."""
+    counts = per_iteration()
+    for stage, every in (("g_reg", g_interval), ("d_reg", d_interval)):
+        if step % every == 0:
+            counts = {k: v + reg_launches(stage)[k] for k, v in counts.items()}
+    return counts
+
+
+@contextlib.contextmanager
+def packed_env(value):
+    """MGT_PACKED_SECOND_ORDER set to `value` (None: unset) inside the block."""
+    saved = os.environ.pop("MGT_PACKED_SECOND_ORDER", None)
+    if value is not None:
+        os.environ["MGT_PACKED_SECOND_ORDER"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("MGT_PACKED_SECOND_ORDER", None)
+        if saved is not None:
+            os.environ["MGT_PACKED_SECOND_ORDER"] = saved
+
+
+@contextlib.contextmanager
+def inner_pass_launches(torch, fc, out):
+    """Append to `out` the launches that each create_graph=True
+    `torch.autograd.grad` call (a reg stage's inner gradient) makes."""
+    real = torch.autograd.grad
+
+    def grad(*a, **k):
+        if not k.get("create_graph"):
+            return real(*a, **k)
+        before = dict(fc.launch_counts)
+        try:
+            return real(*a, **k)
+        finally:
+            out.append({key: fc.launch_counts[key] - before[key] for key in before})
+    torch.autograd.grad = grad
+    try:
+        yield out
+    finally:
+        torch.autograd.grad = real
+
+
 def reg_checks(torch, trainer, state, reals, gen):
     """Each reg stage's parameter gradients (one round of batch 4) in
-    float32 against the same stage in float64 on float64 copies of the
-    nets, beside a control (float64 with every weight nudged by 1e-7 of
-    itself, about float32's rounding, against float64): the penalties within
-    1e-3 of each other, every leaf within 1e-2 (R1) and 5e-2 (path length)
-    of the stage's largest entry. Each leaf's error over its own largest
-    entry (floored at 1e-3 of the stage's) and over the stage's are printed
-    beside the control's. A tighter bound does not hold for a float32 run
-    (measured on an H100, PERF.md section 6): on the 1024^2 nets after two
-    iterations the control alone moves path
-    length's gradient by up to 2.7e-3 of the stage's largest entry and
-    single leaves (noise strengths, torgb and attention leaves of the
-    low-resolution blocks, whose few units each carry a large share across
-    an lrelu kink) by up to 0.33 of themselves, and float32, which rounds
-    every activation and sum and not only the weights, reached 1.3e-3 to
-    1.6e-2 of the stage's largest entry for path length and 2.1e-4 to
-    1.1e-3 for R1. Central
-    differences of its float64 loss along two random directions against the
-    autograd directional derivative: one over the parameters that no lrelu
-    follows (every torgb of G; D's output layer), along which the loss is
-    smooth, and one over all parameters, printed only (there the steps flip
-    lrelu masks, and the penalties, which hold lrelu's derivative, jump).
-    Returns (results, failures): the caller fails after both pairs."""
+    float32 on the default scoped route against the same stage in float64
+    on the unpacked route (MGT_PACKED_SECOND_ORDER=0; the kernels take only
+    float32) on float64 copies of the nets, beside two controls: the
+    float32 unpacked route against float64, and float64 with every weight
+    nudged by 1e-7 of itself (about float32's rounding) against float64.
+    Bounds: the penalties within 1e-3 of each other, every leaf within 1e-2
+    (R1) and 5e-2 (path length) of the stage's largest entry. Each leaf's
+    error over its own largest entry (floored at 1e-3 of the stage's) and
+    over the stage's are printed beside the controls'. A tighter bound does
+    not hold for a float32 run (measured on an H100, PERF.md section 6): on
+    the 1024^2 nets after two iterations the nudge alone moves path length's
+    gradient by up to 2.7e-3 of the stage's largest entry and single leaves
+    (noise strengths, torgb and attention leaves of the low-resolution
+    blocks, whose few units each carry a large share across an lrelu kink)
+    by up to 0.33 of themselves, and float32, which rounds every activation
+    and sum and not only the weights, reached 1.3e-3 to 1.6e-2 of the
+    stage's largest entry for path length and 2.1e-4 to 1.1e-3 for R1.
+    Central differences of its float64 loss along two random directions
+    against the autograd directional derivative: one over the parameters
+    that no lrelu follows (every torgb of G; D's output layer), along which
+    the loss is smooth, and one over all parameters, printed only (there
+    the steps flip lrelu masks, and the penalties, which hold lrelu's
+    derivative, jump). The float32 stage's time and peak memory on either
+    route. Returns (results, failures): the caller fails after both pairs."""
     import copy
     import dataclasses
 
@@ -1182,36 +1399,41 @@ def reg_checks(torch, trainer, state, reals, gen):
             g, stats = trainer.d_reg_grads(st, real.to(dtype))
             return g, host(stats)
 
+        def timed(st, dtype, route):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with packed_env(route):
+                g, stats = grads_of(st, dtype)
+            torch.cuda.synchronize()
+            return g, stats, (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated()
+
         def loss_of(st):
-            if stage == "g_reg":
-                rng = torch.Generator(device=DEV).manual_seed(seed)
-                loss = tloss.g_pl_loss(st.G, z[0].double(), cfg.loss, rng, st.pl_mean)[0]
-                return loss.item() * float(cfg.g_reg_interval)
-            loss = tloss.d_r1_loss(st.D, real[0].double(), cfg.loss)[0]
-            return loss.item() * float(cfg.d_reg_interval)
+            with packed_env("0"):
+                if stage == "g_reg":
+                    rng = torch.Generator(device=DEV).manual_seed(seed)
+                    loss = tloss.g_pl_loss(st.G, z[0].double(), cfg.loss, rng, st.pl_mean)[0]
+                    return loss.item() * float(cfg.g_reg_interval)
+                loss = tloss.d_r1_loss(st.D, real[0].double(), cfg.loss)[0]
+                return loss.item() * float(cfg.d_reg_interval)
 
         net, net64 = ((state.G, state64.G) if stage == "g_reg" else (state.D, state64.D))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        g32, s32 = grads_of(state, torch.float32)
-        torch.cuda.synchronize()
-        ms32 = (time.perf_counter() - t0) * 1e3
-        peak32 = torch.cuda.max_memory_allocated()
-        t0 = time.perf_counter()
-        g64, s64 = grads_of(state64, torch.float64)
-        torch.cuda.synchronize()
-        ms64 = (time.perf_counter() - t0) * 1e3
+        g32, s32, ms32, peak32 = timed(state, torch.float32, None)
+        g32u, s32u, ms32u, peak32u = timed(state, torch.float32, "0")
+        g64, s64, ms64, _ = timed(state64, torch.float64, "0")
         names = [n for n, _ in net.named_parameters()]
         assert all(torch.isfinite(t).all().item() for t in g32)
         floor = 1e-3 * max(t.abs().max().item() for t in g64)
+        stage_max = max(t.abs().max().item() for t in g64)
         full = leaf_errors(names, g32, g64, floor)
+        unpacked = leaf_errors(names, g32u, g64, floor)
+        del g32u
         others = [r for r in full if not r[4]]
         pooled = pooled_strengths(full)
-        stage_max = max(t.abs().max().item() for t in g64)
         of_stage = max(r[3] for r in full) / stage_max
         with nudged(torch, (net64,), torch.Generator(device=DEV).manual_seed(3), 1e-7):
-            g_ctrl, _ = grads_of(state64, torch.float64)
+            with packed_env("0"):
+                g_ctrl, _ = grads_of(state64, torch.float64)
         ctrl = leaf_errors(names, g_ctrl, g64, floor)
         del g_ctrl
 
@@ -1244,15 +1466,23 @@ def reg_checks(torch, trainer, state, reals, gen):
         out[stage] = dict(of_stage_max=of_stage, other_leaves=others[0][0],
                           noise_strengths_pooled=pooled, control_worst=ctrl[0][0],
                           control_of_stage_max=max(r[3] for r in ctrl) / stage_max,
-                          penalty32=s32[key], penalty64=s64[key],
-                          ms32=ms32, ms64=ms64, peak32_gib=peak32 / 2**30, fd=fd)
-        print(f"  {stage} float32 vs float64 ({len(names)} leaves; stage max {stage_max:.3e}): "
-              f"worst {of_stage:.3e} of the stage max; each leaf over its own largest entry "
-              f"(floor {floor:.3e}): other leaves worst {others[0][0]:.3e} {_fmt(others)}; "
-              f"noise strengths as one "
-              f"{pooled:.3e}; control (float64 nudged by 1e-7) worst {ctrl[0][0]:.3e} "
-              f"{_fmt(ctrl)}; {key} {s32[key]:.6f} vs {s64[key]:.9f}; ms float32 {ms32:.3f}, "
-              f"float64 {ms64:.3f}; peak float32 {peak32 / 2**30:.3f} GiB\n"
+                          unpacked32_of_stage_max=max(r[3] for r in unpacked) / stage_max,
+                          unpacked32_worst=unpacked[0][0],
+                          penalty32=s32[key], penalty32_unpacked=s32u[key], penalty64=s64[key],
+                          ms32=ms32, ms32_unpacked=ms32u, ms64=ms64, peak32_gib=peak32 / 2**30,
+                          peak32_unpacked_gib=peak32u / 2**30, fd=fd)
+        print(f"  {stage} float32 scoped vs float64 unpacked ({len(names)} leaves; stage max "
+              f"{stage_max:.3e}): worst {of_stage:.3e} of the stage max; each leaf over its own "
+              f"largest entry (floor {floor:.3e}): other leaves worst {others[0][0]:.3e} "
+              f"{_fmt(others)}; noise strengths as one {pooled:.3e}\n"
+              f"    control float32 unpacked vs float64: worst "
+              f"{out[stage]['unpacked32_of_stage_max']:.3e} of the stage max, {unpacked[0][0]:.3e} "
+              f"{_fmt(unpacked)}; control float64 nudged by 1e-7: worst {ctrl[0][0]:.3e} "
+              f"{_fmt(ctrl)}\n"
+              f"    {key} scoped {s32[key]:.6f}, unpacked {s32u[key]:.6f}, float64 "
+              f"{s64[key]:.9f}; ms float32 scoped {ms32:.3f}, unpacked {ms32u:.3f}, float64 "
+              f"{ms64:.3f}; peak float32 scoped {peak32 / 2**30:.3f} GiB, unpacked "
+              f"{peak32u / 2**30:.3f} GiB\n"
               f"    central difference (float64, eps {fd['smooth']['eps']}): "
               + "; ".join(f"{k} ({d['leaves']} leaves) {d['central']:.9e} vs autograd "
                           f"{d['directional']:.9e}, rel err {d['rel_err']:.3e}"
@@ -1267,7 +1497,7 @@ def reg_checks(torch, trainer, state, reals, gen):
 
 
 def reg_phase(torch, fc):
-    """Phase 9: the lazily regularised iteration at steps 0 and 16 on the
+    """Phase 11: the lazily regularised iteration at steps 0 and 16 on the
     resnet pair and on the skip pair, then `reg_checks`, with cuDNN in
     deterministic mode. Its default algorithms sum some backward passes in
     an order that varies from run to run, and two iterations of training
@@ -1285,13 +1515,17 @@ def reg_phase(torch, fc):
 
 
 def _reg_pairs(torch, fc):
-    """`reg_phase` on the resnet pair, then the skip pair."""
+    """`reg_phase` on the resnet pair, then the skip pair. The reg stages run
+    on the default scoped route: on the resnet pair their exact launches
+    (`reg_launches`), none of them a dw launch in an inner pass; on the
+    skip pair none (no fused block, and K4 is off inside the scope)."""
     from morphganformer_tpu_torch.models.config import DiscriminatorConfig, ffhq1024_config
     from morphganformer_tpu_torch.training import GANTrainer, TrainConfig
 
     gen = torch.Generator(device=DEV).manual_seed(4)
     zeros = dict.fromkeys(fc.launch_counts, 0)
     out, failures = {}, []
+    reg_total = dict(zeros)
     for arch, main in (("resnet", per_iteration()), ("skip", layout_per_iteration())):
         d_cfg = DiscriminatorConfig(architecture=arch)
         trainer = GANTrainer(ffhq1024_config(architecture=arch), d_cfg,
@@ -1301,14 +1535,24 @@ def _reg_pairs(torch, fc):
         state = trainer.init_state(seed=0)
         names = ("g_main", "g_reg", "d_main", "d_reg")
         times, launches = timed_stages(torch, trainer, names, fc.launch_counts)
+        want = {n: (reg_launches(n) if arch == "resnet" else zeros) for n in ("g_reg", "d_reg")}
+        want_inner = [reg_launches(n, inner=True) if arch == "resnet" else zeros
+                      for n in ("g_reg", "d_reg")]
+        if arch == "resnet":
+            print("  scoped reg-stage launches per round (resnet), derived: "
+                  + "; ".join(f"{n} {{{', '.join(f'{k}: {v}' for k, v in want[n].items() if v)}}}"
+                              f" (inner pass {{{', '.join(f'{k}: {v}' for k, v in i.items() if v)}}})"
+                              for n, i in zip(("g_reg", "d_reg"), want_inner)), flush=True)
         steps = {}
         with pallas_conv(arch == "skip"):
             for step in (0, 16):
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 fc.reset_launch_counts()
+                inner = []
                 t0 = time.perf_counter()
-                stats = host(trainer.train_iteration(state, reals, step))
+                with inner_pass_launches(torch, fc, inner):
+                    stats = host(trainer.train_iteration(state, reals, step))
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
                 peak = torch.cuda.max_memory_allocated()
@@ -1319,27 +1563,36 @@ def _reg_pairs(torch, fc):
                 print(f"  {arch} step {step}: {ms:.3f} ms ("
                       + ", ".join(f"{n} {times[n][-1]:.3f}" for n in names)
                       + f"); peak {peak / 2**30:.3f} GiB; pl_mean {state.pl_mean.item():.6f}; "
-                      f"{json.dumps(stats)}; launches {total}", flush=True)
+                      f"{json.dumps(stats)}; launches {total}; reg stages "
+                      f"{[launches[n][-1] for n in ('g_reg', 'd_reg')]}; inner passes {inner}",
+                      flush=True)
                 assert all(math.isfinite(v) for v in stats.values()), stats
                 assert {"Loss/pl_penalty", "Loss/G/reg", "Loss/r1_penalty",
                         "Loss/D/reg"} <= set(stats), stats
                 for n in ("g_reg", "d_reg"):
-                    assert launches[n][-1] == zeros, (n, launches[n][-1])
-                assert total == main, (total, main)
+                    assert launches[n][-1] == want[n], (n, launches[n][-1], want[n])
+                    if arch == "resnet":
+                        for k, v in launches[n][-1].items():
+                            reg_total[k] += v
+                assert inner == want_inner, (inner, want_inner)
+                assert not any(v for i in inner for k, v in i.items() if k.endswith("_dw"))
+                assert total == {k: main[k] + want["g_reg"][k] + want["d_reg"][k]
+                                 for k in main}, (total, main)
                 assert state.pl_mean.item() != 0.0
             if arch == "resnet":
-                # Where the unpacked reg stages spend their time.
+                # Where the scoped reg stages spend their time.
                 traced_forward(torch, lambda: trainer.g_reg_grads(state, reals.new_empty(
                     (1, TRAIN_BATCH, trainer.g_cfg.k, trainer.g_cfg.z_dim)).normal_()),
-                    "G_reg (resnet, unpacked)", shapes=True)
+                    "G_reg (resnet, scoped)", shapes=True)
                 traced_forward(torch, lambda: trainer.d_reg_grads(state, reals[None]),
-                               "D_reg (resnet, unpacked)", shapes=True)
+                               "D_reg (resnet, scoped)", shapes=True)
             checks, failed = reg_checks(torch, trainer, state, reals, gen)
             out[arch] = dict(steps=steps, checks=checks)
             failures += [f"{arch}: {f}" for f in failed]
         del trainer, state
         torch.cuda.empty_cache()
     assert not failures, failures
+    out["reg_launches"] = reg_total
     return out
 
 
@@ -1525,7 +1778,7 @@ def loop_phase(torch, fc, cli, G, train_stats):
             for i, c in enumerate(calls):
                 c["inside_s"] = c["t_out"] - c["t_in"]
                 c["gap_s"] = c["t_in"] - calls[i - 1]["t_out"] if i else None
-                assert c["launches"] == per_iteration(), (c["step"], c["launches"])
+                assert c["launches"] == loop_launches(c["step"]), (c["step"], c["launches"])
                 print(f"    step {c['step']}: {c['inside_s']:.3f} s in train_iteration"
                       + (f", {c['gap_s']:.3f} s since the previous one returned"
                          if i else "") + f"; launches {c['launches']}", flush=True)
@@ -1904,6 +2157,7 @@ def main():
                     + f"; launches over the {PROJECT_STEPS}-step projection)",
             "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": proj_launches[key],
+            "reg_launches": reg_stats["reg_launches"][key],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
@@ -1937,6 +2191,7 @@ def main():
                     + "; launches over train_iteration steps 1-3)",
             "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": train_launches[TRAIN_KEYS[role]],
+            "reg_launches": reg_stats["reg_launches"][TRAIN_KEYS[role]],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
@@ -1959,6 +2214,8 @@ def main():
                     + "; launches over the skip layouts' train_iteration steps 1-3)",
             "route": "cuda", "source": SOURCE, "replaces": K4_REPLACES,
             "launches": k4_launches["conv3x3" if role == "K4 fwd" else "conv3x3_adj"],
+            "reg_launches": reg_stats["reg_launches"]["conv3x3" if role == "K4 fwd"
+                                                      else "conv3x3_adj"],
             "max_abs_err": max(r["max_abs_err"] for r in k4_rows if r["kernel"] == role),
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),

@@ -12,9 +12,12 @@ package runs them on its Pallas kernels:
 
 so one 1024^2 forward makes 2 K1 and 4 K3-forward launches; its backward
 makes the K1 adjoint and K2 use_dw launches for dx and the dw launches for
-the weights that are differentiated. The other blocks run the unfused plain
-PyTorch path, as JAX runs XLA there, and so does every block under
-`force_unpacked()` (ops/packed_override.py; the R1 stage). `plain=True` runs
+the weights that are differentiated. Built inside `second_order_scope()`
+(ops/second_order.py; the R1 stage) the fused blocks are differentiable
+twice. The other blocks run the unfused plain PyTorch path, as JAX runs XLA
+there, and so does every block under `force_unpacked()`
+(ops/packed_override.py; the R1 stage under MGT_PACKED_SECOND_ORDER=0).
+`plain=True` runs
 the fused blocks on the plain versions of the kernels.
 
 The `orig` and `skip` layouts (JAX `discriminator.py:94-117`) run unfused;

@@ -12,9 +12,12 @@ ops/fused_conv.py, as the JAX package runs them on its Pallas kernels:
 
 so one 1024^2 forward makes 4 K1 and 6 K2 launches, and its backward 4
 K1-adjoint and 6 K3 launches, plus, when the weights are differentiated
-(training), 4 K1-dw and 6 K3-dw launches. The other blocks run the unfused
+(training), 4 K1-dw and 6 K3-dw launches. Built inside
+`second_order_scope()` (ops/second_order.py; the path-length stage) the
+fused blocks are differentiable twice. The other blocks run the unfused
 plain PyTorch path, as does every block under `force_unpacked()`
-(ops/packed_override.py; the path-length stage), and so do the `skip` and
+(ops/packed_override.py; the path-length stage under
+MGT_PACKED_SECOND_ORDER=0), and so do the `skip` and
 `orig` layouts, whose SAME 3x3 convs at 512^2 and above (b512 conv1, b1024
 conv1 and conv_last at FFHQ-1024 widths) run on K4 when MGT_PALLAS_CONV=1
 (ops/conv3x3.py). Training runs `noise_mode="random"`: per-sample noise

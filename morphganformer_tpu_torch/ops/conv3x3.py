@@ -21,9 +21,10 @@ any Pallas kernel, so there is no TPU kernel to port, and the products take
 any C and O without the padding that `mgt_conv_dw` needs. On a CPU tensor
 the forward and dx take the plain version. Only the cotangents that
 `ctx.needs_input_grad` asks for are formed, and the backward is
-once-differentiable (`first_order_only`: it raises under create_graph=True);
-the unpacked route (ops/packed_override.py) keeps K4 off where a second
-derivative is taken.
+once-differentiable (`first_order_only`: it raises under create_graph=True):
+K4 has no second-order route, in JAX or here, so both routes that take a
+second derivative keep it off, the unpacked one (ops/packed_override.py)
+and `second_order_scope()` (the same module).
 
 The TPU lane packing of `conv3x3_same_packed` (a reshape that fills
 128-lane MXU tiles, the same function) is not carried over. The kernel
@@ -47,7 +48,10 @@ from morphganformer_tpu_torch.ops.fused_conv import (
     launch_counts,
     lw_widths_ok,
 )
-from morphganformer_tpu_torch.ops.packed_override import packed_paths_disabled
+from morphganformer_tpu_torch.ops.packed_override import (
+    in_second_order_scope,
+    packed_paths_disabled,
+)
 
 
 def conv3x3_same_plain(x, w):
@@ -80,8 +84,10 @@ def conv3x3_eligible(x, w, groups) -> bool:
     input of side >= 512, C <= 64, O <= 64, even width; the tensor on a card
     in place of the TPU backend; never under `force_unpacked()`. And what
     the kernel takes: C and O in fours (the rest runs on cuDNN, as JAX's
-    ineligible convs run on XLA)."""
-    if packed_paths_disabled() or not _on_card(x) or groups != 1:
+    ineligible convs run on XLA). Never inside `second_order_scope()`
+    either, where JAX's gate would admit K4 and its second derivative
+    would then fail."""
+    if packed_paths_disabled() or in_second_order_scope() or not _on_card(x) or groups != 1:
         return False
     kh, kw, _, co = w.shape
     _, h, wd, c = x.shape

@@ -48,7 +48,9 @@ dbias and dnoise are plain reductions, as in JAX.
 
 `FusedModConv3x3`, `FusedUpConv2` and `FusedDownConv2` are the autograd
 Functions; each computes only the cotangents that `ctx.needs_input_grad`
-asks for (JAX's symbolic zeros). Noise is batch-shared [H,W] or per-sample
+asks for (JAX's symbolic zeros). Built inside `second_order_scope()`, they
+are differentiable twice (ops/second_order.py); elsewhere a second
+derivative through them raises. Noise is batch-shared [H,W] or per-sample
 [N,H,W] (random noise mode).
 
 Activations are NHWC and weights HWIO, as in JAX; the TPU's lane packing is
@@ -70,6 +72,7 @@ from torch.autograd.function import once_differentiable
 
 from morphganformer_tpu_torch.ops.conv2d_resample import _compose_kernel_fir
 from morphganformer_tpu_torch.ops.modulated_conv import demod_coef
+from morphganformer_tpu_torch.ops.packed_override import scope_reaches
 
 # One key per role; "conv3x3" and "conv3x3_adj" are K4's (ops/conv3x3.py).
 launch_counts = {"modconv3x3": 0, "upconv2": 0, "modconv3x3_adj": 0, "upconv2_adj": 0,
@@ -88,6 +91,11 @@ def reset_launch_counts():
 
 def _lrelu(y, gain, alpha):
     return torch.where(y >= 0, y, y * alpha) * gain
+
+
+def _slope(y, gain, alpha):
+    """lrelu'(y) * gain in y's dtype, with no host-to-device copy."""
+    return torch.where(y >= 0, y.new_full((), gain), y.new_full((), gain * alpha))
 
 
 def _noise_nhwc(noise):
@@ -407,7 +415,7 @@ def downconv2_plain(x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2, flip_we
 def _adjoint_gd(g, y, w, styles, gain, alpha, demodulate):
     """(mask, gd, d): the lrelu*gain slope from the sign of y (already peeled
     of resid), gd = g * mask * d, and d (None without demodulation)."""
-    mask = torch.where(y >= 0, g.new_tensor(gain), g.new_tensor(gain * alpha))
+    mask = _slope(y, gain, alpha)
     gd = g * mask
     d = None
     if styles is not None and demodulate:
@@ -784,15 +792,15 @@ def _k1_taps(g, x, w, styles, d, y, resid, noise, gain, alpha, slope, need_dx, n
 def _k3_taps(gd, x, w, styles, f, flip_weight, y, mask, noise, gain, alpha, need_dx,
              need_ds, need_dd):
     """The K3 adjoint launch (`mgt_upconv2_bwd`): (dx, ds dot, dd1, dd2), plain
-    on a CPU tensor."""
-    if _on_cpu(x):
+    on a CPU tensor. x [N,H,W,C] is read for the ds dot only."""
+    if _on_cpu(gd):
         return _k3_taps_plain(gd, x, w, styles, f, flip_weight, y, mask, noise, need_dx,
                               need_ds, need_dd)
     wk, fk, pad = upconv2_adjoint_leastwork(w, f, flip_weight)
     gd = gd.contiguous()
-    n, h, wd, c = x.shape
-    ho, wo, o = gd.shape[1:]
-    dev = x.device
+    n, ho, wo, o = gd.shape
+    h, wd, c = ho // 2, wo // 2, w.shape[2]
+    dev = gd.device
     outs = _adjoint_outputs(n, h, wd, c, o, _library().mgt_downconv2_tiles(h, wd), need_dx,
                             need_ds, need_dd, dev)
     noise_p, noise_ns = _check_noise("noise", noise if need_dd else None, n, ho, wo, dev)
@@ -811,8 +819,9 @@ def modconv3x3_adjoint(g, x, w, styles, y, noise=None, bias=None, resid=None,
                        gain=1.0, alpha=0.2, demodulate=True, need_dx=True, need_ds=True):
     """K1 adjoint: `modconv3x3_adjoint_plain` for a CPU tensor; for a CUDA
     tensor one launch of `mgt_modconv3x3_bwd` forms gd and gives dx, the ds
-    dot and the dd taps as per-block partials, summed here. Same returns."""
-    if _on_cpu(x):
+    dot and the dd taps as per-block partials, summed here. Same returns; x
+    is read for ds only."""
+    if _on_cpu(g):
         return modconv3x3_adjoint_plain(g, x, w, styles, y, noise, bias, resid, gain,
                                         alpha, demodulate, need_dx, need_ds)
     d = demod_coef(w, styles).contiguous() if demodulate else None
@@ -828,8 +837,9 @@ def modconv3x3_adjoint(g, x, w, styles, y, noise=None, bias=None, resid=None,
 def upconv2_adjoint(g, x, w, styles, f, y, noise=None, bias=None, gain=1.0, alpha=0.2,
                     demodulate=True, flip_weight=False, need_dx=True, need_ds=True):
     """K3 in its adjoint role: `upconv2_adjoint_plain` for a CPU tensor; for
-    a CUDA tensor one launch of `mgt_upconv2_bwd`. Same returns."""
-    if _on_cpu(x):
+    a CUDA tensor one launch of `mgt_upconv2_bwd`. Same returns; x is read
+    for ds only."""
+    if _on_cpu(g):
         return upconv2_adjoint_plain(g, x, w, styles, f, y, noise, bias, gain, alpha,
                                      demodulate, flip_weight, need_dx, need_ds)
     need_ds = need_ds and styles is not None
@@ -981,7 +991,7 @@ def _modulated_backward(g, y_of, w, styles, noise, bias, gain, alpha, demodulate
     @functools.lru_cache(maxsize=None)
     def slope():
         y = y_of()
-        mask = torch.where(y >= 0, g.new_tensor(gain), g.new_tensor(gain * alpha))
+        mask = _slope(y, gain, alpha)
         g_pre = g * mask
         return y, mask, g_pre, (g_pre if d is None else g_pre * d[:, None, None, :])
 
@@ -1055,7 +1065,7 @@ def downconv2_backward(g, x, w, f, y, bias, resid, gain, alpha, flip_weight, nee
     need_dx, need_dw, need_db = needs
     if resid is not None:
         y = y - resid
-    gz = g * torch.where(y >= 0, g.new_tensor(gain), g.new_tensor(gain * alpha))
+    gz = g * _slope(y, gain, alpha)
     dx = dw = db = None
     if need_dx:
         dx = (downconv2_adjoint_plain if plain else downconv2_adjoint)(gz, w, f, flip_weight)
@@ -1071,26 +1081,77 @@ def downconv2_backward(g, x, w, f, y, bias, resid, gain, alpha, flip_weight, nee
 # ---------------------------------------------------------------------------
 
 
+_ONCE = ("this kernel's backward is differentiable once here; take second derivatives "
+         "inside second_order_scope() (ops/second_order.py) or under force_unpacked() "
+         "(ops/packed_override.py)")
+
+
 def first_order_only(backward):
     """`once_differentiable`, and a raise as soon as the backward runs under
     create_graph=True. `once_differentiable` alone defers its error to a
     node that `torch.autograd.grad(..., allow_unused=True)` never runs, and
     the second derivative then comes back as None, a wrong zero. Second
-    derivatives go through the unpacked route (`force_unpacked()`)."""
+    derivatives go through `second_order_scope()` (the fused Functions) or
+    the unpacked route (`force_unpacked()`)."""
     inner = once_differentiable(backward)
 
     @functools.wraps(backward)
     def wrapper(ctx, *grads):
         if torch.is_grad_enabled():
-            raise RuntimeError("this kernel's backward is differentiable once; take second "
-                               "derivatives under force_unpacked() (ops/packed_override.py)")
+            raise RuntimeError(_ONCE)
         return inner(ctx, *grads)
     return wrapper
 
 
+# The grad Functions of the second-order route (`ModConv3x3Grad`,
+# `UpConv2Grad`, `DownConv2Grad`), registered by ops/second_order.py, which
+# builds on this module (ops/__init__.py imports both).
+GRAD_FUNCTIONS = {}
+
+
+def _engine_runs(node):
+    """Whether the running backward pass executes `node` (one of a fused
+    node's next functions), i.e. needs the cotangent that flows into it."""
+    if node is None:
+        return False
+    try:
+        return torch._C._will_engine_execute_node(node)
+    except RuntimeError:
+        # Raised for a leaf that autograd.grad() takes as one of its inputs:
+        # its cotangent is exactly what the call returns.
+        return True
+
+
+def _needs(ctx, names, inputs):
+    """The cotangents a fused Function's backward forms: those asked for;
+    under create_graph=True (a second derivative) only those of the inputs
+    that the `second_order_scope()` it was built in names, and outside a
+    scope it raises (`first_order_only`'s guard against a wrong zero). An
+    input the scope leaves out on which the running gradient depends (the
+    engine will run its node) raises too: its cotangent would be a wrong
+    zero. `inputs` are the tensors (or None) that `names` name, in the
+    forward's order: a node's next functions hold its tensor inputs alone."""
+    need = ctx.needs_input_grad
+    if not torch.is_grad_enabled():
+        return need
+    if ctx.reaches is None:
+        raise RuntimeError(_ONCE)
+    edges = iter(ctx.next_functions)
+    for asked, name, t in zip(need, names, inputs):
+        if t is None:
+            continue
+        node, _ = next(edges)
+        if asked and name not in ctx.reaches and _engine_runs(node):
+            raise RuntimeError(
+                f"the gradient being taken depends on the cotangent of {name!r}, which "
+                f"second_order_scope(reaches={sorted(ctx.reaches)}) leaves out")
+    return tuple(n and name in ctx.reaches for n, name in zip(need, names))
+
+
 class FusedModConv3x3(torch.autograd.Function):
     """K1 with its adjoint and dw taps: gradients of x, w, styles, noise,
-    bias and resid, each only when asked for."""
+    bias and resid, each only when asked for; twice differentiable through
+    `ModConv3x3Grad` when built inside `second_order_scope()`."""
 
     @staticmethod
     def forward(ctx, x, w, styles, noise, bias, resid, gain, alpha, demodulate, plain):
@@ -1098,23 +1159,30 @@ class FusedModConv3x3(torch.autograd.Function):
         y = fwd(x, w, styles, noise, bias, resid, gain, alpha, demodulate)
         ctx.save_for_backward(x, w, styles, noise, bias, resid, y)
         ctx.opts = (gain, alpha, demodulate, plain)
+        ctx.reaches = scope_reaches()
         return y
 
     @staticmethod
-    @first_order_only
     def backward(ctx, g):
-        need = ctx.needs_input_grad
         x, w, styles, noise, bias, resid, y = ctx.saved_tensors
+        need = _needs(ctx, ("x", "w", "styles", "noise", "bias", "resid"),
+                      (x, w, styles, noise, bias, resid))
         gain, alpha, demodulate, plain = ctx.opts
-        dx, dw, ds, dn, db = modconv3x3_backward(
-            g.contiguous(), x, w, styles, y, noise, bias, resid, gain, alpha, demodulate,
-            (need[0], need[1], need[2], need[3], need[4]), plain)
-        return dx, dw, ds, dn, db, (g if need[5] else None), None, None, None, None
+        g = g.contiguous()
+        if torch.is_grad_enabled():
+            grads = GRAD_FUNCTIONS["modconv3x3"].apply(
+                x, w, styles, noise, bias, resid, y, g, gain, alpha, demodulate, need[:5], plain)
+        else:
+            grads = modconv3x3_backward(g, x, w, styles, y, noise, bias, resid, gain, alpha,
+                                        demodulate, need[:5], plain)
+        return (*grads, (g if need[5] else None), None, None, None, None)
 
 
 class FusedUpConv2(torch.autograd.Function):
     """K2 with K3 as its adjoint and K3's dw taps: gradients of x, w,
-    styles, noise and bias (not of the FIR), each only when asked for."""
+    styles, noise and bias (not of the FIR), each only when asked for;
+    twice differentiable through `UpConv2Grad` when built inside
+    `second_order_scope()`."""
 
     @staticmethod
     def forward(ctx, x, w, styles, f, noise, bias, gain, alpha, demodulate, flip_weight,
@@ -1123,24 +1191,32 @@ class FusedUpConv2(torch.autograd.Function):
         y = fwd(x, w, styles, f, noise, bias, gain, alpha, demodulate, flip_weight)
         ctx.save_for_backward(x, w, styles, f, noise, bias, y)
         ctx.opts = (gain, alpha, demodulate, flip_weight, plain)
+        ctx.reaches = scope_reaches()
         return y
 
     @staticmethod
-    @first_order_only
     def backward(ctx, g):
-        need = ctx.needs_input_grad
         x, w, styles, f, noise, bias, y = ctx.saved_tensors
+        need = _needs(ctx, ("x", "w", "styles", "f", "noise", "bias"),
+                      (x, w, styles, f, noise, bias))
         gain, alpha, demodulate, flip_weight, plain = ctx.opts
-        dx, dw, ds, dn, db = upconv2_backward(
-            g.contiguous(), x, w, styles, f, y, noise, bias, gain, alpha, demodulate,
-            flip_weight, (need[0], need[1], need[2], need[4], need[5]), plain)
+        g = g.contiguous()
+        need = (need[0], need[1], need[2], need[4], need[5])
+        if torch.is_grad_enabled():
+            dx, dw, ds, dn, db = GRAD_FUNCTIONS["upconv2"].apply(
+                x, w, styles, f, noise, bias, y, g, gain, alpha, demodulate, flip_weight, need,
+                plain)
+        else:
+            dx, dw, ds, dn, db = upconv2_backward(g, x, w, styles, f, y, noise, bias, gain,
+                                                  alpha, demodulate, flip_weight, need, plain)
         return dx, dw, ds, None, dn, db, None, None, None, None, None
 
 
 class FusedDownConv2(torch.autograd.Function):
     """K3-forward with K2's use_dw role as its adjoint and the down-conv's dw
     taps: gradients of x, w, bias and resid (not of the FIR), each only when
-    asked for."""
+    asked for; twice differentiable through `DownConv2Grad` when built
+    inside `second_order_scope()`."""
 
     @staticmethod
     def forward(ctx, x, w, f, bias, resid, gain, alpha, flip_weight, plain):
@@ -1148,16 +1224,22 @@ class FusedDownConv2(torch.autograd.Function):
         y = fwd(x, w, f, bias, resid, gain, alpha, flip_weight)
         ctx.save_for_backward(x, w, f, bias, resid, y)
         ctx.opts = (gain, alpha, flip_weight, plain)
+        ctx.reaches = scope_reaches()
         return y
 
     @staticmethod
-    @first_order_only
     def backward(ctx, g):
-        need = ctx.needs_input_grad
         x, w, f, bias, resid, y = ctx.saved_tensors
+        need = _needs(ctx, ("x", "w", "f", "bias", "resid"), (x, w, f, bias, resid))
         gain, alpha, flip_weight, plain = ctx.opts
-        dx, dw, db = downconv2_backward(g.contiguous(), x, w, f, y, bias, resid, gain, alpha,
-                                        flip_weight, (need[0], need[1], need[3]), plain)
+        g = g.contiguous()
+        needs = (need[0], need[1], need[3])
+        if torch.is_grad_enabled():
+            dx, dw, db = GRAD_FUNCTIONS["downconv2"].apply(
+                x, w, f, bias, resid, y, g, gain, alpha, flip_weight, needs, plain)
+        else:
+            dx, dw, db = downconv2_backward(g, x, w, f, y, bias, resid, gain, alpha, flip_weight,
+                                            needs, plain)
         return dx, dw, None, db, (g if need[4] else None), None, None, None, None
 
 

@@ -4,7 +4,12 @@ morphganformer_tpu/ops/upfirdn2d.py).
 For each channel: zero-insert upsample by `up` (up-1 zeros after each
 pixel), pad (negative = crop) w.r.t. the upsampled image, correlate with the
 FIR filter (flipped first unless `flip_filter`), keep every `down`-th pixel.
-Runs as a depthwise `F.conv2d` in NCHW between two permutes.
+Runs as a depthwise `F.conv2d` in NCHW between two permutes, through a pair
+of autograd Functions, the FIR and its transpose, each the other's
+backward: the same function with the same first and second derivatives as
+autograd's convolution, but no derivative in the (constant) filter, which
+autograd's double backward of a grouped convolution forms per group
+(`aten::_convolution_double_backward`).
 """
 
 from __future__ import annotations
@@ -85,6 +90,35 @@ def _zero_insert_nchw(x, upx, upy):
     return x.reshape(n, c, h * upy, w * upx)
 
 
+class _DepthwiseFIR(torch.autograd.Function):
+    """y = the valid depthwise correlation of x [N,C,H,W] with f [C,1,fh,fw];
+    its backward is `_DepthwiseFIRT` (the filter takes no cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, f):
+        ctx.save_for_backward(f)
+        return F.conv2d(x, f, groups=f.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        f, = ctx.saved_tensors
+        return _DepthwiseFIRT.apply(g, f), None
+
+
+class _DepthwiseFIRT(torch.autograd.Function):
+    """The transpose of `_DepthwiseFIR` in x; its backward is `_DepthwiseFIR`."""
+
+    @staticmethod
+    def forward(ctx, g, f):
+        ctx.save_for_backward(f)
+        return F.conv_transpose2d(g, f, groups=f.shape[0])
+
+    @staticmethod
+    def backward(ctx, gg):
+        f, = ctx.saved_tensors
+        return _DepthwiseFIR.apply(gg, f), None
+
+
 def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
     """Pad, upsample, FIR-filter and downsample a batch of NHWC images.
     `f` is a [fh, fw] / [taps] float32 filter from `setup_filter`, or None
@@ -93,6 +127,8 @@ def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
         raise ValueError(f"upfirdn2d expects NHWC input, got {tuple(x.shape)}")
     if f is None:
         f = torch.ones(1, 1)
+    if f.requires_grad:
+        raise ValueError("upfirdn2d takes a constant filter: it forms no cotangent for it")
     upx, upy = _parse_scaling(up)
     downx, downy = _parse_scaling(down)
     px0, px1, py0, py1 = _parse_padding(padding)
@@ -105,10 +141,10 @@ def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
     if not flip_filter:
         f = f.flip(list(range(f.ndim)))
     if f.ndim == 2:
-        y = F.conv2d(y, f[None, None].expand(c, 1, *f.shape), groups=c)
+        y = _DepthwiseFIR.apply(y, f[None, None].expand(c, 1, *f.shape))
     else:
-        y = F.conv2d(y, f[None, None, None, :].expand(c, 1, 1, -1), groups=c)
-        y = F.conv2d(y, f[None, None, :, None].expand(c, 1, -1, 1), groups=c)
+        y = _DepthwiseFIR.apply(y, f[None, None, None, :].expand(c, 1, 1, -1))
+        y = _DepthwiseFIR.apply(y, f[None, None, :, None].expand(c, 1, -1, 1))
     y = y[:, :, ::downy, ::downx]
     return y.permute(0, 2, 3, 1)
 

@@ -10,12 +10,15 @@ path-length noise) comes from one explicit `torch.Generator`, in an order
 that does not depend on whether the fused blocks run on the kernels or on
 their plain versions.
 
-The regularisers take a second derivative, so their forwards run on the
-unpacked route (`force_unpacked()`, ops/packed_override.py), JAX's
-MGT_PACKED_SECOND_ORDER=0 fallback: every block unfused, K4 off, all plain
-autograd. JAX's default scoped second-order route computes the same
-function on its packed kernels, and JAX's `_reg_remat` is an XLA memory
-policy; neither has a counterpart here.
+The regularisers take a second derivative. By default they run, as in
+JAX, inside `second_order_scope()` (ops/second_order.py): the fused blocks
+keep their kernels through the second derivative, K4 is off, and the inner
+gradient takes only the cotangents it reaches (path length: x, styles and
+resid; R1: x and resid). Under MGT_PACKED_SECOND_ORDER=0 (JAX's fallback)
+they run on the unpacked route (`force_unpacked()`,
+ops/packed_override.py): every block unfused, K4 off, all plain autograd.
+`reg_stage_second_order` reads the choice. JAX's `_reg_remat` is an XLA
+memory policy with no counterpart here.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from morphganformer_tpu_torch.ops.packed_override import force_unpacked
+from morphganformer_tpu_torch.ops.second_order import reg_stage_second_order, second_order_scope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,9 +124,24 @@ def d_main_loss(G, D, real_img, z, cfg: LossConfig, gen, plain=False):
                   "Loss/scores/real": real_logits.detach().mean()}
 
 
+# The fused Functions' inputs that each stage's inner gradient reaches
+# (`second_order_scope(reaches)`): path length differentiates by ws, which
+# enter G's fused blocks through styles and, chained, through x and resid;
+# R1 by the reals, which enter D's through x and resid.
+PL_REACHES = ("x", "styles", "resid")
+R1_REACHES = ("x", "resid")
+
+
+def _reg_route(stage, reaches):
+    """The reg stage's route (JAX loss.py:141-148, :236-243):
+    `second_order_scope(reaches)`, or `force_unpacked()` under
+    MGT_PACKED_SECOND_ORDER=0."""
+    return second_order_scope(reaches) if reg_stage_second_order(stage) else force_unpacked()
+
+
 def g_pl_loss(G, z, cfg: LossConfig, gen, pl_mean, pl_noise=None):
     """Path-length regularisation (reference loss.py:92-107; JAX
-    `_g_pl_loss`), on the unpacked route. On the first
+    `_g_pl_loss`), on `_reg_route("pl")`. On the first
     max(B // pl_batch_shrink, 1) latents: ws from the mapping with mixing
     (w_avg not moved), the image G(ws) with fresh noise, dropout and
     component mask (JAX re-synthesises under new keys), the gradient of
@@ -134,7 +153,7 @@ def g_pl_loss(G, z, cfg: LossConfig, gen, pl_mean, pl_noise=None):
     cfg_g = G.cfg
     batch = max(z.shape[0] // cfg.pl_batch_shrink, 1)
     z = z[:batch]
-    with force_unpacked():
+    with _reg_route("pl", PL_REACHES):
         mask = G.component_mask(batch, z.device, True, gen)
         ws = _mixed_ws(G, z, cfg, gen, mask, train=True, update_w_avg=False)
         if pl_noise is None:
@@ -153,11 +172,11 @@ def g_pl_loss(G, z, cfg: LossConfig, gen, pl_mean, pl_noise=None):
 
 def d_r1_loss(D, real_img, cfg: LossConfig):
     """R1 gradient penalty (reference loss.py:149-159; JAX `_d_r1_loss`), on
-    the unpacked route: the gradient of sum(D(real)) w.r.t. the reals with
+    `_reg_route("r1")`: the gradient of sum(D(real)) w.r.t. the reals with
     its graph kept; r1_gamma / 2 times the batch mean of its squared norm.
     Returns (scalar, stats)."""
     real = real_img.detach().requires_grad_(True)
-    with force_unpacked():
+    with _reg_route("r1", R1_REACHES):
         r1_grads, = torch.autograd.grad(D(real).sum(), real, create_graph=True)
     r1_penalty = r1_grads.square().sum(dim=(1, 2, 3))
     loss = r1_penalty.mean() * (cfg.r1_gamma / 2)

@@ -14,8 +14,9 @@ mapping moves in place, and pl_mean a tensor of the state that each G_reg
 round moves, so the rounds see both in sequence as the JAX scan threads
 them. optax's `adam` and torch's Adam compute the same bias-corrected step.
 One `torch.Generator` on the device, seeded by `init_state`, makes every
-random draw of the step. The reg stages run on the unpacked route
-(training/loss.py).
+random draw of the step. The reg stages run on the fused kernels'
+second-order route by default, on the unpacked route under
+MGT_PACKED_SECOND_ORDER=0 (training/loss.py).
 """
 
 from __future__ import annotations

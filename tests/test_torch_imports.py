@@ -29,8 +29,8 @@ def test_port_imports_nothing_forbidden(path):
 
 def test_training_modules_are_checked():
     """The discriminator, the training package, K4's module, the unpacked
-    override, the checkpoints, the data feed and the loop are on the list
-    above."""
+    override, the second-order route, the checkpoints, the data feed and the
+    loop are on the list above."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {f"morphganformer_tpu_torch/{m}" for m in (
         "models/discriminator.py", "training/__init__.py", "training/loss.py",
@@ -39,7 +39,8 @@ def test_training_modules_are_checked():
         "checkpoint/io.py", "checkpoint/async_io.py", "data/__init__.py", "data/dataset.py",
         "data/native_loader.py", "data/raw_cache.py", "training/stats.py",
         "training/tensorboard.py", "training/visualize.py", "training/loop.py",
-        "utils/image.py", "utils/summary.py", "models/mapping.py", "cli.py")} <= names
+        "utils/image.py", "utils/summary.py", "models/mapping.py", "cli.py",
+        "ops/second_order.py", "ops/second_order_native.py", "bench_reg.py")} <= names
 
 
 def test_build_is_one_plain_nvcc_call_for_sm_90a():

@@ -1,7 +1,9 @@
 """The regularisation stages of the port (training/loss.py `g_pl_loss`,
 `d_r1_loss`; training/train_step.py G_reg and D_reg) against the JAX
-package, on small configs with the weights carried over, and the unpacked
-route that they run on.
+package, on small configs with the weights carried over, and the two
+routes that they run on: this module holds the unpacked one
+(MGT_PACKED_SECOND_ORDER=0), test_torch_second_order.py the scoped
+second-order route, the default.
 
 Randomness is off on both sides as in test_torch_train_step.py (no local
 noise, attention dropout 0, no component dropout, no style mixing); the
@@ -185,24 +187,45 @@ def _count_fused(monkeypatch):
     return calls
 
 
-def test_reg_stages_run_on_the_unpacked_route(monkeypatch, force_fused_d):
-    """Under force_unpacked() neither net reaches a fused Function (the main
-    stages do, on the same nets), so R1 and path length differentiate
-    twice; without it R1 through the fused blocks raises instead of
-    returning a wrong zero."""
+@pytest.mark.parametrize("packed_second_order", ["0", None])
+def test_reg_stages_run_on_the_unpacked_route(monkeypatch, force_fused_d, packed_second_order):
+    """With MGT_PACKED_SECOND_ORDER=0 the reg stages run under
+    force_unpacked(): neither net reaches a fused Function (the main stages
+    do, on the same nets), so R1 and path length differentiate twice; and
+    R1 through fused blocks built outside a scope raises instead of
+    returning a wrong zero. With it unset they run inside
+    second_order_scope() on the fused Functions, with the penalties and
+    parameter gradients of the unpacked route (the tolerances of the stage
+    tests above)."""
     calls = _count_fused(monkeypatch)
     _, _, _, ttrainer, tstate = _pair("resnet")
     z = torch.from_numpy(np.random.RandomState(0).randn(4, 3, 8).astype(np.float32))
     real = torch.from_numpy(np.random.RandomState(1).randn(4, RES, RES, 3).astype(np.float32))
+
+    def stages():
+        return [(tloss.g_pl_loss(tstate.G, z, ttrainer.cfg.loss, torch.Generator(),
+                                 torch.tensor(0.0)), tstate.G),
+                (tloss.d_r1_loss(tstate.D, real, ttrainer.cfg.loss), tstate.D)]
+
     tloss.d_main_loss(tstate.G, tstate.D, real, z, ttrainer.cfg.loss, torch.Generator())
     assert calls["fused"] > 0
     calls["fused"] = 0
-    for loss, _ in (tloss.g_pl_loss(tstate.G, z, ttrainer.cfg.loss, torch.Generator(),
-                                    torch.tensor(0.0)),
-                    tloss.d_r1_loss(tstate.D, real, ttrainer.cfg.loss)):
+    unpacked = stages()
+    for (loss, _), _ in unpacked:
         assert torch.isfinite(loss)
         assert loss.requires_grad
     assert calls["fused"] == 0
+    if packed_second_order is None:
+        monkeypatch.delenv("MGT_PACKED_SECOND_ORDER")
+        for ((loss, stats), net), ((want, want_stats), _), floor in zip(stages(), unpacked,
+                                                                        (1e-3, 1.0)):
+            np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+            for key, v in stats.items():
+                np.testing.assert_allclose(float(v), float(want_stats[key]), rtol=1e-5)
+            _check_grads({k: v.numpy() for k, v in _grads(loss, net).items()},
+                         {k: v.numpy() for k, v in _grads(want, net).items()}, floor)
+        assert calls["fused"] > 0
+        return
     x = real.clone().requires_grad_(True)
     with pytest.raises(RuntimeError, match="differentiable once"):
         torch.autograd.grad(tstate.D(x).sum(), x, create_graph=True)
