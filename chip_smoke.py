@@ -37,14 +37,35 @@ Phases, each printing its wall time:
               to 1e-5); a 50-step batch-2 projected morph of two G(z)
               targets and an image-mode demorph of its result, with their
               launch counts; pair-steps/s.
-  7. checkpoint
+  7. bf16     the synthesis path in bfloat16 (JAX's default for project,
+              morph and demorph): the four bfloat16 roles (K1, K2, K1's
+              adjoint launch, K3's adjoint; the `_bf16` entry points) at the
+              10 call shapes, the kernel and the plain bfloat16 version each
+              against the float32 plain version on the same bfloat16-rounded
+              activations, the kernel's error at most 1.5 times the plain
+              one's or within 2^-7 of each output's largest entry, with
+              kernel, plain, cuDNN's bfloat16 bare-convolution and (K2, K3)
+              same-function times beside the bound (2 bytes an element, the
+              bf16 tensor-core peak); then on cli.get_model("init:1024",
+              dtype="bfloat16"): generation of two images (exact launches,
+              every one a bf16 one), the forward on the kernels and on the
+              plain versions against the float32 forward (the kernels' mean
+              and max error at most 1.5 times the plain ones'), forward
+              times and peak memory at batch 1 and 2 in both types, one
+              traced bfloat16 forward; a 100-step projection (exact
+              launches, the loss descending, steps/s and peak memory beside
+              phase project's float32 ones); step 0's latent gradient on the
+              kernels and on the plain route against float32's (the same
+              bound); a 50-step batch-2 projected morph and an image-mode
+              demorph with their launches.
+  8. checkpoint
               the FFHQ-1024 generator of phase generate and a 1024^2 D
               (seed 4) saved with save_generator / save_discriminator, loaded
               back through cli.get_model(<dir>) and load_discriminator: every
               leaf bit-equal; run_generate from the loaded generator writes
               phase generate's two PNGs byte for byte; bytes, save and load
               seconds.
-  8. train    the training roles at every call shape of a 1024^2 training
+  9. train    the training roles at every call shape of a 1024^2 training
               step at batch 4 against their plain versions: K3-forward (the
               D down-conv, to 1e-3 max abs), K2's use_dw role (its dx), the
               dw taps of K1, K3 and the down-conv (relative to the largest
@@ -76,7 +97,7 @@ Phases, each printing its wall time:
               accumulation rounds (batch 8), stage times and peak memory,
               and one iteration under torch.profiler (with the host time of
               the FusedUpConv2 and FusedDownConv2 backwards).
-  9. loop     16 images of 1024^2 (G(z) from seeds; half of them with every
+  10. loop    16 images of 1024^2 (G(z) from seeds; half of them with every
               row Paeth-filtered, half Sub-filtered, by the encoder below)
               under <tmp>/data/1024/; one 1024^2 PNG decoded by the native
               loader and by read_png, Paeth and Sub; then training_loop at
@@ -94,7 +115,7 @@ Phases, each printing its wall time:
               feed, the stats copy, the tick), the feed it took, the
               snapshot's bytes and its synchronous, asynchronous and load
               seconds.
-  10. layouts K4 (`mgt_conv3x3_fwd`) and its dx role against the plain
+  11. layouts K4 (`mgt_conv3x3_fwd`) and its dx role against the plain
               version at its five call shapes (G b512 conv1, b1024 conv1 and
               conv_last; D b1024 and b512 conv0) at batch 1 and 4, to 1e-5
               of the output's largest entry, with kernel, plain and one
@@ -107,7 +128,7 @@ Phases, each printing its wall time:
               iteration; one G_main and one D_main round's gradients, K4 on
               against K4 off (every leaf within 1e-3 of its largest entry,
               floored; the noise strengths as one); stage times, peak memory.
-  11. reg     train_iteration at steps 0 and 16, where all four stages are
+  12. reg     train_iteration at steps 0 and 16, where all four stages are
               due, at batch 4, on the resnet pair of phase train and on the
               skip pair, the reg stages on their default scoped
               second-order route: finite losses, pl_mean moved off 0, the
@@ -150,8 +171,10 @@ import zlib
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEV = "cuda"
 
-# H100 SXM data-sheet peaks: fp32 on the FMA pipes, HBM3 bandwidth.
+# H100 SXM data-sheet peaks: fp32 on the FMA pipes, bf16 dense on the
+# tensor cores, HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 K1_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:114"
 K2_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:1143"
@@ -466,6 +489,310 @@ def check_adjoint(torch, fc, gen, call):
     return row
 
 
+BF16_RATIO = 1.5          # a bf16 kernel's error against float32: at most 1.5x the plain one's
+BF16_FLOOR = 2.0 ** -7    # ... or within one bfloat16 ulp of the output's largest entry
+
+
+def bf16_bound(flops, elements):
+    """The least time of a bfloat16 call: its elements at 2 bytes over HBM, or
+    its FLOP on the bf16 dense tensor-core peak, whichever is larger."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, 2 * elements / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _bf16_errs(got, plain, ref):
+    """(kernel error, plain error, kernel vs plain), each output's largest
+    absolute difference relative to the float32 reference's largest entry."""
+    ek = ep = kp = 0.0
+    for g, p, r in zip(got, plain, ref):
+        if r is None:
+            assert g is None and p is None
+            continue
+        scale = max(r.abs().max().item(), 1e-30)
+        ek = max(ek, (g.float() - r).abs().max().item() / scale)
+        ep = max(ep, (p.float() - r).abs().max().item() / scale)
+        kp = max(kp, (g.float() - p.float()).abs().max().item() / scale)
+    return ek, ep, kp
+
+
+def check_bf16(torch, fc, gen, call, adjoint):
+    """A bfloat16 role at one call shape of a 1024^2 forward (K1, K2; with
+    `adjoint` K1's adjoint launch and K3): the kernel and the plain bfloat16
+    version, each against the float32 plain version on the same
+    bfloat16-rounded activations (x, resid, the forward's y, the cotangent;
+    the weights, styles, noise and bias are float32 parameters that the
+    bfloat16 route rounds itself). The kernel's error may be at most
+    BF16_RATIO times the plain version's, or within BF16_FLOOR of each
+    output's largest entry. Times of the kernel, the plain version, cuDNN's
+    bfloat16 call of the bare convolution and, for K2 and K3, the
+    same-function call in bfloat16; the bound at 2 bytes an element and the
+    bf16 tensor-core peak."""
+    import torch.nn.functional as F
+
+    from morphganformer_tpu_torch.bench_k3 import same_function_call
+    from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter
+
+    kernel, block, role, h, cin, cout = call
+    dev, bf = torch.device("cuda"), torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def f32(args):
+        return tuple(a.float() if isinstance(a, torch.Tensor) and a.dtype == bf else a
+                     for a in args)
+
+    x = randn(1, h, h, cin).to(bf)
+    s = torch.rand((1, cin), generator=gen, device=dev) + 0.5
+    if kernel == "K1":
+        w = randn(3, 3, cin, cout, scale=1 / math.sqrt(9 * cin))
+        last = role == "conv_last"
+        noise = None if last else randn(h, h, scale=0.1)
+        bias = None if last else randn(cout, scale=0.1)
+        resid = None if last else randn(1, h, h, cout).to(bf)
+        gain, alpha = 1.0, (1.0 if last else 0.2)
+        fwd = (x, w, s, noise, bias, resid, gain, alpha, True)
+        flops = 2 * h * h * 9 * cin * cout
+        elements = [x, w, noise, resid, h * h * cout]            # the last: y
+        if adjoint:
+            name, key = "K1-adjoint", "modconv3x3_adj"
+            y = fc.modconv3x3_plain(*fwd)
+            g = randn(*y.shape).to(bf)
+            args = (g, x, w, s, y, noise, bias, resid, gain, alpha, True)
+            run_k = lambda: fc.modconv3x3_adjoint(*args)
+            run_p = lambda: fc.modconv3x3_adjoint_plain(*args)
+            ref = fc.modconv3x3_adjoint_plain(*f32(args))
+            g_nchw = g.permute(0, 3, 1, 2)
+            w_lib = fc.modconv3x3_adjoint_weights(w).permute(3, 2, 0, 1).to(bf).contiguous()
+            run_lib = lambda: F.conv2d(g_nchw, w_lib, padding=1)
+            flops += 2 * h * h * cin + 4 * h * h * cout
+            elements = [g, x, y, noise, x.numel()]                # the last: dx
+        else:
+            name, key = "K1", "modconv3x3"
+            run_k = lambda: fc.fused_modconv3x3(*fwd)
+            run_p = lambda: fc.modconv3x3_plain(*fwd)
+            ref = fc.modconv3x3_plain(*f32(fwd))
+            x_nchw, w_lib = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).to(bf)
+            run_lib = lambda: F.conv2d(x_nchw, w_lib, padding=1)
+        run_same = None
+    else:
+        skip = role == "skip"
+        kh = 1 if skip else 3
+        w = randn(kh, kh, cin, cout, scale=1 / math.sqrt(kh * kh * cin))
+        f = setup_filter([1, 3, 3, 1]).cuda()
+        styles = None if skip else s
+        noise = None if skip else randn(2 * h, 2 * h, scale=0.1)
+        bias = None if skip else randn(cout, scale=0.1)
+        gain, alpha = (math.sqrt(0.5), 1.0) if skip else (math.sqrt(2), 0.2)
+        fwd = (x, w, styles, f, noise, bias, gain, alpha, not skip, False)
+        flops = 2 * h * h * kh * kh * cin * cout + 2 * (2 * h) ** 2 * 8 * cout
+        if adjoint:
+            name, key = "K3-adjoint", "upconv2_adj"
+            y = fc.upconv2_plain(*fwd)
+            g = randn(*y.shape).to(bf)
+            args = (g, x, w, styles, f, y, noise, bias, gain, alpha, not skip, False)
+            run_k = lambda: fc.upconv2_adjoint(*args)
+            run_p = lambda: fc.upconv2_adjoint_plain(*args)
+            ref = fc.upconv2_adjoint_plain(*f32(args))
+            w_lib = w.permute(2, 3, 0, 1).to(bf).contiguous()
+            if skip:
+                g_lib = torch.randn((1, cout, h, h), generator=gen, device=dev).to(bf)
+                run_lib = lambda: F.conv2d(g_lib, w_lib)
+            else:
+                g_nchw = g.permute(0, 3, 1, 2)
+                run_lib = lambda: F.conv2d(g_nchw, w_lib, stride=2, padding=1)
+            g_same = g.permute(0, 3, 1, 2)
+            op, w_same, pad_same = same_function_call("K3-adjoint", w, f, False)
+            w_same = w_same.to(bf)
+            run_same = lambda: op(g_same, w_same, stride=2, padding=pad_same)
+            elements = [g, x.numel()]                               # the last: dx
+            if not skip:
+                flops += 2 * h * h * cin + 4 * (2 * h) ** 2 * cout
+                elements += [x, y, noise]
+        else:
+            name, key = "K2", "upconv2"
+            run_k = lambda: fc.fused_upconv2(*fwd)
+            run_p = lambda: fc.upconv2_plain(*fwd)
+            ref = fc.upconv2_plain(*f32(fwd))
+            x_nchw = x.permute(0, 3, 1, 2)
+            if skip:
+                w_lib = w.permute(3, 2, 0, 1).to(bf).contiguous()
+                run_lib = lambda: F.conv2d(x_nchw, w_lib)
+            else:
+                w_lib = w.permute(2, 3, 0, 1).to(bf).contiguous()
+                run_lib = lambda: F.conv_transpose2d(x_nchw, w_lib, stride=2)
+            op, w_same, pad_same = same_function_call("K2", w, f, False)
+            w_same = w_same.to(bf)
+            run_same = lambda: op(x_nchw, w_same, stride=2, padding=pad_same)
+            elements = [x, w, styles, noise, 4 * h * h * cout]          # the last: y
+
+    before = fc.launch_counts[BF16_KEYS[key]]
+    got = run_k()
+    assert fc.launch_counts[BF16_KEYS[key]] == before + 1, f"{name} bf16 did not launch"
+    plain = run_p()
+    torch.cuda.synchronize()
+    got, plain, ref = ((t,) if isinstance(t, torch.Tensor) else t for t in (got, plain, ref))
+    assert got[0].dtype == bf and plain[0].dtype == bf and ref[0].dtype == torch.float32
+    assert all(torch.isfinite(t).all().item() for t in got if t is not None)
+    ek, ep, kp = _bf16_errs(got, plain, ref)
+    ok = ek <= max(BF16_RATIO * ep, BF16_FLOOR)
+    print(f"  {name} bf16 {block} {role}: vs float32 on the same inputs, kernel {ek:.3e}, "
+          f"plain {ep:.3e} (of the largest entry); kernel vs plain {kp:.3e}", flush=True)
+    assert ok, f"{name} bf16 {block} {role}: kernel err {ek} > max({BF16_RATIO} x {ep}, " \
+               f"{BF16_FLOOR})"
+    bound_ms, bound_by = bf16_bound(flops, sum(t if isinstance(t, int) else t.numel()
+                                               for t in elements if t is not None))
+    ms = cuda_ms(torch, run_k)
+    plain_ms = cuda_ms(torch, run_p)
+    library_ms = cuda_ms(torch, run_lib)
+    same_ms = None if run_same is None else cuda_ms(torch, run_same)
+    print(f"  {name} bf16 {block} {role}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"library_ms {library_ms:.4f}{_same(same_ms)} bound_ms {bound_ms:.4f} ({bound_by})",
+          flush=True)
+    return dict(kernel=f"{name} bf16", block=block, role=role, max_abs_err=kp,
+                err_kernel=ek, err_plain=ep, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                same_function_ms=same_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def bf16_phase(torch, fc, cli, G, target_png, png_a, png_b, tmp):
+    """The synthesis path in bfloat16 (JAX's default for project, morph and
+    demorph): the four bfloat16 roles at the 10 call shapes of a 1024^2
+    forward (`check_bf16`); then through the entry points on
+    `cli.get_model("init:1024", dtype="bfloat16")`: generation of two images
+    (exact launches, all on the bf16 instantiations), the forward on the
+    kernels against the plain bfloat16 forward, each against the float32
+    forward of G (mean and max abs error, the kernel's at most BF16_RATIO
+    times the plain one's); forward times and peak memory at batch 1 and 2
+    in float32 and bfloat16; one traced bfloat16 forward; a 100-step
+    projection (exact launches, a best loss below the first step's, steps/s
+    and peak memory beside float32's), step 0's latent gradient on the
+    kernels and on the plain route against float32's (the kernel's error
+    at most BF16_RATIO times the plain one's, or within BF16_FLOOR); a
+    50-step batch-2 projected morph and an image-mode demorph with their
+    launches."""
+    import numpy as np
+
+    from morphganformer_tpu_torch.losses import build_loss_stack
+    from morphganformer_tpu_torch.projection import ProjectionConfig, latent_stats, loss_and_grad
+    from morphganformer_tpu_torch.utils.image import load_target
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows = [check_bf16(torch, fc, gen, call, False) for call in kernel_calls()]
+    rows += [check_bf16(torch, fc, gen, call, True) for call in kernel_calls()]
+
+    cfg, Gb = cli.get_model("init:1024", device="cuda", dtype="bfloat16")
+    assert cfg.dtype == "bfloat16" and Gb.synthesis.b1024.cfg.dtype == "bfloat16"
+    fc.reset_launch_counts()
+    imgs = cli.run_generate(Gb, os.path.join(tmp, "gen_bf16"), images_num=2,
+                            truncation_psi=0.7, batch_size=2, seed=0)
+    launches = dict(fc.launch_counts)
+    print(f"  run_generate bfloat16: 2 images, launches {launches}", flush=True)
+    assert imgs.shape == (2, 1024, 1024, 3) and np.isfinite(imgs).all()
+    assert launches == _per_step(0, 1, bf16=True), launches
+
+    z = torch.randn((2, cfg.k, cfg.z_dim), generator=torch.Generator().manual_seed(0))
+    y32 = cli.synthesize(G, z)
+    yk, yp = cli.synthesize(Gb, z), cli.synthesize(Gb, z, plain=True)
+    torch.cuda.synchronize()
+    assert yk.dtype == yp.dtype == torch.float32          # the RGB accumulates in float32
+    gaps = {k: ((y - y32).abs().mean().item(), (y - y32).abs().max().item())
+            for k, y in (("kernels", yk), ("plain", yp))}
+    kp = (yk - yp).abs().max().item()
+    print(f"  bfloat16 forward vs float32 (mean, max abs): kernels {gaps['kernels']}, plain "
+          f"{gaps['plain']}; kernels vs plain max {kp:.3e}", flush=True)
+    for i, what in enumerate(("mean", "max")):
+        assert gaps["kernels"][i] <= BF16_RATIO * gaps["plain"][i], (what, gaps)
+    out["forward_vs_f32"] = gaps
+
+    rates = {}
+    for dt, model in (("float32", G), ("bfloat16", Gb)):
+        for b in (1, 2):
+            zb = z[:b].cuda()
+            cli.synthesize(model, zb)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(torch, lambda: cli.synthesize(model, zb), reps=3, warmup=1)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            rates[f"{dt} batch {b}"] = dict(ms=ms, imgs_per_s=1e3 * b / ms, peak_gib=peak)
+            print(f"  forward {dt} batch {b}: {ms:.3f} ms, {1e3 * b / ms:.3f} imgs/s, peak "
+                  f"{peak:.3f} GiB", flush=True)
+    out["forward"] = rates
+    traced_forward(torch, lambda: cli.synthesize(Gb, z[:1].cuda()), "bfloat16 forward batch 1")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps = []
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cli.run_project(Gb, target_png, os.path.join(tmp, "proj_bf16"), steps=PROJECT_STEPS,
+                          n_mean_latent=10000, chunk=25, seed=0,
+                          progress=_timed_progress(stamps))
+    proj_s = time.perf_counter() - t0
+    proj_launches = dict(fc.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    history = res.loss_history.numpy()
+    rate = _steady_rate(stamps)
+    print(f"  run_project bfloat16: {PROJECT_STEPS} steps in {proj_s:.3f} s; steady {rate:.3f} "
+          f"steps/s ({1e3 / rate:.3f} ms/step); peak memory {peak / 2**30:.3f} GiB; loss "
+          f"{history[0]:.5f} -> best {res.best_loss:.5f} at step {res.best_step}; launches "
+          f"{proj_launches}", flush=True)
+    assert np.isfinite(history).all() and res.best_loss < history[0], (res.best_loss, history[0])
+    assert proj_launches == _per_step(PROJECT_STEPS, 1, bf16=True), proj_launches
+    assert torch.isfinite(res.best_img).all().item()
+    out["project"] = dict(steps_per_s=rate, peak_gib=peak / 2**30, wall_s=proj_s,
+                          first_loss=float(history[0]), best_loss=res.best_loss)
+
+    pcfg = ProjectionConfig(steps=PROJECT_STEPS)
+    mean, std = latent_stats(cfg, torch.Generator().manual_seed(0), 10000)
+    latent_n = (mean[None] + torch.randn((1, cfg.k, cfg.z_dim),
+                                         generator=torch.Generator().manual_seed(1))
+                * std * pcfg.noise).cuda()
+    target = torch.from_numpy(load_target(target_png, 1024)).cuda()
+    loss_fn = build_loss_stack({"mse": 1.0})
+    grads = {k: loss_and_grad(model, latent_n, target, loss_fn, pcfg, plain)[2]
+             for k, model, plain in (("float32", G, False), ("kernels", Gb, False),
+                                     ("plain", Gb, True))}
+    scale = grads["float32"].abs().max().item()
+    gk, gp = ((grads[k] - grads["float32"]).abs().max().item() / scale
+              for k in ("kernels", "plain"))
+    print(f"  step 0's latent gradient in bfloat16 against float32's (of its largest entry "
+          f"{scale:.4e}): kernels {gk:.3e}, plain {gp:.3e}", flush=True)
+    assert torch.isfinite(grads["kernels"]).all().item()
+    assert gk <= max(BF16_RATIO * gp, BF16_FLOOR), (gk, gp)
+    out["grad_vs_f32"] = dict(kernels=gk, plain=gp)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps = []
+    fc.reset_launch_counts()
+    res_m, img_pm, _ = cli.run_morph_pair(Gb, png_a, png_b, os.path.join(tmp, "pm_bf16"),
+                                          steps=MORPH_STEPS, chunk=10, seed=0,
+                                          progress=_timed_progress(stamps))
+    pair_launches = dict(fc.launch_counts)
+    hist_m = res_m.loss_history.numpy()
+    pair_rate = _steady_rate(stamps)
+    pair_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  run_morph_pair bfloat16: {MORPH_STEPS} steps at batch 2, {pair_rate:.3f} "
+          f"pair-steps/s, peak {pair_peak:.3f} GiB; loss {hist_m[0]:.5f} -> best "
+          f"{res_m.best_loss:.5f}; launches {pair_launches}", flush=True)
+    assert pair_launches == _per_step(MORPH_STEPS, 2, bf16=True), pair_launches
+    assert np.isfinite(hist_m).all() and res_m.best_loss < hist_m[0]
+    assert img_pm.shape == (1024, 1024, 3) and np.isfinite(img_pm).all()
+    fc.reset_launch_counts()
+    img_di, w_di = cli.run_demorph(Gb, out_dir=os.path.join(tmp, "demorph_bf16"),
+                                   morph_img=os.path.join(tmp, "pm_bf16", "alice_bob_morph.png"),
+                                   accomplice_img=png_a, steps=DEMORPH_STEPS, seed=0)
+    demorph_launches = dict(fc.launch_counts)
+    print(f"  image-mode demorph bfloat16: launches {demorph_launches}", flush=True)
+    assert demorph_launches == _per_step(2 * DEMORPH_STEPS, 3, bf16=True), demorph_launches
+    assert np.isfinite(img_di).all() and np.isfinite(w_di).all()
+    out["morph"] = dict(pair_steps_per_s=pair_rate, peak_gib=pair_peak)
+    del Gb
+    torch.cuda.empty_cache()
+    return rows, proj_launches, out
+
+
 def _timed_progress(stamps):
     def progress(step, loss, best):
         stamps.append((step, time.perf_counter()))
@@ -480,10 +807,15 @@ def _steady_rate(stamps):
     return (s1 - s0) / (t1 - t0)
 
 
-def _per_step(steps, forwards):
-    return {"modconv3x3": 4 * (steps + forwards), "upconv2": 6 * (steps + forwards),
-            "modconv3x3_adj": 4 * steps, "upconv2_adj": 6 * steps,
-            **dict.fromkeys(TRAIN_KEYS.values(), 0), **dict.fromkeys(K4_KEYS, 0)}
+def _per_step(steps, forwards, bf16=False):
+    """Exact launches of `steps` projection steps and `forwards` forwards on
+    the fused blocks; `bf16` counts them on the bfloat16 instantiations."""
+    main = {"modconv3x3": 4 * (steps + forwards), "upconv2": 6 * (steps + forwards),
+            "modconv3x3_adj": 4 * steps, "upconv2_adj": 6 * steps}
+    counts = {**dict.fromkeys(main, 0), **dict.fromkeys(BF16_KEYS.values(), 0),
+              **dict.fromkeys(TRAIN_KEYS.values(), 0), **dict.fromkeys(K4_KEYS, 0)}
+    counts.update({(BF16_KEYS[k] if bf16 else k): v for k, v in main.items()})
+    return counts
 
 
 TRAIN_BATCH = 4
@@ -511,6 +843,9 @@ def train_calls():
 TRAIN_KEYS = {"K3-forward": "downconv2", "K2-use_dw": "downconv2_adj",
               "K2-use_dw-dw": "downconv2_dw", "K1-dw": "modconv3x3_dw", "K3-dw": "upconv2_dw"}
 K4_KEYS = ("conv3x3", "conv3x3_adj")
+# The bfloat16 instantiations' launch counts, by their float32 role's key.
+BF16_KEYS = {"modconv3x3": "modconv3x3_bf16", "upconv2": "upconv2_bf16",
+             "modconv3x3_adj": "modconv3x3_adj_bf16", "upconv2_adj": "upconv2_adj_bf16"}
 
 
 def check_train_kernel(torch, fc, gen, call):
@@ -647,7 +982,7 @@ def per_iteration(rounds=1):
               "modconv3x3_adj": 2 * 2, "upconv2_adj": 0, "downconv2_adj": 2 * 4,
               "modconv3x3_dw": 2 * 2, "upconv2_dw": 0, "downconv2_dw": 2 * 4}
     counts = {k: rounds * (g_main[k] + d_main[k]) for k in g_main}
-    return {**counts, **dict.fromkeys(K4_KEYS, 0)}
+    return {**counts, **dict.fromkeys(K4_KEYS, 0), **dict.fromkeys(BF16_KEYS.values(), 0)}
 
 
 def check_per_sample_noise(torch, fc, gen):
@@ -2107,6 +2442,17 @@ def main():
         morph_stats = dict(pair_steps_per_s=pair_rate, peak_gib=pair_peak / 2**30,
                            wall_s=pair_s, demorph_image_s=demorph_img_s)
 
+        with Phase("bf16") as ph:
+            bf16_rows, bf16_launches, bf16_stats = bf16_phase(torch, fc, cli, G, target_png,
+                                                              png_a, png_b, tmp)
+            bf16_stats["f32_project_steps_per_s"] = proj_stats["steps_per_s"]
+            bf16_stats["f32_project_peak_gib"] = proj_stats["peak_gib"]
+            print(f"  projection steps/s float32 {proj_stats['steps_per_s']:.3f}, bfloat16 "
+                  f"{bf16_stats['project']['steps_per_s']:.3f}; peak GiB float32 "
+                  f"{proj_stats['peak_gib']:.3f}, bfloat16 {bf16_stats['project']['peak_gib']:.3f}",
+                  flush=True)
+        phases["bf16"] = ph.seconds
+
         with Phase("checkpoint") as ph:
             ckpt_stats = checkpoint_phase(torch, fc, cli, G, tmp)
         phases["checkpoint"] = ph.seconds
@@ -2130,6 +2476,7 @@ def main():
     print("kernel_calls " + json.dumps(rows + train_rows + k4_rows), flush=True)
     print("projection " + json.dumps(proj_stats), flush=True)
     print("morph " + json.dumps(morph_stats), flush=True)
+    print("bf16 " + json.dumps(bf16_stats), flush=True)
     print("checkpoint " + json.dumps(ckpt_stats), flush=True)
     print("train " + json.dumps(train_stats), flush=True)
     print("loop " + json.dumps(loop_stats), flush=True)
@@ -2159,6 +2506,38 @@ def main():
             "launches": proj_launches[key],
             "reg_launches": reg_stats["reg_launches"][key],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": sum(r["ms"] for r in mine),
+            "plain_ms": sum(r["plain_ms"] for r in mine),
+            "bound_ms": b_ms,
+            "bound_by": "operations" if 2 * ops_ms >= b_ms else "bytes",
+            "library_ms": sum(r["library_ms"] for r in mine),
+            "same_function_ms": _same_sum(mine),
+        })
+    for kernel, name, replaces, key in (
+            ("K1 bf16", "fused_modconv3x3 on bfloat16 x (mgt_modconv3x3_fwd_bf16: "
+             "conv3x3_lw_kernel, x * s rounded to bfloat16 at staging)", K1_REPLACES,
+             "modconv3x3"),
+            ("K2 bf16", "fused_upconv2 on bfloat16 x (mgt_upconv2_fwd_bf16: upconv2_lw_kernel)",
+             K2_REPLACES, "upconv2"),
+            ("K1-adjoint bf16", "mgt_modconv3x3_bwd_bf16 (conv3x3_lw_kernel, gd formed and "
+             "rounded in bfloat16 in the kernel)", K1_REPLACES, "modconv3x3_adj"),
+            ("K3-adjoint bf16", "mgt_upconv2_bwd_bf16 (downconv2_lw_kernel)", K3_REPLACES,
+             "upconv2_adj")):
+        mine = [r for r in bf16_rows if r["kernel"] == kernel]
+        b_ms = sum(r["bound_ms"] for r in mine)
+        ops_ms = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")
+        kernels.append({
+            "name": f"{kernel} {name} (the call shapes of one 1024^2 forward, batch 1: "
+                    + ", ".join(f"{r['block']} {r['role']}" for r in mine)
+                    + f"; launches over the {PROJECT_STEPS}-step bfloat16 projection; "
+                      "max_abs_err: kernel vs plain bfloat16, of the float32 reference's "
+                      "largest entry)",
+            "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "launches": bf16_launches[BF16_KEYS[key]],
+            "reg_launches": 0,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "err_vs_f32": max(r["err_kernel"] for r in mine),
+            "plain_err_vs_f32": max(r["err_plain"] for r in mine),
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": b_ms,

@@ -21,7 +21,10 @@ init:<res>` builds a randomly initialised FFHQ-style generator at that
 resolution (weights from seed 0 whatever `--seed` says, as the JAX entry
 points build them; `--seed` picks z, the prior statistics and the
 projection noise). Everything
-runs on the card; `--device cpu` asks for the CPU. Latents are fed to the
+runs on the card; `--device cpu` asks for the CPU. `--dtype` is the
+synthesis' compute type, with JAX's defaults: bfloat16 for project, morph
+and demorph, float32 for generate and merge (the weights, the latent, Adam
+and the loss stay float32). Latents are fed to the
 generator as z, as the JAX entry points do. Projection targets are PNGs
 whose shorter side is the model's resolution.
 """
@@ -40,7 +43,7 @@ import torch
 
 from morphganformer_tpu_torch.checkpoint.io import load_network
 from morphganformer_tpu_torch.losses import build_loss_stack, parse_loss_spec
-from morphganformer_tpu_torch.models import GANformerConfig, init_generator
+from morphganformer_tpu_torch.models import GANformerConfig, init_generator, set_compute_dtype
 from morphganformer_tpu_torch.morph import (
     demorph_latent,
     load_latent_mat,
@@ -56,14 +59,18 @@ from morphganformer_tpu_torch.utils.image import (
 )
 
 
-def get_model(model_spec: str, device="cuda"):
+def get_model(model_spec: str, device="cuda", dtype="float32"):
     """(cfg, generator) for `--model`, as JAX's `cli/generate.py:get_model`:
     a checkpoint directory gives its "Gs"; `init:<res>` random weights from
-    seed 0."""
-    if not model_spec.startswith("init:"):
-        return load_network(model_spec, role="Gs", device=device)
-    cfg = GANformerConfig(img_resolution=int(model_spec.split(":", 1)[1]))
-    return cfg, init_generator(cfg, seed=0, device=device)
+    seed 0. The synthesis computes in `dtype` ("float32" or "bfloat16"),
+    whatever the checkpoint's arch.json says; the weights stay float32."""
+    if model_spec.startswith("init:"):
+        cfg = GANformerConfig(img_resolution=int(model_spec.split(":", 1)[1]))
+        G = init_generator(cfg, seed=0, device=device)
+    else:
+        _, G = load_network(model_spec, role="Gs", device=device)
+    set_compute_dtype(G, dtype)
+    return G.cfg, G
 
 
 @torch.no_grad()
@@ -288,7 +295,8 @@ def run_train(args):
     if args.multihost or args.coordinator or args.num_processes or args.process_id is not None:
         raise NotImplementedError(PARALLEL_NOT_PORTED)
     if args.dtype != "float32":
-        raise NotImplementedError("the port trains in float32 only")
+        raise NotImplementedError("the port trains in float32 only (bfloat16 training needs "
+                                  "the D-tower roles and the dw kernels in bfloat16)")
     if args.raw_cache:
         os.environ["MGT_RAW_CACHE"] = "1"
     g_cfg, d_cfg, t_cfg = build_train_configs(args)
@@ -373,23 +381,25 @@ def main(argv=None):
                                             "de-morphing and training")
     sub = p.add_subparsers(dest="command", required=True)
 
-    def common(sp):
+    def common(sp, dtype):
         sp.add_argument("--model", required=True, help="a checkpoint directory (its Gs), or "
                         "init:<resolution> (random weights)")
+        sp.add_argument("--dtype", default=dtype, choices=["float32", "bfloat16"],
+                        help=f"synthesis compute type (default {dtype}, as in JAX)")
         sp.add_argument("--seed", type=int, default=0, help="seed of the random weights and z")
         sp.add_argument("--device", default="cuda")
         sp.add_argument("--truncation-psi", "--truncation_psi", dest="truncation_psi",
                         type=float, default=0.7)
 
     g = sub.add_parser("generate", help="generate images from random z")
-    common(g)
+    common(g, "float32")
     g.add_argument("--output-dir", default="images")
     g.add_argument("--images-num", type=int, default=32)
     g.add_argument("--ratio", type=float, default=1.0)
     g.add_argument("--batch-size", type=int, default=4)
 
     m = sub.add_parser("merge", help="morph pairs of stored latents")
-    common(m)
+    common(m, "float32")
     m.add_argument("--latents", nargs="*", default=[], help=".mat latents, pairs in order")
     m.add_argument("--latent-dir", help="directory of .mat latents; every pair")
     m.add_argument("--out", default="images/merged")
@@ -402,7 +412,7 @@ def main(argv=None):
         sp.add_argument("--n_mean_latent", type=int, default=10000)
 
     pr = sub.add_parser("project", help="project a photo into the latent space")
-    common(pr)
+    common(pr, "bfloat16")
     projection_flags(pr, 5000)
     pr.add_argument("--img", required=True, help="target PNG")
     pr.add_argument("--path_to_gen", default="images/projection")
@@ -419,7 +429,7 @@ def main(argv=None):
     pr.add_argument("--ratio", type=float, default=1.0)
 
     mo = sub.add_parser("morph", help="project a pair of photos and morph them")
-    common(mo)
+    common(mo, "bfloat16")
     projection_flags(mo, 1000)
     mo.add_argument("--img-a", required=True)
     mo.add_argument("--img-b", required=True)
@@ -429,7 +439,7 @@ def main(argv=None):
     mo.add_argument("--chunk", type=int, default=250)
 
     d = sub.add_parser("demorph", help="recover an identity from a morph and an accomplice")
-    common(d)
+    common(d, "bfloat16")
     projection_flags(d, 1000)
     d.add_argument("--morph-latent", help=".mat of the morph latent")
     d.add_argument("--accomplice-latent", help=".mat of the accomplice latent")
@@ -444,7 +454,7 @@ def main(argv=None):
     if args.command == "train":
         run_train(args)
         return
-    _, G = get_model(args.model, device=args.device)
+    _, G = get_model(args.model, device=args.device, dtype=args.dtype)
     if args.command == "generate":
         run_generate(G, args.output_dir, args.images_num, args.truncation_psi,
                      args.ratio, args.batch_size, args.seed)

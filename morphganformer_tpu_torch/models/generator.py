@@ -9,6 +9,8 @@ mask then draw from an explicit `torch.Generator`.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 
@@ -16,6 +18,7 @@ from morphganformer_tpu_torch.models.config import GANformerConfig
 from morphganformer_tpu_torch.models.mapping import MappingNetwork
 from morphganformer_tpu_torch.models.synthesis import SynthesisNetwork
 from morphganformer_tpu_torch.utils.device import resolve_device
+from morphganformer_tpu_torch.utils.dtype import compute_dtype
 
 
 class Generator(nn.Module):
@@ -65,6 +68,19 @@ class Generator(nn.Module):
                                   truncation_cutoff=truncation_cutoff)
         img = self.run_synthesis(ws, noise_mode=noise_mode, plain=plain, gen=gen)
         return (img, ws) if return_ws else img
+
+
+def set_compute_dtype(G: Generator, dtype: str) -> Generator:
+    """G with its synthesis computing in `dtype` ("float32" or "bfloat16"),
+    as JAX's `get_model` rebuilds its Generator on `dataclasses.replace(cfg,
+    dtype=...)`: every module that holds the config gets the replaced one;
+    the parameters stay float32. Returns G."""
+    cfg = dataclasses.replace(G.cfg, dtype=dtype)
+    compute_dtype(cfg)
+    for m in G.modules():
+        if isinstance(getattr(m, "cfg", None), GANformerConfig):
+            m.cfg = cfg
+    return G
 
 
 def init_generator(cfg: GANformerConfig, seed: int = 0, device="cuda") -> Generator:

@@ -1,7 +1,10 @@
 """Synthesis network: intermediate latents -> image (port of
 morphganformer_tpu/models/synthesis.py).
 
-NHWC activations, float32. Blocks that pass `packed_structural_ok` (for
+NHWC activations in `cfg.dtype` (float32, or bfloat16 as JAX's blocks cast
+them at entry; the parameters, the affine styles and the RGB image stay
+float32, and the fused blocks take float32 weights and cast them as JAX's
+Pallas wrappers do). Blocks that pass `packed_structural_ok` (for
 FFHQ-1024: b256, b512 and b1024) run every conv on the fused kernels of
 ops/fused_conv.py, as the JAX package runs them on its Pallas kernels:
 
@@ -58,7 +61,7 @@ from morphganformer_tpu_torch.ops.fused_conv import (
 from morphganformer_tpu_torch.ops.modulated_conv import modulated_conv2d
 from morphganformer_tpu_torch.ops.packed_override import packed_paths_disabled
 from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter, upsample2d
-from morphganformer_tpu_torch.utils.dtype import at_least_f32
+from morphganformer_tpu_torch.utils.dtype import at_least_f32, to_compute
 
 NOISE_MODES = ("const", "none", "random")
 
@@ -251,6 +254,8 @@ class SynthesisBlock(nn.Module):
                 x = h.reshape(ws.shape[0], self.res, self.res, -1)
             else:
                 x = self.const[None].expand(ws.shape[0], -1, -1, -1)
+        x = to_compute(x, cfg)
+        if self.stem:
             x = self.conv1(x, ws[:, :, next(w_i)], **kw)
         elif cfg.architecture == "resnet":
             y_skip = self.skip(x, fused=fused)

@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from morphganformer_tpu_torch.models.layers import FullyConnected, _fill_, _normal_, logits_mask
-from morphganformer_tpu_torch.utils.dtype import at_least_f32
+from morphganformer_tpu_torch.utils.dtype import at_least_f32, scalar
 
 
 def _to_heads(x, num_heads, head_size):
@@ -129,9 +129,12 @@ class TransformerLayer(nn.Module):
             from_elements = _to_heads(torch.cat([_queries, queries - _queries], dim=-1),
                                       self.num_heads, 2 * self.size_head)
             to_centroids = self.centroids.expand(b, -1, -1, -1)
-            att_scores = torch.einsum("bnfc,bntc->bnft",
-                                      from_elements * self.att_weight.to(from_elements.dtype)[None],
-                                      to_centroids)
+            # float32 centroids promote bfloat16 elements, as jnp.einsum does.
+            dt = torch.promote_types(from_elements.dtype, to_centroids.dtype)
+            att_scores = torch.einsum(
+                "bnfc,bntc->bnft",
+                (from_elements * self.att_weight.to(from_elements.dtype)[None]).to(dt),
+                to_centroids.to(dt))
         else:
             keys = self.to_keys(to_tensor)
             if self.to_pos_map is not None:
@@ -139,7 +142,7 @@ class TransformerLayer(nn.Module):
             att_scores = torch.einsum("bnfh,bnth->bnft",
                                       _to_heads(queries, self.num_heads, self.size_head),
                                       _to_heads(keys, self.num_heads, self.size_head))
-        att_scores = att_scores * scale
+        att_scores = att_scores * scalar(scale, att_scores.dtype)
         if att_mask is not None:
             att_scores = logits_mask(att_scores, att_mask[:, None, None, :])
         att_probs = torch.softmax(at_least_f32(att_scores), dim=-1)

@@ -58,6 +58,11 @@ _SIGNATURES = {
     # N, H, W of the base grid -> the number of tiles of a mgt_fir_dw launch
     "mgt_fir_dw_tiles": [_I, _I, _I],
 }
+# The bfloat16 instantiations of K1 (forward, adjoint), K2 and K3's adjoint
+# take the float32 entry points' arguments (pointers to bfloat16 where the
+# kernel reads or writes the compute type).
+_SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
+    "mgt_modconv3x3_fwd", "mgt_modconv3x3_bwd", "mgt_upconv2_fwd", "mgt_upconv2_bwd")})
 
 
 def nvcc_path() -> str:

@@ -1,7 +1,8 @@
 """Fused bias + activation + gain + clamp (port of morphganformer_tpu/ops/bias_act.py).
 
 Plain PyTorch elementwise composition; NHWC, so the bias maps onto the last
-dimension by default.
+dimension by default. In bfloat16 the slope and the gain are rounded to
+bfloat16 first, as JAX rounds its weakly typed scalars.
 """
 
 from __future__ import annotations
@@ -12,6 +13,19 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from morphganformer_tpu_torch.utils.dtype import scalar
+
+
+def _lrelu(x, alpha):
+    """leaky_relu with JAX's slope: bfloat16(alpha) on a bfloat16 x, and in
+    bfloat16 JAX's `where(x >= 0, ...)`, whose gradient at an exact zero is
+    1 (torch's leaky_relu takes the slope there); bfloat16 pre-activations
+    hit exact zeros often enough for that to move a latent gradient."""
+    alpha = scalar(alpha, x.dtype)
+    if x.dtype == torch.bfloat16:
+        return torch.where(x >= 0, x, x * alpha)
+    return F.leaky_relu(x, alpha)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,7 +38,7 @@ class _ActSpec:
 activation_funcs = {
     "linear": _ActSpec(lambda x, alpha: x, 0.0, 1.0),
     "relu": _ActSpec(lambda x, alpha: F.relu(x), 0.0, math.sqrt(2)),
-    "lrelu": _ActSpec(lambda x, alpha: F.leaky_relu(x, alpha), 0.2, math.sqrt(2)),
+    "lrelu": _ActSpec(lambda x, alpha: _lrelu(x, alpha), 0.2, math.sqrt(2)),
     "tanh": _ActSpec(lambda x, alpha: torch.tanh(x), 0.0, 1.0),
     "sigmoid": _ActSpec(lambda x, alpha: torch.sigmoid(x), 0.0, 1.0),
     "elu": _ActSpec(lambda x, alpha: F.elu(x), 0.0, 1.0),
@@ -49,7 +63,7 @@ def bias_act(x, b=None, dim=-1, act="linear", alpha=None, gain=None, clamp=None)
         x = x + b.to(x.dtype).reshape(shape)
     x = spec.func(x, alpha)
     if gain != 1.0:
-        x = x * gain
+        x = x * scalar(gain, x.dtype)
     if clamp is not None:
         x = x.clamp(-clamp, clamp)
     return x

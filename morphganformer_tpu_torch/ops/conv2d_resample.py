@@ -24,6 +24,7 @@ from morphganformer_tpu_torch.ops.upfirdn2d import (
     _zero_insert_nchw,
     upfirdn2d,
 )
+from morphganformer_tpu_torch.utils.dtype import at_least_f32
 
 
 def _to_oihw(w):
@@ -33,12 +34,16 @@ def _to_oihw(w):
 def _compose_kernel_fir(w, f, flip_weight, flip_filter, gain=1.0):
     """Compose conv kernel w [kh,kw,I,O] with FIR f into one correlation
     kernel K [kh+fh-1, kw+fw-1, I, O]: corr(corr(z, w'), f') == corr(z, K)
-    with K the full convolution of the two kernels."""
+    with K the full convolution of the two kernels. A bfloat16 w is composed
+    in float32 and rounded once, as XLA's bfloat16 convolution that composes
+    it in JAX sums in float32."""
+    dtype = w.dtype
+    w = at_least_f32(w)
     if not flip_weight:
         w = w.flip((0, 1))
     if f.ndim == 1:
         f = torch.outer(f, f)
-    f = f.to(device=w.device, dtype=w.dtype) * gain
+    f = (f.to(device=w.device, dtype=w.dtype) * gain).to(dtype).to(w.dtype)
     if not flip_filter:
         f = f.flip((0, 1))
     kh, kw, ci, co = w.shape
@@ -47,7 +52,7 @@ def _compose_kernel_fir(w, f, flip_weight, flip_filter, gain=1.0):
     for i in range(fh):
         for j in range(fw):
             k[i:i + kh, j:j + kw] += f[i, j] * w
-    return k
+    return k.to(dtype)
 
 
 def _conv(x, w, *, stride=1, padding=(0, 0, 0, 0), groups=1, flip_weight=True):

@@ -60,6 +60,20 @@ tensor; there is no fallback between the two. `plain=True` runs the plain
 forward and the plain backward on any device. The plain forwards follow
 `second_order.py::modconv_ref` / `upconv_ref` / `dconv_ref`.
 `launch_counts` counts kernel launches (never plain calls), one key per role.
+
+The compute type is x's: float32, or bfloat16 for K1, K2 and K3's adjoint
+on the synthesis path (JAX's `project`, `morph` and `demorph` default).
+The weights, styles and noise are float32 at the interface and are cast as
+JAX's Pallas wrappers cast them (pallas_conv.py:673-700, :1699-1715,
+:838-847, :1798-1851): in bfloat16 the kernels read bfloat16 operands
+(x * s formed and rounded in bfloat16 in the forwards; K2's and K3's
+weights composed with the FIR in float32 and then rounded on the plain
+route, the small weight rounded in the kernels), sum in float32, run the
+epilogue and the ds/dd taps in float32 (d, bias, the adjoints' scale s)
+and round the output once; the adjoints form gd = g * mask * d in bfloat16.
+A bfloat16 tensor on a card launches the `_bf16` entry points or raises;
+the D-tower roles and the dw kernels take float32 only (training runs in
+float32).
 """
 
 from __future__ import annotations
@@ -73,11 +87,16 @@ from torch.autograd.function import once_differentiable
 from morphganformer_tpu_torch.ops.conv2d_resample import _compose_kernel_fir
 from morphganformer_tpu_torch.ops.modulated_conv import demod_coef
 from morphganformer_tpu_torch.ops.packed_override import scope_reaches
+from morphganformer_tpu_torch.utils.dtype import at_least_f32
 
-# One key per role; "conv3x3" and "conv3x3_adj" are K4's (ops/conv3x3.py).
+# One key per role; "conv3x3" and "conv3x3_adj" are K4's (ops/conv3x3.py);
+# the `_bf16` keys count the bfloat16 instantiations of K1, K2 and K3's
+# adjoint.
 launch_counts = {"modconv3x3": 0, "upconv2": 0, "modconv3x3_adj": 0, "upconv2_adj": 0,
                  "downconv2": 0, "downconv2_adj": 0, "modconv3x3_dw": 0, "upconv2_dw": 0,
-                 "downconv2_dw": 0, "conv3x3": 0, "conv3x3_adj": 0}
+                 "downconv2_dw": 0, "conv3x3": 0, "conv3x3_adj": 0,
+                 "modconv3x3_bf16": 0, "upconv2_bf16": 0, "modconv3x3_adj_bf16": 0,
+                 "upconv2_adj_bf16": 0}
 
 # Blocks of one least-work dw launch (`mgt_conv_dw`, `mgt_fir_dw`): one wave
 # at 2 per SM of an H100.
@@ -101,6 +120,12 @@ def _slope(y, gain, alpha):
 def _noise_nhwc(noise):
     """[H,W] (batch-shared) or [N,H,W] (per-sample) -> broadcastable NHWC."""
     return noise[None, :, :, None] if noise.dim() == 2 else noise[:, :, :, None]
+
+
+def _widened(t, dtype):
+    """t rounded to `dtype` (the kernels' operand type), then widened back
+    to float32 for the float32 sums; a float32 t passes unchanged."""
+    return None if t is None else at_least_f32(t.to(dtype))
 
 
 def _epilogue(y, d, noise, bias, gain, alpha):
@@ -370,12 +395,16 @@ def modconv3x3_plain(x, w, styles, noise=None, bias=None, resid=None,
                      gain=1.0, alpha=0.2, demodulate=True):
     """Plain K1. x [N,H,W,C]; w [3,3,C,O]; styles [N,C] or None (unscaled, no
     demodulation); noise [H,W] or [N,H,W] (already scaled by its strength)
-    or None; bias [O] or None; resid [N,H,W,O] or None."""
-    xs = _nchw(x if styles is None else x * styles[:, None, None, :])
-    y = _nhwc(F.conv2d(xs, w.permute(3, 2, 0, 1), padding=1))
+    or None; bias [O] or None; resid [N,H,W,O] or None. In x's type: in
+    bfloat16, x * s, w, the noise and resid are rounded to bfloat16, the
+    sums and the epilogue run in float32 and y is rounded once."""
+    dt = x.dtype
+    xs = x if styles is None else x * styles.to(dt)[:, None, None, :]
+    y = _nhwc(F.conv2d(_nchw(at_least_f32(xs)), _widened(w, dt).permute(3, 2, 0, 1),
+                       padding=1))
     d = demod_coef(w, styles) if demodulate else None
-    y = _epilogue(y, d, noise, bias, gain, alpha)
-    return y if resid is None else y + resid
+    y = _epilogue(y, d, _widened(noise, dt), bias, gain, alpha)
+    return (y if resid is None else y + _widened(resid, dt)).to(dt)
 
 
 def upconv2_plain(x, w, styles, f, noise=None, bias=None, gain=1.0, alpha=0.2,
@@ -383,12 +412,14 @@ def upconv2_plain(x, w, styles, f, noise=None, bias=None, gain=1.0, alpha=0.2,
     """Plain K2. x [N,H,W,I]; w [kh,kw,I,O] with kh in (1, 3); styles [N,I]
     or None (unmodulated, no demodulation); f: FIR from setup_filter;
     noise [2H,2W] or [N,2H,2W] or None; bias [O] or None. Returns
-    [N,2H,2W,O]."""
+    [N,2H,2W,O] in x's type; in bfloat16 the FIR-composed weights are
+    rounded after their float32 composition, as JAX's."""
+    dt = x.dtype
     wp, hb = upconv2_phase_kernels(w, f, flip_weight)
-    xs = x if styles is None else x * styles[:, None, None, :]
-    y = _phase_upconv(xs, wp, hb)
+    xs = x if styles is None else x * styles.to(dt)[:, None, None, :]
+    y = _phase_upconv(at_least_f32(xs), _widened(wp, dt), hb)
     d = demod_coef(w, styles) if (styles is not None and demodulate) else None
-    return _epilogue(y, d, noise, bias, gain, alpha)
+    return _epilogue(y, d, _widened(noise, dt), bias, gain, alpha).to(dt)
 
 
 def downconv2_plain(x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2, flip_weight=True):
@@ -414,22 +445,27 @@ def downconv2_plain(x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2, flip_we
 
 def _adjoint_gd(g, y, w, styles, gain, alpha, demodulate):
     """(mask, gd, d): the lrelu*gain slope from the sign of y (already peeled
-    of resid), gd = g * mask * d, and d (None without demodulation)."""
+    of resid), gd = g * mask * d, and d (None without demodulation). mask
+    and gd are in g's type, d rounded to it, as JAX forms them (:842-847)."""
     mask = _slope(y, gain, alpha)
     gd = g * mask
     d = None
     if styles is not None and demodulate:
         d = demod_coef(w, styles)
-        gd = gd * d[:, None, None, :]
+        gd = gd * d.to(gd.dtype)[:, None, None, :]
     return mask, gd, d
 
 
-def _dd_taps_plain(gd, y, mask, noise):
-    """dd1 = sum_hw gd*(y/mask - noise), dd2 = sum_hw gd, each [N, O]."""
-    t = y / mask
+def _dd_taps_plain(gd, y, slope, noise):
+    """dd1 = sum_hw gd*(y/mask - noise), dd2 = sum_hw gd, each [N, O], in
+    float32; mask is the forward's lrelu'*gain from `slope` = (gain, alpha)
+    in float32 (JAX's dd taps take the float32 gain), the noise rounded to
+    gd's type."""
+    gdf, yf = at_least_f32(gd), at_least_f32(y)
+    t = yf / _slope(yf, *slope)
     if noise is not None:
-        t = t - _noise_nhwc(noise)
-    return (gd * t).sum(dim=(1, 2)), gd.sum(dim=(1, 2))
+        t = t - _widened(_noise_nhwc(noise), gd.dtype)
+    return (gdf * t).sum(dim=(1, 2)), gdf.sum(dim=(1, 2))
 
 
 def _demod_de(dd1, dd2, d, bias):
@@ -444,25 +480,33 @@ def _demod_chain(ds, de, w, styles):
     return ds + 2.0 * styles * (de @ w.to(de.dtype).square().sum(dim=(0, 1)).T)
 
 
-def _taps_result(du, x, styles, want_dx, want_dot):
+def _taps_result(du, x, styles, want_dx, want_dot, dtype):
+    """dx = du * s rounded to `dtype` (gd's) and the ds dot sum x * du in
+    float32, from du, the float32 sums of the adjoint."""
     dx = du if styles is None else du * styles[:, None, None, :]
     dot = (x * du).sum(dim=(1, 2)) if want_dot else None
-    return (dx if want_dx else None), dot
+    return (dx.to(dtype) if want_dx else None), dot
 
 
-def _k1_taps_plain(gd, x, w, styles, y, mask, noise, need_dx, need_ds, need_dd):
-    du = _nhwc(F.conv2d(_nchw(gd), modconv3x3_adjoint_weights(w).permute(3, 2, 0, 1),
+def _k1_taps_plain(gd, x, w, styles, y, slope, noise, need_dx, need_ds, need_dd):
+    """The K1 adjoint launch's function on gd: (dx, ds dot, dd1, dd2).
+    `slope` is the forward's (gain, alpha), for the dd taps."""
+    du = _nhwc(F.conv2d(_nchw(at_least_f32(gd)),
+                        _widened(modconv3x3_adjoint_weights(w), gd.dtype).permute(3, 2, 0, 1),
                         padding=1))
-    dx, dot = _taps_result(du, x, styles, need_dx, need_ds)
-    dd1, dd2 = _dd_taps_plain(gd, y, mask, noise) if need_dd else (None, None)
+    dx, dot = _taps_result(du, x, styles, need_dx, need_ds, gd.dtype)
+    dd1, dd2 = _dd_taps_plain(gd, y, slope, noise) if need_dd else (None, None)
     return dx, dot, dd1, dd2
 
 
-def _k3_taps_plain(gd, x, w, styles, f, flip_weight, y, mask, noise, need_dx, need_ds,
+def _k3_taps_plain(gd, x, w, styles, f, flip_weight, y, slope, noise, need_dx, need_ds,
                    need_dd):
-    du = _parity_downconv(gd, *upconv2_adjoint_kernels(w, f, flip_weight))
-    dx, dot = _taps_result(du, x, styles, need_dx, need_ds)
-    dd1, dd2 = _dd_taps_plain(gd, y, mask, noise) if need_dd else (None, None)
+    """The K3 adjoint launch's function on gd, as `_k1_taps_plain`; the
+    composed weights rounded to gd's type after their float32 composition."""
+    wt, hbt = upconv2_adjoint_kernels(w, f, flip_weight)
+    du = _parity_downconv(at_least_f32(gd), _widened(wt, gd.dtype), hbt)
+    dx, dot = _taps_result(du, x, styles, need_dx, need_ds, gd.dtype)
+    dd1, dd2 = _dd_taps_plain(gd, y, slope, noise) if need_dd else (None, None)
     return dx, dot, dd1, dd2
 
 
@@ -477,10 +521,10 @@ def modconv3x3_adjoint_plain(g, x, w, styles, y, noise=None, bias=None, resid=No
     need_ds = need_ds and styles is not None
     if resid is not None:
         y = y - resid
-    mask, gd, d = _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)
+    _, gd, d = _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)
     need_dd = need_ds and d is not None
-    dx, ds, dd1, dd2 = _k1_taps_plain(gd, x, w, styles, y, mask, noise, need_dx, need_ds,
-                                      need_dd)
+    dx, ds, dd1, dd2 = _k1_taps_plain(gd, x, w, styles, y, (gain, alpha), noise, need_dx,
+                                      need_ds, need_dd)
     if need_dd:
         ds = _demod_chain(ds, _demod_de(dd1, dd2, d, bias), w, styles)
     return dx, ds, dd1, dd2
@@ -494,10 +538,10 @@ def upconv2_adjoint_plain(g, x, w, styles, f, y, noise=None, bias=None, gain=1.0
     its output y. Returns (dx, ds, dd1, dd2) as `modconv3x3_adjoint_plain`;
     the unmodulated skip (styles None) gives dx only."""
     need_ds = need_ds and styles is not None
-    mask, gd, d = _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)
+    _, gd, d = _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)
     need_dd = need_ds and d is not None
-    dx, ds, dd1, dd2 = _k3_taps_plain(gd, x, w, styles, f, flip_weight, y, mask, noise,
-                                      need_dx, need_ds, need_dd)
+    dx, ds, dd1, dd2 = _k3_taps_plain(gd, x, w, styles, f, flip_weight, y, (gain, alpha),
+                                      noise, need_dx, need_ds, need_dd)
     if need_dd:
         ds = _demod_chain(ds, _demod_de(dd1, dd2, d, bias), w, styles)
     return dx, ds, dd1, dd2
@@ -519,7 +563,8 @@ def conv_dw_plain(a, b, s, pa, pb, nt, hb):
     outside it. A_p is a * s (pa = 1) or parity plane p = (qy, qx) of a
     (pa = 2); B_p is b (pb = 1) or its parity plane p (pb = 2); one p when
     both are 1. a [N,pa*H,pa*W,I]; b [N,pb*H,pb*W,O]; s [N,I] or None.
-    Returns [NP,NT,NT,I,O]."""
+    Returns [NP,NT,NT,I,O], summed in float32 (JAX's taps take float32)."""
+    a, b = at_least_f32(a), at_least_f32(b)
     if s is not None:
         a = a * s[:, None, None, :]
     out = []
@@ -592,14 +637,15 @@ def _on_cpu(x):
     return False
 
 
-def _check(name, t, shape, device):
-    """Validate an optional kernel operand; returns its pointer (None if absent)."""
+def _check(name, t, shape, device, dtype=torch.float32):
+    """Validate an optional kernel operand of type `dtype`; returns its
+    pointer (None if absent)."""
     if t is None:
         return None
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
@@ -607,14 +653,33 @@ def _check(name, t, shape, device):
     return t.data_ptr()
 
 
-def _check_noise(name, noise, n, h, wd, device):
+def _check_noise(name, noise, n, h, wd, device, dtype=torch.float32):
     """(pointer, per-sample stride) of batch-shared [H,W] or per-sample
     [N,H,W] noise."""
     if noise is None:
         return None, 0
     if noise.dim() == 3:
-        return _check(name, noise, (n, h, wd), device), h * wd
-    return _check(name, noise, (h, wd), device), 0
+        return _check(name, noise, (n, h, wd), device, dtype), h * wd
+    return _check(name, noise, (h, wd), device, dtype), 0
+
+
+# The kernels' entry points by compute type: the float32 ones, and the
+# bfloat16 instantiations of K1 (forward, adjoint), K2 (forward) and K3's
+# adjoint.
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def _kernel_dtype(t, name="x"):
+    """The compute type of a launch of K1, K2 or K3's adjoint: t's, float32
+    or bfloat16."""
+    if t.dtype not in _SUFFIX:
+        raise TypeError(f"{name}: the kernels take float32 or bfloat16, got {t.dtype}")
+    return t.dtype
+
+
+def _as(t, dtype):
+    """An operand cast to the kernel's type, contiguous (None stays None)."""
+    return None if t is None else t.to(dtype).contiguous()
 
 
 def _library():
@@ -654,33 +719,35 @@ def _modconv3x3_forward(x, w, styles, noise=None, bias=None, resid=None,
         return modconv3x3_plain(x, w, styles, noise, bias, resid, gain, alpha, demodulate)
     n, h, wd, c = x.shape
     o = w.shape[-1]
-    dev = x.device
+    dev, dt = x.device, _kernel_dtype(x)
     k1_widths(c, o)
     d = demod_coef(w, styles).contiguous() if demodulate else None
-    noise_p, noise_ns = _check_noise("noise", noise, n, h, wd, dev)
-    ptrs = [_aligned("x", _check("x", x, (n, h, wd, c), dev)),
-            _aligned("w", _check("w", w, (3, 3, c, o), dev)),
-            _check("styles", styles, (n, c), dev), _check("d", d, (n, o), dev),
+    wc, sc, nz = _as(w, dt), _as(styles, dt), _as(noise, dt)
+    noise_p, noise_ns = _check_noise("noise", nz, n, h, wd, dev, dt)
+    ptrs = [_aligned("x", _check("x", x, (n, h, wd, c), dev, dt)),
+            _aligned("w", _check("w", wc, (3, 3, c, o), dev, dt)),
+            _check("styles", sc, (n, c), dev, dt), _check("d", d, (n, o), dev),
             noise_p, _check("bias", bias, (o,), dev),
-            _check("resid", resid, (n, h, wd, o), dev)]
-    y = torch.empty((n, h, wd, o), device=dev, dtype=torch.float32)
-    _launch("mgt_modconv3x3_fwd", *ptrs, y.data_ptr(), n, h, wd, c, o,
+            _check("resid", resid, (n, h, wd, o), dev, dt)]
+    y = torch.empty((n, h, wd, o), device=dev, dtype=dt)
+    _launch("mgt_modconv3x3_fwd" + _SUFFIX[dt], *ptrs, y.data_ptr(), n, h, wd, c, o,
             float(gain), float(alpha), noise_ns, *_stream(dev))
-    launch_counts["modconv3x3"] += 1
+    launch_counts["modconv3x3" + _SUFFIX[dt]] += 1
     return y
 
 
-def _lw_weights(wk, fk, dev):
-    """Pointers of the least-work kernels' (K2, K3) small weight and FIR.
-    They take a 1x1 or 3x3 weight and channel counts in fours, and read
-    them with 16-byte copies."""
+def _lw_weights(wk, fk, dev, dtype=torch.float32):
+    """Pointers of the least-work kernels' (K2, K3) small weight (of type
+    `dtype`) and FIR (float32). They take a 1x1 or 3x3 weight and channel
+    counts in fours, and read them with 16-byte copies."""
     kh, ci, co = int(wk.shape[0]), int(wk.shape[2]), int(wk.shape[3])
     if kh not in (1, 3) or wk.shape[1] != kh:
         raise ValueError(f"the least-work kernels take a 1x1 or 3x3 weight, got "
                          f"{tuple(wk.shape[:2])}")
     if not lw_widths_ok(ci, co):
         raise ValueError(f"the least-work kernels take channel counts in fours, got {ci} -> {co}")
-    return [_aligned("wk", _check("wk", wk, wk.shape, dev)), _check("fir", fk, (4, 4), dev)]
+    return [_aligned("wk", _check("wk", wk, wk.shape, dev, dtype)),
+            _check("fir", fk, (4, 4), dev)]
 
 
 def _upconv2_launch(x, operands, styles, d, noise, bias, gain, alpha):
@@ -689,13 +756,15 @@ def _upconv2_launch(x, operands, styles, d, noise, bias, gain, alpha):
     wk, fk, pad = operands
     n, h, wd, ci = x.shape
     kh, co = int(wk.shape[0]), int(wk.shape[-1])
-    dev = x.device
-    noise_p, noise_ns = _check_noise("noise", noise, n, 2 * h, 2 * wd, dev)
-    ptrs = [_aligned("x", _check("x", x, (n, h, wd, ci), dev)), *_lw_weights(wk, fk, dev),
-            _check("styles", styles, (n, ci), dev), _aligned("d", _check("d", d, (n, co), dev)),
+    dev, dt = x.device, _kernel_dtype(x)
+    wk, sc, nz = _as(wk, dt), _as(styles, dt), _as(noise, dt)
+    noise_p, noise_ns = _check_noise("noise", nz, n, 2 * h, 2 * wd, dev, dt)
+    ptrs = [_aligned("x", _check("x", x, (n, h, wd, ci), dev, dt)),
+            *_lw_weights(wk, fk, dev, dt), _check("styles", sc, (n, ci), dev, dt),
+            _aligned("d", _check("d", d, (n, co), dev)),
             noise_p, _aligned("bias", _check("bias", bias, (co,), dev))]
-    y = torch.empty((n, 2 * h, 2 * wd, co), device=dev, dtype=torch.float32)
-    _launch("mgt_upconv2_fwd", *ptrs, y.data_ptr(), n, h, wd, ci, co, kh, pad,
+    y = torch.empty((n, 2 * h, 2 * wd, co), device=dev, dtype=dt)
+    _launch("mgt_upconv2_fwd" + _SUFFIX[dt], *ptrs, y.data_ptr(), n, h, wd, ci, co, kh, pad,
             float(gain), float(alpha), noise_ns, *_stream(dev))
     return y
 
@@ -709,7 +778,7 @@ def _upconv2_forward(x, w, styles, f, noise=None, bias=None, gain=1.0, alpha=0.2
     d = demod_coef(w, styles).contiguous() if (styles is not None and demodulate) else None
     y = _upconv2_launch(x, upconv2_leastwork(w, f, flip_weight), styles, d, noise, bias, gain,
                         alpha)
-    launch_counts["upconv2"] += 1
+    launch_counts["upconv2" + _SUFFIX[y.dtype]] += 1
     return y
 
 
@@ -732,12 +801,14 @@ def _downconv2_forward(x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2, flip
     return y
 
 
-def _adjoint_outputs(n, h, wd, c, o, nblk, need_dx, need_ds, need_dd, dev):
-    """dx [N,H,W,C] and the per-block partials of an adjoint launch, dot
-    [N,nblk,C] and dd1, dd2 [N,nblk,O]; None where not asked."""
-    def empty(*shape):
-        return torch.empty(shape, device=dev, dtype=torch.float32)
-    return (empty(n, h, wd, c) if need_dx else None, empty(n, nblk, c) if need_ds else None,
+def _adjoint_outputs(n, h, wd, c, o, nblk, need_dx, need_ds, need_dd, dev, dtype):
+    """dx [N,H,W,C] of type `dtype` and the float32 per-block partials of an
+    adjoint launch, dot [N,nblk,C] and dd1, dd2 [N,nblk,O]; None where not
+    asked."""
+    def empty(*shape, dt=torch.float32):
+        return torch.empty(shape, device=dev, dtype=dt)
+    return (empty(n, h, wd, c, dt=dtype) if need_dx else None,
+            empty(n, nblk, c) if need_ds else None,
             *(empty(n, nblk, o) if need_dd else None for _ in range(2)))
 
 
@@ -758,22 +829,24 @@ def _k1_adjoint_launch(g, w, styles, d, x, y, resid, noise, gain, alpha, need_dx
     here in a fixed order; None where not asked."""
     n, h, wd, o = g.shape
     c = w.shape[2]
-    dev = g.device
+    dev, dt = g.device, _kernel_dtype(g, "g")
     k1_widths(c, o)
     outs = _adjoint_outputs(n, h, wd, c, o, _library().mgt_bwd_tiles(h, wd, c), need_dx,
-                            need_ds, need_dd, dev)
-    noise_p, noise_ns = _check_noise("noise", noise if need_dd else None, n, h, wd, dev)
-    ptrs = [_aligned("g", _check("g", g, (n, h, wd, o), dev)),
-            _aligned("w", _check("w", w, (3, 3, c, o), dev)),
+                            need_ds, need_dd, dev, dt)
+    wc, nz = _as(w, dt), _as(noise if need_dd else None, dt)
+    noise_p, noise_ns = _check_noise("noise", nz, n, h, wd, dev, dt)
+    ptrs = [_aligned("g", _check("g", g, (n, h, wd, o), dev, dt)),
+            _aligned("w", _check("w", wc, (3, 3, c, o), dev, dt)),
             _check("styles", styles if need_dx else None, (n, c), dev),
             _aligned("d", _check("d", d, (n, o), dev)),
-            _check("x", x if need_ds else None, (n, h, wd, c), dev),
-            _aligned("y", _check("y", y, (n, h, wd, o), dev)),
-            _aligned("resid", _check("resid", resid, (n, h, wd, o), dev)),
+            _check("x", x if need_ds else None, (n, h, wd, c), dev, dt),
+            _aligned("y", _check("y", y, (n, h, wd, o), dev, dt)),
+            _aligned("resid", _check("resid", resid, (n, h, wd, o), dev, dt)),
             noise_p]
-    _launch("mgt_modconv3x3_bwd", *ptrs, *(None if t is None else t.data_ptr() for t in outs),
+    _launch("mgt_modconv3x3_bwd" + _SUFFIX[dt], *ptrs,
+            *(None if t is None else t.data_ptr() for t in outs),
             n, h, wd, o, c, float(gain), float(alpha), noise_ns, *_stream(dev))
-    launch_counts["modconv3x3_adj"] += 1
+    launch_counts["modconv3x3_adj" + _SUFFIX[dt]] += 1
     return _summed(*outs)
 
 
@@ -783,35 +856,40 @@ def _k1_taps(g, x, w, styles, d, y, resid, noise, gain, alpha, slope, need_dx, n
     plain version, on gd formed in torch (`slope()`, `_modulated_backward`);
     on a CUDA tensor the kernel, which forms gd itself."""
     if _on_cpu(x):
-        y_, mask, _, gd = slope()
-        return _k1_taps_plain(gd, x, w, styles, y_, mask, noise, need_dx, need_ds, need_dd)
+        y_, _, _, gd = slope()
+        return _k1_taps_plain(gd, x, w, styles, y_, (gain, alpha), noise, need_dx, need_ds,
+                              need_dd)
     return _k1_adjoint_launch(g, w, styles, None if d is None else d.contiguous(), x, y, resid,
                               noise, gain, alpha, need_dx, need_ds, need_dd)
 
 
-def _k3_taps(gd, x, w, styles, f, flip_weight, y, mask, noise, gain, alpha, need_dx,
-             need_ds, need_dd):
+def _k3_taps(gd, x, w, styles, f, flip_weight, y, noise, gain, alpha, need_dx, need_ds,
+             need_dd):
     """The K3 adjoint launch (`mgt_upconv2_bwd`): (dx, ds dot, dd1, dd2), plain
     on a CPU tensor. x [N,H,W,C] is read for the ds dot only."""
     if _on_cpu(gd):
-        return _k3_taps_plain(gd, x, w, styles, f, flip_weight, y, mask, noise, need_dx,
-                              need_ds, need_dd)
+        return _k3_taps_plain(gd, x, w, styles, f, flip_weight, y, (gain, alpha), noise,
+                              need_dx, need_ds, need_dd)
     wk, fk, pad = upconv2_adjoint_leastwork(w, f, flip_weight)
     gd = gd.contiguous()
     n, ho, wo, o = gd.shape
     h, wd, c = ho // 2, wo // 2, w.shape[2]
-    dev = gd.device
+    dev, dt = gd.device, _kernel_dtype(gd, "gd")
     outs = _adjoint_outputs(n, h, wd, c, o, _library().mgt_downconv2_tiles(h, wd), need_dx,
-                            need_ds, need_dd, dev)
-    noise_p, noise_ns = _check_noise("noise", noise if need_dd else None, n, ho, wo, dev)
-    ptrs = [_aligned("gd", _check("gd", gd, (n, ho, wo, o), dev)), *_lw_weights(wk, fk, dev),
+                            need_ds, need_dd, dev, dt)
+    wk, nz = _as(wk, dt), _as(noise if need_dd else None, dt)
+    yc = y.contiguous() if need_dd else None
+    noise_p, noise_ns = _check_noise("noise", nz, n, ho, wo, dev, dt)
+    ptrs = [_aligned("gd", _check("gd", gd, (n, ho, wo, o), dev, dt)),
+            *_lw_weights(wk, fk, dev, dt),
             _aligned("styles", _check("styles", styles, (n, c), dev)),
-            _aligned("x", _check("x", x if need_ds else None, (n, h, wd, c), dev)),
-            _check("y", y.contiguous() if need_dd else None, (n, ho, wo, o), dev), noise_p]
-    _launch("mgt_upconv2_bwd", *ptrs, *(None if t is None else t.data_ptr() for t in outs),
+            _aligned("x", _check("x", x if need_ds else None, (n, h, wd, c), dev, dt)),
+            _check("y", yc, (n, ho, wo, o), dev, dt), noise_p]
+    _launch("mgt_upconv2_bwd" + _SUFFIX[dt], *ptrs,
+            *(None if t is None else t.data_ptr() for t in outs),
             n, h, wd, o, c, int(wk.shape[0]), pad, float(gain), float(alpha), noise_ns,
             *_stream(dev))
-    launch_counts["upconv2_adj"] += 1
+    launch_counts["upconv2_adj" + _SUFFIX[dt]] += 1
     return _summed(*outs)
 
 
@@ -843,10 +921,10 @@ def upconv2_adjoint(g, x, w, styles, f, y, noise=None, bias=None, gain=1.0, alph
         return upconv2_adjoint_plain(g, x, w, styles, f, y, noise, bias, gain, alpha,
                                      demodulate, flip_weight, need_dx, need_ds)
     need_ds = need_ds and styles is not None
-    mask, gd, d = _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)
+    _, gd, d = _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)
     need_dd = need_ds and d is not None
-    dx, ds, dd1, dd2 = _k3_taps(gd, x, w, styles, f, flip_weight, y, mask, noise, gain,
-                                alpha, need_dx, need_ds, need_dd)
+    dx, ds, dd1, dd2 = _k3_taps(gd, x, w, styles, f, flip_weight, y, noise, gain, alpha,
+                                need_dx, need_ds, need_dd)
     if need_dd:
         ds = _demod_chain(ds, _demod_de(dd1, dd2, d, bias), w, styles)
     return dx, ds, dd1, dd2
@@ -858,6 +936,7 @@ def downconv2_adjoint(gz, w, f, flip_weight=True):
     with the down-conv's operands read back, no scale and no epilogue."""
     if _on_cpu(gz):
         return downconv2_adjoint_plain(gz, w, f, flip_weight)
+    _check("gz", gz, gz.shape, gz.device)   # the D tower runs in float32 only
     dx = _upconv2_launch(gz.contiguous(), downconv2_adjoint_leastwork(w, f, flip_weight),
                          None, None, None, None, 1.0, 1.0)
     launch_counts["downconv2_adj"] += 1
@@ -993,7 +1072,7 @@ def _modulated_backward(g, y_of, w, styles, noise, bias, gain, alpha, demodulate
         y = y_of()
         mask = _slope(y, gain, alpha)
         g_pre = g * mask
-        return y, mask, g_pre, (g_pre if d is None else g_pre * d[:, None, None, :])
+        return y, mask, g_pre, (g_pre if d is None else g_pre * d.to(g.dtype)[:, None, None, :])
 
     dx = ds = dd1 = dd2 = dw = None
     if need_dx or need_ds or need_dd:
@@ -1005,8 +1084,9 @@ def _modulated_backward(g, y_of, w, styles, noise, bias, gain, alpha, demodulate
         dw = dw_taps(slope()[3].contiguous())
         if de is not None:
             dw = dw + 2.0 * w * (styles.square().T @ de)[None, None]
-    dn = _noise_grad(slope()[2], noise) if need_dn else None
-    db = slope()[2].sum(dim=(0, 1, 2)) if need_db else None
+        dw = dw.to(w.dtype)
+    dn = _noise_grad(at_least_f32(slope()[2]), noise).to(noise.dtype) if need_dn else None
+    db = at_least_f32(slope()[2]).sum(dim=(0, 1, 2)).to(bias.dtype) if need_db else None
     return dx, dw, ds, dn, db
 
 
@@ -1021,8 +1101,8 @@ def modconv3x3_backward(g, x, w, styles, y, noise, bias, resid, gain, alpha, dem
 
     def taps(d, slope, *need):
         if plain:
-            y_, mask, _, gd = slope()
-            return _k1_taps_plain(gd, x, w, styles, y_, mask, noise, *need)
+            y_, _, _, gd = slope()
+            return _k1_taps_plain(gd, x, w, styles, y_, (gain, alpha), noise, *need)
         return _k1_taps(g, x, w, styles, d, y, resid, noise, gain, alpha, slope, *need)
 
     def dw_taps(gd):
@@ -1043,10 +1123,11 @@ def upconv2_backward(g, x, w, styles, f, y, noise, bias, gain, alpha, demodulate
     needs = (need_dx, need_dw, need_ds and styles is not None, need_dn, need_db)
 
     def taps(d, slope, *need):
-        y_, mask, _, gd = slope()
+        y_, _, _, gd = slope()
         if plain:
-            return _k3_taps_plain(gd, x, w, styles, f, flip_weight, y_, mask, noise, *need)
-        return _k3_taps(gd, x, w, styles, f, flip_weight, y_, mask, noise, gain, alpha, *need)
+            return _k3_taps_plain(gd, x, w, styles, f, flip_weight, y_, (gain, alpha), noise,
+                                  *need)
+        return _k3_taps(gd, x, w, styles, f, flip_weight, y_, noise, gain, alpha, *need)
 
     def dw_taps(gd):
         return (upconv2_dw_plain if plain else upconv2_dw)(x, gd, styles, w, f, flip_weight)
@@ -1247,7 +1328,8 @@ def fused_modconv3x3(x, w, styles, noise=None, bias=None, resid=None,
                      gain=1.0, alpha=0.2, demodulate=True, plain=False):
     """K1: y = lrelu(d * conv3x3_same(x * s, w) + noise + bias, alpha) * gain
     [+ resid], with d = rsqrt(s^2 . sum w^2 + 1e-8) when `demodulate`.
-    Shapes as `modconv3x3_plain`; float32, contiguous. Differentiable in
+    Shapes as `modconv3x3_plain`; x float32 or bfloat16 (the compute type),
+    the rest float32; contiguous. Differentiable in
     every tensor input (`FusedModConv3x3`); `plain=True` runs the plain
     forward and backward on any device."""
     return FusedModConv3x3.apply(x, w, styles, noise, bias, resid, gain, alpha,
@@ -1258,7 +1340,8 @@ def fused_upconv2(x, w, styles, f, noise=None, bias=None, gain=1.0, alpha=0.2,
                   demodulate=True, flip_weight=False, plain=False):
     """K2: 2x-up modulated conv with the FIR composed in, then demod (when
     styles are given and `demodulate`), noise, bias and lrelu * gain.
-    Shapes as `upconv2_plain`; float32, contiguous. Differentiable in x, w,
+    Shapes as `upconv2_plain`; x float32 or bfloat16, the rest float32;
+    contiguous. Differentiable in x, w,
     styles, noise and bias (`FusedUpConv2`, whose backward is K3);
     `plain=True` runs the plain forward and backward on any device."""
     return FusedUpConv2.apply(x, w, styles, f, noise, bias, gain, alpha, demodulate,

@@ -74,6 +74,15 @@ def _c(t):
     return t.contiguous()
 
 
+def _not_bf16(*ts):
+    """The second-order route runs in float32 (or float64, the reference):
+    a bfloat16 operand raises rather than run in another type."""
+    for t in ts:
+        if t is not None and t.dtype == torch.bfloat16:
+            raise TypeError("the second-order route takes float32 or float64, got bfloat16 "
+                            "(training in bfloat16 is not ported)")
+
+
 def modconv3x3_ops(plain):
     """(conv, convT, wg, conv_resid) of K1: conv(a, k) is the forward launch
     with no styles, no demodulation, gain = alpha = 1 (its mask is 1);
@@ -117,7 +126,7 @@ def upconv2_ops(f, flip_weight, w_like, plain):
         if plain:
             return fc._k3_taps_plain(a, None, k, None, f, flip_weight, None, None, None, True,
                                      False, False)[0]
-        return fc._k3_taps(_c(a), None, _c(k), None, f, flip_weight, None, None, None, 1.0, 1.0,
+        return fc._k3_taps(_c(a), None, _c(k), None, f, flip_weight, None, None, 1.0, 1.0,
                            True, False, False)[0]
 
     def wg(a, b):
@@ -201,6 +210,7 @@ class ModConv3x3Grad(torch.autograd.Function):
     def forward(ctx, x, w, styles, noise, bias, resid, y, g, gain, alpha, demodulate, needs,
                 plain):
         ctx.set_materialize_grads(False)
+        _not_bf16(x, y, g, resid)
         ctx.save_for_backward(x, w, styles, noise, bias, resid, y, g)
         ctx.opts = (gain, alpha, demodulate, plain)
         return fc.modconv3x3_backward(g, x, w, styles, y, noise, bias, resid, gain, alpha,
@@ -222,6 +232,7 @@ class UpConv2Grad(torch.autograd.Function):
     def forward(ctx, x, w, styles, f, noise, bias, y, g, gain, alpha, demodulate, flip_weight,
                 needs, plain):
         ctx.set_materialize_grads(False)
+        _not_bf16(x, y, g)
         ctx.save_for_backward(x, w, styles, f, noise, bias, y, g)
         ctx.opts = (gain, alpha, demodulate, flip_weight, plain)
         return fc.upconv2_backward(g, x, w, styles, f, y, noise, bias, gain, alpha, demodulate,
@@ -243,6 +254,7 @@ class DownConv2Grad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, f, bias, resid, y, g, gain, alpha, flip_weight, needs, plain):
         ctx.set_materialize_grads(False)
+        _not_bf16(x, y, g, resid)
         ctx.save_for_backward(x, w, f, resid, y, g)
         ctx.opts = (gain, alpha, flip_weight, plain)
         return fc.downconv2_backward(g, x, w, f, y, bias, resid, gain, alpha, flip_weight,

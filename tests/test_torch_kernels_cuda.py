@@ -845,3 +845,149 @@ def test_generator_of_configs_the_gates_send_unfused(cuda_device, override):
     assert counts["modconv3x3"] == len(fused)               # conv1 (conv_last: b1024)
     assert counts["upconv2"] == 2 * len(fused)
     _rel_close(img, want, 1e-3)
+
+
+# bfloat16: each bf16 role (K1, K2, K1's adjoint launch, K3's adjoint)
+# against its plain bfloat16 version, each held against the float32 plain
+# version on the same bfloat16-rounded activations; the kernel's error may
+# be at most BF16_RATIO times the plain one's, or within BF16_FLOOR of each
+# output's largest entry (one bfloat16 ulp there; chip_smoke.py's phase bf16
+# holds the 1024^2 call shapes to the same).
+BF16_RATIO, BF16_FLOOR = 1.5, 2.0 ** -7
+
+
+def _bf16_close(got, plain, ref):
+    got, plain, ref = ((t,) if isinstance(t, torch.Tensor) else t for t in (got, plain, ref))
+    for g, p, r in zip(got, plain, ref):
+        assert (g is None) == (r is None) == (p is None)
+        if r is None:
+            continue
+        scale = max(r.abs().max().item(), 1e-30)
+        ek = (g.float() - r).abs().max().item() / scale
+        ep = (p.float() - r).abs().max().item() / scale
+        assert ek <= max(BF16_RATIO * ep, BF16_FLOOR), (ek, ep)
+
+
+def _widen(args):
+    return tuple(a.float() if isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16 else a
+                 for a in args)
+
+
+def _bf16_k1(dev, shape, noise, bias, resid):
+    n, h, c, o = shape
+    rng = np.random.RandomState(0)
+    x, w, s, nz, b, r = [None if a is None else torch.from_numpy(a).to(dev)
+                         for a in _k1_inputs(rng, n, h, c, o, noise, bias, resid)]
+    g = torch.from_numpy(rng.randn(n, h, h, o).astype(np.float32)).to(dev)
+    return x.bfloat16(), w, s, nz, b, (None if r is None else r.bfloat16()), g.bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,noise,bias,resid,gain,alpha,demod", K1_CASES)
+def test_bf16_k1_and_its_adjoint_match_plain(cuda_device, shape, noise, bias, resid, gain,
+                                             alpha, demod):
+    x, w, s, nz, b, r, g = _bf16_k1(cuda_device, shape, noise, bias, resid)
+    fwd = (x, w, s, nz, b, r, gain, alpha, demod)
+    before = dict(fc.launch_counts)
+    y = fc.fused_modconv3x3(*fwd)
+    assert y.dtype == torch.bfloat16
+    assert fc.launch_counts["modconv3x3_bf16"] == before["modconv3x3_bf16"] + 1
+    assert fc.launch_counts["modconv3x3"] == before["modconv3x3"]
+    _bf16_close(y, fc.modconv3x3_plain(*fwd), fc.modconv3x3_plain(*_widen(fwd)))
+    args = (g, x, w, s, y, nz, b, r, gain, alpha, demod)
+    got = fc.modconv3x3_adjoint(*args)
+    assert fc.launch_counts["modconv3x3_adj_bf16"] == before["modconv3x3_adj_bf16"] + 1
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    _bf16_close(got, fc.modconv3x3_adjoint_plain(*args),
+                fc.modconv3x3_adjoint_plain(*_widen(args)))
+    # Through the autograd Function: the cotangents in their inputs' types.
+    xi, si = x.clone().requires_grad_(), s.clone().requires_grad_()
+    dx, ds = torch.autograd.grad(fc.fused_modconv3x3(xi, w, si, nz, b, r, gain, alpha, demod),
+                                 [xi, si], g)
+    assert dx.dtype == torch.bfloat16 and ds.dtype == torch.float32
+    _bf16_close((dx, ds), fc.modconv3x3_adjoint_plain(*args)[:2],
+                fc.modconv3x3_adjoint_plain(*_widen(args))[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,kh,styles,noise,bias,demod,gain,alpha", K2_CASES)
+def test_bf16_k2_and_k3_adjoint_match_plain(cuda_device, cin, kh, styles, noise, bias, demod,
+                                            gain, alpha):
+    h = 16 if cin == 64 else 8
+    rng = np.random.RandomState(1)
+    x, w, s, nz, b = [None if a is None else torch.from_numpy(a).to(cuda_device)
+                      for a in _k2_inputs(rng, 2, h, cin, cin // 2, kh, styles, noise, bias)]
+    g = torch.from_numpy(rng.randn(2, 2 * h, 2 * h, cin // 2).astype(np.float32))
+    x, g = x.bfloat16(), g.to(cuda_device).bfloat16()
+    f = setup_filter(FIR).to(cuda_device)
+    fwd = (x, w, s, f, nz, b, gain, alpha, demod, False)
+    before = dict(fc.launch_counts)
+    y = fc.fused_upconv2(*fwd)
+    assert y.dtype == torch.bfloat16
+    assert fc.launch_counts["upconv2_bf16"] == before["upconv2_bf16"] + 1
+    _bf16_close(y, fc.upconv2_plain(*fwd), fc.upconv2_plain(*_widen(fwd)))
+    args = (g, x, w, s, f, y, nz, b, gain, alpha, demod, False)
+    got = fc.upconv2_adjoint(*args)
+    assert fc.launch_counts["upconv2_adj_bf16"] == before["upconv2_adj_bf16"] + 1
+    assert fc.launch_counts["upconv2_adj"] == before["upconv2_adj"]
+    _bf16_close(got, fc.upconv2_adjoint_plain(*args), fc.upconv2_adjoint_plain(*_widen(args)))
+
+
+@pytest.mark.cuda
+def test_bf16_launchers_refuse_mixed_types(cuda_device):
+    """A bfloat16 launch takes bfloat16 activations only (the weights,
+    styles and noise are float32 parameters it casts, as JAX's wrappers);
+    the training roles take float32 only; a bfloat16 tensor never reaches a
+    float32 kernel."""
+    x, w, s, nz, b, r, g = _bf16_k1(cuda_device, (1, 8, 16, 16), True, True, True)
+    before = dict(fc.launch_counts)
+    with pytest.raises(TypeError, match="resid"):
+        fc.fused_modconv3x3(x, w, s, nz, b, r.float())
+    with pytest.raises(TypeError, match="resid"):
+        fc.fused_modconv3x3(x.float(), w, s, nz, b, r)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fc.fused_modconv3x3(x.half(), w, s, nz, b, r.half())
+    y = fc.modconv3x3_plain(x, w, s, nz, b, r)
+    with pytest.raises(TypeError, match="y"):
+        fc.modconv3x3_adjoint(g, x, w, s, y.float(), nz, b, r)
+    with pytest.raises(TypeError, match="x"):
+        fc.modconv3x3_adjoint(g, x.float(), w, s, y, nz, b, r)
+    f = setup_filter(FIR).to(cuda_device)
+    xd = torch.zeros(1, 16, 16, 16, device=cuda_device, dtype=torch.bfloat16)
+    wd = torch.zeros(3, 3, 16, 32, device=cuda_device)
+    with pytest.raises(TypeError):
+        fc.fused_downconv2(xd, wd, f)
+    with pytest.raises(TypeError):
+        fc.downconv2_adjoint(torch.zeros(1, 8, 8, 32, device=cuda_device, dtype=torch.bfloat16),
+                             wd, f)
+    with pytest.raises(TypeError):
+        fc.conv_dw(xd, torch.zeros(1, 16, 16, 32, device=cuda_device, dtype=torch.bfloat16),
+                   None)
+    assert dict(fc.launch_counts) == before
+
+
+@pytest.mark.cuda
+def test_bf16_generator_runs_on_the_bf16_kernels(cuda_device):
+    """A config with fused blocks in bfloat16: every fused launch is a bf16
+    one, the image is float32 and close to the float32 generator's."""
+    from morphganformer_tpu_torch.models import GANformerConfig, init_generator, set_compute_dtype
+    from morphganformer_tpu_torch.models import synthesis as tsyn
+
+    cfg = GANformerConfig(z_dim=8, w_dim=8, k=3, end_res=3, img_resolution=32,
+                          channel_base=4096, channel_max=256)
+    G = init_generator(cfg, seed=5, device=cuda_device)
+    z = torch.randn(2, cfg.k, cfg.z_dim, device=cuda_device)
+    with torch.no_grad():
+        y32 = G(z=z, truncation_psi=0.7)
+        set_compute_dtype(G, "bfloat16")
+        fc.reset_launch_counts()
+        yk = G(z=z, truncation_psi=0.7)
+        counts = dict(fc.launch_counts)
+        yp = G(z=z, truncation_psi=0.7, plain=True)
+    fused = [r for r in cfg.block_resolutions if tsyn.packed_structural_ok(cfg, r, "const")]
+    assert fused == [8, 16, 32]
+    assert counts["modconv3x3_bf16"] == len(fused) + 1 and counts["upconv2_bf16"] == 2 * len(fused)
+    assert counts["modconv3x3"] == counts["upconv2"] == 0
+    assert yk.dtype == torch.float32 and torch.isfinite(yk).all()
+    ek, ep = ((y - y32).abs().mean().item() for y in (yk, yp))
+    assert ek <= BF16_RATIO * ep, (ek, ep)

@@ -25,8 +25,11 @@ def test_project_with_a_seed_then_merge_with_the_default(tmp_path, one_torch_thr
     best = [f for f in os.listdir(tmp_path / "p") if f.endswith(".png")]
     assert len(best) == 1
     w = str(tmp_path / "p" / "w.mat")
+    # project computes in bfloat16 by default and merge in float32, as in
+    # JAX, whose merge help says to match project's type to reproduce its
+    # image bit for bit (cli/merge.py:38-42).
     cli.main(["merge", "--model", "init:8", "--device", "cpu", "--latents", w, w,
-              "--out", str(tmp_path / "m")])
+              "--out", str(tmp_path / "m"), "--dtype", "bfloat16"])
     # Merging a latent with itself regenerates it: the same image, bit for
     # bit, only if both commands built the same weights.
     np.testing.assert_array_equal(read_png(tmp_path / "m" / "w_w.png"),
