@@ -39,8 +39,10 @@ Phases, each printing its wall time:
               launch counts; pair-steps/s.
   7. bf16     the synthesis path in bfloat16 (JAX's default for project,
               morph and demorph): the four bfloat16 roles (K1, K2, K1's
-              adjoint launch, K3's adjoint; the `_bf16` entry points) at the
-              10 call shapes, the kernel and the plain bfloat16 version each
+              adjoint launch, K3's adjoint; the `_bf16` entry points, K2's on
+              the tensor cores) at the 10 call shapes, the kernel's own
+              device time under torch.profiler beside the wrapper's, the
+              kernel and the plain bfloat16 version each
               against the float32 plain version on the same bfloat16-rounded
               activations, the kernel's error at most 1.5 times the plain
               one's or within 2^-7 of each output's largest entry, with
@@ -184,8 +186,8 @@ K3_DW_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:1387"
 K2_DW_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:1225"
 K4_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:74"
 SOURCE = "morphganformer_tpu_torch/csrc/fused_conv.cu"
-HAND_WRITTEN = ("conv3x3_lw_kernel", "upconv2_lw_kernel", "downconv2_lw_kernel",
-                "conv_dw_lw_kernel", "fir_dw_kernel")
+HAND_WRITTEN = ("conv3x3_lw_kernel", "upconv2_lw_kernel", "upconv2_tc_kernel",
+                "downconv2_lw_kernel", "conv_dw_lw_kernel", "fir_dw_kernel")
 PROJECT_STEPS = 100
 MORPH_STEPS = 50
 DEMORPH_STEPS = 5
@@ -523,13 +525,14 @@ def check_bf16(torch, fc, gen, call, adjoint):
     the weights, styles, noise and bias are float32 parameters that the
     bfloat16 route rounds itself). The kernel's error may be at most
     BF16_RATIO times the plain version's, or within BF16_FLOOR of each
-    output's largest entry. Times of the kernel, the plain version, cuDNN's
-    bfloat16 call of the bare convolution and, for K2 and K3, the
-    same-function call in bfloat16; the bound at 2 bytes an element and the
-    bf16 tensor-core peak."""
+    output's largest entry. Times of the kernel (its wrapper, CUDA events;
+    and the kernel's own device time in one call under torch.profiler), the
+    plain version, cuDNN's bfloat16 call of the bare convolution and, for K2
+    and K3, the same-function call in bfloat16; the bound at 2 bytes an
+    element and the bf16 tensor-core peak."""
     import torch.nn.functional as F
 
-    from morphganformer_tpu_torch.bench_k3 import same_function_call
+    from morphganformer_tpu_torch.bench_k3 import device_split, same_function_call
     from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter
 
     kernel, block, role, h, cin, cout = call
@@ -646,12 +649,14 @@ def check_bf16(torch, fc, gen, call, adjoint):
     plain_ms = cuda_ms(torch, run_p)
     library_ms = cuda_ms(torch, run_lib)
     same_ms = None if run_same is None else cuda_ms(torch, run_same)
-    print(f"  {name} bf16 {block} {role}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
-          f"library_ms {library_ms:.4f}{_same(same_ms)} bound_ms {bound_ms:.4f} ({bound_by})",
-          flush=True)
+    kernel_ms = device_split(run_k, BF16_KERNELS[key])[0]
+    print(f"  {name} bf16 {block} {role}: ms {ms:.4f} (kernel's device ms {kernel_ms:.4f}) "
+          f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f}{_same(same_ms)} "
+          f"bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
     return dict(kernel=f"{name} bf16", block=block, role=role, max_abs_err=kp,
-                err_kernel=ek, err_plain=ep, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                same_function_ms=same_ms, bound_ms=bound_ms, bound_by=bound_by)
+                err_kernel=ek, err_plain=ep, ms=ms, kernel_device_ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=library_ms, same_function_ms=same_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def bf16_phase(torch, fc, cli, G, target_png, png_a, png_b, tmp):
@@ -843,6 +848,9 @@ def train_calls():
 TRAIN_KEYS = {"K3-forward": "downconv2", "K2-use_dw": "downconv2_adj",
               "K2-use_dw-dw": "downconv2_dw", "K1-dw": "modconv3x3_dw", "K3-dw": "upconv2_dw"}
 K4_KEYS = ("conv3x3", "conv3x3_adj")
+# The kernel each bfloat16 role launches (its name in a profiler trace).
+BF16_KERNELS = {"modconv3x3": "conv3x3_lw_kernel", "upconv2": "upconv2_tc_kernel",
+                "modconv3x3_adj": "conv3x3_lw_kernel", "upconv2_adj": "downconv2_lw_kernel"}
 # The bfloat16 instantiations' launch counts, by their float32 role's key.
 BF16_KEYS = {"modconv3x3": "modconv3x3_bf16", "upconv2": "upconv2_bf16",
              "modconv3x3_adj": "modconv3x3_adj_bf16", "upconv2_adj": "upconv2_adj_bf16"}
@@ -2517,8 +2525,10 @@ def main():
             ("K1 bf16", "fused_modconv3x3 on bfloat16 x (mgt_modconv3x3_fwd_bf16: "
              "conv3x3_lw_kernel, x * s rounded to bfloat16 at staging)", K1_REPLACES,
              "modconv3x3"),
-            ("K2 bf16", "fused_upconv2 on bfloat16 x (mgt_upconv2_fwd_bf16: upconv2_lw_kernel)",
-             K2_REPLACES, "upconv2"),
+            ("K2 bf16", "fused_upconv2 on bfloat16 x (mgt_upconv2_fwd_bf16: upconv2_tc_kernel, "
+             "each Z class an implicit GEMM on bf16 mma.sync with float32 accumulators, bf16 "
+             "tiles staged by cp.async, x * s rounded in shared memory; the FIR and the "
+             "epilogue in float32)", K2_REPLACES, "upconv2"),
             ("K1-adjoint bf16", "mgt_modconv3x3_bwd_bf16 (conv3x3_lw_kernel, gd formed and "
              "rounded in bfloat16 in the kernel)", K1_REPLACES, "modconv3x3_adj"),
             ("K3-adjoint bf16", "mgt_upconv2_bwd_bf16 (downconv2_lw_kernel)", K3_REPLACES,
@@ -2539,6 +2549,7 @@ def main():
             "err_vs_f32": max(r["err_kernel"] for r in mine),
             "plain_err_vs_f32": max(r["err_plain"] for r in mine),
             "ms": sum(r["ms"] for r in mine),
+            "kernel_device_ms": sum(r["kernel_device_ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": b_ms,
             "bound_by": "operations" if 2 * ops_ms >= b_ms else "bytes",

@@ -26,6 +26,34 @@ carries the bound and, for the 3x3s, the halo factor of the new kernel's
 tiling. Prints one JSON line per shape, then the card and the sums; exits
 non-zero if a check fails or the new kernel is not faster than the earlier
 one at some shape. Needs a CUDA card.
+
+With --bf16, K2's bfloat16 forward (`mgt_upconv2_fwd_bf16`, on the tensor
+cores: `upconv2_tc_kernel`) against an earlier build of the same entry
+point, whose signature is the same:
+
+    git show cd98f3f:morphganformer_tpu_torch/csrc/fused_conv.cu > build/k2_bf16_parent.cu
+    python -m morphganformer_tpu_torch.bench_k2 --bf16 build/k2_bf16_parent.cu
+
+(cd98f3f's is the float32 FMA kernel with bfloat16 loads.) At the six K2
+shapes of a 1024^2 forward at batch 1, on the inputs chip_smoke.py's
+`check_bf16` makes (seed 16), both builds are held against the float32
+plain version on the same bfloat16 inputs by its rule (error at most
+BF16_RATIO times the plain bfloat16 version's, or within BF16_FLOOR of
+the largest entry). Then, in the order earlier, new, new, earlier, each
+build's bare launch on operands made once (CUDA events; the kernel
+alone), and as check_bf16 times them the wrapper `fused_upconv2` (which
+also casts the weight, styles and noise and forms d), the plain bfloat16
+version, cuDNN's bfloat16 call of the bare convolution and the
+same-function call in bfloat16; the kernel's own device time in one
+wrapper call under torch.profiler; the bf16 bound (2 bytes an element over
+HBM, or the FLOP over the bf16 dense tensor-core peak). The float32
+forward (`mgt_upconv2_fwd`, whose kernel the new build leaves as it was)
+runs on the same inputs in float32 in both builds, its outputs bit-equal
+and its bare launches timed in the same turns. Prints the count of HMMA
+instructions in each build's K2 kernels (cuobjdump -sass). Exits non-zero
+if a check fails, if the new kernel has no HMMA, if the float32 outputs
+differ, or if the new bf16 launch is not faster than the earlier build's
+at some shape.
 """
 
 from __future__ import annotations
@@ -33,6 +61,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -144,7 +173,162 @@ def use_dw_case(lib, gen, res, cin, skip):
                 rel=True, halo=None if skip else halo_factor(h, h)), runs, flops, nbytes
 
 
+BF16_RATIO, BF16_FLOOR = 1.5, 2.0 ** -7    # chip_smoke.py's bfloat16 rule
+PEAK_BF16_FLOPS = 989e12
+TC_KERNEL = "upconv2_tc_kernel"
+
+
+def hmma_counts(lib_path):
+    """{kernel function: HMMA instructions} of the K2 kernels in a built
+    library's SASS (cuobjdump -sass, from the toolkit beside nvcc)."""
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            if "upconv2" in fn and "bwd" not in fn:
+                counts[fn] = 0
+        elif fn in counts and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def _bf16_err(got, ref):
+    return (got.float() - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+
+
+def bf16_case(gen, res, cin, cout, skip):
+    """K2's bf16 forward at the G call (res, cin -> cout), batch 1, on the
+    inputs chip_smoke.py's check_bf16 makes: (row, the wrapper's arguments,
+    the bare launches' arguments by type (float32 or bfloat16: the pointers
+    before the output, the arguments after it, the tensors they point
+    into), the runs by name, flops, elements)."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    h, kh = res // 2, (1 if skip else 3)
+    randn = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale  # noqa: E731
+    x = randn(1, h, h, cin).to(bf)
+    s = torch.rand((1, cin), generator=gen, device=dev) + 0.5
+    w = randn(kh, kh, cin, cout, scale=1 / math.sqrt(kh * kh * cin))
+    f = setup_filter([1, 3, 3, 1]).to(dev)
+    styles = None if skip else s
+    noise = None if skip else randn(2 * h, 2 * h, scale=0.1)
+    bias = None if skip else randn(cout, scale=0.1)
+    gain, alpha = (math.sqrt(0.5), 1.0) if skip else (math.sqrt(2), 0.2)
+    fwd = (x, w, styles, f, noise, bias, gain, alpha, not skip, False)
+    wk, fk, pad = fc.upconv2_leastwork(w, f, False)
+    d = None if skip else fc.demod_coef(w, styles).contiguous()
+    tail = (1, h, h, cin, cout, kh, pad, float(gain), float(alpha), 0, *_stream(dev))
+    bare = {}
+    for dt in (bf, torch.float32):
+        cast = [None if t is None else t.to(dt).contiguous() for t in (x, wk, styles, noise)]
+        ptrs = [cast[0].data_ptr(), cast[1].data_ptr(), fk.data_ptr(), _ptr(cast[2]), _ptr(d),
+                _ptr(cast[3]), _ptr(bias)]
+        bare[dt] = (ptrs, tail, (*cast, fk, d, bias))   # the tensors stay alive
+    x_nchw = x.permute(0, 3, 1, 2)
+    if skip:
+        w_lib = w.permute(3, 2, 0, 1).to(bf).contiguous()
+        lib_call = lambda: F.conv2d(x_nchw, w_lib)  # noqa: E731
+    else:
+        w_lib = w.permute(2, 3, 0, 1).to(bf).contiguous()
+        lib_call = lambda: F.conv_transpose2d(x_nchw, w_lib, stride=2)  # noqa: E731
+    op, w_same, pad_same = same_function_call("K2", w, f, False)
+    w_same = w_same.to(bf)
+    runs = {"wrapper": lambda: fc.fused_upconv2(*fwd),
+            "plain": lambda: fc.upconv2_plain(*fwd),
+            "library": lib_call,
+            "same_function": lambda: op(x_nchw, w_same, stride=2, padding=pad_same)}
+    flops = 2 * h * h * kh * kh * cin * cout + 2 * (2 * h) ** 2 * 8 * cout
+    elements = sum(t.numel() for t in (x, w, styles, noise) if t is not None) + 4 * h * h * cout
+    row = dict(role="K2-forward bf16", block=f"G b{res}", layer="skip" if skip else "conv0",
+               batch=1)
+    return row, fwd, bare, runs, flops, elements
+
+
+def bf16_main(parent_source):
+    """`--bf16`: see the module's docstring."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    fn, fn32 = "mgt_upconv2_fwd_bf16", "mgt_upconv2_fwd"
+    parent = load_parent(Path(parent_source), {k: _build._SIGNATURES[k] for k in (fn, fn32)},
+                         "libmgt_k2_bf16_parent.so")
+    libs = {"new": _build.library(), "earlier": parent}
+    hmma = {"new": hmma_counts(_build.library_path()),
+            "earlier": hmma_counts(_build.BUILD_DIR / "libmgt_k2_bf16_parent.so")}
+    new_hmma = sum(v for k, v in hmma["new"].items() if TC_KERNEL in k)
+    print(json.dumps({"hmma": hmma, "new_kernel_hmma": new_hmma}), flush=True)
+    failed = [] if new_hmma > 0 else [f"no HMMA in {TC_KERNEL}"]
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows = []
+    for res, cin, cout in ((256, 256, 128), (512, 128, 64), (1024, 64, 32)):
+        for skip in (False, True):
+            row, fwd, launch, runs, flops, elements = bf16_case(gen, res, cin, cout, skip)
+            ref = fc.upconv2_plain(*(a.float() if isinstance(a, torch.Tensor) and
+                                     a.dtype == torch.bfloat16 else a for a in fwd))
+            ys = {(k, dt): torch.empty(ref.shape, device="cuda", dtype=dt)
+                  for k in libs for dt in (torch.bfloat16, torch.float32)}
+
+            def bare(k, dt=torch.bfloat16):
+                ptrs, tail, _ = launch[dt]
+                name = fn if dt == torch.bfloat16 else fn32
+                return lambda: _call(libs[k], name, *ptrs, ys[k, dt].data_ptr(), *tail)
+
+            for k in libs:
+                bare(k)()
+                bare(k, torch.float32)()
+            got = runs["wrapper"]()
+            plain = runs["plain"]()
+            torch.cuda.synchronize()
+            bf = torch.bfloat16
+            row.update(err_new=_bf16_err(ys["new", bf], ref),
+                       err_earlier=_bf16_err(ys["earlier", bf], ref),
+                       err_plain=_bf16_err(plain, ref),
+                       wrapper_equals_bare=bool(torch.equal(got, ys["new", bf])),
+                       f32_equal=bool(torch.equal(ys["new", torch.float32],
+                                                  ys["earlier", torch.float32])))
+            t = {}
+            for k in ("earlier", "new", "new", "earlier"):
+                t.setdefault(k, []).append(cuda_ms(bare(k), reps=20))
+                t.setdefault(f"f32_{k}", []).append(cuda_ms(bare(k, torch.float32), reps=20))
+            for name, run in runs.items():
+                t[name] = [cuda_ms(run)]
+            own, _ = device_split(runs["wrapper"], TC_KERNEL)
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, 2 * elements / PEAK_BYTES
+            row.update({f"{k}_ms": sum(v) / len(v) for k, v in t.items()},
+                       new_ms_runs=t["new"], earlier_ms_runs=t["earlier"],
+                       f32_new_ms_runs=t["f32_new"], f32_earlier_ms_runs=t["f32_earlier"],
+                       new_kernel_device_ms=own, bound_ms=max(t_ops, t_bytes) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes else "bytes")
+            row["speedup"] = row["earlier_ms"] / row["new_ms"]
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+            tol = max(BF16_RATIO * row["err_plain"], BF16_FLOOR)
+            where = f"{row['block']} {row['layer']}"
+            for k in ("err_new", "err_earlier"):
+                if not row[k] <= tol:
+                    failed.append(f"{where} {k} {row[k]} > {tol}")
+            if not row["wrapper_equals_bare"]:
+                failed.append(f"{where}: the wrapper's output differs from the bare launch's")
+            if not row["f32_equal"]:
+                failed.append(f"{where}: the float32 forward differs between the builds")
+            if not max(t["new"]) < min(t["earlier"]):
+                failed.append(f"{where}: new {t['new']} not faster than earlier {t['earlier']}")
+    print(smi, flush=True)
+    sums = {k: sum(r[k] for r in rows)
+            for k in ("new_ms", "earlier_ms", "wrapper_ms", "plain_ms", "library_ms",
+                      "same_function_ms", "bound_ms", "new_kernel_device_ms", "f32_new_ms",
+                      "f32_earlier_ms")}
+    print(json.dumps({"sums": sums, "failed": failed}), flush=True)
+    return 1 if failed else 0
+
+
 def main(argv):
+    if len(argv) == 3 and argv[1] == "--bf16" and torch.cuda.is_available():
+        return bf16_main(argv[2])
     if len(argv) != 2 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2

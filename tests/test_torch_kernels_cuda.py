@@ -4,8 +4,9 @@ K2's use_dw role (the D down-conv's dx), K1, K2 and K3 at sizes off their
 tiles and K1 at its 1024^2 call shapes, the dw taps of all three weight
 roles (K1's taps; the least-work dw of K3 and of the D down-conv, and no
 fold on their backwards), per-sample noise, K4 (forward and dx) with its
-route, and generator forwards of configs whose blocks the gates send
-unfused.
+route, generator forwards of configs whose blocks the gates send
+unfused, and the bfloat16 instantiations (K2's forward on the tensor cores
+also at sizes off its tiles and at single pixels on every edge).
 
 This file imports no JAX, so it runs on the GPU machine, where JAX is not
 installed; tests/conftest.py imports JAX, so run it there with
@@ -991,3 +992,84 @@ def test_bf16_generator_runs_on_the_bf16_kernels(cuda_device):
     assert yk.dtype == torch.float32 and torch.isfinite(yk).all()
     ek, ep = ((y - y32).abs().mean().item() for y in (yk, yp))
     assert ek <= BF16_RATIO * ep, (ek, ep)
+
+
+# K2's bfloat16 forward on the tensor cores (upconv2_tc_kernel: 6 x 14 base
+# positions and 32 output channels a block, 32 input channels a chunk for
+# the 3x3 and 64 for the 1x1, k16 steps) at sizes off its tiles: (N, H, W of
+# the input, Cin, Cout, kh, path).
+# No Cin is a multiple of 16 (a chunk's last k16 step is zero-filled), Cin
+# and Cout 4 and 12 take the 8-byte copies, 36 and 68 two chunks or two
+# channel blocks. "conv0" has styles, demodulation, batch-shared noise,
+# bias and lrelu; "noise" the same with per-sample noise; "nodemod" styles
+# and bias alone; "skip" none of them (linear).
+K2_BF16_ODD = [(2, 20, 36, 4, 12, 3, "conv0"), (1, 17, 17, 12, 36, 3, "noise"),
+               (2, 11, 5, 36, 4, 3, "nodemod"), (1, 30, 30, 68, 36, 3, "skip"),
+               (2, 13, 15, 68, 12, 1, "conv0"), (1, 9, 17, 12, 4, 1, "noise"),
+               (2, 6, 29, 36, 36, 1, "nodemod"), (1, 20, 14, 4, 12, 1, "skip")]
+
+
+def _k2_bf16_operands(rng, dev, n, h, w, cin, cout, kh, path):
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+
+    skip = path == "skip"
+    x = rand(n, h, w, cin).bfloat16()
+    wt = rand(kh, kh, cin, cout, scale=1 / math.sqrt(kh * kh * cin))
+    s = None if skip else torch.from_numpy((rng.rand(n, cin) + 0.5).astype(np.float32)).to(dev)
+    nz = None
+    if path in ("conv0", "noise"):
+        nz = rand(*((n,) if path == "noise" else ()), 2 * h, 2 * w, scale=0.1)
+    b = None if skip else rand(cout, scale=0.1)
+    gain, alpha = (math.sqrt(0.5), 1.0) if skip else (math.sqrt(2), 0.2)
+    return x, wt, s, nz, b, gain, alpha, path in ("conv0", "noise")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,kh,path", K2_BF16_ODD)
+def test_bf16_k2_tensor_core_kernel_at_odd_sizes(cuda_device, n, h, w, cin, cout, kh, path):
+    """One bf16 launch per call, for both flip_weight values, within the
+    bf16 rule of the float32 plain version on the same inputs."""
+    x, wt, s, nz, b, gain, alpha, demod = _k2_bf16_operands(
+        np.random.RandomState(17), cuda_device, n, h, w, cin, cout, kh, path)
+    f = setup_filter(FIR).to(cuda_device)
+    for flip_weight in (False, True):
+        fwd = (x, wt, s, f, nz, b, gain, alpha, demod, flip_weight)
+        before = dict(fc.launch_counts)
+        y = fc.fused_upconv2(*fwd)
+        assert y.dtype == torch.bfloat16 and y.shape == (n, 2 * h, 2 * w, cout)
+        assert fc.launch_counts["upconv2_bf16"] == before["upconv2_bf16"] + 1
+        assert fc.launch_counts["upconv2"] == before["upconv2"]
+        assert torch.isfinite(y).all()
+        _bf16_close(y, fc.upconv2_plain(*fwd), fc.upconv2_plain(*_widen(fwd)))
+
+
+def _edge_pixels(hh, ww):
+    """The four corners, a pixel inside each edge, one inside, and the
+    pixels on both sides of the inner tile edges of upconv2_tc_kernel (rows
+    5 | 6 and 11 | 12, columns 13 | 14)."""
+    return [(0, 0), (0, ww - 1), (hh - 1, 0), (hh - 1, ww - 1), (0, ww // 2), (hh - 1, ww // 2),
+            (hh // 2, 0), (hh // 2, ww - 1), (hh // 2, ww // 2), (5, 13), (6, 14), (11, 14),
+            (12, 13)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kh", [3, 1])
+def test_bf16_k2_tensor_core_kernel_single_pixels(cuda_device, kh):
+    """One nonzero input pixel at a time on a 17 x 31 image (three tiles
+    down, three across), a FIR with no symmetry, no epilogue: the output
+    is that pixel's composed kernel in its place, which pins the
+    orientation of each Z class (AA, AB, BA, BB) and the halo at the tile
+    edges; within the bf16 rule of the float32 plain version."""
+    dev = cuda_device
+    rng = np.random.RandomState(23)
+    h, w, cin, cout = 17, 31, 20, 36
+    f = setup_filter(rng.rand(4, 4) + 0.1).to(dev)
+    wt = torch.from_numpy(rng.randn(kh, kh, cin, cout).astype(np.float32)).to(dev)
+    s = torch.from_numpy((rng.rand(1, cin) + 0.5).astype(np.float32)).to(dev)
+    for py, px in _edge_pixels(h, w):
+        x = torch.zeros(1, h, w, cin, device=dev)
+        x[0, py, px] = torch.from_numpy(rng.randn(cin).astype(np.float32)).to(dev)
+        fwd = (x.bfloat16(), wt, s, f, None, None, 1.0, 1.0, False, False)
+        y = fc.fused_upconv2(*fwd)
+        _bf16_close(y, fc.upconv2_plain(*fwd), fc.upconv2_plain(*_widen(fwd)))
