@@ -39,8 +39,9 @@ Phases, each printing its wall time:
               launch counts; pair-steps/s.
   7. bf16     the synthesis path in bfloat16 (JAX's default for project,
               morph and demorph): the four bfloat16 roles (K1, K2, K1's
-              adjoint launch, K3's adjoint; the `_bf16` entry points, K2's on
-              the tensor cores) at the 10 call shapes, the kernel's own
+              adjoint launch, K3's adjoint; the `_bf16` entry points, K2's
+              and K3's on the tensor cores, K3's forming gd in the kernel)
+              at the 10 call shapes, the kernel's own
               device time under torch.profiler beside the wrapper's, the
               kernel and the plain bfloat16 version each
               against the float32 plain version on the same bfloat16-rounded
@@ -54,7 +55,8 @@ Phases, each printing its wall time:
               plain versions against the float32 forward (the kernels' mean
               and max error at most 1.5 times the plain ones'), forward
               times and peak memory at batch 1 and 2 in both types, one
-              traced bfloat16 forward; a 100-step projection (exact
+              traced bfloat16 forward and one traced bfloat16 projection
+              step (device ms, device ops); a 100-step projection (exact
               launches, the loss descending, steps/s and peak memory beside
               phase project's float32 ones); step 0's latent gradient on the
               kernels and on the plain route against float32's (the same
@@ -187,7 +189,8 @@ K2_DW_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:1225"
 K4_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:74"
 SOURCE = "morphganformer_tpu_torch/csrc/fused_conv.cu"
 HAND_WRITTEN = ("conv3x3_lw_kernel", "upconv2_lw_kernel", "upconv2_tc_kernel",
-                "downconv2_lw_kernel", "conv_dw_lw_kernel", "fir_dw_kernel")
+                "downconv2_lw_kernel", "downconv2_tc_kernel", "conv_dw_lw_kernel",
+                "fir_dw_kernel")
 PROJECT_STEPS = 100
 MORPH_STEPS = 50
 DEMORPH_STEPS = 5
@@ -248,7 +251,8 @@ def traced_forward(torch, fn, label, shapes=False, host_of=()):
             f"{k}: {v['host_ms']:.3f} ms in {v['calls']} calls "
             f"({v['host_ms'] / v['calls']:.3f} a call)" for k, v in host.items()), flush=True)
     assert 0 < busy_ms <= window_ms, f"device busy {busy_ms} ms outside its {window_ms} ms window"
-    return dict(window_ms=window_ms, busy_ms=busy_ms, host=host)
+    return dict(window_ms=window_ms, busy_ms=busy_ms, device_ops=r["launches"],
+                kernels=r["kernels"], host=host)
 
 
 def _same_sum(rows):
@@ -766,6 +770,12 @@ def bf16_phase(torch, fc, cli, G, target_png, png_a, png_b, tmp):
     assert torch.isfinite(grads["kernels"]).all().item()
     assert gk <= max(BF16_RATIO * gp, BF16_FLOOR), (gk, gp)
     out["grad_vs_f32"] = dict(kernels=gk, plain=gp)
+    fc.reset_launch_counts()
+    step = traced_forward(torch, lambda: loss_and_grad(Gb, latent_n, target, loss_fn, pcfg),
+                          "bfloat16 projection step batch 1")
+    assert dict(fc.launch_counts) == _per_step(1, 0, bf16=True), fc.launch_counts
+    assert step["kernels"].get("downconv2_tc_kernel", (0, 0))[1] == 6, step["kernels"]
+    out["traced_step"] = {k: step[k] for k in ("window_ms", "busy_ms", "device_ops")}
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -850,7 +860,7 @@ TRAIN_KEYS = {"K3-forward": "downconv2", "K2-use_dw": "downconv2_adj",
 K4_KEYS = ("conv3x3", "conv3x3_adj")
 # The kernel each bfloat16 role launches (its name in a profiler trace).
 BF16_KERNELS = {"modconv3x3": "conv3x3_lw_kernel", "upconv2": "upconv2_tc_kernel",
-                "modconv3x3_adj": "conv3x3_lw_kernel", "upconv2_adj": "downconv2_lw_kernel"}
+                "modconv3x3_adj": "conv3x3_lw_kernel", "upconv2_adj": "downconv2_tc_kernel"}
 # The bfloat16 instantiations' launch counts, by their float32 role's key.
 BF16_KEYS = {"modconv3x3": "modconv3x3_bf16", "upconv2": "upconv2_bf16",
              "modconv3x3_adj": "modconv3x3_adj_bf16", "upconv2_adj": "upconv2_adj_bf16"}
@@ -2531,8 +2541,10 @@ def main():
              "epilogue in float32)", K2_REPLACES, "upconv2"),
             ("K1-adjoint bf16", "mgt_modconv3x3_bwd_bf16 (conv3x3_lw_kernel, gd formed and "
              "rounded in bfloat16 in the kernel)", K1_REPLACES, "modconv3x3_adj"),
-            ("K3-adjoint bf16", "mgt_upconv2_bwd_bf16 (downconv2_lw_kernel)", K3_REPLACES,
-             "upconv2_adj")):
+            ("K3-adjoint bf16", "mgt_upconv2_bwd_bf16 (downconv2_tc_kernel: gd formed and "
+             "rounded in bfloat16 from g, y and d in the kernel, the FIR in float32, B split "
+             "into bfloat16 hi and lo parity planes, each tap an implicit GEMM on bf16 "
+             "mma.sync with float32 accumulators)", K3_REPLACES, "upconv2_adj")):
         mine = [r for r in bf16_rows if r["kernel"] == kernel]
         b_ms = sum(r["bound_ms"] for r in mine)
         ops_ms = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")

@@ -178,9 +178,10 @@ PEAK_BF16_FLOPS = 989e12
 TC_KERNEL = "upconv2_tc_kernel"
 
 
-def hmma_counts(lib_path):
-    """{kernel function: HMMA instructions} of the K2 kernels in a built
-    library's SASS (cuobjdump -sass, from the toolkit beside nvcc)."""
+def hmma_counts(lib_path, part="upconv2"):
+    """{kernel function: HMMA instructions} of the kernels whose names hold
+    `part` (K2's by default) in a built library's SASS (cuobjdump -sass,
+    from the toolkit beside nvcc)."""
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
@@ -189,7 +190,7 @@ def hmma_counts(lib_path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            if "upconv2" in fn and "bwd" not in fn:
+            if part in fn:
                 counts[fn] = 0
         elif fn in counts and "HMMA" in line:
             counts[fn] += 1

@@ -89,25 +89,28 @@ def variant_source(patches):
     return src
 
 
-def build_variants():
-    """{name: loaded library}, all variants compiled at once."""
+def build_variants(variants=VARIANTS, fn=FN, prefix="k2_phase"):
+    """{name: loaded library} of the source `variants`, all compiled at once,
+    with the signature of entry point `fn` set."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = {name: variant_source(patches) for name, patches in variants.items()}
     procs = {}
-    for name, patches in VARIANTS.items():
-        src = _build.BUILD_DIR / f"k2_phase_{name}.cu"
-        src.write_text(variant_source(patches))
-        out = _build.BUILD_DIR / f"libmgt_k2_phase_{name}.so"
+    for name, text in sources.items():
+        src = _build.BUILD_DIR / f"{prefix}_{name}.cu"
+        src.write_text(text)
+        out = _build.BUILD_DIR / f"libmgt_{prefix}_{name}.so"
         procs[name] = (subprocess.Popen(_build.build_command(out, _build.nvcc_path(), src),
                                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), out)
+    logs = {name: proc.communicate(timeout=_build.BUILD_TIMEOUT_S)[0]
+            for name, (proc, _) in procs.items()}      # every build ends before any raise
     libs = {}
     for name, (proc, out) in procs.items():
-        log = proc.communicate(timeout=_build.BUILD_TIMEOUT_S)[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{logs[name]}")
         lib = ctypes.CDLL(str(out))
-        getattr(lib, FN).argtypes = _build._SIGNATURES[FN]
-        getattr(lib, FN).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+        getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
 

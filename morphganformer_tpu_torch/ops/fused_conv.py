@@ -70,7 +70,9 @@ JAX's Pallas wrappers cast them (pallas_conv.py:673-700, :1699-1715,
 weights composed with the FIR in float32 and then rounded on the plain
 route, the small weight rounded in the kernels), sum in float32, run the
 epilogue and the ds/dd taps in float32 (d, bias, the adjoints' scale s)
-and round the output once; the adjoints form gd = g * mask * d in bfloat16.
+and round the output once; the adjoints form gd = g * mask * d in bfloat16
+inside their kernels (K3's on the tensor cores, `downconv2_tc_kernel`, as
+K2's bfloat16 forward, `upconv2_tc_kernel`).
 A bfloat16 tensor on a card launches the `_bf16` entry points or raises;
 the D-tower roles and the dw kernels take float32 only (training runs in
 float32).
@@ -664,8 +666,7 @@ def _check_noise(name, noise, n, h, wd, device, dtype=torch.float32):
 
 
 # The kernels' entry points by compute type: the float32 ones, and the
-# bfloat16 instantiations of K1 (forward, adjoint), K2 (forward) and K3's
-# adjoint.
+# bfloat16 ones of K1 (forward, adjoint), K2 (forward) and K3's adjoint.
 _SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
@@ -863,34 +864,53 @@ def _k1_taps(g, x, w, styles, d, y, resid, noise, gain, alpha, slope, need_dx, n
                               noise, gain, alpha, need_dx, need_ds, need_dd)
 
 
-def _k3_taps(gd, x, w, styles, f, flip_weight, y, noise, gain, alpha, need_dx, need_ds,
-             need_dd):
-    """The K3 adjoint launch (`mgt_upconv2_bwd`): (dx, ds dot, dd1, dd2), plain
-    on a CPU tensor. x [N,H,W,C] is read for the ds dot only."""
-    if _on_cpu(gd):
-        return _k3_taps_plain(gd, x, w, styles, f, flip_weight, y, (gain, alpha), noise,
-                              need_dx, need_ds, need_dd)
+def _k3_adjoint_launch(t, x, w, styles, f, flip_weight, d, y, noise, gain, alpha, need_dx,
+                       need_ds, need_dd):
+    """One launch of K3's adjoint: (dx, ds dot, dd1, dd2), the per-block
+    partials summed here in a fixed order; None where not asked. In float32
+    t is gd, formed in torch (`mgt_upconv2_bwd`). In bfloat16 t is the
+    output cotangent g [N,2H,2W,O] and the kernel (`mgt_upconv2_bwd_bf16`,
+    downconv2_tc_kernel) forms gd = g * mask(y) * d itself (d None: no
+    demodulation), so no elementwise pass over g or y runs here; it reads y
+    only for the dd taps or a mask that is not the gain alone (alpha 1).
+    x [N,H,W,C] is read for the ds dot only."""
     wk, fk, pad = upconv2_adjoint_leastwork(w, f, flip_weight)
-    gd = gd.contiguous()
-    n, ho, wo, o = gd.shape
+    n, ho, wo, o = t.shape
     h, wd, c = ho // 2, wo // 2, w.shape[2]
-    dev, dt = gd.device, _kernel_dtype(gd, "gd")
+    bf = _kernel_dtype(t, "g") == torch.bfloat16
+    dev, dt, name = t.device, t.dtype, "g" if bf else "gd"
     outs = _adjoint_outputs(n, h, wd, c, o, _library().mgt_downconv2_tiles(h, wd), need_dx,
                             need_ds, need_dd, dev, dt)
     wk, nz = _as(wk, dt), _as(noise if need_dd else None, dt)
-    yc = y.contiguous() if need_dd else None
+    yc = y.contiguous() if need_dd or (bf and float(alpha) != 1.0) else None
     noise_p, noise_ns = _check_noise("noise", nz, n, ho, wo, dev, dt)
-    ptrs = [_aligned("gd", _check("gd", gd, (n, ho, wo, o), dev, dt)),
+    ptrs = [_aligned(name, _check(name, t, (n, ho, wo, o), dev, dt)),
             *_lw_weights(wk, fk, dev, dt),
             _aligned("styles", _check("styles", styles, (n, c), dev)),
+            *([_check("d", d, (n, o), dev)] if bf else []),
             _aligned("x", _check("x", x if need_ds else None, (n, h, wd, c), dev, dt)),
-            _check("y", yc, (n, ho, wo, o), dev, dt), noise_p]
+            _aligned("y", _check("y", yc, (n, ho, wo, o), dev, dt)), noise_p]
     _launch("mgt_upconv2_bwd" + _SUFFIX[dt], *ptrs,
-            *(None if t is None else t.data_ptr() for t in outs),
+            *(None if u is None else u.data_ptr() for u in outs),
             n, h, wd, o, c, int(wk.shape[0]), pad, float(gain), float(alpha), noise_ns,
             *_stream(dev))
     launch_counts["upconv2_adj" + _SUFFIX[dt]] += 1
     return _summed(*outs)
+
+
+def _k3_taps(g, gd_of, x, w, styles, f, flip_weight, d, y, noise, gain, alpha, need_dx,
+             need_ds, need_dd):
+    """The K3 adjoint launch: (dx, ds dot, dd1, dd2). `gd_of()` gives gd =
+    g * mask(y) * d formed in torch, which the plain version (a CPU tensor)
+    and the float32 kernel take; the bfloat16 kernel forms gd from g, y and
+    d itself. x [N,H,W,C] is read for the ds dot only."""
+    if _on_cpu(g):
+        return _k3_taps_plain(gd_of(), x, w, styles, f, flip_weight, y, (gain, alpha), noise,
+                              need_dx, need_ds, need_dd)
+    t = g.contiguous() if _kernel_dtype(g, "g") == torch.bfloat16 else gd_of().contiguous()
+    return _k3_adjoint_launch(t, x, w, styles, f, flip_weight,
+                              None if d is None else d.contiguous(), y, noise, gain, alpha,
+                              need_dx, need_ds, need_dd)
 
 
 def modconv3x3_adjoint(g, x, w, styles, y, noise=None, bias=None, resid=None,
@@ -915,16 +935,18 @@ def modconv3x3_adjoint(g, x, w, styles, y, noise=None, bias=None, resid=None,
 def upconv2_adjoint(g, x, w, styles, f, y, noise=None, bias=None, gain=1.0, alpha=0.2,
                     demodulate=True, flip_weight=False, need_dx=True, need_ds=True):
     """K3 in its adjoint role: `upconv2_adjoint_plain` for a CPU tensor; for
-    a CUDA tensor one launch of `mgt_upconv2_bwd`. Same returns; x is read
-    for ds only."""
+    a CUDA tensor one launch of `mgt_upconv2_bwd` on gd formed in torch
+    (float32), or of `mgt_upconv2_bwd_bf16`, which forms gd itself
+    (bfloat16). Same returns; x is read for ds only."""
     if _on_cpu(g):
         return upconv2_adjoint_plain(g, x, w, styles, f, y, noise, bias, gain, alpha,
                                      demodulate, flip_weight, need_dx, need_ds)
     need_ds = need_ds and styles is not None
-    _, gd, d = _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)
+    d = demod_coef(w, styles) if (styles is not None and demodulate) else None
     need_dd = need_ds and d is not None
-    dx, ds, dd1, dd2 = _k3_taps(gd, x, w, styles, f, flip_weight, y, noise, gain, alpha,
-                                need_dx, need_ds, need_dd)
+    dx, ds, dd1, dd2 = _k3_taps(
+        g, lambda: _adjoint_gd(g, y, w, styles, gain, alpha, demodulate)[1], x, w, styles, f,
+        flip_weight, d, y, noise, gain, alpha, need_dx, need_ds, need_dd)
     if need_dd:
         ds = _demod_chain(ds, _demod_de(dd1, dd2, d, bias), w, styles)
     return dx, ds, dd1, dd2
@@ -1123,11 +1145,11 @@ def upconv2_backward(g, x, w, styles, f, y, noise, bias, gain, alpha, demodulate
     needs = (need_dx, need_dw, need_ds and styles is not None, need_dn, need_db)
 
     def taps(d, slope, *need):
-        y_, _, _, gd = slope()
         if plain:
-            return _k3_taps_plain(gd, x, w, styles, f, flip_weight, y_, (gain, alpha), noise,
-                                  *need)
-        return _k3_taps(gd, x, w, styles, f, flip_weight, y_, noise, gain, alpha, *need)
+            return _k3_taps_plain(slope()[3], x, w, styles, f, flip_weight, y, (gain, alpha),
+                                  noise, *need)
+        return _k3_taps(g, lambda: slope()[3], x, w, styles, f, flip_weight, d, y, noise, gain,
+                        alpha, *need)
 
     def dw_taps(gd):
         return (upconv2_dw_plain if plain else upconv2_dw)(x, gd, styles, w, f, flip_weight)

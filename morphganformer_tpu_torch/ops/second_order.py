@@ -126,8 +126,9 @@ def upconv2_ops(f, flip_weight, w_like, plain):
         if plain:
             return fc._k3_taps_plain(a, None, k, None, f, flip_weight, None, None, None, True,
                                      False, False)[0]
-        return fc._k3_taps(_c(a), None, _c(k), None, f, flip_weight, None, None, 1.0, 1.0,
-                           True, False, False)[0]
+        a = _c(a)
+        return fc._k3_taps(a, lambda: a, None, _c(k), None, f, flip_weight, None, None, None,
+                           1.0, 1.0, True, False, False)[0]
 
     def wg(a, b):
         return dw(_c(a), _c(b), None, w_like, f, flip_weight)

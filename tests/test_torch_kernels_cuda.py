@@ -5,8 +5,9 @@ tiles and K1 at its 1024^2 call shapes, the dw taps of all three weight
 roles (K1's taps; the least-work dw of K3 and of the D down-conv, and no
 fold on their backwards), per-sample noise, K4 (forward and dx) with its
 route, generator forwards of configs whose blocks the gates send
-unfused, and the bfloat16 instantiations (K2's forward on the tensor cores
-also at sizes off its tiles and at single pixels on every edge).
+unfused, and the bfloat16 kernels (K2's forward and K3's adjoint on the
+tensor cores also at sizes off their tiles and at single pixels on every
+edge; K3's also at its six 1024^2 call shapes, gd formed in the kernel).
 
 This file imports no JAX, so it runs on the GPU machine, where JAX is not
 installed; tests/conftest.py imports JAX, so run it there with
@@ -1073,3 +1074,157 @@ def test_bf16_k2_tensor_core_kernel_single_pixels(cuda_device, kh):
         fwd = (x.bfloat16(), wt, s, f, None, None, 1.0, 1.0, False, False)
         y = fc.fused_upconv2(*fwd)
         _bf16_close(y, fc.upconv2_plain(*fwd), fc.upconv2_plain(*_widen(fwd)))
+
+
+# K3's bfloat16 adjoint on the tensor cores (downconv2_tc_kernel: 8 x 16 dx
+# positions and 64 dx channels a block, 16 gd channels a chunk, gd formed
+# from g, y and d in the kernel) at sizes off its tiles, then at the six
+# call shapes of a 1024^2 forward: (N, H, W of dx, C, O, kh, path). C and O
+# 4, 12, 20 and 36 take the 8-byte copies, 68 two channel groups, 36 a
+# partial last chunk. "conv0": styles, demodulation, batch-shared noise,
+# bias, lrelu (dx, ds and the dd taps); "noise": per-sample noise; "dx": dx
+# alone; "lrelu": no styles, the mask from y; "skip": no styles, linear
+# (no y read).
+K3_BF16_ODD = [(2, 20, 36, 20, 12, 3, "conv0"), (1, 9, 17, 68, 36, 3, "noise"),
+               (2, 11, 5, 36, 4, 3, "dx"), (1, 13, 19, 8, 16, 3, "lrelu"),
+               (2, 17, 33, 12, 68, 1, "skip"), (1, 9, 17, 4, 12, 1, "lrelu")]
+K3_BF16_CALLS = [(1, 128, 128, 256, 128, 3, "conv0"), (1, 128, 128, 256, 128, 1, "skip"),
+                 (1, 256, 256, 128, 64, 3, "conv0"), (1, 256, 256, 128, 64, 1, "skip"),
+                 (1, 512, 512, 64, 32, 3, "conv0"), (1, 512, 512, 64, 32, 1, "skip")]
+
+
+def _k3_bf16_args(rng, dev, n, h, w, c, o, kh, path, flip_weight=False):
+    """The adjoint's arguments (g, x, w, styles, f, y, noise, bias, gain,
+    alpha, demod, flip_weight, need_dx, need_ds): y the plain bf16 forward."""
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+
+    styles = path in ("conv0", "noise", "dx")
+    x = rand(n, h, w, c).bfloat16()
+    wt = rand(kh, kh, c, o, scale=1 / math.sqrt(kh * kh * c))
+    s = torch.from_numpy((rng.rand(n, c) + 0.5).astype(np.float32)).to(dev) if styles else None
+    nz = None
+    if path in ("conv0", "noise"):
+        nz = rand(*((n,) if path == "noise" else ()), 2 * h, 2 * w, scale=0.1)
+    b = rand(o, scale=0.1) if styles else None
+    gain, alpha = (math.sqrt(0.5), 1.0) if path == "skip" else (math.sqrt(2), 0.2)
+    demod = path in ("conv0", "noise")
+    f = setup_filter(FIR).to(dev)
+    y = fc.upconv2_plain(x, wt, s, f, nz, b, gain, alpha, demod, flip_weight)
+    g = rand(n, 2 * h, 2 * w, o).bfloat16()
+    return (g, x, wt, s, f, y, nz, b, gain, alpha, demod, flip_weight, True, path != "dx")
+
+
+def _k3_bf16_check(args):
+    before = dict(fc.launch_counts)
+    got = fc.upconv2_adjoint(*args)
+    assert fc.launch_counts["upconv2_adj_bf16"] == before["upconv2_adj_bf16"] + 1
+    assert fc.launch_counts["upconv2_adj"] == before["upconv2_adj"]
+    assert got[0].dtype == torch.bfloat16 and torch.isfinite(got[0]).all()
+    want = fc.upconv2_adjoint_plain(*args)
+    assert [t is None for t in got] == [t is None for t in want]
+    _bf16_close(got, want, fc.upconv2_adjoint_plain(*_widen(args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,o,kh,path", K3_BF16_ODD)
+def test_bf16_k3_tensor_core_adjoint_at_odd_sizes(cuda_device, n, h, w, c, o, kh, path):
+    """One bf16 launch per call, for both flip_weight values; dx, ds and the
+    dd taps within the bf16 rule of the float32 plain version on the same
+    inputs."""
+    for flip_weight in (False, True):
+        _k3_bf16_check(_k3_bf16_args(np.random.RandomState(29), cuda_device, n, h, w, c, o, kh,
+                                     path, flip_weight))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,o,kh,path", K3_BF16_CALLS)
+def test_bf16_k3_tensor_core_adjoint_at_the_1024_call_shapes(cuda_device, n, h, w, c, o, kh,
+                                                             path):
+    _k3_bf16_check(_k3_bf16_args(np.random.RandomState(30), cuda_device, n, h, w, c, o, kh,
+                                 path))
+
+
+def _k3_edge_pixels(hh, ww):
+    """Corners, edge midpoints and the centre of a 2H x 2W cotangent, and the
+    pixels on both sides of downconv2_tc_kernel's inner tile edges (gd rows
+    15 | 16, columns 31 | 32), with their FIR halo's reach (rows 13, 18)."""
+    return [(0, 0), (0, ww - 1), (hh - 1, 0), (hh - 1, ww - 1), (0, ww // 2), (hh - 1, ww // 2),
+            (hh // 2, 0), (hh // 2, ww - 1), (hh // 2, ww // 2), (15, 31), (16, 32), (13, 32),
+            (18, 31), (15, 0), (16, ww - 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kh", [3, 1])
+def test_bf16_k3_tensor_core_adjoint_single_pixels(cuda_device, kh):
+    """One nonzero g pixel at a time on a 34 x 70 cotangent (dx 17 x 35:
+    three tiles down, three across), a FIR with no symmetry, no mask,
+    styles or demodulation: dx is that pixel's composed kernel read back in
+    its place, which pins each tap's plane and shift and the halo at the
+    tile edges; the nonzero entries land where the plain version's do,
+    within the bf16 rule of the float32 plain version."""
+    dev = cuda_device
+    rng = np.random.RandomState(31)
+    h, w, c, o = 17, 35, 20, 36
+    f = setup_filter(rng.rand(4, 4) + 0.1).to(dev)
+    wt = torch.from_numpy(rng.randn(kh, kh, c, o).astype(np.float32)).to(dev)
+    x = torch.zeros(1, h, w, c, device=dev, dtype=torch.bfloat16)
+    y = torch.ones(1, 2 * h, 2 * w, o, device=dev, dtype=torch.bfloat16)
+    for py, px in _k3_edge_pixels(2 * h, 2 * w):
+        g = torch.zeros(1, 2 * h, 2 * w, o, device=dev)
+        g[0, py, px] = torch.from_numpy(rng.randn(o).astype(np.float32)).to(dev)
+        args = (g.bfloat16(), x, wt, None, f, y, None, None, 1.0, 1.0, False, False, True, False)
+        got = fc.upconv2_adjoint(*args)
+        want = fc.upconv2_adjoint_plain(*args)
+        assert bool(((got[0] != 0) == (want[0] != 0)).all()), (py, px)
+        _bf16_close(got, want, fc.upconv2_adjoint_plain(*_widen(args)))
+
+
+@pytest.mark.cuda
+def test_bf16_k3_adjoint_forms_gd_in_the_kernel(cuda_device):
+    """On the projection path (dx and ds of conv0, no weight, noise or bias
+    gradients) K2's bf16 backward dispatches no torch op over a tensor of
+    the output's size but allocations: gd and the mask are the kernel's."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    g, x, w, s, f, y, nz, b, gain, alpha, demod, _, _, _ = _k3_bf16_args(
+        np.random.RandomState(32), cuda_device, 1, 64, 64, 128, 64, 3, "conv0")
+    xi, si = x.clone().requires_grad_(), s.clone().requires_grad_()
+    out = fc.fused_upconv2(xi, w, si, f, nz, b, gain, alpha, demod)
+    big = []
+
+    class Spy(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            res = func(*args, **(kwargs or {}))
+            seen = [t for t in (*args, *(kwargs or {}).values(),
+                                *(res if isinstance(res, (tuple, list)) else (res,)))
+                    if isinstance(t, torch.Tensor)]
+            if not func.__name__.startswith(("empty", "detach", "alias", "view")) and \
+                    any(t.numel() >= out.numel() for t in seen):
+                big.append(func.__name__)
+            return res
+
+    before = fc.launch_counts["upconv2_adj_bf16"]
+    with Spy():
+        grads = torch.autograd.grad(out, [xi, si], g)
+    assert fc.launch_counts["upconv2_adj_bf16"] == before + 1
+    assert big == [], big
+    args = (g, x, w, s, f, out.detach(), nz, b, gain, alpha, demod)
+    _bf16_close(grads, fc.upconv2_adjoint_plain(*args)[:2],
+                fc.upconv2_adjoint_plain(*_widen(args))[:2])
+
+
+@pytest.mark.cuda
+def test_bf16_k3_adjoint_refuses_mixed_types(cuda_device):
+    """g, y and x in bfloat16 together or not at all: a float32 y or x with
+    a bfloat16 g raises before any launch, and a float16 g is refused."""
+    g, x, w, s, f, y, nz, b, gain, alpha, demod, fw, _, _ = _k3_bf16_args(
+        np.random.RandomState(33), cuda_device, 1, 8, 16, 16, 8, 3, "conv0")
+    before = dict(fc.launch_counts)
+    with pytest.raises(TypeError, match="y"):
+        fc.upconv2_adjoint(g, x, w, s, f, y.float(), nz, b, gain, alpha, demod)
+    with pytest.raises(TypeError, match="x"):
+        fc.upconv2_adjoint(g, x.float(), w, s, f, y, nz, b, gain, alpha, demod)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fc.upconv2_adjoint(g.half(), x.half(), w, s, f, y.half(), nz, b, gain, alpha, demod)
+    assert dict(fc.launch_counts) == before
