@@ -40,7 +40,8 @@ Phases, each printing its wall time:
   7. bf16     the synthesis path in bfloat16 (JAX's default for project,
               morph and demorph): the four bfloat16 roles (K1, K2, K1's
               adjoint launch, K3's adjoint; the `_bf16` entry points, K2's
-              and K3's on the tensor cores, K3's forming gd in the kernel)
+              and both adjoints on the tensor cores, the adjoints forming
+              gd in the kernel)
               at the 10 call shapes, the kernel's own
               device time under torch.profiler beside the wrapper's, the
               kernel and the plain bfloat16 version each
@@ -56,7 +57,8 @@ Phases, each printing its wall time:
               and max error at most 1.5 times the plain ones'), forward
               times and peak memory at batch 1 and 2 in both types, one
               traced bfloat16 forward and one traced bfloat16 projection
-              step (device ms, device ops); a 100-step projection (exact
+              step (device ms, device ops, exactly 4 launches of K1's
+              adjoint kernel and 6 of K3's); a 100-step projection (exact
               launches, the loss descending, steps/s and peak memory beside
               phase project's float32 ones); step 0's latent gradient on the
               kernels and on the plain route against float32's (the same
@@ -188,9 +190,9 @@ K3_DW_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:1387"
 K2_DW_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:1225"
 K4_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:74"
 SOURCE = "morphganformer_tpu_torch/csrc/fused_conv.cu"
-HAND_WRITTEN = ("conv3x3_lw_kernel", "upconv2_lw_kernel", "upconv2_tc_kernel",
-                "downconv2_lw_kernel", "downconv2_tc_kernel", "conv_dw_lw_kernel",
-                "fir_dw_kernel")
+HAND_WRITTEN = ("conv3x3_lw_kernel", "conv3x3_adj_tc_kernel", "upconv2_lw_kernel",
+                "upconv2_tc_kernel", "downconv2_lw_kernel", "downconv2_tc_kernel",
+                "conv_dw_lw_kernel", "fir_dw_kernel")
 PROJECT_STEPS = 100
 MORPH_STEPS = 50
 DEMORPH_STEPS = 5
@@ -573,7 +575,7 @@ def check_bf16(torch, fc, gen, call, adjoint):
             w_lib = fc.modconv3x3_adjoint_weights(w).permute(3, 2, 0, 1).to(bf).contiguous()
             run_lib = lambda: F.conv2d(g_nchw, w_lib, padding=1)
             flops += 2 * h * h * cin + 4 * h * h * cout
-            elements = [g, x, y, noise, x.numel()]                # the last: dx
+            elements = [g, x, y, resid, noise, x.numel()]         # the last: dx
         else:
             name, key = "K1", "modconv3x3"
             run_k = lambda: fc.fused_modconv3x3(*fwd)
@@ -775,6 +777,7 @@ def bf16_phase(torch, fc, cli, G, target_png, png_a, png_b, tmp):
                           "bfloat16 projection step batch 1")
     assert dict(fc.launch_counts) == _per_step(1, 0, bf16=True), fc.launch_counts
     assert step["kernels"].get("downconv2_tc_kernel", (0, 0))[1] == 6, step["kernels"]
+    assert step["kernels"].get("conv3x3_adj_tc_kernel", (0, 0))[1] == 4, step["kernels"]
     out["traced_step"] = {k: step[k] for k in ("window_ms", "busy_ms", "device_ops")}
 
     torch.cuda.synchronize()
@@ -860,7 +863,7 @@ TRAIN_KEYS = {"K3-forward": "downconv2", "K2-use_dw": "downconv2_adj",
 K4_KEYS = ("conv3x3", "conv3x3_adj")
 # The kernel each bfloat16 role launches (its name in a profiler trace).
 BF16_KERNELS = {"modconv3x3": "conv3x3_lw_kernel", "upconv2": "upconv2_tc_kernel",
-                "modconv3x3_adj": "conv3x3_lw_kernel", "upconv2_adj": "downconv2_tc_kernel"}
+                "modconv3x3_adj": "conv3x3_adj_tc_kernel", "upconv2_adj": "downconv2_tc_kernel"}
 # The bfloat16 instantiations' launch counts, by their float32 role's key.
 BF16_KEYS = {"modconv3x3": "modconv3x3_bf16", "upconv2": "upconv2_bf16",
              "modconv3x3_adj": "modconv3x3_adj_bf16", "upconv2_adj": "upconv2_adj_bf16"}
@@ -2539,8 +2542,11 @@ def main():
              "each Z class an implicit GEMM on bf16 mma.sync with float32 accumulators, bf16 "
              "tiles staged by cp.async, x * s rounded in shared memory; the FIR and the "
              "epilogue in float32)", K2_REPLACES, "upconv2"),
-            ("K1-adjoint bf16", "mgt_modconv3x3_bwd_bf16 (conv3x3_lw_kernel, gd formed and "
-             "rounded in bfloat16 in the kernel)", K1_REPLACES, "modconv3x3_adj"),
+            ("K1-adjoint bf16", "mgt_modconv3x3_bwd_bf16 (conv3x3_adj_tc_kernel: gd formed "
+             "and rounded in bfloat16 from g, y, resid and d in the kernel, then an implicit "
+             "GEMM against flip(w)^T on bf16 mma.sync with float32 accumulators, a tap a "
+             "shifted row address into the staged gd tile, the dd taps as mma products; "
+             "persistent blocks)", K1_REPLACES, "modconv3x3_adj"),
             ("K3-adjoint bf16", "mgt_upconv2_bwd_bf16 (downconv2_tc_kernel: gd formed and "
              "rounded in bfloat16 from g, y and d in the kernel, the FIR in float32, B split "
              "into bfloat16 hi and lo parity planes, each tap an implicit GEMM on bf16 "

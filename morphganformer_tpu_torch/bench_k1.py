@@ -26,21 +26,56 @@ kernel's own and the torch ops around it. Prints the compiler's register
 and spill report of the tree's kernels, one JSON line per shape, then the
 card and the sums; exits non-zero if a check fails or the tree's kernel is
 not faster than the earlier one at some shape. Needs a CUDA card.
+
+With --bf16, K1's bfloat16 adjoint (`mgt_modconv3x3_bwd_bf16`, on the
+tensor cores: `conv3x3_adj_tc_kernel`) against an earlier build of the same
+entry point, the bfloat16 instantiation of the float32 FMA template
+`conv3x3_lw_kernel`:
+
+    git show 705c474:morphganformer_tpu_torch/csrc/fused_conv.cu > build/k1_bf16_parent.cu
+    python -m morphganformer_tpu_torch.bench_k1 --bf16 build/k1_bf16_parent.cu
+
+Both form gd from g, y, resid and d in the kernel. It prints the compiler's
+register and spill lines of the new kernel and the HMMA count of each
+build's K1 kernels (cuobjdump -sass). At the four K1 call shapes of a
+1024^2 projection step at batch 1, on inputs made as chip_smoke.py's
+`check_bf16` makes them (seed 16), both builds are held against the float32
+plain version on the same bfloat16 inputs by its rule (error at most
+BF16_RATIO times the plain bfloat16 version's, or within BF16_FLOOR of the
+largest entry), dx, ds and the dd taps, the largest and the mean error
+each beside the plain version's. Then, in the order earlier, new, new,
+earlier: each build's bare bfloat16 launch on operands made once (CUDA
+events; the kernel alone), and the float32 adjoint (`mgt_modconv3x3_bwd`,
+whose kernel the new build keeps) of both builds on the same inputs in
+float32, its outputs bit-equal; the float32 forward of both builds,
+bit-equal; then the new wrapper `modconv3x3_adjoint`, the plain bfloat16
+version and cuDNN's bfloat16 call of the bare convolution of g with
+flip(w)^T; the kernel's own device time in one wrapper call under
+torch.profiler; the bf16 bound (g, x, y, resid, noise in, dx out, 2 bytes
+an element). Last, traced bfloat16 1024^2 projection steps (init:1024, one
+MSE step as chip_smoke.py traces it), earlier, new, new, earlier, the
+earlier route launching the earlier build's bf16 adjoint through the same
+wrapper: device ms, device ops, each kernel's device ms and the host ms of
+an untraced step. Exits non-zero if a check fails, if the new kernel has
+no HMMA, if a float32 output differs, or if the new bf16 launch is not
+faster than the earlier build's at some shape.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import math
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-from morphganformer_tpu_torch.bench_k3 import (PEAK_BYTES, PEAK_FP32_FLOPS, _call, _ptr,
+from morphganformer_tpu_torch.bench_k3 import (PEAK_BYTES, PEAK_FP32_FLOPS, _call, _errs, _ptr,
                                                _rel_err, _stream, cuda_ms, device_split,
                                                load_parent)
 from morphganformer_tpu_torch.ops import _build
@@ -267,5 +302,231 @@ def main(argv):
     return 1 if failed else 0
 
 
+TC_KERNEL = "conv3x3_adj_tc_kernel"
+_BF16_NAMES = ("mgt_modconv3x3_bwd_bf16", "mgt_modconv3x3_bwd", "mgt_modconv3x3_fwd",
+               "mgt_modconv3x3_fwd_bf16", "mgt_bwd_tiles", "mgt_conv3x3_fwd", "mgt_conv3x3_dx")
+K1_CALLS = ((256, 128, False), (512, 64, False), (1024, 32, False), (1024, 32, True))
+
+
+class Routed:
+    """The tree's kernel library with K1's bfloat16 adjoint (and its count
+    of partials) taken from an earlier build, which counts them by
+    mgt_bwd_tiles."""
+
+    def __init__(self, new, earlier):
+        self.new, self.earlier = new, earlier
+
+    def __getattr__(self, name):
+        if name == "mgt_modconv3x3_bwd_bf16":
+            return self.earlier.mgt_modconv3x3_bwd_bf16
+        if name == "mgt_bwd_tiles_bf16":
+            return self.earlier.mgt_bwd_tiles
+        return getattr(self.new, name)
+
+
+def bf16_adjoint_args(gen, res, c, last):
+    """K1's bfloat16 adjoint at one G call (conv1 or conv_last), batch 1,
+    made as chip_smoke.py's check_bf16 makes it: the arguments of
+    modconv3x3_adjoint."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    randn = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale  # noqa: E731
+    x = randn(1, res, res, c).to(bf)
+    s = torch.rand((1, c), generator=gen, device=dev) + 0.5
+    w = randn(3, 3, c, c, scale=1 / math.sqrt(9 * c))
+    noise = None if last else randn(res, res, scale=0.1)
+    bias = None if last else randn(c, scale=0.1)
+    resid = None if last else randn(1, res, res, c).to(bf)
+    gain, alpha = 1.0, (1.0 if last else 0.2)
+    y = fc.modconv3x3_plain(x, w, s, noise, bias, resid, gain, alpha, True)
+    g = randn(*y.shape).to(bf)
+    return (g, x, w, s, y, noise, bias, resid, gain, alpha, True)
+
+
+def bare_adjoint(lib, tiles, args, dt):
+    """A bare launch of `lib`'s K1 adjoint in type dt (bfloat16:
+    mgt_modconv3x3_bwd_bf16; float32: mgt_modconv3x3_bwd) on operands made
+    once, its partials counted by `tiles`: (launch, its outputs, the
+    tensors it points into, d)."""
+    g, x, w, s, y, noise, bias, resid, gain, alpha, demod = args
+    n, h, wd, o = g.shape
+    c = int(w.shape[2])
+    d = fc.demod_coef(w, s).contiguous()
+    gt, xt, yt, wt = (t.to(dt).contiguous() for t in (g, x, y, w))
+    rt, nz = (None if t is None else t.to(dt).contiguous() for t in (resid, noise))
+    outs = fc._adjoint_outputs(n, h, wd, c, o, tiles(h, wd, c), True, True, True, g.device, dt)
+    fn = "mgt_modconv3x3_bwd" + ("_bf16" if dt == torch.bfloat16 else "")
+    launch = functools.partial(_call, lib, fn, gt.data_ptr(), wt.data_ptr(), s.data_ptr(),
+                               d.data_ptr(), xt.data_ptr(), yt.data_ptr(), _ptr(rt), _ptr(nz),
+                               *(_ptr(t) for t in outs), n, h, wd, o, c, float(gain),
+                               float(alpha), 0, *_stream(g.device))
+    return launch, outs, (gt, xt, yt, rt, wt, nz), d
+
+
+def _closed(outs, args, d):
+    """(dx, ds, dd1, dd2) from a launch's outputs, summed and closed through
+    the demodulation as modconv3x3_adjoint closes them."""
+    w, s, bias = args[2], args[3], args[6]
+    dx, dot, dd1, dd2 = fc._summed(*outs)
+    return dx, fc._demod_chain(dot, fc._demod_de(dd1, dd2, d, bias), w, s), dd1, dd2
+
+
+def _with_library(lib, fn):
+    """fn() with the wrappers launching `lib`'s kernels."""
+    keep = fc._library
+    fc._library = lambda: lib
+    try:
+        return fn()
+    finally:
+        fc._library = keep
+
+
+def bf16_step_ab(libs):
+    """Traced bfloat16 1024^2 projection steps, earlier, new, new, earlier
+    (see the module's docstring)."""
+    from morphganformer_tpu_torch import cli
+    from morphganformer_tpu_torch.bench_dw import traced_run
+    from morphganformer_tpu_torch.losses import build_loss_stack
+    from morphganformer_tpu_torch.projection import ProjectionConfig, latent_stats, loss_and_grad
+
+    cfg, G = cli.get_model("init:1024", device="cuda", dtype="bfloat16")
+    G.requires_grad_(False)            # the latent's gradient alone, as a projection takes it
+    pcfg = ProjectionConfig(steps=100)
+    mean, std = latent_stats(cfg, torch.Generator().manual_seed(0), 10000)
+    latent = (mean[None] + torch.randn((1, cfg.k, cfg.z_dim),
+                                       generator=torch.Generator().manual_seed(1))
+              * std * pcfg.noise).cuda()
+    with torch.no_grad():
+        target = cli.synthesize(G, torch.randn((1, cfg.k, cfg.z_dim),
+                                               generator=torch.Generator().manual_seed(2)))
+    loss_fn = build_loss_stack({"mse": 1.0})
+    kernels = (TC_KERNEL, KERNEL, "upconv2_tc_kernel", "downconv2_tc_kernel")
+    step = lambda: loss_and_grad(G, latent, target, loss_fn, pcfg)  # noqa: E731
+    rows = []
+    for name in ("earlier", "new", "new", "earlier"):
+        def one():
+            step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, traced_run(step, kernels)[2]
+        host_ms, out = _with_library(libs[name], one)
+        row = dict(route=name, step_ms=host_ms, window_ms=out["window_ms"],
+                   busy_ms=out["busy_ms"], device_ops=out["launches"], kernels=out["kernels"])
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def bf16_main(parent_source):
+    """`--bf16`: see the module's docstring."""
+    from morphganformer_tpu_torch.bench_k2 import BF16_FLOOR, BF16_RATIO, PEAK_BF16_FLOPS
+    from morphganformer_tpu_torch.bench_k2 import hmma_counts
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    name = "libmgt_k1_bf16_parent.so"
+    parent = load_parent(Path(parent_source), {k: _build._SIGNATURES[k] for k in _BF16_NAMES},
+                         name)
+    _, build_s, log = _build.build()
+    new = _build.library()
+    lines = ptxas_report(log)
+    print(json.dumps({"build_s": build_s, "ptxas": [
+        line for i, line in enumerate(lines)
+        if any(TC_KERNEL in lines[j] for j in range(max(0, i - 2), i + 1))]}), flush=True)
+    hmma = {"new": hmma_counts(_build.library_path(), "conv3x3"),
+            "earlier": hmma_counts(_build.BUILD_DIR / name, "conv3x3")}
+    new_hmma = sum(v for k, v in hmma["new"].items() if TC_KERNEL in k)
+    print(json.dumps({"hmma": hmma, "new_kernel_hmma": new_hmma}), flush=True)
+    failed = [] if new_hmma > 0 else [f"no HMMA in {TC_KERNEL}"]
+    tiles = {"new": new.mgt_bwd_tiles_bf16, "earlier": parent.mgt_bwd_tiles}
+    libs = {"new": new, "earlier": Routed(new, parent)}
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    bf, f32 = torch.bfloat16, torch.float32
+    rows = []
+    for res, c, last in K1_CALLS:
+        args = bf16_adjoint_args(gen, res, c, last)
+        g, x, w, s, y, noise, bias, resid = args[:8]
+        where = f"G b{res} {'conv_last' if last else 'conv1'}"
+        row = dict(role="K1-adjoint bf16", block=f"G b{res}",
+                   layer="conv_last" if last else "conv1", batch=1)
+        lib_of = {"new": new, "earlier": parent}
+        launch = {(k, dt): bare_adjoint(lib_of[k], tiles[k] if dt == bf else
+                                        parent.mgt_bwd_tiles, args, dt)
+                  for k in ("earlier", "new") for dt in (bf, f32)}
+        for v in launch.values():
+            v[0]()
+        plain = fc.modconv3x3_adjoint_plain(*args)
+        wide = tuple(a.float() if isinstance(a, torch.Tensor) and a.dtype == bf else a
+                     for a in args)
+        ref = fc.modconv3x3_adjoint_plain(*wide)
+        wrapper = fc.modconv3x3_adjoint(*args)
+        fwd = (x.float(), w, s, noise, bias, None if resid is None else resid.float(), *args[8:])
+        fwd_out = {k: _with_library(lib_of[k], lambda: fc.fused_modconv3x3(*fwd))
+                   for k in ("earlier", "new")}
+        torch.cuda.synchronize()
+        got = {k: _closed(launch[k, bf][1], args, launch[k, bf][3]) for k in ("earlier", "new")}
+        ep = _errs(plain, ref)
+        for k in ("earlier", "new"):
+            row[f"err_{k}"], row[f"err_mean_{k}"] = _errs(got[k], ref)
+        row["err_plain"], row["err_mean_plain"] = ep
+        row["err_ratio"] = row["err_new"] / max(ep[0], 1e-30)
+        row["err_mean_ratio"] = row["err_mean_new"] / max(ep[1], 1e-30)
+        row["wrapper_equals_bare"] = bool(torch.equal(wrapper[0], got["new"][0]))
+        row["f32_equal"] = all(
+            bool(torch.equal(a, b)) for a, b in zip(launch["earlier", f32][1],
+                                                    launch["new", f32][1]))
+        row["f32_forward_equal"] = bool(torch.equal(fwd_out["earlier"], fwd_out["new"]))
+        t = {}
+        for k in ("earlier", "new", "new", "earlier"):
+            t.setdefault(k, []).append(cuda_ms(launch[k, bf][0], reps=20))
+            t.setdefault(f"f32_{k}", []).append(cuda_ms(launch[k, f32][0], reps=20))
+        g_nchw = g.permute(0, 3, 1, 2)
+        w_lib = fc.modconv3x3_adjoint_weights(w).permute(3, 2, 0, 1).to(bf).contiguous()
+        for k, run in (("wrapper", lambda: fc.modconv3x3_adjoint(*args)),
+                       ("plain", lambda: fc.modconv3x3_adjoint_plain(*args)),
+                       ("library", lambda: F.conv2d(g_nchw, w_lib, padding=1))):
+            t[k] = [cuda_ms(run)]
+        own, _ = device_split(lambda: fc.modconv3x3_adjoint(*args), TC_KERNEL)
+        flops = 2 * res * res * 9 * c * c + 2 * res * res * c + 4 * res * res * c
+        elements = sum(t_.numel() for t_ in (g, x, y, resid, noise) if t_ is not None) + x.numel()
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, 2 * elements / PEAK_BYTES
+        row.update({f"{k}_ms": sum(v) / len(v) for k, v in t.items()},
+                   new_ms_runs=t["new"], earlier_ms_runs=t["earlier"],
+                   f32_new_ms_runs=t["f32_new"], f32_earlier_ms_runs=t["f32_earlier"],
+                   new_kernel_device_ms=own, bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        row["speedup"] = row["earlier_ms"] / row["new_ms"]
+        row["bound_share"] = row["bound_ms"] / row["new_ms"]
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        tol = max(BF16_RATIO * ep[0], BF16_FLOOR)
+        for k in ("err_new", "err_earlier"):
+            if not row[k] <= tol:
+                failed.append(f"{where} {k} {row[k]} > {tol}")
+        for k, what in (("wrapper_equals_bare", "the wrapper's dx differs from the bare launch's"),
+                        ("f32_equal", "the float32 adjoint differs between the builds"),
+                        ("f32_forward_equal", "the float32 forward differs between the builds")):
+            if not row[k]:
+                failed.append(f"{where}: {what}")
+        if not max(t["new"]) < min(t["earlier"]):
+            failed.append(f"{where}: new {t['new']} not faster than earlier {t['earlier']}")
+    print(smi, flush=True)
+    sums = {k: sum(r[k] for r in rows)
+            for k in ("new_ms", "earlier_ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
+                      "new_kernel_device_ms", "f32_new_ms", "f32_earlier_ms")}
+    print(json.dumps({"sums": sums, "failed": failed}), flush=True)
+    step = bf16_step_ab(libs)
+    print(smi, flush=True)
+    print(json.dumps({"step": {r: {k: sum(x[k] for x in step if x["route"] == r) / 2
+                                   for k in ("step_ms", "busy_ms", "device_ops")}
+                               for r in ("earlier", "new")}}), flush=True)
+    return 1 if failed else 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--bf16" and torch.cuda.is_available():
+        sys.exit(bf16_main(sys.argv[2]))
     sys.exit(main(sys.argv))

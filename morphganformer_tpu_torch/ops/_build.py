@@ -42,6 +42,8 @@ _SIGNATURES = {
     "mgt_downconv2_tiles": [_I, _I],
     # H, W, C of dx -> the number of spatial blocks of a K1 adjoint launch
     "mgt_bwd_tiles": [_I, _I, _I],
+    # H, W, C of dx -> the number of tiles of a bfloat16 K1 adjoint launch
+    "mgt_bwd_tiles_bf16": [_I, _I, _I],
     # g, w, s, d, x, y, resid, noise, dx, dot, dd1, dd2, N, H, W, O, C, gain, alpha,
     # noise_ns, device, stream
     "mgt_modconv3x3_bwd": [_P] * 12 + [_I] * 5 + [_F, _F, _I, _I, _P],

@@ -71,8 +71,9 @@ weights composed with the FIR in float32 and then rounded on the plain
 route, the small weight rounded in the kernels), sum in float32, run the
 epilogue and the ds/dd taps in float32 (d, bias, the adjoints' scale s)
 and round the output once; the adjoints form gd = g * mask * d in bfloat16
-inside their kernels (K3's on the tensor cores, `downconv2_tc_kernel`, as
-K2's bfloat16 forward, `upconv2_tc_kernel`).
+inside their kernels (K1's and K3's on the tensor cores,
+`conv3x3_adj_tc_kernel` and `downconv2_tc_kernel`, as K2's bfloat16
+forward, `upconv2_tc_kernel`).
 A bfloat16 tensor on a card launches the `_bf16` entry points or raises;
 the D-tower roles and the dw kernels take float32 only (training runs in
 float32).
@@ -822,18 +823,20 @@ def _summed(dx, dot, dd1, dd2):
 
 def _k1_adjoint_launch(g, w, styles, d, x, y, resid, noise, gain, alpha, need_dx, need_ds,
                        need_dd):
-    """One launch of K1's adjoint (`mgt_modconv3x3_bwd`): the kernel forms gd
-    = g * mask(y - resid) * d itself (no scale without d) and reads
-    flip(w)^T from w by index, so no elementwise pass over g, y or resid
-    runs here. g [N,H,W,O]; w [3,3,C,O]; x [N,H,W,C] for the ds dot
-    (need_ds). Returns (dx, dot, dd1, dd2), the per-block partials summed
-    here in a fixed order; None where not asked."""
+    """One launch of K1's adjoint: the kernel forms gd = g * mask(y - resid)
+    * d itself (no scale without d) and reads flip(w)^T from w by index,
+    so no elementwise pass over g, y or resid runs here. In float32
+    `mgt_modconv3x3_bwd` (conv3x3_lw_kernel), in bfloat16
+    `mgt_modconv3x3_bwd_bf16` (conv3x3_adj_tc_kernel, on the tensor cores),
+    each with its own count of partials. g [N,H,W,O]; w [3,3,C,O]; x
+    [N,H,W,C] for the ds dot (need_ds). Returns (dx, dot, dd1, dd2), the
+    per-block partials summed here in a fixed order; None where not asked."""
     n, h, wd, o = g.shape
     c = w.shape[2]
     dev, dt = g.device, _kernel_dtype(g, "g")
     k1_widths(c, o)
-    outs = _adjoint_outputs(n, h, wd, c, o, _library().mgt_bwd_tiles(h, wd, c), need_dx,
-                            need_ds, need_dd, dev, dt)
+    tiles = _library().mgt_bwd_tiles_bf16 if dt == torch.bfloat16 else _library().mgt_bwd_tiles
+    outs = _adjoint_outputs(n, h, wd, c, o, tiles(h, wd, c), need_dx, need_ds, need_dd, dev, dt)
     wc, nz = _as(w, dt), _as(noise if need_dd else None, dt)
     noise_p, noise_ns = _check_noise("noise", nz, n, h, wd, dev, dt)
     ptrs = [_aligned("g", _check("g", g, (n, h, wd, o), dev, dt)),

@@ -5,9 +5,11 @@ tiles and K1 at its 1024^2 call shapes, the dw taps of all three weight
 roles (K1's taps; the least-work dw of K3 and of the D down-conv, and no
 fold on their backwards), per-sample noise, K4 (forward and dx) with its
 route, generator forwards of configs whose blocks the gates send
-unfused, and the bfloat16 kernels (K2's forward and K3's adjoint on the
-tensor cores also at sizes off their tiles and at single pixels on every
-edge; K3's also at its six 1024^2 call shapes, gd formed in the kernel).
+unfused, and the bfloat16 kernels (K2's forward and K1's and K3's
+adjoints on the tensor cores also at sizes off their tiles and at single
+pixels on every edge; the adjoints also at their 1024^2 call shapes, gd
+formed in the kernel), and the float32 K1 and K4 bit-equal to the build
+before K1's bfloat16 adjoint moved to the tensor cores.
 
 This file imports no JAX, so it runs on the GPU machine, where JAX is not
 installed; tests/conftest.py imports JAX, so run it there with
@@ -1228,3 +1230,226 @@ def test_bf16_k3_adjoint_refuses_mixed_types(cuda_device):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fc.upconv2_adjoint(g.half(), x.half(), w, s, f, y.half(), nz, b, gain, alpha, demod)
     assert dict(fc.launch_counts) == before
+
+
+# K1's bfloat16 adjoint on the tensor cores (conv3x3_adj_tc_kernel: 16 x 16
+# dx positions and 32 dx channels a tile for C <= 32, 8 x 16 and 64 for C <=
+# 64, 8 x 16 and 128 beyond, in channel groups of 128; 16 gd channels a
+# chunk; gd formed from g, y, resid and d in the kernel; flip(w)^T streamed
+# by chunk) at sizes off its tiles, then at the four call shapes of a 1024^2
+# step: (N, H, W, C, O, path). O 36, 68 and 100 take the 8-byte copies (and
+# a partial last chunk), C 68 the 128-channel tile, C 132 two channel
+# groups, O 120 and 100 many chunks. "conv1": styles, demodulation,
+# batch-shared noise, bias, resid, lrelu (dx, ds and the dd taps); "noise":
+# per-sample noise; "last": conv_last's form (no noise, bias or resid,
+# alpha 1); "nodemod": styles without demodulation (no dd taps); "dx": dx
+# alone.
+K1_BF16_ODD = [(2, 20, 37, 12, 8, "conv1"), (1, 17, 19, 20, 36, "conv1"),
+               (3, 9, 50, 36, 36, "noise"), (1, 33, 16, 4, 68, "conv1"),
+               (2, 11, 21, 68, 12, "conv1"), (1, 9, 17, 132, 20, "conv1"),
+               (1, 13, 18, 20, 120, "last"), (1, 10, 30, 48, 100, "nodemod"),
+               (2, 7, 40, 40, 8, "dx")]
+K1_BF16_CALLS = [(1, 256, 256, 128, 128, "conv1"), (1, 512, 512, 64, 64, "conv1"),
+                 (1, 1024, 1024, 32, 32, "conv1"), (1, 1024, 1024, 32, 32, "last")]
+
+
+def _k1_bf16_args(rng, dev, n, h, w, c, o, path):
+    """The adjoint's arguments (g, x, w, styles, y, noise, bias, resid, gain,
+    alpha, demod, need_dx, need_ds): y the plain bf16 forward."""
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+
+    last = path == "last"
+    x = rand(n, h, w, c).bfloat16()
+    wt = rand(3, 3, c, o, scale=1 / math.sqrt(9 * c))
+    s = torch.from_numpy((rng.rand(n, c) + 0.5).astype(np.float32)).to(dev)
+    nz = None
+    if path in ("conv1", "noise", "nodemod"):
+        nz = rand(*((n,) if path == "noise" else ()), h, w, scale=0.1)
+    b = None if last else rand(o, scale=0.1)
+    r = None if last else rand(n, h, w, o).bfloat16()
+    gain, alpha = (1.0, 1.0) if last else (math.sqrt(2), 0.2)
+    demod = path != "nodemod"
+    y = fc.modconv3x3_plain(x, wt, s, nz, b, r, gain, alpha, demod)
+    g = rand(n, h, w, o).bfloat16()
+    return (g, x, wt, s, y, nz, b, r, gain, alpha, demod, True, path != "dx")
+
+
+def _k1_bf16_check(args):
+    before = dict(fc.launch_counts)
+    got = fc.modconv3x3_adjoint(*args)
+    assert fc.launch_counts["modconv3x3_adj_bf16"] == before["modconv3x3_adj_bf16"] + 1
+    assert fc.launch_counts["modconv3x3_adj"] == before["modconv3x3_adj"]
+    assert got[0].dtype == torch.bfloat16 and torch.isfinite(got[0]).all()
+    want = fc.modconv3x3_adjoint_plain(*args)
+    assert [t is None for t in got] == [t is None for t in want]
+    _bf16_close(got, want, fc.modconv3x3_adjoint_plain(*_widen(args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,o,path", K1_BF16_ODD)
+def test_bf16_k1_tensor_core_adjoint_at_odd_sizes(cuda_device, n, h, w, c, o, path):
+    """One bf16 launch per call; dx, ds and the dd taps within the bf16 rule
+    of the float32 plain version on the same inputs."""
+    _k1_bf16_check(_k1_bf16_args(np.random.RandomState(34), cuda_device, n, h, w, c, o, path))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,o,path", K1_BF16_CALLS)
+def test_bf16_k1_tensor_core_adjoint_at_the_1024_call_shapes(cuda_device, n, h, w, c, o, path):
+    _k1_bf16_check(_k1_bf16_args(np.random.RandomState(35), cuda_device, n, h, w, c, o, path))
+
+
+def _k1_tc_edge_pixels(hh, ww, th):
+    """Corners, edge midpoints and the centre, and the pixels on both sides
+    of conv3x3_adj_tc_kernel's inner tile edges (rows th - 1 | th and 2 th -
+    1 | 2 th, columns 15 | 16 and 31 | 32)."""
+    return [(0, 0), (0, ww - 1), (hh - 1, 0), (hh - 1, ww - 1), (0, ww // 2), (hh - 1, ww // 2),
+            (hh // 2, 0), (hh // 2, ww - 1), (hh // 2, ww // 2), (th - 1, 15), (th, 16),
+            (th - 1, 16), (th, 15), (2 * th - 1, 31), (2 * th, 32), (th, ww - 1), (hh - 1, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,o", [(20, 36), (36, 24), (68, 16)])
+def test_bf16_k1_tensor_core_adjoint_single_pixels(cuda_device, c, o):
+    """One nonzero g pixel at a time on a 2 th + 3 x 37 image (three tiles
+    down, three across; th the tile's rows), no mask, styles or
+    demodulation: dx is flip(w)^T around that pixel, which pins each tap's
+    row offset and the halo at the tile edges; the nonzero entries land
+    where the plain version's do, within the bf16 rule of the float32 plain
+    version."""
+    dev = cuda_device
+    rng = np.random.RandomState(36)
+    th = 16 if c <= 32 else 8
+    h, w = 2 * th + 3, 37
+    wt = torch.from_numpy(rng.randn(3, 3, c, o).astype(np.float32)).to(dev)
+    x = torch.zeros(1, h, w, c, device=dev, dtype=torch.bfloat16)
+    y = torch.ones(1, h, w, o, device=dev, dtype=torch.bfloat16)
+    for py, px in _k1_tc_edge_pixels(h, w, th):
+        g = torch.zeros(1, h, w, o, device=dev)
+        g[0, py, px] = torch.from_numpy(rng.randn(o).astype(np.float32)).to(dev)
+        args = (g.bfloat16(), x, wt, None, y, None, None, None, 1.0, 1.0, False, True, False)
+        got = fc.modconv3x3_adjoint(*args)
+        want = fc.modconv3x3_adjoint_plain(*args)
+        assert bool(((got[0] != 0) == (want[0] != 0)).all()), (py, px)
+        _bf16_close(got, want, fc.modconv3x3_adjoint_plain(*_widen(args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [20, 36])
+def test_bf16_k1_tensor_core_adjoint_mask_at_exact_zeros(cuda_device, c):
+    """y - resid exactly +0 (y equal to resid) and -0 (y -0, resid +0) at a
+    third of the pixels each: the kernel's mask from the bits takes both as
+    y >= 0, as JAX's `where(y >= 0)` and the plain version do, so dx, ds
+    and the dd taps hold to the bf16 rule."""
+    rng = np.random.RandomState(40)
+    g, x, w, s, y, nz, b, r, gain, alpha, demod, _, _ = _k1_bf16_args(
+        rng, cuda_device, 1, 19, 21, c, 12, "conv1")
+    pick = torch.from_numpy(rng.randint(0, 3, size=tuple(y.shape))).to(cuda_device)
+    r = torch.where(pick == 2, torch.zeros_like(r), r)
+    y = torch.where(pick == 1, r, torch.where(pick == 2, torch.full_like(y, -0.0), y))
+    _k1_bf16_check((g, x, w, s, y, nz, b, r, gain, alpha, demod, True, True))
+
+
+@pytest.mark.cuda
+def test_bf16_k1_adjoint_forms_gd_in_the_kernel(cuda_device):
+    """On the projection path (dx and ds of conv1 with resid, no weight,
+    noise or bias gradients) K1's bf16 backward dispatches no torch op over
+    a tensor of the output's size but allocations: gd, the mask and y -
+    resid are the kernel's."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    g, x, w, s, _, nz, b, r, gain, alpha, demod, _, _ = _k1_bf16_args(
+        np.random.RandomState(37), cuda_device, 1, 128, 128, 64, 64, "conv1")
+    xi, si, ri = x.clone().requires_grad_(), s.clone().requires_grad_(), r.clone().requires_grad_()
+    out = fc.fused_modconv3x3(xi, w, si, nz, b, ri, gain, alpha, demod)
+    big = []
+
+    class Spy(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            res = func(*args, **(kwargs or {}))
+            seen = [t for t in (*args, *(kwargs or {}).values(),
+                                *(res if isinstance(res, (tuple, list)) else (res,)))
+                    if isinstance(t, torch.Tensor)]
+            if not func.__name__.startswith(("empty", "detach", "alias", "view")) and \
+                    any(t.numel() >= out.numel() for t in seen):
+                big.append(func.__name__)
+            return res
+
+    before = fc.launch_counts["modconv3x3_adj_bf16"]
+    with Spy():
+        grads = torch.autograd.grad(out, [xi, si, ri], g)
+    assert fc.launch_counts["modconv3x3_adj_bf16"] == before + 1
+    assert big == [], big
+    args = (g, x, w, s, out.detach(), nz, b, r, gain, alpha, demod)
+    _bf16_close(grads[:2], fc.modconv3x3_adjoint_plain(*args)[:2],
+                fc.modconv3x3_adjoint_plain(*_widen(args))[:2])
+
+
+@pytest.mark.cuda
+def test_bf16_k1_adjoint_refuses_mixed_types(cuda_device):
+    """g, y, resid and x in bfloat16 together or not at all: a float32 y,
+    resid or x with a bfloat16 g raises before any launch, and a float16 g
+    is refused."""
+    g, x, w, s, y, nz, b, r, gain, alpha, demod, _, _ = _k1_bf16_args(
+        np.random.RandomState(38), cuda_device, 1, 8, 16, 16, 8, "conv1")
+    before = dict(fc.launch_counts)
+    with pytest.raises(TypeError, match="y"):
+        fc.modconv3x3_adjoint(g, x, w, s, y.float(), nz, b, r, gain, alpha, demod)
+    with pytest.raises(TypeError, match="resid"):
+        fc.modconv3x3_adjoint(g, x, w, s, y, nz, b, r.float(), gain, alpha, demod)
+    with pytest.raises(TypeError, match="x"):
+        fc.modconv3x3_adjoint(g, x.float(), w, s, y, nz, b, r, gain, alpha, demod)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fc.modconv3x3_adjoint(g.half(), x.half(), w, s, y.half(), nz, b, r.half(), gain, alpha,
+                              demod)
+    assert dict(fc.launch_counts) == before
+
+
+@pytest.mark.cuda
+def test_float32_k1_and_k4_bit_equal_to_the_build_before_the_tc_adjoint(cuda_device,
+                                                                        monkeypatch):
+    """The float32 K1 forward and adjoint and K4's forward and dx give the
+    same bits as a build of fused_conv.cu from before conv3x3_adj_tc_kernel
+    took the bfloat16 adjoint (commit 705c474; the float32 path of
+    conv3x3_lw_kernel is unchanged): `git show
+    705c474:morphganformer_tpu_torch/csrc/fused_conv.cu >
+    build/k1_bf16_parent.cu`, or MGT_K1_PARENT_SOURCE names the file."""
+    import os
+    from pathlib import Path
+
+    from morphganformer_tpu_torch.bench_k3 import load_parent
+    from morphganformer_tpu_torch.ops import _build
+
+    default = Path(__file__).resolve().parent.parent / "build" / "k1_bf16_parent.cu"
+    src = Path(os.environ.get("MGT_K1_PARENT_SOURCE", default))
+    if not src.exists():
+        pytest.skip(f"needs the earlier source at {src}")
+    names = ("mgt_modconv3x3_fwd", "mgt_modconv3x3_bwd", "mgt_bwd_tiles", "mgt_conv3x3_fwd",
+             "mgt_conv3x3_dx")
+    parent = load_parent(src, {k: _build._SIGNATURES[k] for k in names},
+                         "libmgt_k1_bf16_parent_test.so")
+    dev = cuda_device
+    rng = np.random.RandomState(39)
+    cases = []
+    for res, c, last in ((64, 64, False), (48, 32, True), (40, 128, False), (33, 36, False)):
+        x, w, s, nz, b, r, gain, alpha = _k1_call(rng, dev, 2, res, c, c, last)
+        g = torch.from_numpy(rng.randn(2, res, res, c).astype(np.float32)).to(dev)
+        cases.append((x, w, s, nz, b, r, gain, alpha, g))
+
+    def run():
+        outs = []
+        for x, w, s, nz, b, r, gain, alpha, g in cases:
+            y = fc.fused_modconv3x3(x, w, s, nz, b, r, gain, alpha, True)
+            adj = fc.modconv3x3_adjoint(g, x, w, s, y, nz, b, r, gain, alpha, True)
+            outs += [y, *[t for t in adj if t is not None], k4.conv3x3_forward(x, w),
+                     k4.conv3x3_dx(g, w)]
+        torch.cuda.synchronize()
+        return outs
+
+    new = run()
+    monkeypatch.setattr(fc, "_library", lambda: parent)
+    old = run()
+    assert len(new) == len(old) == 4 * 7
+    for i, (a, e) in enumerate(zip(new, old)):
+        assert torch.equal(a, e), i
