@@ -39,9 +39,9 @@ Phases, each printing its wall time:
               launch counts; pair-steps/s.
   7. bf16     the synthesis path in bfloat16 (JAX's default for project,
               morph and demorph): the four bfloat16 roles (K1, K2, K1's
-              adjoint launch, K3's adjoint; the `_bf16` entry points, K2's
-              and both adjoints on the tensor cores, the adjoints forming
-              gd in the kernel)
+              adjoint launch, K3's adjoint; the `_bf16` entry points, each
+              a kernel on the tensor cores, K1's and K2's forming x * s and
+              the adjoints gd in the kernel)
               at the 10 call shapes, the kernel's own
               device time under torch.profiler beside the wrapper's, the
               kernel and the plain bfloat16 version each
@@ -56,9 +56,11 @@ Phases, each printing its wall time:
               plain versions against the float32 forward (the kernels' mean
               and max error at most 1.5 times the plain ones'), forward
               times and peak memory at batch 1 and 2 in both types, one
-              traced bfloat16 forward and one traced bfloat16 projection
-              step (device ms, device ops, exactly 4 launches of K1's
-              adjoint kernel and 6 of K3's); a 100-step projection (exact
+              traced bfloat16 forward (exactly 4 launches of K1's forward
+              kernel, none of conv3x3_lw_kernel) and one traced bfloat16
+              projection step (device ms, device ops, exactly 4 launches of
+              K1's forward kernel, 4 of K1's adjoint kernel and 6 of K3's,
+              none of conv3x3_lw_kernel); a 100-step projection (exact
               launches, the loss descending, steps/s and peak memory beside
               phase project's float32 ones); step 0's latent gradient on the
               kernels and on the plain route against float32's (the same
@@ -190,9 +192,9 @@ K3_DW_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:1387"
 K2_DW_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:1225"
 K4_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:74"
 SOURCE = "morphganformer_tpu_torch/csrc/fused_conv.cu"
-HAND_WRITTEN = ("conv3x3_lw_kernel", "conv3x3_adj_tc_kernel", "upconv2_lw_kernel",
-                "upconv2_tc_kernel", "downconv2_lw_kernel", "downconv2_tc_kernel",
-                "conv_dw_lw_kernel", "fir_dw_kernel")
+HAND_WRITTEN = ("conv3x3_lw_kernel", "conv3x3_fwd_tc_kernel", "conv3x3_adj_tc_kernel",
+                "upconv2_lw_kernel", "upconv2_tc_kernel", "downconv2_lw_kernel",
+                "downconv2_tc_kernel", "conv_dw_lw_kernel", "fir_dw_kernel")
 PROJECT_STEPS = 100
 MORPH_STEPS = 50
 DEMORPH_STEPS = 5
@@ -729,7 +731,11 @@ def bf16_phase(torch, fc, cli, G, target_png, png_a, png_b, tmp):
             print(f"  forward {dt} batch {b}: {ms:.3f} ms, {1e3 * b / ms:.3f} imgs/s, peak "
                   f"{peak:.3f} GiB", flush=True)
     out["forward"] = rates
-    traced_forward(torch, lambda: cli.synthesize(Gb, z[:1].cuda()), "bfloat16 forward batch 1")
+    fwd = traced_forward(torch, lambda: cli.synthesize(Gb, z[:1].cuda()),
+                         "bfloat16 forward batch 1")
+    assert fwd["kernels"].get("conv3x3_fwd_tc_kernel", (0, 0))[1] == 4, fwd["kernels"]
+    assert "conv3x3_lw_kernel" not in fwd["kernels"], fwd["kernels"]
+    out["traced_forward"] = {k: fwd[k] for k in ("window_ms", "busy_ms", "device_ops")}
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -778,6 +784,8 @@ def bf16_phase(torch, fc, cli, G, target_png, png_a, png_b, tmp):
     assert dict(fc.launch_counts) == _per_step(1, 0, bf16=True), fc.launch_counts
     assert step["kernels"].get("downconv2_tc_kernel", (0, 0))[1] == 6, step["kernels"]
     assert step["kernels"].get("conv3x3_adj_tc_kernel", (0, 0))[1] == 4, step["kernels"]
+    assert step["kernels"].get("conv3x3_fwd_tc_kernel", (0, 0))[1] == 4, step["kernels"]
+    assert "conv3x3_lw_kernel" not in step["kernels"], step["kernels"]
     out["traced_step"] = {k: step[k] for k in ("window_ms", "busy_ms", "device_ops")}
 
     torch.cuda.synchronize()
@@ -862,7 +870,7 @@ TRAIN_KEYS = {"K3-forward": "downconv2", "K2-use_dw": "downconv2_adj",
               "K2-use_dw-dw": "downconv2_dw", "K1-dw": "modconv3x3_dw", "K3-dw": "upconv2_dw"}
 K4_KEYS = ("conv3x3", "conv3x3_adj")
 # The kernel each bfloat16 role launches (its name in a profiler trace).
-BF16_KERNELS = {"modconv3x3": "conv3x3_lw_kernel", "upconv2": "upconv2_tc_kernel",
+BF16_KERNELS = {"modconv3x3": "conv3x3_fwd_tc_kernel", "upconv2": "upconv2_tc_kernel",
                 "modconv3x3_adj": "conv3x3_adj_tc_kernel", "upconv2_adj": "downconv2_tc_kernel"}
 # The bfloat16 instantiations' launch counts, by their float32 role's key.
 BF16_KEYS = {"modconv3x3": "modconv3x3_bf16", "upconv2": "upconv2_bf16",
@@ -2536,8 +2544,11 @@ def main():
         })
     for kernel, name, replaces, key in (
             ("K1 bf16", "fused_modconv3x3 on bfloat16 x (mgt_modconv3x3_fwd_bf16: "
-             "conv3x3_lw_kernel, x * s rounded to bfloat16 at staging)", K1_REPLACES,
-             "modconv3x3"),
+             "conv3x3_fwd_tc_kernel, an implicit GEMM of x * s against w on bf16 mma.sync "
+             "with float32 accumulators, x * s rounded in shared memory by the thread that "
+             "copied it, a tap a shifted row address into the staged tile, the weight "
+             "fragments by ldmatrix.trans, the epilogue on the accumulators and y stored "
+             "through stmatrix; persistent blocks)", K1_REPLACES, "modconv3x3"),
             ("K2 bf16", "fused_upconv2 on bfloat16 x (mgt_upconv2_fwd_bf16: upconv2_tc_kernel, "
              "each Z class an implicit GEMM on bf16 mma.sync with float32 accumulators, bf16 "
              "tiles staged by cp.async, x * s rounded in shared memory; the FIR and the "

@@ -53,12 +53,39 @@ version and cuDNN's bfloat16 call of the bare convolution of g with
 flip(w)^T; the kernel's own device time in one wrapper call under
 torch.profiler; the bf16 bound (g, x, y, resid, noise in, dx out, 2 bytes
 an element). Last, traced bfloat16 1024^2 projection steps (init:1024, one
-MSE step as chip_smoke.py traces it), earlier, new, new, earlier, the
-earlier route launching the earlier build's bf16 adjoint through the same
-wrapper: device ms, device ops, each kernel's device ms and the host ms of
-an untraced step. Exits non-zero if a check fails, if the new kernel has
+MSE step as chip_smoke.py traces it), each followed by a traced bfloat16
+forward at batch 1, earlier, new, new, earlier, the earlier route
+launching the earlier build's bf16 adjoint through the same wrapper:
+device ms, device ops, each kernel's device ms and the host ms of an
+untraced call. Exits non-zero if a check fails, if the new kernel has
 no HMMA, if a float32 output differs, or if the new bf16 launch is not
 faster than the earlier build's at some shape.
+
+With --bf16-fwd, K1's bfloat16 forward (`mgt_modconv3x3_fwd_bf16`, on the
+tensor cores: `conv3x3_fwd_tc_kernel`) against an earlier build of the same
+entry point, the bfloat16 instantiation of `conv3x3_lw_kernel`:
+
+    git show 32aa084:morphganformer_tpu_torch/csrc/fused_conv.cu > build/k1_fwd_bf16_parent.cu
+    python -m morphganformer_tpu_torch.bench_k1 --bf16-fwd build/k1_fwd_bf16_parent.cu
+
+Both builds are compiled at once. It prints the compiler's register and
+spill lines of the new kernel and the HMMA count of each build's K1
+kernels. At the four K1 call shapes of a 1024^2 projection step at batch
+1, on inputs made as chip_smoke.py's `check_bf16` makes them (seed 16),
+each build's bare bfloat16 launch is held against the float32 plain
+version on the same bfloat16 inputs by its rule, the largest and the mean
+error beside the plain bfloat16 version's; the float32 K1 forward and
+adjoint and K4's forward and dx of both builds, on the same float32
+inputs, are bit-equal. Then, in the order earlier, new, new, earlier, each
+build's bare launch (CUDA events); the new wrapper `fused_modconv3x3`, the
+plain bfloat16 version and cuDNN's bfloat16 call of the bare convolution;
+the kernel's own device time in one wrapper call under torch.profiler; the
+bf16 bound (x, w, noise, resid in, y out, 2 bytes an element). Last,
+traced bfloat16 1024^2 projection steps and forwards at batch 1, earlier,
+new, new, earlier, the earlier route launching the earlier build's bf16
+forward through the same wrapper. Exits non-zero if a check fails, if the
+new kernel has no HMMA, if a float32 output differs, or if the new bf16
+launch is not faster than the earlier build's at some shape.
 """
 
 from __future__ import annotations
@@ -309,25 +336,24 @@ K1_CALLS = ((256, 128, False), (512, 64, False), (1024, 32, False), (1024, 32, T
 
 
 class Routed:
-    """The tree's kernel library with K1's bfloat16 adjoint (and its count
-    of partials) taken from an earlier build, which counts them by
-    mgt_bwd_tiles."""
+    """The tree's kernel library with some entry points taken from an
+    earlier build: `routes` maps each such name to the earlier build's
+    function (K1's bfloat16 adjoint and its count of partials, which that
+    build counts by mgt_bwd_tiles; or K1's bfloat16 forward)."""
 
-    def __init__(self, new, earlier):
-        self.new, self.earlier = new, earlier
+    def __init__(self, new, earlier, routes):
+        self.new, self.earlier, self.routes = new, earlier, routes
 
     def __getattr__(self, name):
-        if name == "mgt_modconv3x3_bwd_bf16":
-            return self.earlier.mgt_modconv3x3_bwd_bf16
-        if name == "mgt_bwd_tiles_bf16":
-            return self.earlier.mgt_bwd_tiles
+        if name in self.routes:
+            return getattr(self.earlier, self.routes[name])
         return getattr(self.new, name)
 
 
-def bf16_adjoint_args(gen, res, c, last):
-    """K1's bfloat16 adjoint at one G call (conv1 or conv_last), batch 1,
+def bf16_forward_args(gen, res, c, last):
+    """K1's bfloat16 forward at one G call (conv1 or conv_last), batch 1,
     made as chip_smoke.py's check_bf16 makes it: the arguments of
-    modconv3x3_adjoint."""
+    fused_modconv3x3."""
     dev, bf = torch.device("cuda"), torch.bfloat16
     randn = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale  # noqa: E731
     x = randn(1, res, res, c).to(bf)
@@ -337,9 +363,17 @@ def bf16_adjoint_args(gen, res, c, last):
     bias = None if last else randn(c, scale=0.1)
     resid = None if last else randn(1, res, res, c).to(bf)
     gain, alpha = 1.0, (1.0 if last else 0.2)
-    y = fc.modconv3x3_plain(x, w, s, noise, bias, resid, gain, alpha, True)
-    g = randn(*y.shape).to(bf)
-    return (g, x, w, s, y, noise, bias, resid, gain, alpha, True)
+    return (x, w, s, noise, bias, resid, gain, alpha, True)
+
+
+def bf16_adjoint_args(gen, res, c, last):
+    """K1's bfloat16 adjoint at one G call (conv1 or conv_last), batch 1,
+    made as chip_smoke.py's check_bf16 makes it: the arguments of
+    modconv3x3_adjoint, y the plain bfloat16 forward."""
+    fwd = bf16_forward_args(gen, res, c, last)
+    y = fc.modconv3x3_plain(*fwd)
+    g = torch.randn(y.shape, generator=gen, device=y.device).to(torch.bfloat16)
+    return (g, *fwd[:3], y, *fwd[3:])
 
 
 def bare_adjoint(lib, tiles, args, dt):
@@ -381,8 +415,9 @@ def _with_library(lib, fn):
 
 
 def bf16_step_ab(libs):
-    """Traced bfloat16 1024^2 projection steps, earlier, new, new, earlier
-    (see the module's docstring)."""
+    """Traced bfloat16 1024^2 projection steps, each followed by a traced
+    bfloat16 forward at batch 1 on the same route, earlier, new, new,
+    earlier (see the module's docstring)."""
     from morphganformer_tpu_torch import cli
     from morphganformer_tpu_torch.bench_dw import traced_run
     from morphganformer_tpu_torch.losses import build_loss_stack
@@ -399,22 +434,26 @@ def bf16_step_ab(libs):
         target = cli.synthesize(G, torch.randn((1, cfg.k, cfg.z_dim),
                                                generator=torch.Generator().manual_seed(2)))
     loss_fn = build_loss_stack({"mse": 1.0})
-    kernels = (TC_KERNEL, KERNEL, "upconv2_tc_kernel", "downconv2_tc_kernel")
-    step = lambda: loss_and_grad(G, latent, target, loss_fn, pcfg)  # noqa: E731
+    kernels = (TC_KERNEL, FWD_TC_KERNEL, KERNEL, "upconv2_tc_kernel", "downconv2_tc_kernel")
+    z = torch.randn((1, cfg.k, cfg.z_dim), generator=torch.Generator().manual_seed(3)).cuda()
+    runs = {"step": lambda: loss_and_grad(G, latent, target, loss_fn, pcfg),
+            "forward": lambda: cli.synthesize(G, z)}
     rows = []
     for name in ("earlier", "new", "new", "earlier"):
-        def one():
-            step()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) * 1e3, traced_run(step, kernels)[2]
-        host_ms, out = _with_library(libs[name], one)
-        row = dict(route=name, step_ms=host_ms, window_ms=out["window_ms"],
-                   busy_ms=out["busy_ms"], device_ops=out["launches"], kernels=out["kernels"])
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+        for what, run in runs.items():
+            def one():
+                run()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3, traced_run(run, kernels)[2]
+            host_ms, out = _with_library(libs[name], one)
+            row = dict(route=name, what=what, step_ms=host_ms, window_ms=out["window_ms"],
+                       busy_ms=out["busy_ms"], device_ops=out["launches"],
+                       kernels=out["kernels"])
+            print(json.dumps(row), flush=True)
+            rows.append(row)
     return rows
 
 
@@ -442,7 +481,9 @@ def bf16_main(parent_source):
     print(json.dumps({"hmma": hmma, "new_kernel_hmma": new_hmma}), flush=True)
     failed = [] if new_hmma > 0 else [f"no HMMA in {TC_KERNEL}"]
     tiles = {"new": new.mgt_bwd_tiles_bf16, "earlier": parent.mgt_bwd_tiles}
-    libs = {"new": new, "earlier": Routed(new, parent)}
+    libs = {"new": new, "earlier": Routed(new, parent, {
+        "mgt_modconv3x3_bwd_bf16": "mgt_modconv3x3_bwd_bf16",
+        "mgt_bwd_tiles_bf16": "mgt_bwd_tiles"})}
     gen = torch.Generator(device="cuda").manual_seed(16)
     bf, f32 = torch.bfloat16, torch.float32
     rows = []
@@ -518,15 +559,157 @@ def bf16_main(parent_source):
             for k in ("new_ms", "earlier_ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
                       "new_kernel_device_ms", "f32_new_ms", "f32_earlier_ms")}
     print(json.dumps({"sums": sums, "failed": failed}), flush=True)
-    step = bf16_step_ab(libs)
+    print_step_means(bf16_step_ab(libs), smi)
+    return 1 if failed else 0
+
+
+def print_step_means(rows, smi):
+    """The card, then the traced runs' means by route and kind."""
     print(smi, flush=True)
-    print(json.dumps({"step": {r: {k: sum(x[k] for x in step if x["route"] == r) / 2
-                                   for k in ("step_ms", "busy_ms", "device_ops")}
-                               for r in ("earlier", "new")}}), flush=True)
+    means = {}
+    for what in dict.fromkeys(r["what"] for r in rows):
+        for route in ("earlier", "new"):
+            mine = [r for r in rows if r["route"] == route and r["what"] == what]
+            means.setdefault(what, {})[route] = {
+                k: sum(r[k] for r in mine) / len(mine) for k in ("step_ms", "busy_ms",
+                                                                 "device_ops")}
+    print(json.dumps({"traced": means}), flush=True)
+
+
+FWD_TC_KERNEL = "conv3x3_fwd_tc_kernel"
+_BF16_FWD_NAMES = ("mgt_modconv3x3_fwd_bf16", "mgt_modconv3x3_fwd", "mgt_modconv3x3_bwd",
+                   "mgt_bwd_tiles", "mgt_conv3x3_fwd", "mgt_conv3x3_dx")
+
+
+def bare_forward(lib, args):
+    """A bare launch of `lib`'s `mgt_modconv3x3_fwd_bf16` on operands made
+    once, as `_modconv3x3_forward` makes them: (launch, y, the tensors it
+    points into)."""
+    x, w, s, noise, bias, resid, gain, alpha, demod = args
+    n, h, wd, c = x.shape
+    o = int(w.shape[-1])
+    bf = torch.bfloat16
+    d = fc.demod_coef(w, s).contiguous() if demod else None
+    wt, st, nz = (None if t is None else t.to(bf).contiguous() for t in (w, s, noise))
+    y = torch.empty((n, h, wd, o), device=x.device, dtype=bf)
+    launch = functools.partial(_call, lib, "mgt_modconv3x3_fwd_bf16", x.data_ptr(),
+                               wt.data_ptr(), _ptr(st), _ptr(d), _ptr(nz), _ptr(bias),
+                               _ptr(resid), y.data_ptr(), n, h, wd, c, o, float(gain),
+                               float(alpha), 0, *_stream(x.device))
+    return launch, y, (wt, st, nz, d)
+
+
+def bf16_fwd_main(parent_source):
+    """`--bf16-fwd`: see the module's docstring."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from morphganformer_tpu_torch.bench_k2 import BF16_FLOOR, BF16_RATIO, PEAK_BF16_FLOPS
+    from morphganformer_tpu_torch.bench_k2 import hmma_counts
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    name = "libmgt_k1_fwd_bf16_parent.so"
+    with ThreadPoolExecutor(1) as pool:   # both builds at once
+        earlier = pool.submit(load_parent, Path(parent_source),
+                              {k: _build._SIGNATURES[k] for k in _BF16_FWD_NAMES}, name)
+        _, build_s, log = _build.build()
+        parent = earlier.result()
+    new = _build.library()
+    lines = ptxas_report(log)
+    print(json.dumps({"build_s": build_s, "ptxas": [
+        line for i, line in enumerate(lines)
+        if any(FWD_TC_KERNEL in lines[j] for j in range(max(0, i - 2), i + 1))]}), flush=True)
+    hmma = {"new": hmma_counts(_build.library_path(), "conv3x3"),
+            "earlier": hmma_counts(_build.BUILD_DIR / name, "conv3x3")}
+    new_hmma = {k: v for k, v in hmma["new"].items() if FWD_TC_KERNEL in k}
+    print(json.dumps({"hmma": hmma, "new_kernel_hmma": new_hmma}), flush=True)
+    failed = [] if new_hmma and all(new_hmma.values()) else [f"no HMMA in {FWD_TC_KERNEL}"]
+    libs = {"new": new, "earlier": Routed(new, parent, {
+        "mgt_modconv3x3_fwd_bf16": "mgt_modconv3x3_fwd_bf16"})}
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    f32 = torch.float32
+    rows = []
+    for res, c, last in K1_CALLS:
+        args = bf16_forward_args(gen, res, c, last)
+        x, w, s, noise, bias, resid = args[:6]
+        where = f"G b{res} {'conv_last' if last else 'conv1'}"
+        row = dict(role="K1-forward bf16", block=f"G b{res}",
+                   layer="conv_last" if last else "conv1", batch=1)
+        lib_of = {"new": new, "earlier": parent}
+        launch = {k: bare_forward(lib_of[k], args) for k in ("earlier", "new")}
+        for v in launch.values():
+            v[0]()
+        plain = fc.modconv3x3_plain(*args)
+        wide = tuple(a.float() if isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16
+                     else a for a in args)
+        ref = fc.modconv3x3_plain(*wide)
+        wrapper = fc.fused_modconv3x3(*args)
+        # The float32 forward, adjoint and K4 of both builds on the same float32 inputs.
+        g = torch.randn(x.shape[:3] + (c,), generator=gen, device=x.device)
+        f32_out = {}
+        for k in ("earlier", "new"):
+            def f32_run():
+                y = fc.fused_modconv3x3(*wide)
+                adj = fc.modconv3x3_adjoint(g, *wide[:3], y, *wide[3:])
+                return [y, *[t for t in adj if t is not None], k4.conv3x3_forward(wide[0], w),
+                        k4.conv3x3_dx(g, w)]
+            f32_out[k] = _with_library(lib_of[k], f32_run)
+        torch.cuda.synchronize()
+        ep = _errs((plain,), (ref,))
+        for k in ("earlier", "new"):
+            row[f"err_{k}"], row[f"err_mean_{k}"] = _errs((launch[k][1],), (ref,))
+        row["err_plain"], row["err_mean_plain"] = ep
+        row["err_ratio"] = row["err_new"] / max(ep[0], 1e-30)
+        row["err_mean_ratio"] = row["err_mean_new"] / max(ep[1], 1e-30)
+        row["wrapper_equals_bare"] = bool(torch.equal(wrapper, launch["new"][1]))
+        row["f32_equal"] = all(bool(torch.equal(a, b))
+                               for a, b in zip(f32_out["earlier"], f32_out["new"]))
+        t = {}
+        for k in ("earlier", "new", "new", "earlier"):
+            t.setdefault(k, []).append(cuda_ms(launch[k][0], reps=20))
+        x_nchw = x.permute(0, 3, 1, 2)
+        w_lib = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+        for k, run in (("wrapper", lambda: fc.fused_modconv3x3(*args)),
+                       ("plain", lambda: fc.modconv3x3_plain(*args)),
+                       ("library", lambda: F.conv2d(x_nchw, w_lib, padding=1))):
+            t[k] = [cuda_ms(run)]
+        own, _ = device_split(lambda: fc.fused_modconv3x3(*args), FWD_TC_KERNEL)
+        flops = 2 * res * res * 9 * c * c
+        elements = sum(t_.numel() for t_ in (x, w, noise, resid) if t_ is not None) + x.numel()
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, 2 * elements / PEAK_BYTES
+        row.update({f"{k}_ms": sum(v) / len(v) for k, v in t.items()},
+                   new_ms_runs=t["new"], earlier_ms_runs=t["earlier"],
+                   new_kernel_device_ms=own, bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        row["speedup"] = row["earlier_ms"] / row["new_ms"]
+        row["bound_share"] = row["bound_ms"] / row["new_ms"]
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        tol = max(BF16_RATIO * ep[0], BF16_FLOOR)
+        for k in ("err_new", "err_earlier"):
+            if not row[k] <= tol:
+                failed.append(f"{where} {k} {row[k]} > {tol}")
+        for k, what in (("wrapper_equals_bare", "the wrapper's y differs from the bare launch's"),
+                        ("f32_equal", "the float32 K1 or K4 differs between the builds")):
+            if not row[k]:
+                failed.append(f"{where}: {what}")
+        if not max(t["new"]) < min(t["earlier"]):
+            failed.append(f"{where}: new {t['new']} not faster than earlier {t['earlier']}")
+    print(smi, flush=True)
+    sums = {k: sum(r[k] for r in rows)
+            for k in ("new_ms", "earlier_ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
+                      "new_kernel_device_ms")}
+    print(json.dumps({"sums": sums, "failed": failed}), flush=True)
+    print_step_means(bf16_step_ab(libs), smi)
     return 1 if failed else 0
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--bf16" and torch.cuda.is_available():
-        sys.exit(bf16_main(sys.argv[2]))
+    if len(sys.argv) == 3 and torch.cuda.is_available():
+        if sys.argv[1] == "--bf16":
+            sys.exit(bf16_main(sys.argv[2]))
+        if sys.argv[1] == "--bf16-fwd":
+            sys.exit(bf16_fwd_main(sys.argv[2]))
     sys.exit(main(sys.argv))

@@ -5,11 +5,12 @@ tiles and K1 at its 1024^2 call shapes, the dw taps of all three weight
 roles (K1's taps; the least-work dw of K3 and of the D down-conv, and no
 fold on their backwards), per-sample noise, K4 (forward and dx) with its
 route, generator forwards of configs whose blocks the gates send
-unfused, and the bfloat16 kernels (K2's forward and K1's and K3's
-adjoints on the tensor cores also at sizes off their tiles and at single
-pixels on every edge; the adjoints also at their 1024^2 call shapes, gd
-formed in the kernel), and the float32 K1 and K4 bit-equal to the build
-before K1's bfloat16 adjoint moved to the tensor cores.
+unfused, and the bfloat16 kernels (K1's and K2's forwards and K1's and
+K3's adjoints on the tensor cores also at sizes off their tiles and at
+single pixels on every edge; K1's forward and the adjoints also at their
+1024^2 call shapes, gd formed in the adjoints; HMMA in K1's forward), and
+the float32 K1 and K4 bit-equal to the builds before K1's bfloat16 adjoint
+and forward moved to the tensor cores.
 
 This file imports no JAX, so it runs on the GPU machine, where JAX is not
 installed; tests/conftest.py imports JAX, so run it there with
@@ -1253,26 +1254,38 @@ K1_BF16_CALLS = [(1, 256, 256, 128, 128, "conv1"), (1, 512, 512, 64, 64, "conv1"
                  (1, 1024, 1024, 32, 32, "conv1"), (1, 1024, 1024, 32, 32, "last")]
 
 
-def _k1_bf16_args(rng, dev, n, h, w, c, o, path):
-    """The adjoint's arguments (g, x, w, styles, y, noise, bias, resid, gain,
-    alpha, demod, need_dx, need_ds): y the plain bf16 forward."""
+def _k1_fwd_bf16_args(rng, dev, n, h, w, c, o, path):
+    """K1's bf16 arguments (x, w, styles, noise, bias, resid, gain, alpha,
+    demod): x and resid bfloat16, the rest float32 parameters. "conv1":
+    styles, demodulation, batch-shared noise, bias, resid, lrelu; "noise":
+    per-sample noise; "last": conv_last's form (no noise, bias or resid,
+    alpha 1); "nodemod": styles without demodulation; "nostyle": no styles
+    (no scale, no demodulation); anything else: conv1 without noise."""
     def rand(*shape, scale=1.0):
         return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
 
     last = path == "last"
     x = rand(n, h, w, c).bfloat16()
     wt = rand(3, 3, c, o, scale=1 / math.sqrt(9 * c))
-    s = torch.from_numpy((rng.rand(n, c) + 0.5).astype(np.float32)).to(dev)
+    s = None if path == "nostyle" else torch.from_numpy(
+        (rng.rand(n, c) + 0.5).astype(np.float32)).to(dev)
     nz = None
     if path in ("conv1", "noise", "nodemod"):
         nz = rand(*((n,) if path == "noise" else ()), h, w, scale=0.1)
     b = None if last else rand(o, scale=0.1)
     r = None if last else rand(n, h, w, o).bfloat16()
     gain, alpha = (1.0, 1.0) if last else (math.sqrt(2), 0.2)
-    demod = path != "nodemod"
-    y = fc.modconv3x3_plain(x, wt, s, nz, b, r, gain, alpha, demod)
-    g = rand(n, h, w, o).bfloat16()
-    return (g, x, wt, s, y, nz, b, r, gain, alpha, demod, True, path != "dx")
+    return (x, wt, s, nz, b, r, gain, alpha, path not in ("nodemod", "nostyle"))
+
+
+def _k1_bf16_args(rng, dev, n, h, w, c, o, path):
+    """The adjoint's arguments (g, x, w, styles, y, noise, bias, resid, gain,
+    alpha, demod, need_dx, need_ds): y the plain bf16 forward; "dx": dx
+    alone."""
+    fwd = _k1_fwd_bf16_args(rng, dev, n, h, w, c, o, path)
+    y = fc.modconv3x3_plain(*fwd)
+    g = torch.from_numpy(rng.randn(n, h, w, o).astype(np.float32)).to(dev).bfloat16()
+    return (g, *fwd[:3], y, *fwd[3:], True, path != "dx")
 
 
 def _k1_bf16_check(args):
@@ -1431,6 +1444,161 @@ def test_float32_k1_and_k4_bit_equal_to_the_build_before_the_tc_adjoint(cuda_dev
                          "libmgt_k1_bf16_parent_test.so")
     dev = cuda_device
     rng = np.random.RandomState(39)
+    cases = []
+    for res, c, last in ((64, 64, False), (48, 32, True), (40, 128, False), (33, 36, False)):
+        x, w, s, nz, b, r, gain, alpha = _k1_call(rng, dev, 2, res, c, c, last)
+        g = torch.from_numpy(rng.randn(2, res, res, c).astype(np.float32)).to(dev)
+        cases.append((x, w, s, nz, b, r, gain, alpha, g))
+
+    def run():
+        outs = []
+        for x, w, s, nz, b, r, gain, alpha, g in cases:
+            y = fc.fused_modconv3x3(x, w, s, nz, b, r, gain, alpha, True)
+            adj = fc.modconv3x3_adjoint(g, x, w, s, y, nz, b, r, gain, alpha, True)
+            outs += [y, *[t for t in adj if t is not None], k4.conv3x3_forward(x, w),
+                     k4.conv3x3_dx(g, w)]
+        torch.cuda.synchronize()
+        return outs
+
+    new = run()
+    monkeypatch.setattr(fc, "_library", lambda: parent)
+    old = run()
+    assert len(new) == len(old) == 4 * 7
+    for i, (a, e) in enumerate(zip(new, old)):
+        assert torch.equal(a, e), i
+
+
+# K1's bfloat16 forward on the tensor cores (conv3x3_fwd_tc_kernel: TH x 16
+# positions and NB output channels a tile, TH 16 and NB 32 for O <= 32, TH 8
+# and NB 64 or 128 beyond, channel groups of 128; 16 input channels a
+# chunk) at sizes off its tiles: (N, H, W, C, O, path). C 4, 12, 20, 36 and
+# 100 end in a partial k16 step; C or O 4, 12, 20, 36 and 100 take the
+# 8-byte copies (O 12, 20, 36 and 100 a half-filled last 8 channels); O 68
+# the 128-channel tile, O 132 two channel groups. "conv1": styles,
+# demodulation, batch-shared noise, bias, resid, lrelu; "noise": per-sample
+# noise; "last": conv_last's form (no noise, bias or resid, alpha 1);
+# "nodemod": styles without demodulation; "nostyle": no styles (no scale,
+# no demodulation), bias and lrelu, the D conv0 form.
+K1_FWD_BF16_ODD = [(2, 20, 37, 12, 8, "conv1"), (1, 17, 19, 20, 36, "noise"),
+                   (3, 9, 50, 36, 36, "conv1"), (1, 33, 16, 4, 68, "conv1"),
+                   (2, 11, 21, 68, 12, "last"), (1, 9, 17, 16, 132, "conv1"),
+                   (1, 13, 18, 100, 20, "nodemod"), (1, 10, 30, 48, 100, "nostyle"),
+                   (2, 7, 40, 8, 4, "noise")]
+
+
+def _k1_fwd_bf16_check(args):
+    before = dict(fc.launch_counts)
+    y = fc.fused_modconv3x3(*args)
+    assert fc.launch_counts["modconv3x3_bf16"] == before["modconv3x3_bf16"] + 1
+    assert fc.launch_counts["modconv3x3"] == before["modconv3x3"]
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y).all()
+    _bf16_close(y, fc.modconv3x3_plain(*args), fc.modconv3x3_plain(*_widen(args)))
+    return y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,o,path", K1_FWD_BF16_ODD)
+def test_bf16_k1_tensor_core_forward_at_odd_sizes(cuda_device, n, h, w, c, o, path):
+    """One bf16 launch per call, within the bf16 rule of the float32 plain
+    version on the same inputs."""
+    _k1_fwd_bf16_check(_k1_fwd_bf16_args(np.random.RandomState(41), cuda_device, n, h, w, c,
+                                         o, path))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,o,path", K1_BF16_CALLS)
+def test_bf16_k1_tensor_core_forward_at_the_1024_call_shapes(cuda_device, n, h, w, c, o, path):
+    _k1_fwd_bf16_check(_k1_fwd_bf16_args(np.random.RandomState(42), cuda_device, n, h, w, c,
+                                         o, path))
+
+
+@pytest.mark.cuda
+def test_bf16_k1_tensor_core_forward_per_sample_noise_at_batch_4(cuda_device):
+    """Per-sample noise [N, H, W] at batch 4 on the 64-channel tile."""
+    _k1_fwd_bf16_check(_k1_fwd_bf16_args(np.random.RandomState(43), cuda_device, 4, 40, 48, 64,
+                                         64, "noise"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,o", [(20, 36), (36, 24), (12, 68), (16, 132)])
+def test_bf16_k1_tensor_core_forward_single_pixels(cuda_device, c, o):
+    """One nonzero x pixel at a time on a 2 th + 3 x 37 image (three tiles
+    down, three across; th the tile's rows), at the corners, the edges'
+    midpoints, the centre and both sides of each inner tile edge
+    (`_k1_tc_edge_pixels`), no styles, demodulation or
+    epilogue: y is w around that pixel, which pins each tap's row offset,
+    the transposed weight fragments and the halo at the tile edges; the
+    nonzero entries land where the plain version's do, within the bf16
+    rule of the float32 plain version."""
+    dev = cuda_device
+    rng = np.random.RandomState(44)
+    th = 16 if o <= 32 else 8
+    h, w = 2 * th + 3, 37
+    wt = torch.from_numpy(rng.randn(3, 3, c, o).astype(np.float32)).to(dev)
+    for py, px in _k1_tc_edge_pixels(h, w, th):
+        x = torch.zeros(1, h, w, c, device=dev)
+        x[0, py, px] = torch.from_numpy(rng.randn(c).astype(np.float32)).to(dev)
+        args = (x.bfloat16(), wt, None, None, None, None, 1.0, 1.0, False)
+        y = fc.fused_modconv3x3(*args)
+        want = fc.modconv3x3_plain(*args)
+        assert bool(((y != 0) == (want != 0)).all()), (py, px)
+        _bf16_close(y, want, fc.modconv3x3_plain(*_widen(args)))
+
+
+@pytest.mark.cuda
+def test_bf16_k1_forward_refuses_mixed_types(cuda_device):
+    """x and resid in bfloat16 together or not at all, x float32 or
+    bfloat16 only: each mix raises before any launch."""
+    x, w, s, nz, b, r, gain, alpha, demod = _k1_fwd_bf16_args(
+        np.random.RandomState(45), cuda_device, 1, 8, 16, 16, 8, "conv1")
+    before = dict(fc.launch_counts)
+    with pytest.raises(TypeError, match="resid"):
+        fc.fused_modconv3x3(x, w, s, nz, b, r.float(), gain, alpha, demod)
+    with pytest.raises(TypeError, match="resid"):
+        fc.fused_modconv3x3(x.float(), w, s, nz, b, r, gain, alpha, demod)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fc.fused_modconv3x3(x.half(), w, s, nz, b, r.half(), gain, alpha, demod)
+    assert dict(fc.launch_counts) == before
+
+
+@pytest.mark.cuda
+def test_bf16_k1_forward_kernel_runs_on_the_tensor_cores(cuda_device):
+    """The built library's SASS (cuobjdump -sass) holds HMMA instructions in
+    every instantiation of conv3x3_fwd_tc_kernel."""
+    from morphganformer_tpu_torch.bench_k2 import hmma_counts
+    from morphganformer_tpu_torch.ops import _build
+
+    _build.library()
+    counts = hmma_counts(_build.library_path(), "conv3x3_fwd_tc_kernel")
+    assert len(counts) == 6 and all(v > 0 for v in counts.values()), counts
+
+
+@pytest.mark.cuda
+def test_float32_k1_and_k4_bit_equal_to_the_build_before_the_tc_forward(cuda_device,
+                                                                       monkeypatch):
+    """The float32 K1 forward and adjoint and K4's forward and dx give the
+    same bits as a build of fused_conv.cu from before conv3x3_fwd_tc_kernel
+    took the bfloat16 forward and the bfloat16 instantiation of
+    conv3x3_lw_kernel was removed (commit 32aa084): `git show
+    32aa084:morphganformer_tpu_torch/csrc/fused_conv.cu >
+    build/k1_fwd_bf16_parent.cu`, or MGT_K1_FWD_PARENT_SOURCE names the
+    file."""
+    import os
+    from pathlib import Path
+
+    from morphganformer_tpu_torch.bench_k3 import load_parent
+    from morphganformer_tpu_torch.ops import _build
+
+    default = Path(__file__).resolve().parent.parent / "build" / "k1_fwd_bf16_parent.cu"
+    src = Path(os.environ.get("MGT_K1_FWD_PARENT_SOURCE", default))
+    if not src.exists():
+        pytest.skip(f"needs the earlier source at {src}")
+    names = ("mgt_modconv3x3_fwd", "mgt_modconv3x3_bwd", "mgt_bwd_tiles", "mgt_conv3x3_fwd",
+             "mgt_conv3x3_dx")
+    parent = load_parent(src, {k: _build._SIGNATURES[k] for k in names},
+                         "libmgt_k1_fwd_bf16_parent_test.so")
+    dev = cuda_device
+    rng = np.random.RandomState(46)
     cases = []
     for res, c, last in ((64, 64, False), (48, 32, True), (40, 128, False), (33, 36, False)):
         x, w, s, nz, b, r, gain, alpha = _k1_call(rng, dev, 2, res, c, c, last)
