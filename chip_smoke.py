@@ -66,14 +66,28 @@ Phases, each printing its wall time:
               kernels and on the plain route against float32's (the same
               bound); a 50-step batch-2 projected morph and an image-mode
               demorph with their launches.
-  8. checkpoint
+  8. losses   project's whole loss stack on the bfloat16 init:1024 generator:
+              a 1000 x 1200 PNG (a generated face, its sides reflected, its
+              top and bottom cut) through load_target (Lanczos to 1024 x
+              1229, the centre crop); run_project for LOSS_STEPS steps under
+              each of LOSS_SPECS (mse alone as the yardstick,
+              "lpips+0.01*wing+1*mse" at --size 256, then awing, facenet,
+              arcface, mdf, lbp and ssim alone), random perceptual weights
+              and the bundled landmark model: every loss and term finite,
+              exactly phase bf16's tensor-core launches per step, ms per
+              step; the latent gradient at one noised latent on the kernels
+              and on the plain route against float32's, held as phase bf16
+              holds it; one step of the default stack and one of mdf under
+              torch.profiler; each loss net's forward + backward ms on a
+              1024^2 image; the list of the terms run.
+  9. checkpoint
               the FFHQ-1024 generator of phase generate and a 1024^2 D
               (seed 4) saved with save_generator / save_discriminator, loaded
               back through cli.get_model(<dir>) and load_discriminator: every
               leaf bit-equal; run_generate from the loaded generator writes
               phase generate's two PNGs byte for byte; bytes, save and load
               seconds.
-  9. train    the training roles at every call shape of a 1024^2 training
+  10. train   the training roles at every call shape of a 1024^2 training
               step at batch 4 against their plain versions: K3-forward (the
               D down-conv, to 1e-3 max abs), K2's use_dw role (its dx), the
               dw taps of K1, K3 and the down-conv (relative to the largest
@@ -105,7 +119,7 @@ Phases, each printing its wall time:
               accumulation rounds (batch 8), stage times and peak memory,
               and one iteration under torch.profiler (with the host time of
               the FusedUpConv2 and FusedDownConv2 backwards).
-  10. loop    16 images of 1024^2 (G(z) from seeds; half of them with every
+  11. loop    16 images of 1024^2 (G(z) from seeds; half of them with every
               row Paeth-filtered, half Sub-filtered, by the encoder below)
               under <tmp>/data/1024/; one 1024^2 PNG decoded by the native
               loader and by read_png, Paeth and Sub; then training_loop at
@@ -123,7 +137,7 @@ Phases, each printing its wall time:
               feed, the stats copy, the tick), the feed it took, the
               snapshot's bytes and its synchronous, asynchronous and load
               seconds.
-  11. layouts K4 (`mgt_conv3x3_fwd`) and its dx role against the plain
+  12. layouts K4 (`mgt_conv3x3_fwd`) and its dx role against the plain
               version at its five call shapes (G b512 conv1, b1024 conv1 and
               conv_last; D b1024 and b512 conv0) at batch 1 and 4, to 1e-5
               of the output's largest entry, with kernel, plain and one
@@ -136,7 +150,7 @@ Phases, each printing its wall time:
               iteration; one G_main and one D_main round's gradients, K4 on
               against K4 off (every leaf within 1e-3 of its largest entry,
               floored; the noise strengths as one); stage times, peak memory.
-  12. reg     train_iteration at steps 0 and 16, where all four stages are
+  13. reg     train_iteration at steps 0 and 16, where all four stages are
               due, at batch 4, on the resnet pair of phase train and on the
               skip pair, the reg stages on their default scoped
               second-order route: finite losses, pl_mean moved off 0, the
@@ -842,6 +856,131 @@ def _per_step(steps, forwards, bf16=False):
               **dict.fromkeys(TRAIN_KEYS.values(), 0), **dict.fromkeys(K4_KEYS, 0)}
     counts.update({(BF16_KEYS[k] if bf16 else k): v for k, v in main.items()})
     return counts
+
+
+LOSS_STEPS = 8
+# (spec, --size) of phase losses: mse alone (the yardstick of the same
+# call), project's default perceptual stack at the reference's lower loss
+# resolution, then every other term alone. The traced ones run one step
+# under torch.profiler.
+LOSS_SPECS = (("mse", None), ("lpips+0.01*wing+1*mse", 256), ("awing", None),
+              ("facenet", None), ("arcface", None), ("mdf", None), ("lbp", None),
+              ("ssim", None))
+LOSS_TRACED = ("lpips+0.01*wing+1*mse", "mdf")
+
+
+def photo_png(np, face, path):
+    """A photo around a square face, 1000 x 1200 (h x w) for a 1024^2 one:
+    its sides extended by reflection, its top and bottom cut; neither
+    square nor the face's size on either side, so load_target resizes and
+    crops it."""
+    from morphganformer_tpu_torch.utils.image import write_png
+
+    r = face.shape[0]
+    pad, cut = 88 * r // 1024, 12 * r // 1024
+    wide = np.pad(face, ((0, 0), (pad, pad), (0, 0)), mode="reflect")
+    write_png(path, wide[cut:cut + 1000 * r // 1024])
+    return path
+
+
+def losses_phase(torch, fc, cli, G, tmp):
+    """project's whole loss stack on `cli.get_model("init:1024",
+    dtype="bfloat16")`: a 1000 x 1200 PNG through load_target; for each of
+    LOSS_SPECS (random perceptual weights, the bundled landmark model) a
+    LOSS_STEPS-step run_project with finite losses and every term finite,
+    exactly phase bf16's tensor-core launches per step, ms per step (mse
+    alone the yardstick); the latent gradient at one noised latent on the
+    kernels and on the plain route against float32's, held as phase bf16
+    holds it; one traced step of each of LOSS_TRACED; then each loss net's
+    forward + backward ms on a 1024^2 image."""
+    import numpy as np
+
+    from morphganformer_tpu_torch.losses import landmarks, pixel
+    from morphganformer_tpu_torch.projection import ProjectionConfig, latent_stats, loss_and_grad
+    from morphganformer_tpu_torch.utils.image import load_target, read_png, to_uint8
+
+    out = {}
+    dev, res = next(G.parameters()).device, G.cfg.img_resolution
+    z = torch.randn((1, G.cfg.k, G.cfg.z_dim), generator=torch.Generator().manual_seed(21))
+    png = photo_png(np, to_uint8(cli.synthesize(G, z)[0].cpu().numpy()),
+                    os.path.join(tmp, "photo.png"))
+    t0 = time.perf_counter()
+    target = load_target(png, res)
+    out["load_target_s"] = time.perf_counter() - t0
+    print(f"  load_target of a {'x'.join(map(str, read_png(png).shape[:2]))} PNG (Lanczos, "
+          f"centre crop): {out['load_target_s']:.3f} s", flush=True)
+    assert target.shape == (1, res, res, 3) and np.isfinite(target).all()
+    assert target.min() >= -1.0 and target.max() <= 1.0
+    target = torch.from_numpy(target).to(dev)
+
+    bundled = landmarks.bundled_landmark_path()
+    assert bundled and os.path.exists(bundled), bundled
+    nets = cli.LossNets(random_perceptual=True, landmark_weights=bundled)
+    cfg, Gb = cli.get_model(f"init:{res}", device=dev, dtype="bfloat16")
+    pcfg = ProjectionConfig(steps=PROJECT_STEPS)
+    mean, std = latent_stats(cfg, torch.Generator().manual_seed(0), 10000)
+    latent_n = (mean[None] + torch.randn((1, cfg.k, cfg.z_dim),
+                                         generator=torch.Generator().manual_seed(1))
+                * std * pcfg.noise).to(dev)
+    terms, specs = set(), {}
+    for spec, size in LOSS_SPECS:
+        stamps = []
+        fc.reset_launch_counts()
+        result = cli.run_project(Gb, png, os.path.join(tmp, "proj_losses"), loss=spec,
+                                 steps=LOSS_STEPS, chunk=1, seed=0, size=size, nets=nets,
+                                 progress=_timed_progress(stamps))
+        launches = dict(fc.launch_counts)
+        comps = {k: v.numpy() for k, v in result.components_history.items()}
+        history = result.loss_history.numpy()
+        ms = 1e3 / _steady_rate(stamps)
+        assert np.isfinite(history).all(), (spec, history)
+        assert all(np.isfinite(v).all() for v in comps.values()), (spec, comps)
+        assert launches == _per_step(LOSS_STEPS, 1, bf16=True), (spec, launches)
+        loss_fn = cli.projection_loss(spec, res, dev, size=size, nets=nets)
+        grads = {k: loss_and_grad(model, latent_n, target, loss_fn, pcfg, plain)[2]
+                 for k, model, plain in (("float32", G, False), ("kernels", Gb, False),
+                                         ("plain", Gb, True))}
+        scale = grads["float32"].abs().max().item()
+        gk, gp = ((grads[k] - grads["float32"]).abs().max().item() / scale
+                  for k in ("kernels", "plain"))
+        print(f"  {spec}" + (f" at --size {size}" if size else "") + f": {ms:.3f} ms/step "
+              f"over steps 2-{LOSS_STEPS}; loss {history[0]:.5f} -> best {result.best_loss:.5f}; "
+              f"terms at step 1 " + ", ".join(f"{k} {v[0, 0]:.5g}" for k, v in comps.items())
+              + f"; latent gradient against float32's (of its largest entry {scale:.4e}): "
+              f"kernels {gk:.3e}, plain {gp:.3e}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        assert torch.isfinite(grads["kernels"]).all().item() and scale > 0, spec
+        assert gk <= max(BF16_RATIO * gp, BF16_FLOOR), (spec, gk, gp)
+        terms |= set(comps)
+        specs[spec] = dict(size=size, ms_per_step=ms, first_loss=float(history[0]),
+                           best_loss=result.best_loss, grad_kernels=gk, grad_plain=gp)
+        if spec in LOSS_TRACED:
+            step = traced_forward(torch, lambda: loss_and_grad(Gb, latent_n, target, loss_fn,
+                                                               pcfg),
+                                  f"bfloat16 projection step under {spec}")
+            specs[spec]["traced_step"] = {k: step[k] for k in ("window_ms", "busy_ms",
+                                                                "device_ops")}
+    out["specs"] = specs
+    del Gb
+    torch.cuda.empty_cache()
+
+    img = torch.rand((1, res, res, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    img = (img * 2 - 1).requires_grad_(True)
+    extra = {"mse": pixel.mse_loss, "ssim": pixel.dssim_loss,
+             **cli.make_extra_terms({t: 1.0 for t in terms}, nets, dev)}
+    net_ms = {}
+    for name in sorted(terms):
+        def fwd_bwd(term=extra[name]):
+            torch.autograd.grad(term(img, target), img)
+        net_ms[name] = cuda_ms(torch, fwd_bwd, reps=5, warmup=1)
+    print(f"  forward + backward at {res}^2, batch 1 (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in net_ms.items()), flush=True)
+    out["net_ms"] = net_ms
+    print(f"  losses: terms run {sorted(terms)} (random perceptual weights; the landmark net "
+          f"bundled: {os.path.relpath(bundled, REPO)})", flush=True)
+    assert terms == {"lpips", "wing", "mse", "awing", "facenet", "arcface", "mdf", "lbp",
+                     "ssim"}, terms
+    return out
 
 
 TRAIN_BATCH = 4
@@ -2482,6 +2621,10 @@ def main():
                   flush=True)
         phases["bf16"] = ph.seconds
 
+        with Phase("losses") as ph:
+            loss_stats = losses_phase(torch, fc, cli, G, tmp)
+        phases["losses"] = ph.seconds
+
         with Phase("checkpoint") as ph:
             ckpt_stats = checkpoint_phase(torch, fc, cli, G, tmp)
         phases["checkpoint"] = ph.seconds
@@ -2506,6 +2649,7 @@ def main():
     print("projection " + json.dumps(proj_stats), flush=True)
     print("morph " + json.dumps(morph_stats), flush=True)
     print("bf16 " + json.dumps(bf16_stats), flush=True)
+    print("losses " + json.dumps(loss_stats), flush=True)
     print("checkpoint " + json.dumps(ckpt_stats), flush=True)
     print("train " + json.dumps(train_stats), flush=True)
     print("loop " + json.dumps(loop_stats), flush=True)

@@ -25,24 +25,46 @@ runs on the card; `--device cpu` asks for the CPU. `--dtype` is the
 synthesis' compute type, with JAX's defaults: bfloat16 for project, morph
 and demorph, float32 for generate and merge (the weights, the latent, Adam
 and the loss stay float32). Latents are fed to the
-generator as z, as the JAX entry points do. Projection targets are PNGs
-whose shorter side is the model's resolution.
+generator as z, as the JAX entry points do. Projection targets are PNGs of
+any size (Lanczos-resized and centre-cropped, as JAX's load_target does).
+`project --loss` takes JAX's whole loss stack: the pixel terms and lpips,
+wing, awing, facenet, arcface, mdf and lbp, their networks' weights from
+the .npz files of the JAX package's converters (tools/convert_*.py), the
+bundled landmark model, or `--random-perceptual`:
+
+    python -m morphganformer_tpu_torch.cli project --model init:1024 --img face.png \
+        --loss "lpips+0.01*wing+1*mse" --random-perceptual --size 256
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import functools
 import glob
 import itertools
 import os
 import re
 import zlib
+from typing import Optional
 
 import numpy as np
 import torch
 
 from morphganformer_tpu_torch.checkpoint.io import load_network
-from morphganformer_tpu_torch.losses import build_loss_stack, parse_loss_spec
+from morphganformer_tpu_torch.losses import (
+    build_loss_stack,
+    face_embedding,
+    facenet,
+    landmarks,
+    lbp,
+    lpips,
+    mdf,
+    parse_loss_spec,
+    stack,
+    wing,
+)
+from morphganformer_tpu_torch.losses.nets import resize_bilinear
 from morphganformer_tpu_torch.models import GANformerConfig, init_generator, set_compute_dtype
 from morphganformer_tpu_torch.morph import (
     demorph_latent,
@@ -139,23 +161,136 @@ def _print_progress(steps):
     return progress
 
 
+@dataclasses.dataclass(frozen=True)
+class LossNets:
+    """Where the perceptual and biometric terms' networks get their weights
+    (project's flags of the same names): the .npz files that the JAX
+    package's tools/convert_*.py write; for wing and awing the bundled
+    synthetic-face landmark model when no file is named; random weights for
+    a net without a file when `random_perceptual` is set."""
+    lpips_weights: Optional[str] = None
+    lpips_net: str = "alex"
+    landmark_weights: Optional[str] = None
+    facenet_weights: Optional[str] = None
+    arcface_weights: Optional[str] = None
+    mdf_weights: Optional[str] = None
+    random_perceptual: bool = False
+
+
+def make_extra_terms(weights, nets: LossNets, device="cuda"):
+    """The perceptual and biometric terms that `weights` names, each a
+    closure over its network's parameters on `device` (JAX's
+    cli/project.py:make_extra_terms). A term whose weights are not given
+    raises SystemExit unless `nets.random_perceptual`."""
+    rand = nets.random_perceptual
+    extra, landmark_params = {}, None
+
+    def weight_path(flag, name):
+        path = getattr(nets, flag)
+        if path is None and not rand:
+            raise SystemExit(f"loss term '{name}' needs --{flag.replace('_', '-')} "
+                             f"(or --random-perceptual for a smoke run)")
+        return path
+
+    for name in weights:
+        if name in stack.BUILTIN_TERMS:
+            continue
+        if name == "lpips":
+            path = weight_path("lpips_weights", name)
+            params = (lpips.load_lpips_params(path, nets.lpips_net, device) if path
+                      else lpips.random_lpips_params(nets.lpips_net, device=device))
+            if params.pop("tower_source", None) == "random":
+                print("lpips: real calibration heads x placeholder tower "
+                      "(torchvision tower weights unavailable)")
+            extra[name] = lpips.make_lpips_loss(params, nets.lpips_net)
+        elif name in ("wing", "awing"):
+            path = nets.landmark_weights
+            if path is None and not rand:
+                path = landmarks.bundled_landmark_path()
+                if path is None:
+                    raise SystemExit(f"loss term '{name}' needs --landmark-weights "
+                                     "(or --random-perceptual for a smoke run)")
+                print(f"landmarks: bundled synthetic model ({path}); "
+                      "pass --landmark-weights for a real-data model")
+            if landmark_params is None:      # wing and awing share one load
+                landmark_params = (landmarks.load_landmark_npz(path, device) if path
+                                   else landmarks.random_landmark_params(device=device))
+            if name == "wing":
+                extra[name] = wing.make_wing_loss_term(
+                    landmarks.make_landmark_fn(landmark_params, temperature=0.05))
+            else:
+                extra[name] = wing.make_adaptive_wing_loss_term(
+                    functools.partial(landmarks.landmark_heatmaps_01, landmark_params))
+        elif name == "facenet":
+            path = weight_path("facenet_weights", name)
+            extra[name] = facenet.make_facenet_loss(
+                facenet.load_facenet_npz(path, device) if path
+                else facenet.random_facenet_params(device=device))
+        elif name == "arcface":
+            path = weight_path("arcface_weights", name)
+            extra[name] = face_embedding.make_identity_loss(
+                face_embedding.load_iresnet_npz(path, device=device) if path
+                else face_embedding.random_iresnet_params(device=device))
+        elif name == "mdf":
+            path = weight_path("mdf_weights", name)
+            ds, padding = (mdf.load_mdf_params(path, with_padding=True, device=device) if path
+                           else (mdf.random_mdf_params(device=device), 0))
+            extra[name] = mdf.make_mdf_loss(ds, padding=padding)
+        elif name == "lbp":
+            extra[name] = lbp.soft_lbp_loss
+        else:
+            raise SystemExit(f"unknown loss term '{name}'")
+    return extra
+
+
+def projection_loss(spec, resolution, device="cuda", size=None, lamda=None, beta=None,
+                    nets: Optional[LossNets] = None):
+    """project's loss: the stack of `spec` with JAX's overrides (`lamda`
+    sets the wing and awing weights, `beta` the mse weight, as the reference's
+    all_loss = p + lamda * wing + beta * mse) and, when `size` is below the
+    model's `resolution`, both images resized (bilinear, antialiased) to
+    `size` before it."""
+    weights = parse_loss_spec(spec)
+    if lamda is not None:
+        wing_terms = [t for t in ("wing", "awing") if t in weights]
+        if not wing_terms:
+            raise SystemExit("--lamda sets the wing weight; add wing to --loss")
+        for t in wing_terms:
+            weights[t] = lamda
+    if beta is not None:
+        if "mse" not in weights:
+            raise SystemExit("--beta sets the mse weight; add mse to --loss")
+        weights["mse"] = beta
+    loss_fn = build_loss_stack(weights, make_extra_terms(weights, nets or LossNets(), device))
+    if not size or size >= resolution:
+        return loss_fn
+
+    def resized(img, target):
+        return loss_fn(resize_bilinear(img, size), resize_bilinear(target, size))
+    return resized
+
+
 def run_project(G, img, out_dir, loss="mse", steps=5000, lr=0.1, lr_rampup=0.05,
                 lr_rampdown=0.25, noise=0.05, noise_ramp=0.75, truncation_psi=0.7,
                 n_mean_latent=10000, chunk=250, w_plus=False, init_latent=None,
-                save_latent=None, ratio=1.0, seed=0, progress=None):
-    """Project the PNG `img` into G's latent space. The prior statistics and
-    then the per-step noise are drawn from one torch.Generator seeded with
-    `seed`. Writes <out_dir>/sample_{best_step:06d}_{best_loss:.4f}.png and
-    the best latent to `save_latent` (default <out_dir>/w.mat); returns the
+                save_latent=None, ratio=1.0, seed=0, progress=None, size=None, lamda=None,
+                beta=None, nets: Optional[LossNets] = None):
+    """Project the PNG `img` into G's latent space under the loss stack
+    `loss` (`projection_loss` with `size`, `lamda`, `beta` and `nets`). The
+    prior statistics and then the per-step noise are drawn from one
+    torch.Generator seeded with `seed`. Writes
+    <out_dir>/sample_{best_step:06d}_{best_loss:.4f}.png and the best latent
+    to `save_latent` (default <out_dir>/w.mat); returns the
     ProjectionResult. `progress(step, loss, best)` is called every `chunk`
     steps (by default it prints a line)."""
     pcfg = ProjectionConfig(steps=steps, lr=lr, lr_rampup=lr_rampup, lr_rampdown=lr_rampdown,
                             noise=noise, noise_ramp=noise_ramp, truncation_psi=truncation_psi,
                             n_mean_latent=n_mean_latent, chunk=chunk, w_plus=w_plus)
+    loss_fn = projection_loss(loss, G.cfg.img_resolution, next(G.parameters()).device, size,
+                              lamda, beta, nets)
     gen = torch.Generator().manual_seed(seed)
     mean, std = latent_stats(G.cfg, gen, n_mean_latent)
-    result = project(G, _targets(G, [img]), build_loss_stack(parse_loss_spec(loss)), pcfg,
-                     mean, std, generator=gen,
+    result = project(G, _targets(G, [img]), loss_fn, pcfg, mean, std, generator=gen,
                      progress=progress or _print_progress(steps),
                      init_latent=None if init_latent is None else load_latent_mat(init_latent))
     os.makedirs(out_dir, exist_ok=True)
@@ -233,8 +368,9 @@ def run_demorph(G, morph_latent=None, accomplice_latent=None, out_dir="images/de
 
 
 GAMMAS = {"ffhq": 10, "cityscapes": 20, "clevr": 40, "bedrooms": 100}
-METRICS_NOT_PORTED = "metrics are not ported yet (ROADMAP.md queue 1, item 7)"
-PARALLEL_NOT_PORTED = "multi-process training is not ported yet (ROADMAP.md queue 1, item 8)"
+METRICS_NOT_PORTED = 'metrics are not ported yet (ROADMAP.md queue 1, "Metrics")'
+PARALLEL_NOT_PORTED = ('multi-process training is not ported yet (ROADMAP.md queue 1, '
+                       '"Parallel")')
 
 
 def make_run_dir(result_dir, expname):
@@ -405,16 +541,36 @@ def main(argv=None):
     m.add_argument("--out", default="images/merged")
     m.add_argument("--alpha", type=float, default=0.5)
 
-    def projection_flags(sp, steps):
-        sp.add_argument("--loss", default="mse", help='loss spec of the terms mse, l1, '
-                        'psnr and ssim, e.g. "mse" or "mse+0.5*ssim"')
+    def projection_flags(sp, steps, terms="mse, l1, psnr and ssim"):
+        sp.add_argument("--loss", default="mse", help=f'loss stack spec, e.g. "mse", '
+                        f'"lpips+mse", "lpips+0.01*wing+1*mse". Terms: {terms}')
         sp.add_argument("--step", type=int, default=steps)
         sp.add_argument("--n_mean_latent", type=int, default=10000)
 
     pr = sub.add_parser("project", help="project a photo into the latent space")
     common(pr, "bfloat16")
-    projection_flags(pr, 5000)
-    pr.add_argument("--img", required=True, help="target PNG")
+    projection_flags(pr, 5000, "mse l1 psnr ssim lpips wing awing facenet arcface mdf lbp")
+    pr.add_argument("--img", required=True, help="target PNG (any size)")
+    pr.add_argument("--size", type=int, default=None,
+                    help="compute the loss at this resolution (downsamples both images when "
+                         "below the model resolution)")
+    pr.add_argument("--lamda", type=float, default=None,
+                    help="wing (and awing) weight override: p + lamda*wing + beta*mse")
+    pr.add_argument("--beta", type=float, default=None, help="mse weight override")
+    pr.add_argument("--lpips-weights", dest="lpips_weights", default=None,
+                    help=".npz of tools/convert_lpips.py")
+    pr.add_argument("--lpips-net", dest="lpips_net", default="alex",
+                    choices=["alex", "vgg", "squeeze"])
+    pr.add_argument("--landmark-weights", dest="landmark_weights", default=None,
+                    help="landmark net .npz (default: the bundled synthetic-face model)")
+    pr.add_argument("--facenet-weights", dest="facenet_weights", default=None,
+                    help=".npz of tools/convert_facenet.py")
+    pr.add_argument("--arcface-weights", dest="arcface_weights", default=None,
+                    help=".npz of tools/convert_iresnet.py (iresnet18)")
+    pr.add_argument("--mdf-weights", dest="mdf_weights", default=None,
+                    help=".npz of tools/convert_mdf.py")
+    pr.add_argument("--random-perceptual", action="store_true",
+                    help="random weights for the perceptual nets without a file (smoke run)")
     pr.add_argument("--path_to_gen", default="images/projection")
     pr.add_argument("--lr", type=float, default=0.1)
     pr.add_argument("--lr_rampup", type=float, default=0.05)
@@ -466,10 +622,12 @@ def main(argv=None):
         run_merge(G, files, args.out, args.alpha, args.truncation_psi,
                   all_pairs=bool(args.latent_dir))
     elif args.command == "project":
+        nets = LossNets(**{f.name: getattr(args, f.name) for f in dataclasses.fields(LossNets)})
         run_project(G, args.img, args.path_to_gen, args.loss, args.step, args.lr,
                     args.lr_rampup, args.lr_rampdown, args.noise, args.noise_ramp,
                     args.truncation_psi, args.n_mean_latent, args.chunk, args.w_plus,
-                    args.init_latent, args.save_latent, args.ratio, args.seed)
+                    args.init_latent, args.save_latent, args.ratio, args.seed, size=args.size,
+                    lamda=args.lamda, beta=args.beta, nets=nets)
     elif args.command == "morph":
         run_morph_pair(G, args.img_a, args.img_b, args.out, args.loss, args.step, args.lr,
                        args.truncation_psi, args.n_mean_latent, args.chunk, args.alpha,

@@ -1,8 +1,10 @@
 """Composable projection loss stack (port of morphganformer_tpu/losses/stack.py).
 
-A weight table over registered terms, e.g. "mse" -> {"mse": 1.0}. Only the
-built-in pixel terms are ported; the perceptual and biometric terms (lpips,
-wing, facenet, ...) come with later work.
+A weight table over registered terms, e.g. "mse" -> {"mse": 1.0} or
+"lpips+0.01*wing+1*mse" -> {"lpips": 1.0, "wing": 0.01, "mse": 1.0}. Terms
+are callables (img, target) -> scalar: the built-in pixel terms, and the
+perceptual and biometric ones (lpips, wing, facenet, ...) that the caller
+passes as `extra_terms`, closures over their networks (cli.make_extra_terms).
 """
 
 from __future__ import annotations
@@ -21,21 +23,24 @@ _BUILTIN: Dict[str, LossFn] = {
     "psnr": pixel.psnr_loss,
     "ssim": pixel.dssim_loss,
 }
+BUILTIN_TERMS = tuple(_BUILTIN)
 
 
-def build_loss_stack(weights: Dict[str, float]):
+def build_loss_stack(weights: Dict[str, float], extra_terms: Dict[str, LossFn] = None):
     """loss_fn(img, target) -> (per-image totals [B], {term: per-image [B]}).
 
-    Each term is applied to every batch row on its own (img[i:i+1],
-    target[i:i+1]), as the JAX engine vmaps it, so a batched projection
-    tracks each image's best independently."""
+    `weights` maps a term's name to its weight; `extra_terms` adds terms to
+    the built-in ones. Each term is applied to every batch row on its own
+    (img[i:i+1], target[i:i+1]), as the JAX engine vmaps it, so a batched
+    projection tracks each image's best independently."""
+    terms = {**_BUILTIN, **(extra_terms or {})}
     active = {name: w for name, w in weights.items() if w != 0.0}
-    unknown = set(active) - set(_BUILTIN)
+    unknown = set(active) - set(terms)
     if unknown:
-        raise KeyError(f"unknown loss terms: {sorted(unknown)}; available: {sorted(_BUILTIN)}")
+        raise KeyError(f"unknown loss terms: {sorted(unknown)}; available: {sorted(terms)}")
 
     def loss_fn(img, target):
-        comps = {name: torch.stack([_BUILTIN[name](img[i:i + 1], target[i:i + 1])
+        comps = {name: torch.stack([terms[name](img[i:i + 1], target[i:i + 1])
                                     for i in range(img.shape[0])])
                  for name in active}
         total = torch.zeros(img.shape[0], dtype=torch.float32, device=img.device)

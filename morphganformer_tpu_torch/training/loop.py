@@ -179,7 +179,7 @@ def select_feed(dataset: ImageFolderDataset, batch_size: int, seed: int):
 def _check(l_cfg: LoopConfig):
     if l_cfg.eval_metrics:
         raise NotImplementedError("metrics in the training loop are not ported yet "
-                                  "(ROADMAP.md queue 1, item 7: metrics)")
+                                  '(ROADMAP.md queue 1, "Metrics")')
     if l_cfg.snapshot_backend == "orbax":
         raise ValueError('the port has no Orbax; snapshot_backend="async" writes snapshots '
                          "on a background thread")

@@ -10,7 +10,8 @@ given. The latents are drawn from a CPU `torch.Generator` seeded with
 with JAX passes JAX's). Images are generated `batch` at a time, so 16
 images of 1024^2 need the memory of `batch`; the result does not depend on
 `batch`. Attention blends need the attention maps out of the synthesis,
-which the port does not return yet (ROADMAP.md queue 1, item 4).
+which the port does not return yet (ROADMAP.md queue 1, "Data and vis
+remainders").
 """
 
 from __future__ import annotations
@@ -81,8 +82,8 @@ def sample_grid(G, cfg, num=16, psi=0.7, seed=0, path=None, z=None, batch=4):
 
 
 ATTENTION_NOT_PORTED = ("attention blends need return_att through the port's synthesis and "
-                        "transformer, which is not ported yet (ROADMAP.md queue 1, item 4: "
-                        "return_att and the attention vis)")
+                        "transformer, which is not ported yet (ROADMAP.md queue 1, \"Data and "
+                        "vis remainders\": return_att and the attention vis)")
 
 
 def attention_blends(G, cfg, *args, **kwargs):

@@ -1,11 +1,14 @@
 """Image conversion and PNG input/output (port of morphganformer_tpu/utils/image.py).
 
 Generator output is NHWC float in [-1, 1]. PNGs are read and written with
-the standard library's zlib and struct, so the port needs no imaging package.
+the standard library's zlib and struct, and projection targets are resized
+by a numpy copy of Pillow's Lanczos resampling, so the port needs no imaging
+package.
 """
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 
@@ -79,6 +82,8 @@ def write_png(path, img_hwc_uint8):
 
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_SIGNATURES = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
+               (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}      # gray, RGB, gray + alpha, RGBA
 
 
@@ -114,7 +119,8 @@ def read_png(path):
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{path}: {_format_of(data)}, not a PNG; only PNG images are read, "
+                         "so convert it to PNG first")
     pos, idat, hdr = 8, [], None
     while pos < len(data):
         (length,), tag = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
@@ -141,17 +147,96 @@ def read_png(path):
     return out.reshape(h, w, c)
 
 
+def _format_of(data):
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "a WebP image"
+    for magic, name in _SIGNATURES:
+        if data.startswith(magic):
+            return f"a {name} image"
+    return "a file of unknown format"
+
+
+# Pillow's Resample.c for 8-bit images: the Lanczos filter (a = 3) in
+# double, widened by the downscale factor, each output's coefficients
+# normalised to sum 1, then to fixed point with 22 fraction bits; each pass
+# sums from 2^21, shifts right by 22 and clips to uint8.
+_PRECISION_BITS = 22
+
+
+def _sinc(x):
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x):
+    return _sinc(x) * _sinc(x / 3) if -3.0 <= x < 3.0 else 0.0
+
+
+def _lanczos_coeffs(in_size, out_size):
+    """(first input index [out], integer coefficients [out, ksize] as
+    float64) of one axis, as Pillow's precompute_coeffs and
+    normalize_coeffs_8bpc compute them."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 3.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    ss = 1.0 / filterscale
+    xmins = np.zeros(out_size, np.int64)
+    kk = np.zeros((out_size, ksize))
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        n = min(int(center + support + 0.5), in_size) - xmin
+        k = [_lanczos((x + xmin - center + 0.5) * ss) for x in range(n)]
+        ww = 0.0
+        for v in k:
+            ww += v
+        kk[xx, :n] = [v / ww for v in k] if ww != 0.0 else k
+        xmins[xx] = xmin
+    one = float(1 << _PRECISION_BITS)
+    return xmins, np.where(kk < 0, np.trunc(kk * one - 0.5), np.trunc(kk * one + 0.5))
+
+
+def _resample_axis(img, axis, out_size):
+    """One Lanczos pass of a uint8 HWC image along `axis`. Integer
+    coefficients times uint8 values sum exactly in float64."""
+    src = np.moveaxis(img, axis, 0)
+    xmins, kk = _lanczos_coeffs(src.shape[0], out_size)
+    acc = np.full((out_size,) + src.shape[1:], float(1 << (_PRECISION_BITS - 1)))
+    bcast = (-1,) + (1,) * (src.ndim - 1)
+    for t in range(kk.shape[1]):
+        idx = np.minimum(xmins + t, src.shape[0] - 1)   # past its window a tap's weight is 0
+        acc += kk[:, t].reshape(bcast) * src[idx]
+    out = np.clip(np.floor(acc / (1 << _PRECISION_BITS)), 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def lanczos_resize(img, height, width):
+    """HWC uint8 -> [height, width, C] uint8, equal to Pillow's
+    `Image.resize((width, height), Image.LANCZOS)` (no reducing gap): the
+    horizontal pass, then the vertical, each skipped where that side keeps
+    its size."""
+    if img.shape[1] != width:
+        img = _resample_axis(img, 1, width)
+    if img.shape[0] != height:
+        img = _resample_axis(img, 0, height)
+    return img
+
+
 def load_target(path, size=1024, drange=(-1.0, 1.0)):
     """A projection target [1, size, size, 3] float32 in `drange` from a PNG
-    whose shorter side is `size`: centre crop, as the JAX package's
-    load_target does after its resize. Gray is replicated to RGB and alpha
-    dropped. Other sizes need the Lanczos resize, which is not ported yet."""
+    of any size, as the JAX package's load_target makes it: the shorter side
+    Lanczos-resized to `size` (the longer to max(size, round(side *
+    scale))), then the centre crop. Gray is replicated to RGB and alpha
+    dropped before the resize. Other formats raise."""
     img = read_png(path)
-    h, w = img.shape[:2]
-    if min(h, w) != size:
-        raise NotImplementedError(f"{path}: shorter side {min(h, w)} != {size}; the Lanczos "
-                                  "resize of load_target is not ported yet")
     img = np.repeat(img[:, :, :1], 3, axis=2) if img.shape[2] <= 2 else img[:, :, :3]
+    h, w = img.shape[:2]
+    scale = size / min(w, h)
+    w, h = max(size, round(w * scale)), max(size, round(h * scale))
+    img = lanczos_resize(img, h, w)
     left, top = (w - size) // 2, (h - size) // 2
     img = img[top:top + size, left:left + size]
     return adjust_range(img.astype(np.float32), (0, 255), drange)[None]

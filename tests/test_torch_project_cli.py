@@ -1,6 +1,9 @@
 """The port's projection entry points (project, morph, image-mode demorph)
-on small random networks on the CPU, and its PNG reader and load_target."""
+on small random networks on the CPU, project's loss stack flags (the
+perceptual terms with --random-perceptual, --size, --lamda, --beta, the
+missing weight flags), and its PNG reader and load_target."""
 
+import importlib
 import os
 import struct
 import zlib
@@ -13,7 +16,13 @@ from morphganformer_tpu_torch import cli
 from morphganformer_tpu_torch.models import config as tcfg
 from morphganformer_tpu_torch.models import init_generator
 from morphganformer_tpu_torch.morph import load_latent_mat, morph_latents
-from morphganformer_tpu_torch.utils.image import load_target, read_png, to_uint8, write_png
+from morphganformer_tpu_torch.utils.image import (
+    lanczos_resize,
+    load_target,
+    read_png,
+    to_uint8,
+    write_png,
+)
 
 from .test_torch_generator import _cfg
 from .test_torch_kernels_cuda import one_torch_thread  # noqa: F401  (a fixture)
@@ -81,8 +90,11 @@ def test_load_target_crops_the_centre(tmp_path):
     write_png(tmp_path / "gray.png", gray)
     np.testing.assert_allclose(load_target(tmp_path / "gray.png", size=10)[0],
                                np.repeat(gray, 3, axis=2) / 127.5 - 1.0, rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="Lanczos"):
-        load_target(tmp_path / "wide.png", size=8)
+    # Another size: the Lanczos resize of the shorter side to 8 (the longer
+    # to round(15 * 0.8) = 12), then the centre crop.
+    small = load_target(tmp_path / "wide.png", size=8)
+    np.testing.assert_allclose(small[0], lanczos_resize(img, 8, 12)[:, 2:10] / 127.5 - 1.0,
+                               rtol=0, atol=1e-6)
 
 
 @pytest.fixture(scope="module")
@@ -168,3 +180,83 @@ def test_main_dispatches_the_projection_commands(tmp_path):
               "--accomplice-latent", str(tmp_path / "m" / "a.mat"), "--out", str(tmp_path / "d")])
     assert sorted(os.listdir(tmp_path / "d")) == ["demorph.mat", "demorph.png"]
 
+
+
+def test_project_with_the_perceptual_terms(tmp_path, small):
+    """lpips (vgg: the 16^2 images are too small for alex's pools), wing and
+    awing on random weights through run_project; each term's history is
+    finite and the total is their weighted sum."""
+    G, (a, _) = small
+    nets = cli.LossNets(lpips_net="vgg", random_perceptual=True)
+    res = cli.run_project(G, a, tmp_path, loss="lpips+0.01*wing+1*mse+awing+lbp", steps=3,
+                          n_mean_latent=64, chunk=3, nets=nets, lamda=0.05, beta=2.0)
+    comps = res.components_history
+    assert set(comps) == {"lpips", "wing", "mse", "awing", "lbp"}
+    assert all(torch.isfinite(v).all() for v in comps.values())
+    total = comps["lpips"] + 0.05 * (comps["wing"] + comps["awing"]) + 2.0 * comps["mse"] \
+        + comps["lbp"]
+    np.testing.assert_allclose(res.loss_history.numpy(), total[:, 0].numpy(), rtol=1e-5)
+    assert "w.mat" in os.listdir(tmp_path)
+
+
+def test_main_passes_the_loss_flags(tmp_path, monkeypatch):
+    """project's flags reach projection_loss as JAX's cli/project.py reads
+    them, and the run writes its files."""
+    cfg, G = cli.get_model("init:32", device="cpu")
+    write_png(tmp_path / "t.png", to_uint8(cli.synthesize(G, torch.zeros(1, cfg.k, cfg.z_dim))[0]
+                                           .numpy()))
+    seen = {}
+    real = cli.projection_loss
+
+    def spy(spec, resolution, device="cuda", size=None, lamda=None, beta=None, nets=None):
+        seen.update(spec=spec, resolution=resolution, size=size, lamda=lamda, beta=beta,
+                    nets=nets)
+        return real(spec, resolution, device, size, lamda, beta, nets)
+    monkeypatch.setattr(cli, "projection_loss", spy)
+    cli.main(["project", "--model", "init:32", "--device", "cpu", "--step", "2",
+              "--n_mean_latent", "32", "--img", str(tmp_path / "t.png"),
+              "--path_to_gen", str(tmp_path / "p"), "--loss", "lpips+0.01*wing+1*mse",
+              "--random-perceptual", "--lpips-net", "vgg", "--size", "16", "--lamda", "0.02",
+              "--beta", "2", "--mdf-weights", "m.npz"])
+    assert seen == dict(spec="lpips+0.01*wing+1*mse", resolution=32, size=16, lamda=0.02,
+                        beta=2.0, nets=cli.LossNets(lpips_net="vgg", mdf_weights="m.npz",
+                                                    random_perceptual=True))
+    assert "w.mat" in os.listdir(tmp_path / "p")
+
+
+def _jax_make_extra_terms():
+    return importlib.import_module("cli.project").make_extra_terms
+
+
+@pytest.mark.parametrize("spec,flag", [("lpips+mse", "--lpips-weights"),
+                                       ("facenet", "--facenet-weights"),
+                                       ("mse+arcface", "--arcface-weights"),
+                                       ("mdf", "--mdf-weights")])
+def test_a_missing_weight_flag_exits_as_in_jax(spec, flag):
+    import argparse
+
+    from morphganformer_tpu_torch.losses import parse_loss_spec
+
+    with pytest.raises(SystemExit, match=f"needs {flag}") as got:
+        cli.projection_loss(spec, 16, "cpu")
+    with pytest.raises(SystemExit) as want:
+        _jax_make_extra_terms()(parse_loss_spec(spec), argparse.Namespace(lpips_net="alex"))
+    assert str(got.value) == str(want.value)
+
+
+def test_wing_takes_the_bundled_landmarks_and_unknown_terms_exit(capsys):
+    loss_fn = cli.projection_loss("wing+awing", 16, "cpu")
+    assert "bundled synthetic model" in capsys.readouterr().out
+    img = torch.zeros(1, 16, 16, 3)
+    total, comps = loss_fn(img, img)
+    assert set(comps) == {"wing", "awing"} and total.item() == 0.0
+    with pytest.raises(SystemExit, match="unknown loss term 'nope'"):
+        cli.projection_loss("mse+nope", 16, "cpu")
+
+
+@pytest.mark.parametrize("spec,lamda,beta,match", [
+    ("mse", 0.1, None, "--lamda sets the wing weight; add wing to --loss"),
+    ("wing", None, 2.0, "--beta sets the mse weight; add mse to --loss")])
+def test_lamda_and_beta_need_their_terms(spec, lamda, beta, match):
+    with pytest.raises(SystemExit, match=match):
+        cli.projection_loss(spec, 16, "cpu", lamda=lamda, beta=beta)

@@ -403,7 +403,7 @@ def test_prune_keeps_the_newest(tmp_path):
 
 
 @pytest.mark.parametrize("change,error,match", [
-    ({"eval_metrics": ("fid50k_full",)}, NotImplementedError, "item 7"),
+    ({"eval_metrics": ("fid50k_full",)}, NotImplementedError, '"Metrics"'),
     ({"vis": ("grid", "attention")}, NotImplementedError, "return_att"),
     ({"vis": ("grid", "video")}, ValueError, "unknown vis"),
     ({"snapshot_backend": "orbax"}, ValueError, '"async"'),
@@ -421,9 +421,9 @@ TRAIN_FLAGS = ["train", "--resolution", str(RES), "--components-num", "2", "--la
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--metrics", "fid50k_full"], "item 7"), (["--eval"], "item 7"),
-    (["--multihost"], "item 8"), (["--coordinator", "localhost:1234"], "item 8"),
-    (["--num-processes", "2"], "item 8"), (["--process-id", "0"], "item 8"),
+    (["--metrics", "fid50k_full"], '"Metrics"'), (["--eval"], '"Metrics"'),
+    (["--multihost"], '"Parallel"'), (["--coordinator", "localhost:1234"], '"Parallel"'),
+    (["--num-processes", "2"], '"Parallel"'), (["--process-id", "0"], '"Parallel"'),
     (["--dtype", "bfloat16"], "float32"),
 ])
 def test_train_entry_point_refuses_flags(tmp_path, flags, match):
