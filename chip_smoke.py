@@ -25,18 +25,32 @@ Phases, each printing its wall time:
               versions to 1e-3; forward times at batch 1 and 2, and one
               forward each under torch.profiler (device time by kernel and
               the device's idle share).
-  5. project  a 100-step 1024^2 projection at batch 1 through the project
+  5. project  a 50-step 1024^2 projection at batch 1 through the project
               entry point onto a reachable target (G(z) written as a PNG):
               finite losses, a best loss below the first step's, exactly 4
               K1, 6 K2, 4 K1-adjoint and 6 K3 launches per step plus one
               forward for the best image; one step's latent gradient on the
               kernels against the plain path to 1e-3 of its largest entry;
               steps/s, peak memory, and one step under torch.profiler.
+              Then `noise_reg_check`: project --noise_regularize 1e5 on
+              the bfloat16 synthesis with non-zero noise strengths,
+              against the same call without it (10 steps each): exact
+              tensor-core launches per step, unchanged; the
+              <latent>.noises.npz; merge --noises writing the best PNG
+              byte for byte; the latent and noise-map gradients, kernels
+              and plain route against float32's (phase bf16's rule); one
+              traced step with and one without.
   6. morph    merge and demorph through their entry points on .mat latents in
               a temporary directory (the recovered latent equals the original
-              to 1e-5); a 50-step batch-2 projected morph of two G(z)
+              to 1e-5); a 25-step batch-2 projected morph of two G(z)
               targets and an image-mode demorph of its result, with their
               launch counts; pair-steps/s.
+              Then `morph_csv_check`: the four bfloat16 tensor-core roles
+              at the 10 call shapes at batch 8 against their plain
+              versions; morph --pairs-csv in bfloat16 on a CSV of 4 pairs
+              (and one row under --min-similarity) at --pairs-per-batch 4
+              (one batch-8 projection), and at 1 on the first pair: exact
+              launches, every file, pair-steps/s and peak memory.
   7. bf16     the synthesis path in bfloat16 (JAX's default for project,
               morph and demorph): the four bfloat16 roles (K1, K2, K1's
               adjoint launch, K3's adjoint; the `_bf16` entry points, each
@@ -60,11 +74,11 @@ Phases, each printing its wall time:
               kernel, none of conv3x3_lw_kernel) and one traced bfloat16
               projection step (device ms, device ops, exactly 4 launches of
               K1's forward kernel, 4 of K1's adjoint kernel and 6 of K3's,
-              none of conv3x3_lw_kernel); a 100-step projection (exact
+              none of conv3x3_lw_kernel); a 50-step projection (exact
               launches, the loss descending, steps/s and peak memory beside
               phase project's float32 ones); step 0's latent gradient on the
               kernels and on the plain route against float32's (the same
-              bound); a 50-step batch-2 projected morph and an image-mode
+              bound); a 25-step batch-2 projected morph and an image-mode
               demorph with their launches.
   8. losses   project's whole loss stack on the bfloat16 init:1024 generator:
               a 1000 x 1200 PNG (a generated face, its sides reflected, its
@@ -87,7 +101,16 @@ Phases, each printing its wall time:
               leaf bit-equal; run_generate from the loaded generator writes
               phase generate's two PNGs byte for byte; bytes, save and load
               seconds.
-  10. train   the training roles at every call shape of a 1024^2 training
+  10. metrics the float32 K1 and K2 forwards at the 10 call shapes at
+              batch 16 against their plain versions (times, bound);
+              fid2k_full through run_calc_metrics over 32 G(z) PNGs with a
+              random-weight InceptionV3 (.npz) and with the raw detector:
+              exactly 4 K1 and 6 K2 launches per batch-16 forward, the
+              metric-fid2k_full.jsonl lines; a batch-16 forward on the
+              kernels against the plain versions to 1e-3; imgs/s of
+              features_for_generator, G's and the detector's ms;
+              ppl2_wend over 4 samples on the kernels and plain.
+  11. train   the training roles at every call shape of a 1024^2 training
               step at batch 4 against their plain versions: K3-forward (the
               D down-conv, to 1e-3 max abs), K2's use_dw role (its dx), the
               dw taps of K1, K3 and the down-conv (relative to the largest
@@ -119,7 +142,7 @@ Phases, each printing its wall time:
               accumulation rounds (batch 8), stage times and peak memory,
               and one iteration under torch.profiler (with the host time of
               the FusedUpConv2 and FusedDownConv2 backwards).
-  11. loop    16 images of 1024^2 (G(z) from seeds; half of them with every
+  12. loop    16 images of 1024^2 (G(z) from seeds; half of them with every
               row Paeth-filtered, half Sub-filtered, by the encoder below)
               under <tmp>/data/1024/; one 1024^2 PNG decoded by the native
               loader and by read_png, Paeth and Sub; then training_loop at
@@ -137,7 +160,7 @@ Phases, each printing its wall time:
               feed, the stats copy, the tick), the feed it took, the
               snapshot's bytes and its synchronous, asynchronous and load
               seconds.
-  12. layouts K4 (`mgt_conv3x3_fwd`) and its dx role against the plain
+  13. layouts K4 (`mgt_conv3x3_fwd`) and its dx role against the plain
               version at its five call shapes (G b512 conv1, b1024 conv1 and
               conv_last; D b1024 and b512 conv0) at batch 1 and 4, to 1e-5
               of the output's largest entry, with kernel, plain and one
@@ -150,7 +173,7 @@ Phases, each printing its wall time:
               iteration; one G_main and one D_main round's gradients, K4 on
               against K4 off (every leaf within 1e-3 of its largest entry,
               floored; the noise strengths as one); stage times, peak memory.
-  13. reg     train_iteration at steps 0 and 16, where all four stages are
+  14. reg     train_iteration at steps 0 and 16, where all four stages are
               due, at batch 4, on the resnet pair of phase train and on the
               skip pair, the reg stages on their default scoped
               second-order route: finite losses, pl_mean moved off 0, the
@@ -209,8 +232,8 @@ SOURCE = "morphganformer_tpu_torch/csrc/fused_conv.cu"
 HAND_WRITTEN = ("conv3x3_lw_kernel", "conv3x3_fwd_tc_kernel", "conv3x3_adj_tc_kernel",
                 "upconv2_lw_kernel", "upconv2_tc_kernel", "downconv2_lw_kernel",
                 "downconv2_tc_kernel", "conv_dw_lw_kernel", "fir_dw_kernel")
-PROJECT_STEPS = 100
-MORPH_STEPS = 50
+PROJECT_STEPS = 50
+MORPH_STEPS = 25
 DEMORPH_STEPS = 5
 
 
@@ -297,8 +320,9 @@ def kernel_calls():
     return calls
 
 
-def check_kernel(torch, fc, gen, call):
-    """Kernel vs plain on random inputs at one call shape; times and bound."""
+def check_kernel(torch, fc, gen, call, batch=1):
+    """Kernel vs plain on random inputs at one call shape and `batch`; times
+    and bound."""
     import torch.nn.functional as F
 
     from morphganformer_tpu_torch.bench_k3 import same_function_call
@@ -310,21 +334,21 @@ def check_kernel(torch, fc, gen, call):
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
-    x = randn(1, h, h, cin)
-    s = torch.rand((1, cin), generator=gen, device=dev) + 0.5
+    x = randn(batch, h, h, cin)
+    s = torch.rand((batch, cin), generator=gen, device=dev) + 0.5
     if kernel == "K1":
         w = randn(3, 3, cin, cout, scale=1 / math.sqrt(9 * cin))
         last = role == "conv_last"
         noise = None if last else randn(h, h, scale=0.1)
         bias = None if last else randn(cout, scale=0.1)
-        resid = None if last else randn(1, h, h, cout)
+        resid = None if last else randn(batch, h, h, cout)
         gain, alpha = 1.0, (1.0 if last else 0.2)
         args = (x, w, s, noise, bias, resid, gain, alpha, True)
         run_k = lambda: fc.fused_modconv3x3(*args)
         run_p = lambda: fc.modconv3x3_plain(*args)
         x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
         run_lib = lambda: F.conv2d(x_nchw, w_oihw, padding=1)
-        flops = 2 * h * h * 9 * cin * cout
+        flops = 2 * batch * h * h * 9 * cin * cout
         tensors = [x, w, s, noise, bias, resid]
         ho = h
         run_same = None
@@ -356,7 +380,7 @@ def check_kernel(torch, fc, gen, call):
         run_same = lambda: op(x_nchw, w_same, stride=2, padding=pad_same)
         # Least work of the function: that convolution at input resolution,
         # then the separable 4-tap FIR (4 + 4 multiply-adds per output value).
-        flops = 2 * h * h * kh * kh * cin * cout + 2 * (2 * h) ** 2 * 8 * cout
+        flops = batch * (2 * h * h * kh * kh * cin * cout + 2 * (2 * h) ** 2 * 8 * cout)
         tensors = [x, w, styles, noise, bias]
         ho = 2 * h
 
@@ -365,22 +389,23 @@ def check_kernel(torch, fc, gen, call):
     torch.cuda.synchronize()
     err = (yk - yp).abs().max().item()
     rel = err / max(yp.abs().max().item(), 1e-30)
-    print(f"  {kernel} {block} {role}: y {tuple(yk.shape)} max_abs_err {err:.3e} "
+    print(f"  {kernel} {block} {role} batch {batch}: y {tuple(yk.shape)} max_abs_err {err:.3e} "
           f"max_rel_err {rel:.3e}", flush=True)
-    assert yk.shape == yp.shape == (1, ho, ho, cout), yk.shape
+    assert yk.shape == yp.shape == (batch, ho, ho, cout), yk.shape
     assert torch.isfinite(yk).all().item()
     assert err <= 1e-4, f"{kernel} {block} {role}: max abs err {err} > 1e-4"
 
     nbytes = 4 * (sum(t.numel() for t in tensors if t is not None) + yk.numel())
     bound_ms, bound_by = bound(flops, nbytes)
-    ms = cuda_ms(torch, run_k)
-    plain_ms = cuda_ms(torch, run_p)
-    library_ms = cuda_ms(torch, run_lib)
-    same_ms = None if run_same is None else cuda_ms(torch, run_same)
-    row = dict(kernel=kernel, block=block, role=role, max_abs_err=err, ms=ms,
+    reps = (10, 2) if batch == 1 else (3, 1)      # (reps, warmup)
+    ms = cuda_ms(torch, run_k, *reps)
+    plain_ms = cuda_ms(torch, run_p, *reps)
+    library_ms = cuda_ms(torch, run_lib, *reps)
+    same_ms = None if run_same is None else cuda_ms(torch, run_same, *reps)
+    row = dict(kernel=kernel, block=block, role=role, batch=batch, max_abs_err=err, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, same_function_ms=same_ms,
                bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6)
-    print(f"  {kernel} {block} {role}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+    print(f"  {kernel} {block} {role} batch {batch}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
           f"library_ms {library_ms:.4f}{_same(same_ms)} bound_ms {bound_ms:.4f} ({bound_by})",
           flush=True)
     return row
@@ -539,9 +564,9 @@ def _bf16_errs(got, plain, ref):
     return ek, ep, kp
 
 
-def check_bf16(torch, fc, gen, call, adjoint):
-    """A bfloat16 role at one call shape of a 1024^2 forward (K1, K2; with
-    `adjoint` K1's adjoint launch and K3): the kernel and the plain bfloat16
+def check_bf16(torch, fc, gen, call, adjoint, batch=1):
+    """A bfloat16 role at one call shape of a 1024^2 forward at `batch` (K1,
+    K2; with `adjoint` K1's adjoint launch and K3): the kernel and the plain bfloat16
     version, each against the float32 plain version on the same
     bfloat16-rounded activations (x, resid, the forward's y, the cotangent;
     the weights, styles, noise and bias are float32 parameters that the
@@ -567,18 +592,18 @@ def check_bf16(torch, fc, gen, call, adjoint):
         return tuple(a.float() if isinstance(a, torch.Tensor) and a.dtype == bf else a
                      for a in args)
 
-    x = randn(1, h, h, cin).to(bf)
-    s = torch.rand((1, cin), generator=gen, device=dev) + 0.5
+    x = randn(batch, h, h, cin).to(bf)
+    s = torch.rand((batch, cin), generator=gen, device=dev) + 0.5
     if kernel == "K1":
         w = randn(3, 3, cin, cout, scale=1 / math.sqrt(9 * cin))
         last = role == "conv_last"
         noise = None if last else randn(h, h, scale=0.1)
         bias = None if last else randn(cout, scale=0.1)
-        resid = None if last else randn(1, h, h, cout).to(bf)
+        resid = None if last else randn(batch, h, h, cout).to(bf)
         gain, alpha = 1.0, (1.0 if last else 0.2)
         fwd = (x, w, s, noise, bias, resid, gain, alpha, True)
-        flops = 2 * h * h * 9 * cin * cout
-        elements = [x, w, noise, resid, h * h * cout]            # the last: y
+        flops = 2 * batch * h * h * 9 * cin * cout
+        elements = [x, w, noise, resid, batch * h * h * cout]    # the last: y
         if adjoint:
             name, key = "K1-adjoint", "modconv3x3_adj"
             y = fc.modconv3x3_plain(*fwd)
@@ -590,7 +615,7 @@ def check_bf16(torch, fc, gen, call, adjoint):
             g_nchw = g.permute(0, 3, 1, 2)
             w_lib = fc.modconv3x3_adjoint_weights(w).permute(3, 2, 0, 1).to(bf).contiguous()
             run_lib = lambda: F.conv2d(g_nchw, w_lib, padding=1)
-            flops += 2 * h * h * cin + 4 * h * h * cout
+            flops += batch * (2 * h * h * cin + 4 * h * h * cout)
             elements = [g, x, y, resid, noise, x.numel()]         # the last: dx
         else:
             name, key = "K1", "modconv3x3"
@@ -610,7 +635,7 @@ def check_bf16(torch, fc, gen, call, adjoint):
         bias = None if skip else randn(cout, scale=0.1)
         gain, alpha = (math.sqrt(0.5), 1.0) if skip else (math.sqrt(2), 0.2)
         fwd = (x, w, styles, f, noise, bias, gain, alpha, not skip, False)
-        flops = 2 * h * h * kh * kh * cin * cout + 2 * (2 * h) ** 2 * 8 * cout
+        flops = batch * (2 * h * h * kh * kh * cin * cout + 2 * (2 * h) ** 2 * 8 * cout)
         if adjoint:
             name, key = "K3-adjoint", "upconv2_adj"
             y = fc.upconv2_plain(*fwd)
@@ -621,7 +646,7 @@ def check_bf16(torch, fc, gen, call, adjoint):
             ref = fc.upconv2_adjoint_plain(*f32(args))
             w_lib = w.permute(2, 3, 0, 1).to(bf).contiguous()
             if skip:
-                g_lib = torch.randn((1, cout, h, h), generator=gen, device=dev).to(bf)
+                g_lib = torch.randn((batch, cout, h, h), generator=gen, device=dev).to(bf)
                 run_lib = lambda: F.conv2d(g_lib, w_lib)
             else:
                 g_nchw = g.permute(0, 3, 1, 2)
@@ -632,7 +657,7 @@ def check_bf16(torch, fc, gen, call, adjoint):
             run_same = lambda: op(g_same, w_same, stride=2, padding=pad_same)
             elements = [g, x.numel()]                               # the last: dx
             if not skip:
-                flops += 2 * h * h * cin + 4 * (2 * h) ** 2 * cout
+                flops += batch * (2 * h * h * cin + 4 * (2 * h) ** 2 * cout)
                 elements += [x, y, noise]
         else:
             name, key = "K2", "upconv2"
@@ -649,7 +674,7 @@ def check_bf16(torch, fc, gen, call, adjoint):
             op, w_same, pad_same = same_function_call("K2", w, f, False)
             w_same = w_same.to(bf)
             run_same = lambda: op(x_nchw, w_same, stride=2, padding=pad_same)
-            elements = [x, w, styles, noise, 4 * h * h * cout]          # the last: y
+            elements = [x, w, styles, noise, 4 * batch * h * h * cout]  # the last: y
 
     before = fc.launch_counts[BF16_KEYS[key]]
     got = run_k()
@@ -661,21 +686,23 @@ def check_bf16(torch, fc, gen, call, adjoint):
     assert all(torch.isfinite(t).all().item() for t in got if t is not None)
     ek, ep, kp = _bf16_errs(got, plain, ref)
     ok = ek <= max(BF16_RATIO * ep, BF16_FLOOR)
-    print(f"  {name} bf16 {block} {role}: vs float32 on the same inputs, kernel {ek:.3e}, "
+    print(f"  {name} bf16 {block} {role} batch {batch}: vs float32 on the same inputs, "
+          f"kernel {ek:.3e}, "
           f"plain {ep:.3e} (of the largest entry); kernel vs plain {kp:.3e}", flush=True)
     assert ok, f"{name} bf16 {block} {role}: kernel err {ek} > max({BF16_RATIO} x {ep}, " \
                f"{BF16_FLOOR})"
     bound_ms, bound_by = bf16_bound(flops, sum(t if isinstance(t, int) else t.numel()
                                                for t in elements if t is not None))
-    ms = cuda_ms(torch, run_k)
-    plain_ms = cuda_ms(torch, run_p)
-    library_ms = cuda_ms(torch, run_lib)
-    same_ms = None if run_same is None else cuda_ms(torch, run_same)
+    reps = (10, 2) if batch == 1 else (3, 1)      # (reps, warmup)
+    ms = cuda_ms(torch, run_k, *reps)
+    plain_ms = cuda_ms(torch, run_p, *reps)
+    library_ms = cuda_ms(torch, run_lib, *reps)
+    same_ms = None if run_same is None else cuda_ms(torch, run_same, *reps)
     kernel_ms = device_split(run_k, BF16_KERNELS[key])[0]
     print(f"  {name} bf16 {block} {role}: ms {ms:.4f} (kernel's device ms {kernel_ms:.4f}) "
           f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f}{_same(same_ms)} "
           f"bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
-    return dict(kernel=f"{name} bf16", block=block, role=role, max_abs_err=kp,
+    return dict(kernel=f"{name} bf16", block=block, role=role, batch=batch, max_abs_err=kp,
                 err_kernel=ek, err_plain=ep, ms=ms, kernel_device_ms=kernel_ms,
                 plain_ms=plain_ms, library_ms=library_ms, same_function_ms=same_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
@@ -690,12 +717,12 @@ def bf16_phase(torch, fc, cli, G, target_png, png_a, png_b, tmp):
     kernels against the plain bfloat16 forward, each against the float32
     forward of G (mean and max abs error, the kernel's at most BF16_RATIO
     times the plain one's); forward times and peak memory at batch 1 and 2
-    in float32 and bfloat16; one traced bfloat16 forward; a 100-step
+    in float32 and bfloat16; one traced bfloat16 forward; a 50-step
     projection (exact launches, a best loss below the first step's, steps/s
     and peak memory beside float32's), step 0's latent gradient on the
     kernels and on the plain route against float32's (the kernel's error
     at most BF16_RATIO times the plain one's, or within BF16_FLOOR); a
-    50-step batch-2 projected morph and an image-mode demorph with their
+    25-step batch-2 projected morph and an image-mode demorph with their
     launches."""
     import numpy as np
 
@@ -806,14 +833,16 @@ def bf16_phase(torch, fc, cli, G, target_png, png_a, png_b, tmp):
     torch.cuda.reset_peak_memory_stats()
     stamps = []
     fc.reset_launch_counts()
-    res_m, img_pm, _ = cli.run_morph_pair(Gb, png_a, png_b, os.path.join(tmp, "pm_bf16"),
-                                          steps=MORPH_STEPS, chunk=10, seed=0,
-                                          progress=_timed_progress(stamps))
+    (res_m, imgs_pm, _), = cli.run_morph_pairs(Gb, [(png_a, png_b)],
+                                               os.path.join(tmp, "pm_bf16"), steps=MORPH_STEPS,
+                                               chunk=5, seed=0, progress=_timed_progress(stamps))
+    img_pm = imgs_pm[0]
     pair_launches = dict(fc.launch_counts)
     hist_m = res_m.loss_history.numpy()
     pair_rate = _steady_rate(stamps)
     pair_peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  run_morph_pair bfloat16: {MORPH_STEPS} steps at batch 2, {pair_rate:.3f} "
+    print(f"  run_morph_pairs bfloat16, one pair: {MORPH_STEPS} steps at batch 2, "
+          f"{pair_rate:.3f} "
           f"pair-steps/s, peak {pair_peak:.3f} GiB; loss {hist_m[0]:.5f} -> best "
           f"{res_m.best_loss:.5f}; launches {pair_launches}", flush=True)
     assert pair_launches == _per_step(MORPH_STEPS, 2, bf16=True), pair_launches
@@ -2383,6 +2412,384 @@ def loop_phase(torch, fc, cli, G, train_stats):
         train_state_async_s=async_s, train_state_load_s=load_s, g_snapshot_diff=img_diff)
 
 
+# ------------------------------------------------------------ this slice's paths
+
+METRICS_BATCH = 16        # calc_metrics' default batch
+METRICS_ITEMS = 32        # fid2k_full over two batches of 16 on each side
+PPL_SAMPLES = 4           # ppl2_wend at batch 2: two syntheses of 4 images
+NR_STEPS = 10             # project --noise_regularize against the same call without it
+CSV_PAIRS = 4             # morph --pairs-csv: 4 pairs at --pairs-per-batch 4; the first at 1
+CSV_STEPS = 10
+
+
+@contextlib.contextmanager
+def compute_dtype(G, dtype):
+    """G's synthesis in `dtype` within the block, float32 after."""
+    from morphganformer_tpu_torch.models import set_compute_dtype
+
+    set_compute_dtype(G, dtype)
+    try:
+        yield G
+    finally:
+        set_compute_dtype(G, "float32")
+
+
+@contextlib.contextmanager
+def nonzero_noise(torch, G, seed):
+    """Within the block every noise strength (0 at init) is U(0.05, 0.15),
+    so the noise maps' cotangent through the kernels is not a zero; G's
+    strengths and noise buffers come back as they were."""
+    strengths = {n: p.detach().clone() for n, p in G.named_parameters()
+                 if n.endswith("noise_strength")}
+    buffers = {n: b.detach().clone() for n, b in G.named_buffers() if n.endswith("noise_const")}
+    set_noise_strengths(torch, G, torch.Generator(device="cuda").manual_seed(seed))
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for n, p in G.named_parameters():
+                if n in strengths:
+                    p.copy_(strengths[n])
+            for n, b in G.named_buffers():
+                if n in buffers:
+                    b.copy_(buffers[n])
+
+
+def _group_rates(stamps):
+    """Steady steps/s of each projection of a run (the progress steps restart
+    at each group), averaged."""
+    groups, cur = [], []
+    for s in stamps:
+        if cur and s[0] <= cur[-1][0]:
+            groups.append(cur)
+            cur = []
+        cur.append(s)
+    groups.append(cur)
+    return sum(_steady_rate(g) for g in groups) / len(groups)
+
+
+def noise_reg_check(torch, fc, cli, G, target_png, tmp):
+    """project --noise_regularize 1e5 on the bfloat16 synthesis (project's
+    default) with non-zero noise strengths, against the same call without
+    it: NR_STEPS steps each, launches per step unchanged (4/6/4/6 on the
+    tensor-core kernels), ms per step, the <latent>.noises.npz; merge
+    --latents w.mat w.mat --noises w.noises.npz writes the projection's best
+    PNG byte for byte; at one noised latent the latent and noise-map
+    gradients on the bfloat16 kernels and on the bfloat16 plain route,
+    each against float32's on the kernels (phase bf16's rule); one traced
+    step with and without."""
+    import numpy as np
+
+    from morphganformer_tpu_torch.losses import build_loss_stack
+    from morphganformer_tpu_torch.models import set_compute_dtype
+    from morphganformer_tpu_torch.projection import (ProjectionConfig, latent_stats,
+                                                     loss_and_grad, loss_and_grads_with_noise,
+                                                     split_noise_buffers)
+    from morphganformer_tpu_torch.utils.image import load_target, read_png
+
+    out = {}
+    with nonzero_noise(torch, G, 22), compute_dtype(G, "bfloat16"):
+        for nr in (0.0, 1e5):
+            stamps = []
+            d = os.path.join(tmp, f"proj_nr_{nr:g}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fc.reset_launch_counts()
+            res = cli.run_project(G, target_png, d, steps=NR_STEPS, n_mean_latent=10000,
+                                  chunk=2, seed=0, progress=_timed_progress(stamps),
+                                  noise_regularize=nr)
+            launches = dict(fc.launch_counts)
+            rate, peak = _steady_rate(stamps), torch.cuda.max_memory_allocated() / 2**30
+            history = res.loss_history.numpy()
+            print(f"  run_project bfloat16 --noise_regularize {nr:g}: {NR_STEPS} steps, steady "
+                  f"{rate:.3f} steps/s ({1e3 / rate:.3f} ms/step), peak {peak:.3f} GiB; loss "
+                  f"{history[0]:.5f} -> best {res.best_loss:.5f}; launches {launches}",
+                  flush=True)
+            assert launches == _per_step(NR_STEPS, 1, bf16=True), launches
+            assert np.isfinite(history).all() and torch.isfinite(res.best_img).all().item()
+            out[f"nr_{nr:g}"] = dict(steps_per_s=rate, ms_per_step=1e3 / rate, peak_gib=peak)
+        assert set(res.noises) == set(split_noise_buffers(G)), sorted(res.noises)
+        files = sorted(os.listdir(d))
+        assert files[1:] == ["w.mat", "w.noises.npz"] and files[0].startswith("sample_"), files
+
+        w = os.path.join(d, "w.mat")
+        fc.reset_launch_counts()
+        cli.run_merge(G, [w, w], os.path.join(tmp, "merge_nr"),
+                      noises=os.path.join(d, "w.noises.npz"))
+        assert dict(fc.launch_counts) == _per_step(0, 1, bf16=True), fc.launch_counts
+        assert np.array_equal(read_png(os.path.join(tmp, "merge_nr", "w_w.png")),
+                              read_png(os.path.join(d, files[0]))), "merge --noises differs"
+
+        pcfg = ProjectionConfig(steps=NR_STEPS, noise_regularize=1e5)
+        mean, std = latent_stats(G.cfg, torch.Generator().manual_seed(0), 10000)
+        latent_n = (mean[None] + torch.randn((1, G.cfg.k, G.cfg.z_dim),
+                                             generator=torch.Generator().manual_seed(1))
+                    * std * pcfg.noise).cuda()
+        target = torch.from_numpy(load_target(target_png, G.cfg.img_resolution)).cuda()
+        loss_fn = build_loss_stack({"mse": 1.0})
+        noises = {k: v.clone() for k, v in res.noises.items()}
+        grads = {}
+        for key, dtype, plain in (("float32", "float32", False), ("kernels", "bfloat16", False),
+                                  ("plain", "bfloat16", True)):
+            set_compute_dtype(G, dtype)
+            _, _, _, gl, gn = loss_and_grads_with_noise(G, latent_n, noises, target, loss_fn,
+                                                        pcfg, plain)
+            grads[key] = [gl, *gn.values()]
+        set_compute_dtype(G, "bfloat16")
+        ek, ep, kp = _bf16_errs(grads["kernels"], grads["plain"], grads["float32"])
+        smallest = min(g.abs().max().item() for g in grads["float32"][1:])
+        print(f"  noise_regularize gradients (the latent's and {len(noises)} noise maps') in "
+              f"bfloat16 against float32's, of each one's largest entry: kernels {ek:.3e}, "
+              f"plain {ep:.3e}, kernels vs plain {kp:.3e}; smallest noise-map gradient "
+              f"{smallest:.3e}", flush=True)
+        assert smallest > 0, "a noise map's cotangent is zero"
+        assert ek <= max(BF16_RATIO * ep, BF16_FLOOR), (ek, ep)
+        out["grad_vs_f32"] = dict(kernels=ek, plain=ep, kernels_vs_plain=kp)
+
+        fc.reset_launch_counts()
+        loss_and_grads_with_noise(G, latent_n, noises, target, loss_fn, pcfg)
+        assert dict(fc.launch_counts) == _per_step(1, 0, bf16=True), fc.launch_counts
+        for label, fn in (("noise_regularize", lambda: loss_and_grads_with_noise(
+                              G, latent_n, noises, target, loss_fn, pcfg)),
+                          ("plain latent", lambda: loss_and_grad(G, latent_n, target, loss_fn,
+                                                                 pcfg))):
+            t = traced_forward(torch, fn, f"bfloat16 projection step, {label}")
+            out[f"traced_{label.replace(' ', '_')}"] = {
+                k: t[k] for k in ("window_ms", "busy_ms", "device_ops")}
+    return out
+
+
+def morph_csv_check(torch, fc, cli, G, tmp):
+    """morph --pairs-csv on the bfloat16 synthesis (morph's default): the
+    four bfloat16 tensor-core roles at batch 2 * CSV_PAIRS (`check_bf16`);
+    a CSV of CSV_PAIRS pairs of G(z) faces and one row under
+    --min-similarity; CSV_STEPS-step projections with --pairs-per-batch
+    CSV_PAIRS (one batch-8 projection) and, on the first pair alone, 1 (the
+    rate of one batch-2 projection): exact launches, every file of every
+    pair, the morph latents the pairs' averages, pair-steps/s and peak
+    memory."""
+    import numpy as np
+
+    from morphganformer_tpu_torch.morph import load_latent_mat
+    from morphganformer_tpu_torch.utils.image import to_uint8, write_png
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = [check_bf16(torch, fc, gen, call, adjoint, batch=2 * CSV_PAIRS)
+            for adjoint in (False, True) for call in kernel_calls()]
+    faces = os.path.join(tmp, "csv_faces")
+    os.makedirs(faces)
+    z = torch.randn((2 * CSV_PAIRS, G.cfg.k, G.cfg.z_dim),
+                    generator=torch.Generator().manual_seed(30))
+    names = [f"face{i}" for i in range(2 * CSV_PAIRS)]
+    for name, img in zip(names, cli.synthesize(G, z).cpu().numpy()):
+        write_png(os.path.join(faces, f"{name}.png"), to_uint8(img))
+    csv_path = os.path.join(tmp, "pairs.csv")
+    with open(csv_path, "w") as f:
+        f.write("img_a,img_b,similarity\n")
+        for i in range(CSV_PAIRS):
+            f.write(f"{names[2 * i]}.png,{names[2 * i + 1]}.png,0.9\n")
+        f.write(f"{names[0]}.png,{names[3]}.png,0.1\n")          # under --min-similarity
+    out = {}
+    with compute_dtype(G, "bfloat16"):
+        pairs = cli.read_pairs_csv(csv_path, faces, 0.5)
+        assert len(pairs) == CSV_PAIRS, pairs
+        for per, todo in ((CSV_PAIRS, pairs), (1, pairs[:1])):
+            d = os.path.join(tmp, f"csv_{per}")
+            stamps = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fc.reset_launch_counts()
+            t0 = time.perf_counter()
+            groups = cli.run_morph_pairs(G, todo, d, steps=CSV_STEPS, chunk=2, seed=0,
+                                         progress=_timed_progress(stamps), pairs_per_batch=per)
+            wall = time.perf_counter() - t0
+            launches = dict(fc.launch_counts)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            rate = _group_rates(stamps) * per
+            n = len(groups)
+            print(f"  morph --pairs-csv, --pairs-per-batch {per}: {n} batch-{2 * per} "
+                  f"projection(s) of {CSV_STEPS} steps in {wall:.3f} s; steady {rate:.3f} "
+                  f"pair-steps/s; peak {peak:.3f} GiB; launches {launches}", flush=True)
+            assert n == len(todo) // per
+            assert launches == _per_step(n * CSV_STEPS, 2 * n, bf16=True), launches
+            assert len(os.listdir(d)) == 6 * len(todo), sorted(os.listdir(d))
+            for a, b in list(zip(names[::2], names[1::2]))[:len(todo)]:
+                wa, wb, wm = (load_latent_mat(os.path.join(d, f"{s}.mat"))
+                              for s in (a, b, f"{a}_{b}_morph"))
+                assert np.allclose(wm, 0.5 * wa + 0.5 * wb, rtol=0, atol=1e-6)
+            for res, imgs, _ in groups:
+                assert np.isfinite(res.loss_history.numpy()).all() and np.isfinite(imgs).all()
+            out[f"pairs_per_batch_{per}"] = dict(pair_steps_per_s=rate, peak_gib=peak,
+                                                 wall_s=wall, launches=launches)
+    return rows, out
+
+
+@contextlib.contextmanager
+def timed_calls(seconds, *targets):
+    """Within the block each (module, name) of `targets` is wrapped so that
+    its calls add their wall seconds to seconds[name]."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def timed(name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return call
+
+    for mod, name, fn in saved:
+        setattr(mod, name, timed(name, fn))
+    try:
+        yield seconds
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def ppl_feature_fn(torch):
+    """PPL's perceptual embedding for the smoke run: the LPIPS-VGG tower on
+    random weights (seed 0), each slice unit-normalised over channels,
+    flattened and joined."""
+    from morphganformer_tpu_torch.losses import lpips
+
+    params = lpips.random_lpips_params("vgg", device="cuda")
+
+    def embed(img):
+        x = (img / 127.5 - 1.0).permute(0, 3, 1, 2)
+        return torch.cat([lpips.normalize_tensor(f).flatten(1)
+                          for f in lpips.vgg16_features(params["tower"], x)], dim=1)
+
+    return embed
+
+
+def metrics_phase(torch, fc, cli, G, tmp):
+    """The float32 K1 and K2 forwards at the 10 call shapes at batch 16
+    (calc_metrics' default); fid2k_full through run_calc_metrics (the
+    calc_metrics entry point) on METRICS_ITEMS G(z) images written as PNGs,
+    with a random-weight InceptionV3 written as an .npz, then with the raw
+    detector: exact launches per batch-16 forward, the metric-fid2k_full.jsonl
+    lines, each run's seconds split between the dataset's features, the
+    generator's and frechet_distance (scipy's sqrtm on the host); one
+    batch's images on the kernels against the plain route; imgs/s of
+    features_for_generator and its split between G and the detector;
+    ppl2_wend on PPL_SAMPLES pairs (batch 2), kernels and plain."""
+    import numpy as np
+
+    from morphganformer_tpu_torch.metrics import core, inception, registry
+    from morphganformer_tpu_torch.metrics.extract import (_to_detector_range,
+                                                          features_for_generator)
+    from morphganformer_tpu_torch.metrics.registry import compute_metric
+    from morphganformer_tpu_torch.utils.image import to_uint8, write_png
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = [check_kernel(torch, fc, gen, call, batch=METRICS_BATCH) for call in kernel_calls()]
+    cfg = G.cfg
+    out = {}
+    data = os.path.join(tmp, "metrics_data")
+    res_dir = os.path.join(data, str(cfg.img_resolution))
+    os.makedirs(res_dir)
+    gz = torch.Generator().manual_seed(40)
+    t0 = time.perf_counter()
+    for lo in range(0, METRICS_ITEMS, METRICS_BATCH):
+        z = torch.randn((METRICS_BATCH, cfg.k, cfg.z_dim), generator=gz)
+        for i, img in enumerate(cli.synthesize(G, z).cpu().numpy()):
+            write_png(os.path.join(res_dir, f"{lo + i:04d}.png"), to_uint8(img))
+    print(f"  {METRICS_ITEMS} dataset PNGs written in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    npz = os.path.join(tmp, "inception_random.npz")
+    inception.save_inception_npz(inception.random_inception_params(0), npz)
+    # The detector's one-time cost (load, first cuDNN calls at each shape),
+    # apart from the metric's run.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inception.make_detector(inception.load_inception_npz(npz))(
+        torch.zeros((METRICS_BATCH, cfg.img_resolution, cfg.img_resolution, 3), device=DEV))
+    torch.cuda.synchronize()
+    out["detector_first_call_s"] = time.perf_counter() - t0
+    print(f"  InceptionV3 from the .npz, its first call at batch {METRICS_BATCH}: "
+          f"{out['detector_first_call_s']:.3f} s", flush=True)
+    run_dir = os.path.join(tmp, "metrics_run")
+    os.makedirs(run_dir)
+    for det, items in ((npz, METRICS_ITEMS), ("raw", METRICS_BATCH)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fc.reset_launch_counts()
+        t0 = time.perf_counter()
+        with timed_calls({}, (registry, "features_for_dataset"),
+                         (registry, "features_for_generator"),
+                         (core, "frechet_distance")) as split:
+            (result,) = cli.run_calc_metrics(G, data, ["fid2k_full"], max_items=items,
+                                             batch=METRICS_BATCH, run_dir=run_dir,
+                                             detector=det)
+        torch.cuda.synchronize()
+        secs, launches = time.perf_counter() - t0, dict(fc.launch_counts)
+        tag = "inception" if det == npz else "raw"
+        value = result["results"]["fid2k_full"]
+        print(f"  calc_metrics fid2k_full, {tag} detector, {items} items at batch "
+              f"{METRICS_BATCH}: {value:.6g} in {secs:.3f} s (dataset features "
+              f"{split['features_for_dataset']:.3f} s, generator features "
+              f"{split['features_for_generator']:.3f} s, frechet_distance "
+              f"{split['frechet_distance']:.3f} s), peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {launches}",
+              flush=True)
+        assert launches == _per_step(0, items // METRICS_BATCH), launches
+        assert np.isfinite(value), value
+        out[f"fid2k_full_{tag}"] = dict(value=value, seconds=secs, items=items,
+                                        launches=launches, split_s=split)
+    lines = [json.loads(s) for s in open(os.path.join(run_dir, "metric-fid2k_full.jsonl"))]
+    assert len(lines) == 2 and {"results", "metric", "total_time", "snapshot_pkl",
+                                "timestamp"} <= set(lines[0])
+
+    z = torch.randn((METRICS_BATCH, cfg.k, cfg.z_dim),
+                    generator=torch.Generator().manual_seed(0)).cuda()
+    yk = cli.synthesize(G, z, truncation_psi=1.0)
+    yp = cli.synthesize(G, z, truncation_psi=1.0, plain=True)
+    torch.cuda.synchronize()
+    diff = (yk - yp).abs().max().item()
+    print(f"  batch {METRICS_BATCH} forward at psi 1, kernels vs plain: max abs diff "
+          f"{diff:.3e}", flush=True)
+    assert diff <= 1e-3, diff
+    det = inception.make_detector(inception.random_inception_params(0))
+    x = _to_detector_range(yk)
+    g_ms = cuda_ms(torch, lambda: cli.synthesize(G, z, truncation_psi=1.0), reps=3, warmup=1)
+    d_ms = cuda_ms(torch, lambda: det(x), reps=3, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = features_for_generator(det, G, max_items=2 * METRICS_BATCH, batch=METRICS_BATCH,
+                                   capture_mean_cov=True)
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    rate = stats.num_items / feat_s
+    print(f"  features_for_generator: {stats.num_items} images in {feat_s:.3f} s, {rate:.3f} "
+          f"imgs/s; a batch of {METRICS_BATCH}: G {g_ms:.3f} ms, InceptionV3 {d_ms:.3f} ms",
+          flush=True)
+    out["features"] = dict(imgs_per_s=rate, g_ms=g_ms, detector_ms=d_ms, kernels_vs_plain=diff)
+
+    embed = ppl_feature_fn(torch)
+    vals = {}
+    for plain in (False, True):
+        fc.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = compute_metric("ppl2_wend", G=G, feature_fn=embed, max_items=PPL_SAMPLES, batch=2,
+                           plain=plain)
+        torch.cuda.synchronize()
+        vals["plain" if plain else "kernels"] = (r["results"]["ppl2_wend"],
+                                                 time.perf_counter() - t0)
+        if not plain:
+            assert dict(fc.launch_counts) == _per_step(0, PPL_SAMPLES // 2), fc.launch_counts
+    print(f"  ppl2_wend over {PPL_SAMPLES} samples: kernels {vals['kernels'][0]:.6g} "
+          f"({PPL_SAMPLES / vals['kernels'][1]:.3f} samples/s), plain {vals['plain'][0]:.6g}",
+          flush=True)
+    for v, _ in vals.values():
+        assert np.isfinite(v) and v > 0, vals
+    out["ppl2_wend"] = dict(kernels=vals["kernels"][0], plain=vals["plain"][0],
+                            samples_per_s=PPL_SAMPLES / vals["kernels"][1])
+    return rows, out
+
+
 def _fmt_list(xs):
     return "[" + ", ".join(f"{x:.3f}" for x in xs) + "]"
 
@@ -2533,6 +2940,7 @@ def main():
                   flush=True)
             assert torch.isfinite(grads[False]).all().item()
             assert grad_err <= 1e-3, f"latent gradient kernels vs plain: {grad_err}"
+            nr_stats = noise_reg_check(torch, fc, cli, G, target_png, tmp)
         phases["project"] = ph.seconds
         proj_stats = dict(steps_per_s=rate, peak_gib=peak / 2**30, wall_s=proj_s,
                           grad_rel_err=grad_err, step_ms_kernels=step_ms[False],
@@ -2573,14 +2981,16 @@ def main():
             stamps = []
             fc.reset_launch_counts()
             t0 = time.perf_counter()
-            res_m, img_pm, w_pm = cli.run_morph_pair(G, png_a, png_b, os.path.join(tmp, "pm"),
-                                                     steps=MORPH_STEPS, chunk=10, seed=0,
-                                                     progress=_timed_progress(stamps))
+            (res_m, imgs_pm, ws_pm), = cli.run_morph_pairs(
+                G, [(png_a, png_b)], os.path.join(tmp, "pm"), steps=MORPH_STEPS, chunk=5,
+                seed=0, progress=_timed_progress(stamps))
+            img_pm, w_pm = imgs_pm[0], ws_pm[0]
             pair_s = time.perf_counter() - t0
             pair_launches = dict(fc.launch_counts)
             pair_peak = torch.cuda.max_memory_allocated()
             pair_rate = _steady_rate(stamps)
-            print(f"  run_morph_pair: {MORPH_STEPS} steps at batch 2 in {pair_s:.3f} s; steady "
+            print(f"  run_morph_pairs, one pair: {MORPH_STEPS} steps at batch 2 in {pair_s:.3f} "
+                  f"s; steady "
                   f"{pair_rate:.3f} pair-steps/s; peak memory {pair_peak / 2**30:.3f} GiB; "
                   f"per-image best {res_m.per_image_loss.tolist()}; launches {pair_launches}",
                   flush=True)
@@ -2606,6 +3016,7 @@ def main():
             assert demorph_img_launches == want, (demorph_img_launches, want)
             assert img_di.shape == (1024, 1024, 3) and np.isfinite(img_di).all()
             assert np.isfinite(w_di).all()
+            csv_rows, csv_stats = morph_csv_check(torch, fc, cli, G, tmp)
         phases["morph"] = ph.seconds
         morph_stats = dict(pair_steps_per_s=pair_rate, peak_gib=pair_peak / 2**30,
                            wall_s=pair_s, demorph_image_s=demorph_img_s)
@@ -2629,6 +3040,10 @@ def main():
             ckpt_stats = checkpoint_phase(torch, fc, cli, G, tmp)
         phases["checkpoint"] = ph.seconds
 
+        with Phase("metrics") as ph:
+            metrics_rows, metrics_stats = metrics_phase(torch, fc, cli, G, tmp)
+        phases["metrics"] = ph.seconds
+
     with Phase("train") as ph:
         train_rows, train_launches, train_stats = train_phase(torch, fc)
     phases["train"] = ph.seconds
@@ -2647,7 +3062,11 @@ def main():
 
     print("kernel_calls " + json.dumps(rows + train_rows + k4_rows), flush=True)
     print("projection " + json.dumps(proj_stats), flush=True)
+    print("noise_regularize " + json.dumps(nr_stats), flush=True)
     print("morph " + json.dumps(morph_stats), flush=True)
+    print("morph_csv " + json.dumps(csv_stats), flush=True)
+    print("metrics " + json.dumps(metrics_stats), flush=True)
+    print("kernel_calls_batched " + json.dumps(metrics_rows + csv_rows), flush=True)
     print("bf16 " + json.dumps(bf16_stats), flush=True)
     print("losses " + json.dumps(loss_stats), flush=True)
     print("checkpoint " + json.dumps(ckpt_stats), flush=True)
@@ -2723,6 +3142,41 @@ def main():
             "plain_err_vs_f32": max(r["err_plain"] for r in mine),
             "ms": sum(r["ms"] for r in mine),
             "kernel_device_ms": sum(r["kernel_device_ms"] for r in mine),
+            "plain_ms": sum(r["plain_ms"] for r in mine),
+            "bound_ms": b_ms,
+            "bound_by": "operations" if 2 * ops_ms >= b_ms else "bytes",
+            "library_ms": sum(r["library_ms"] for r in mine),
+            "same_function_ms": _same_sum(mine),
+        })
+    for kernel, rows_b, run, path in (
+            ("K1", metrics_rows, metrics_stats["fid2k_full_inception"], "calc_metrics"),
+            ("K2", metrics_rows, metrics_stats["fid2k_full_inception"], "calc_metrics"),
+            ("K1 bf16", csv_rows, csv_stats[f"pairs_per_batch_{CSV_PAIRS}"], "morph CSV"),
+            ("K2 bf16", csv_rows, csv_stats[f"pairs_per_batch_{CSV_PAIRS}"], "morph CSV"),
+            ("K1-adjoint bf16", csv_rows, csv_stats[f"pairs_per_batch_{CSV_PAIRS}"], "morph CSV"),
+            ("K3-adjoint bf16", csv_rows, csv_stats[f"pairs_per_batch_{CSV_PAIRS}"],
+             "morph CSV")):
+        mine = [r for r in rows_b if r["kernel"] == kernel]
+        key = {"K1": "modconv3x3", "K2": "upconv2", "K1 bf16": "modconv3x3_bf16",
+               "K2 bf16": "upconv2_bf16", "K1-adjoint bf16": "modconv3x3_adj_bf16",
+               "K3-adjoint bf16": "upconv2_adj_bf16"}[kernel]
+        b_ms = sum(r["bound_ms"] for r in mine)
+        ops_ms = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")
+        kernels.append({
+            "name": f"{kernel} at batch {mine[0]['batch']} ({path}: the call shapes of one "
+                    "1024^2 forward, " + ", ".join(f"{r['block']} {r['role']}" for r in mine)
+                    + f"; launches over the {path} run"
+                    + ("" if path == "calc_metrics" else
+                       f", --pairs-per-batch {CSV_PAIRS}, {CSV_STEPS} steps")
+                    + (")" if "bf16" not in kernel else
+                       "; max_abs_err: kernel vs plain bfloat16, of the float32 reference's "
+                       "largest entry)"),
+            "route": "cuda", "source": SOURCE,
+            "replaces": K3_REPLACES if kernel.startswith("K3") else (
+                K2_REPLACES if kernel.startswith("K2") else K1_REPLACES),
+            "launches": run["launches"][key],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": b_ms,
             "bound_by": "operations" if 2 * ops_ms >= b_ms else "bytes",

@@ -1,7 +1,9 @@
-"""Entry points of the port: generate, merge, project, morph and demorph.
+"""Entry points of the port: generate, merge, project, morph, demorph, train
+and calc_metrics.
 
     python -m morphganformer_tpu_torch.cli generate --model init:1024 --output-dir images
-    python -m morphganformer_tpu_torch.cli merge --model init:1024 --latents a.mat b.mat --out morphs
+    python -m morphganformer_tpu_torch.cli merge --model init:1024 --latents a.mat b.mat \
+        --out morphs
     python -m morphganformer_tpu_torch.cli project --model init:1024 --img face.png \
         --step 1000 --path_to_gen images/projection
     python -m morphganformer_tpu_torch.cli morph --model init:1024 --img-a a.png --img-b b.png \
@@ -12,9 +14,11 @@
         --morph-img m.png --accomplice-img a.png --out demorph
     python -m morphganformer_tpu_torch.cli train --data-dir datasets/ffhq --resolution 1024 \
         --ganformer-default --batch 4 --batch-gpu 4 --expname ffhq
+    python -m morphganformer_tpu_torch.cli calc_metrics --model init:1024 \
+        --data datasets/ffhq --metrics fid2k_full --detector raw --run-dir results
 
-They mirror cli/generate.py, cli/merge.py, cli/project.py, cli/morph.py
-(one pair), cli/demorph.py and cli/train.py of the JAX package. `--model <dir>` loads the
+They mirror cli/generate.py, cli/merge.py, cli/project.py, cli/morph.py,
+cli/demorph.py, cli/train.py and cli/calc_metrics.py of the JAX package. `--model <dir>` loads the
 EMA generator ("Gs") of a checkpoint directory (arch.json + Gs.msgpack,
 written by either package; a training snapshot is one). `--model
 init:<res>` builds a randomly initialised FFHQ-style generator at that
@@ -24,7 +28,8 @@ projection noise). Everything
 runs on the card; `--device cpu` asks for the CPU. `--dtype` is the
 synthesis' compute type, with JAX's defaults: bfloat16 for project, morph
 and demorph, float32 for generate and merge (the weights, the latent, Adam
-and the loss stay float32). Latents are fed to the
+and the loss stay float32); calc_metrics has no `--dtype` and runs float32,
+as JAX's does. Latents are fed to the
 generator as z, as the JAX entry points do. Projection targets are PNGs of
 any size (Lanczos-resized and centre-cropped, as JAX's load_target does).
 `project --loss` takes JAX's whole loss stack: the pixel terms and lpips,
@@ -34,15 +39,23 @@ bundled landmark model, or `--random-perceptual`:
 
     python -m morphganformer_tpu_torch.cli project --model init:1024 --img face.png \
         --loss "lpips+0.01*wing+1*mse" --random-perceptual --size 256
+
+`project --noise_regularize 1e5` optimizes the const-noise maps with the
+latent and writes them beside it (<latent>.noises.npz); `merge --noises`
+applies such maps before generating. `morph --pairs-csv pairs.csv` projects
+the pairs of a CSV (img_a,img_b[,similarity]), `--pairs-per-batch` of them
+as one batch-2P projection.
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
 import dataclasses
 import functools
 import glob
 import itertools
+import json
 import os
 import re
 import zlib
@@ -72,7 +85,12 @@ from morphganformer_tpu_torch.morph import (
     morph_latents,
     save_latent_mat,
 )
-from morphganformer_tpu_torch.projection import ProjectionConfig, latent_stats, project
+from morphganformer_tpu_torch.projection import (
+    ProjectionConfig,
+    latent_stats,
+    merge_noise_buffers,
+    project,
+)
 from morphganformer_tpu_torch.utils.image import (
     crop_max_rectangle,
     load_target,
@@ -130,12 +148,26 @@ def _as_batch(w):
     return w[None] if w.ndim == 2 else w
 
 
-def run_merge(G, latent_files, out_dir, alpha=0.5, truncation_psi=0.7, all_pairs=False):
+def load_noises(path):
+    """The noise maps of a `.noises.npz` (project --noise_regularize, of
+    either package), keyed by their flattened paths."""
+    with np.load(path) as nz:
+        return {k: nz[k] for k in nz.files}
+
+
+def run_merge(G, latent_files, out_dir, alpha=0.5, truncation_psi=0.7, all_pairs=False,
+              noises=None):
     """Morph pairs of .mat latents (in order, or every pair with
     `all_pairs`): W = alpha*w1 + (1-alpha)*w2, regenerate, write
-    <a>_<b>.png and <a>_<b>.mat. Returns [(stem, image, W)]."""
+    <a>_<b>.png and <a>_<b>.mat. Returns [(stem, image, W)]. `noises` (a
+    `.noises.npz` path) is copied into G's noise buffers first, so that
+    `--latents w.mat w.mat --noises w.noises.npz` gives that projection's
+    best image."""
     if len(latent_files) < 2:
         raise ValueError("need at least two latents")
+    if noises:
+        merge_noise_buffers(G, load_noises(noises))
+        print(f"merged optimized noise maps from {noises}")
     os.makedirs(out_dir, exist_ok=True)
     pairs = (itertools.combinations(latent_files, 2) if all_pairs
              else zip(latent_files[::2], latent_files[1::2]))
@@ -274,18 +306,20 @@ def run_project(G, img, out_dir, loss="mse", steps=5000, lr=0.1, lr_rampup=0.05,
                 lr_rampdown=0.25, noise=0.05, noise_ramp=0.75, truncation_psi=0.7,
                 n_mean_latent=10000, chunk=250, w_plus=False, init_latent=None,
                 save_latent=None, ratio=1.0, seed=0, progress=None, size=None, lamda=None,
-                beta=None, nets: Optional[LossNets] = None):
+                beta=None, nets: Optional[LossNets] = None, noise_regularize=0.0):
     """Project the PNG `img` into G's latent space under the loss stack
     `loss` (`projection_loss` with `size`, `lamda`, `beta` and `nets`). The
     prior statistics and then the per-step noise are drawn from one
     torch.Generator seeded with `seed`. Writes
     <out_dir>/sample_{best_step:06d}_{best_loss:.4f}.png and the best latent
-    to `save_latent` (default <out_dir>/w.mat); returns the
-    ProjectionResult. `progress(step, loss, best)` is called every `chunk`
-    steps (by default it prints a line)."""
+    to `save_latent` (default <out_dir>/w.mat); with `noise_regularize` > 0
+    also the best noise maps to <latent>.noises.npz (the best image was
+    made with them). Returns the ProjectionResult. `progress(step, loss,
+    best)` is called every `chunk` steps (by default it prints a line)."""
     pcfg = ProjectionConfig(steps=steps, lr=lr, lr_rampup=lr_rampup, lr_rampdown=lr_rampdown,
                             noise=noise, noise_ramp=noise_ramp, truncation_psi=truncation_psi,
-                            n_mean_latent=n_mean_latent, chunk=chunk, w_plus=w_plus)
+                            n_mean_latent=n_mean_latent, chunk=chunk, w_plus=w_plus,
+                            noise_regularize=noise_regularize)
     loss_fn = projection_loss(loss, G.cfg.img_resolution, next(G.parameters()).device, size,
                               lamda, beta, nets)
     gen = torch.Generator().manual_seed(seed)
@@ -296,38 +330,70 @@ def run_project(G, img, out_dir, loss="mse", steps=5000, lr=0.1, lr_rampup=0.05,
     os.makedirs(out_dir, exist_ok=True)
     name = f"sample_{result.best_step:06d}_{result.best_loss:.4f}.png"
     _save_png(os.path.join(out_dir, name), result.best_img[0].cpu().numpy(), ratio)
-    save_latent_mat(save_latent or os.path.join(out_dir, "w.mat"),
-                    result.latent[0].cpu().numpy())
+    latent_path = save_latent or os.path.join(out_dir, "w.mat")
+    save_latent_mat(latent_path, result.latent[0].cpu().numpy())
+    if result.noises is not None:
+        noises_path = os.path.splitext(latent_path)[0] + ".noises.npz"
+        np.savez(noises_path, **{k: v.cpu().numpy() for k, v in result.noises.items()})
+        print(f"optimized noise maps -> {noises_path} (merge --noises applies them)")
     return result
 
 
-def run_morph_pair(G, img_a, img_b, out_dir, loss="mse", steps=1000, lr=0.1,
-                   truncation_psi=0.7, n_mean_latent=10000, chunk=250, alpha=0.5, seed=0,
-                   progress=None):
-    """Project both photos of a pair as one batch-2 projection, morph the
-    best latents (W = alpha*w_a + (1-alpha)*w_b) and regenerate. Writes
+def read_pairs_csv(path, img_root="", min_similarity=0.5):
+    """The pairs of a CSV with columns img_a,img_b[,similarity] (paths under
+    `img_root`); rows whose similarity is below `min_similarity` are left
+    out (reference projection_example_v2_percept_morph.py:339-344)."""
+    with open(path, newline="") as f:
+        rows = [row for row in csv.DictReader(f)
+                if float(row.get("similarity", 1.0)) >= min_similarity]
+    return [(os.path.join(img_root, r["img_a"]), os.path.join(img_root, r["img_b"]))
+            for r in rows]
+
+
+def run_morph_pairs(G, pairs, out_dir, loss="mse", steps=1000, lr=0.1, truncation_psi=0.7,
+                    n_mean_latent=10000, chunk=250, alpha=0.5, seed=0, progress=None,
+                    pairs_per_batch=4):
+    """Project `pairs` of photos, `pairs_per_batch` pairs as one batch-2P
+    projection (each image tracks its own best; the loss is the batch's mean,
+    so the result is that of 2P separate runs on the same noise but for
+    Adam's eps and coupled decay, which weigh more against a smaller
+    gradient), morph each pair's best latents (W = alpha*w_a +
+    (1-alpha)*w_b) and regenerate every morph of a group in one batched
+    forward. The prior statistics, then each group's per-step noise, are
+    drawn from one torch.Generator seeded with `seed`. Writes per pair
     <a>_rec.png, <b>_rec.png, <a>.mat, <b>.mat, <a>_<b>_morph.png and
-    <a>_<b>_morph.mat; returns (ProjectionResult, morph image, morph latent).
-    `progress` as in `run_project`."""
+    <a>_<b>_morph.mat; returns [(ProjectionResult, morph images [P,H,W,3],
+    morph latents [P,...])] a group. `progress` as in `run_project`."""
     pcfg = ProjectionConfig(steps=steps, lr=lr, truncation_psi=truncation_psi,
                             n_mean_latent=n_mean_latent, chunk=chunk)
     gen = torch.Generator().manual_seed(seed)
     mean, std = latent_stats(G.cfg, gen, n_mean_latent)
-    names = [os.path.splitext(os.path.basename(p))[0] for p in (img_a, img_b)]
-    res = project(G, _targets(G, [img_a, img_b]), build_loss_stack(parse_loss_spec(loss)),
-                  pcfg, mean, std, generator=gen,
-                  progress=progress or _print_progress(steps))
+    loss_fn = build_loss_stack(parse_loss_spec(loss))
     os.makedirs(out_dir, exist_ok=True)
-    latents = res.latent.cpu().numpy()
-    for i, name in enumerate(names):
-        _save_png(os.path.join(out_dir, f"{name}_rec.png"), res.best_img[i].cpu().numpy())
-        save_latent_mat(os.path.join(out_dir, f"{name}.mat"), latents[i])
-    w_morph = morph_latents(latents[0], latents[1], alpha)
-    img = synthesize(G, w_morph[None], truncation_psi)[0].cpu().numpy()
-    stem = f"{names[0]}_{names[1]}_morph"
-    _save_png(os.path.join(out_dir, f"{stem}.png"), img)
-    save_latent_mat(os.path.join(out_dir, f"{stem}.mat"), w_morph)
-    return res, img, w_morph
+    per = max(1, pairs_per_batch)
+    out = []
+    for lo in range(0, len(pairs), per):
+        group = pairs[lo:lo + per]
+        paths = [p for pair in group for p in pair]
+        names = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+        print(f"projecting {len(group)} pair(s) as one batch-{len(paths)} projection "
+              f"({steps} steps, loss={loss})...", flush=True)
+        res = project(G, _targets(G, paths), loss_fn, pcfg, mean, std, generator=gen,
+                      progress=progress or _print_progress(steps))
+        latents = res.latent.cpu().numpy()
+        for i, name in enumerate(names):
+            _save_png(os.path.join(out_dir, f"{name}_rec.png"), res.best_img[i].cpu().numpy())
+            save_latent_mat(os.path.join(out_dir, f"{name}.mat"), latents[i])
+        w_morphs = np.stack([morph_latents(latents[2 * i], latents[2 * i + 1], alpha)
+                             for i in range(len(group))])
+        imgs = synthesize(G, w_morphs, truncation_psi).cpu().numpy()
+        for i in range(len(group)):
+            stem = f"{names[2 * i]}_{names[2 * i + 1]}_morph"
+            _save_png(os.path.join(out_dir, f"{stem}.png"), imgs[i])
+            save_latent_mat(os.path.join(out_dir, f"{stem}.mat"), w_morphs[i])
+            print(f"morph -> {os.path.join(out_dir, stem + '.png')}", flush=True)
+        out.append((res, imgs, w_morphs))
+    return out
 
 
 def tag_seed(seed, tag):
@@ -367,8 +433,87 @@ def run_demorph(G, morph_latent=None, accomplice_latent=None, out_dir="images/de
     return img[0], w_rec[0]
 
 
+def dataset_batches(path, resolution, batch=16, max_items=None):
+    """NHWC uint8 batches of the images under <path>/<resolution>/, in
+    order (JAX's cli/calc_metrics.py:dataset_batches)."""
+    from morphganformer_tpu_torch.data.dataset import ImageFolderDataset
+
+    ds = ImageFolderDataset(path, resolution, max_items=max_items)
+    n = len(ds)
+    for i in range(0, n, batch):
+        yield np.stack([ds[j][0] for j in range(i, min(i + batch, n))])
+
+
+def run_calc_metrics(G, data, metrics, max_items=None, batch=16, run_dir=None, detector="auto",
+                     device="cuda"):
+    """Each metric of `metrics` on G against the dataset under `data`:
+    compute_metric, then its JSON line printed and appended to
+    <run_dir>/metric-<name>.jsonl (JAX's cli/calc_metrics.py). `detector`:
+    "auto", "raw", an .npz of InceptionV3 or a callable. Returns the results
+    dicts."""
+    from morphganformer_tpu_torch.metrics.detector import detector_kind, resolve_detector
+    from morphganformer_tpu_torch.metrics.registry import compute_metric, report_metric
+
+    kind = "probs" if any(detector_kind(m) == "probs" for m in metrics) else "features"
+    det = resolve_detector(detector, kind=kind, device=device)
+    out = []
+    for metric in metrics:
+        kwargs = dict(detector=det, dataset=dataset_batches(data, G.cfg.img_resolution, batch,
+                                                            max_items),
+                      G=G, batch=batch, device=device)
+        if max_items:
+            kwargs["max_items"] = max_items
+        result = compute_metric(metric, **kwargs)
+        report_metric(result, run_dir=run_dir)
+        out.append(result)
+    return out
+
+
+def morph_qa(dir_a, dir_b, size=None, device="cuda"):
+    """Mean PSNR and SSIM between the paired PNGs of two directories (sorted
+    by name), each loaded by load_target at `size` (default: the width of
+    the first image of the pair)."""
+    from morphganformer_tpu_torch.losses.pixel import psnr, ssim
+    from morphganformer_tpu_torch.utils.image import read_png
+
+    files_a = sorted(glob.glob(os.path.join(dir_a, "*.png")))
+    files_b = sorted(glob.glob(os.path.join(dir_b, "*.png")))
+    if len(files_a) != len(files_b) or not files_a:
+        raise ValueError(f"paired dirs mismatch: {len(files_a)} vs {len(files_b)}")
+    psnrs, ssims = [], []
+    for fa, fb in zip(files_a, files_b):
+        sz = size or read_png(fa).shape[1]
+        a, b = (torch.from_numpy(load_target(f, sz)).to(device) for f in (fa, fb))
+        psnrs.append(float(psnr(a, b)))
+        ssims.append(float(ssim(a, b)))
+    return {"psnr_mean": float(np.mean(psnrs)), "ssim_mean": float(np.mean(ssims)),
+            "num_pairs": len(psnrs)}
+
+
+def run_eval(args):
+    """train --eval: the metrics (default fid2k_full) of the newest snapshot's
+    Gs over the earlier runs of the same name, on 2000 images, written
+    beside the snapshot (JAX's cli/train.py:176-200)."""
+    from morphganformer_tpu_torch.metrics.detector import detector_kind, resolve_detector
+    from morphganformer_tpu_torch.metrics.registry import compute_metric, report_metric
+    from morphganformer_tpu_torch.training.loop import latest_snapshot
+
+    prev = sorted(glob.glob(os.path.join(args.result_dir, f"{args.expname}-*")))
+    snaps = [s for d in prev if (s := latest_snapshot(d))]
+    if not snaps:
+        raise FileNotFoundError(f"no snapshot to evaluate under {args.result_dir}/"
+                                f"{args.expname}-*")
+    _, G = load_network(snaps[-1], role="Gs", device=args.device)
+    for metric in (args.metrics or ["fid2k_full"]):
+        result = compute_metric(
+            metric, detector=resolve_detector(args.detector, kind=detector_kind(metric),
+                                              device=args.device),
+            dataset=dataset_batches(args.data_dir, G.cfg.img_resolution, max_items=2000),
+            G=G, max_items=2000, device=args.device)
+        report_metric(result, run_dir=os.path.dirname(snaps[-1]), snapshot_pkl=snaps[-1])
+
+
 GAMMAS = {"ffhq": 10, "cityscapes": 20, "clevr": 40, "bedrooms": 100}
-METRICS_NOT_PORTED = 'metrics are not ported yet (ROADMAP.md queue 1, "Metrics")'
 PARALLEL_NOT_PORTED = ('multi-process training is not ported yet (ROADMAP.md queue 1, '
                        '"Parallel")')
 
@@ -426,13 +571,14 @@ def run_train(args):
     newest snapshot of the earlier runs of the same name, then the loop."""
     from morphganformer_tpu_torch.training.loop import LoopConfig, latest_snapshot, training_loop
 
-    if args.eval or args.metrics:
-        raise NotImplementedError(METRICS_NOT_PORTED)
     if args.multihost or args.coordinator or args.num_processes or args.process_id is not None:
         raise NotImplementedError(PARALLEL_NOT_PORTED)
     if args.dtype != "float32":
         raise NotImplementedError("the port trains in float32 only (bfloat16 training needs "
                                   "the D-tower roles and the dw kernels in bfloat16)")
+    if args.eval:
+        run_eval(args)
+        return None
     if args.raw_cache:
         os.environ["MGT_RAW_CACHE"] = "1"
     g_cfg, d_cfg, t_cfg = build_train_configs(args)
@@ -447,8 +593,9 @@ def run_train(args):
     print(f"run dir: {run_dir}")
     l_cfg = LoopConfig(run_dir=run_dir, total_kimg=args.total_kimg,
                        kimg_per_tick=args.kimg_per_tick, snapshot_ticks=args.snapshot_ticks,
-                       img_snapshot_ticks=args.img_snapshot_ticks, vis=tuple(args.vis),
-                       snapshot_backend=args.snapshot_backend)
+                       img_snapshot_ticks=args.img_snapshot_ticks,
+                       eval_metrics=tuple(args.metrics), vis=tuple(args.vis),
+                       detector=args.detector, snapshot_backend=args.snapshot_backend)
     return training_loop(g_cfg, d_cfg, t_cfg, l_cfg, args.data_dir, resume=resume,
                          max_ticks=args.max_ticks, device=args.device)
 
@@ -463,8 +610,11 @@ def train_parser(sub):
     t.add_argument("--expname", default="exp")
     t.add_argument("--resume", default="auto", help='"auto", a snapshot directory, or ""')
     t.add_argument("--total-kimg", type=int, default=25000)
-    t.add_argument("--eval", action="store_true", help=f"refused: {METRICS_NOT_PORTED}")
-    t.add_argument("--metrics", nargs="*", default=[], help=f"refused: {METRICS_NOT_PORTED}")
+    t.add_argument("--eval", action="store_true",
+                   help="evaluate the newest snapshot's Gs on --metrics (default fid2k_full) "
+                        "and stop")
+    t.add_argument("--metrics", nargs="*", default=[],
+                   help="metrics computed at every snapshot, e.g. fid50k_full")
     t.add_argument("--ganformer-default", action="store_true")
     t.add_argument("--resolution", type=int, default=256)
     t.add_argument("--components-num", type=int, default=16)
@@ -496,6 +646,8 @@ def train_parser(sub):
     t.add_argument("--img-snapshot-ticks", type=int, default=50)
     t.add_argument("--vis", nargs="*", default=["grid"],
                    help="products at image-snapshot ticks: grid interp mixing noise")
+    t.add_argument("--detector", default="auto",
+                   help='the metrics\' detector: "auto", "raw" or an InceptionV3 .npz')
     t.add_argument("--max-ticks", type=int, default=None, help="stop after N ticks")
     t.add_argument("--snapshot-backend", default="msgpack", choices=["msgpack", "async", "orbax"],
                    help="async writes train_state.msgpack on a background thread; orbax is "
@@ -540,6 +692,9 @@ def main(argv=None):
     m.add_argument("--latent-dir", help="directory of .mat latents; every pair")
     m.add_argument("--out", default="images/merged")
     m.add_argument("--alpha", type=float, default=0.5)
+    m.add_argument("--noises", default=None,
+                   help="optimized noise maps (<latent>.noises.npz of project "
+                        "--noise_regularize), applied before generating")
 
     def projection_flags(sp, steps, terms="mse, l1, psnr and ssim"):
         sp.add_argument("--loss", default="mse", help=f'loss stack spec, e.g. "mse", '
@@ -580,6 +735,10 @@ def main(argv=None):
     pr.add_argument("--chunk", type=int, default=250)
     pr.add_argument("--w_plus", action="store_true",
                     help="optimize per-layer W+ latents [k, num_ws, w_dim]")
+    pr.add_argument("--noise_regularize", type=float, default=0.0,
+                    help="> 0: optimize the const-noise maps with the latent under this "
+                         "weight of their autocorrelation penalty (batch 1); the maps go to "
+                         "<latent>.noises.npz")
     pr.add_argument("--init-latent", default=None, help="start from a stored .mat latent")
     pr.add_argument("--save-latent", default=None)
     pr.add_argument("--ratio", type=float, default=1.0)
@@ -587,8 +746,15 @@ def main(argv=None):
     mo = sub.add_parser("morph", help="project a pair of photos and morph them")
     common(mo, "bfloat16")
     projection_flags(mo, 1000)
-    mo.add_argument("--img-a", required=True)
-    mo.add_argument("--img-b", required=True)
+    mo.add_argument("--img-a")
+    mo.add_argument("--img-b")
+    mo.add_argument("--pairs-csv", help="CSV with columns img_a,img_b[,similarity]; rows with "
+                    "similarity < --min-similarity are skipped")
+    mo.add_argument("--img-root", default="", help="prefix of the paths in --pairs-csv")
+    mo.add_argument("--min-similarity", type=float, default=0.5)
+    mo.add_argument("--pairs-per-batch", type=int, default=4,
+                    help="CSV mode: pairs projected together as one batch-2P projection")
+    mo.add_argument("--shard", action="store_true", help=f"refused: {PARALLEL_NOT_PORTED}")
     mo.add_argument("--out", default="images/morphs")
     mo.add_argument("--alpha", type=float, default=0.5)
     mo.add_argument("--lr", type=float, default=0.1)
@@ -606,10 +772,41 @@ def main(argv=None):
 
     train_parser(sub)
 
+    c = sub.add_parser("calc_metrics", help="quality metrics of a generator, or morph QA")
+    c.add_argument("--model", help="a checkpoint directory (its Gs), or init:<resolution>")
+    c.add_argument("--data", help="dataset root: <data>/<res>/*.png")
+    c.add_argument("--metrics", nargs="+", default=["fid2k_full"])
+    c.add_argument("--max-items", type=int, default=None)
+    c.add_argument("--batch", type=int, default=16)
+    c.add_argument("--run-dir", default=None, help="where metric-<name>.jsonl is appended")
+    c.add_argument("--detector", default="auto",
+                   help='"auto" (a converted InceptionV3 through $MGT_INCEPTION_NPZ or the '
+                        'cache, else raw pixels), "raw", or an .npz')
+    c.add_argument("--device", default="cuda")
+    c.add_argument("--morph-qa", action="store_true",
+                   help="mean PSNR and SSIM between the paired PNGs of --dir-a and --dir-b")
+    c.add_argument("--dir-a")
+    c.add_argument("--dir-b")
+    c.add_argument("--size", type=int, default=None)
+
     args = p.parse_args(argv)
     if args.command == "train":
         run_train(args)
         return
+    if args.command == "calc_metrics":
+        if args.morph_qa:
+            print(json.dumps(morph_qa(args.dir_a, args.dir_b, args.size, args.device)))
+            return
+        if not args.model:
+            p.error("calc_metrics needs --model (or --morph-qa)")
+        _, G = get_model(args.model, device=args.device)
+        run_calc_metrics(G, args.data, args.metrics, args.max_items, args.batch, args.run_dir,
+                         args.detector, args.device)
+        return
+    if args.command == "morph" and args.shard:
+        raise NotImplementedError(f"morph --shard: {PARALLEL_NOT_PORTED}")
+    if args.command == "morph" and not args.pairs_csv and not (args.img_a and args.img_b):
+        p.error("morph needs --img-a and --img-b, or --pairs-csv")
     _, G = get_model(args.model, device=args.device, dtype=args.dtype)
     if args.command == "generate":
         run_generate(G, args.output_dir, args.images_num, args.truncation_psi,
@@ -620,18 +817,21 @@ def main(argv=None):
             files += sorted(os.path.join(args.latent_dir, f)
                             for f in os.listdir(args.latent_dir) if f.endswith(".mat"))
         run_merge(G, files, args.out, args.alpha, args.truncation_psi,
-                  all_pairs=bool(args.latent_dir))
+                  all_pairs=bool(args.latent_dir), noises=args.noises)
     elif args.command == "project":
         nets = LossNets(**{f.name: getattr(args, f.name) for f in dataclasses.fields(LossNets)})
         run_project(G, args.img, args.path_to_gen, args.loss, args.step, args.lr,
                     args.lr_rampup, args.lr_rampdown, args.noise, args.noise_ramp,
                     args.truncation_psi, args.n_mean_latent, args.chunk, args.w_plus,
                     args.init_latent, args.save_latent, args.ratio, args.seed, size=args.size,
-                    lamda=args.lamda, beta=args.beta, nets=nets)
+                    lamda=args.lamda, beta=args.beta, nets=nets,
+                    noise_regularize=args.noise_regularize)
     elif args.command == "morph":
-        run_morph_pair(G, args.img_a, args.img_b, args.out, args.loss, args.step, args.lr,
-                       args.truncation_psi, args.n_mean_latent, args.chunk, args.alpha,
-                       args.seed)
+        pairs = (read_pairs_csv(args.pairs_csv, args.img_root, args.min_similarity)
+                 if args.pairs_csv else [(args.img_a, args.img_b)])
+        run_morph_pairs(G, pairs, args.out, args.loss, args.step, args.lr, args.truncation_psi,
+                        args.n_mean_latent, args.chunk, args.alpha, args.seed,
+                        pairs_per_batch=args.pairs_per_batch)
     else:
         run_demorph(G, args.morph_latent, args.accomplice_latent, args.out, args.alpha,
                     args.truncation_psi, args.morph_img, args.accomplice_img, args.loss,

@@ -8,12 +8,23 @@ backward runs the K1-adjoint and K3 kernels), Adam with coupled weight
 decay, and per-image best tracking. The generator's weights are frozen.
 The best image is regenerated from the best noised latent after the loop.
 
-Not ported yet: `noise_regularize > 0` (needs noise cotangents through the
-kernels) and `mesh` sharding; both raise.
+With `noise_regularize > 0` the generator's const-noise maps are optimized
+with the latent (batch 1 only, as in JAX): each map becomes a leaf tensor
+that the forward reads in place of its buffer (`noise_buffers`), the loss
+gains the weighted multi-scale autocorrelation penalty
+(`noise_regularize_loss`), the same Adam updates the latent and the maps,
+and each map is renormalised after every update (`normalize_noises`). The
+maps are keyed by the JAX package's flattened path
+('synthesis/b1024/conv1/noise_const'), so a `.noises.npz` crosses between
+the packages. The fused blocks give the maps' cotangent as a reduction of
+the pre-activation cotangent (ops/fused_conv.py `_noise_grad`).
+
+Not ported yet: `mesh` sharding, which raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, Optional
@@ -37,7 +48,9 @@ class ProjectionConfig:
     # cadence of the progress callback.
     chunk: int = 250
     w_plus: bool = False          # optimize ws [B, k, num_ws, w_dim] instead of z
-    noise_regularize: float = 0.0  # > 0 is not ported yet
+    # > 0: optimize the const-noise maps with the latent under this weight
+    # of the autocorrelation penalty (batch 1 only).
+    noise_regularize: float = 0.0
 
 
 def cosine_ramp_lr(t, initial_lr, rampdown=0.25, rampup=0.05):
@@ -68,6 +81,85 @@ def latent_stats(cfg, generator: Optional[torch.Generator] = None, n_mean_latent
     return mean, torch.sqrt(sq / n_mean_latent)
 
 
+NOISE_BUFFER = "noise_const"
+
+
+def split_noise_buffers(G) -> Dict[str, torch.Tensor]:
+    """G's const-noise buffers [H, W], keyed by the JAX package's flattened
+    path of the buffer ('synthesis/b1024/conv1/noise_const')."""
+    return {name.replace(".", "/"): buf for name, buf in G.named_buffers()
+            if name.rsplit(".", 1)[-1] == NOISE_BUFFER}
+
+
+def _noise_slot(G, key):
+    """(module, buffer name) of a noise key; raises on a key G lacks."""
+    *path, name = key.split("/")
+    mod = G.get_submodule(".".join(path))
+    if name != NOISE_BUFFER or name not in mod._buffers:
+        raise KeyError(f"the generator has no noise buffer {key!r}")
+    return mod, name
+
+
+@contextlib.contextmanager
+def noise_buffers(G, noises):
+    """Within the block, G's forward reads `noises` (keyed as
+    `split_noise_buffers`, tensors on G's device, leaves that take gradients
+    among them) in place of those buffers; the buffers come back after."""
+    slots = [(*_noise_slot(G, key), t) for key, t in noises.items()]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in slots]
+    try:
+        for mod, name, t in slots:
+            setattr(mod, name, t)
+        yield
+    finally:
+        for mod, name, buf in saved:
+            setattr(mod, name, buf)
+
+
+@torch.no_grad()
+def merge_noise_buffers(G, noises):
+    """Copy noise maps (numpy arrays or tensors, keyed as
+    `split_noise_buffers`) into G's buffers; returns G."""
+    for key, v in noises.items():
+        mod, name = _noise_slot(G, key)
+        buf = getattr(mod, name)
+        v = torch.as_tensor(v, dtype=buf.dtype)
+        if tuple(v.shape) != tuple(buf.shape):
+            raise ValueError(f"{key}: noise map {tuple(v.shape)} != buffer {tuple(buf.shape)}")
+        buf.copy_(v)
+    return G
+
+
+def noise_regularize_loss(noises):
+    """The multi-scale autocorrelation penalty of the noise maps (reference
+    1024_example_MSE.py:31-51, JAX engine.py:91-107): at each level of a
+    pyramid the squared mean of the map times its 1-pixel roll along each
+    axis, then a 2x2 mean while the size is above 8."""
+    total = None
+    for n in noises.values():
+        n = n.float()
+        size = n.shape[-1]
+        while True:
+            term = (torch.mean(n * torch.roll(n, 1, dims=-1)) ** 2
+                    + torch.mean(n * torch.roll(n, 1, dims=-2)) ** 2)
+            total = term if total is None else total + term
+            if size <= 8:
+                break
+            h, w = n.shape[-2], n.shape[-1]
+            n = n.reshape(*n.shape[:-2], h // 2, 2, w // 2, 2).mean(dim=(-3, -1))
+            size //= 2
+    return total
+
+
+@torch.no_grad()
+def normalize_noises(noises):
+    """Each map to zero mean and unit (population) std, in place
+    (1024_example_MSE.py:54-59); eps 1e-8 guards a constant map."""
+    for n in noises.values():
+        mean, std = n.mean(), n.std(correction=0)
+        n.copy_((n - mean) / (std + 1e-8))
+
+
 @dataclasses.dataclass
 class ProjectionResult:
     latent: torch.Tensor              # best latents [B, k, z_dim] (or ws)
@@ -78,6 +170,7 @@ class ProjectionResult:
     components_history: Dict[str, torch.Tensor]  # term -> [steps, B]
     per_image_loss: torch.Tensor = None   # [B] per-image best losses
     per_image_step: torch.Tensor = None   # [B] step of each image's best
+    noises: Optional[Dict[str, torch.Tensor]] = None  # best noise maps (noise_regularize)
 
 
 def synthesize_latent(G, latent, cfg: ProjectionConfig, plain=False):
@@ -97,6 +190,24 @@ def loss_and_grad(G, latent_n, target, loss_fn, cfg: ProjectionConfig, plain=Fal
     return per_img.detach(), {k: v.detach() for k, v in comps.items()}, grad
 
 
+def loss_and_grads_with_noise(G, latent_n, noises, target, loss_fn, cfg: ProjectionConfig,
+                              plain=False):
+    """One step of the noise_regularize projection: G reads `noises` in place
+    of its noise buffers, the loss is mean(per-image losses) plus
+    cfg.noise_regularize times `noise_regularize_loss`; returns (per-image
+    losses [B], {term: [B]}, the total loss, d loss / d latent_n,
+    {key: d loss / d noise map})."""
+    latent_n = latent_n.detach().requires_grad_(True)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in noises.items()}
+    with torch.enable_grad():
+        with noise_buffers(G, leaves):
+            per_img, comps = loss_fn(synthesize_latent(G, latent_n, cfg, plain), target)
+        loss = per_img.mean() + cfg.noise_regularize * noise_regularize_loss(leaves)
+        grads = torch.autograd.grad(loss, [latent_n, *leaves.values()])
+    return (per_img.detach(), {k: v.detach() for k, v in comps.items()}, loss.detach(),
+            grads[0], dict(zip(leaves, grads[1:])))
+
+
 def _noise_windows(cfg: ProjectionConfig, shape, generator):
     """Unit-normal latent noise, one [steps of the window, *shape] draw per
     `chunk`-sized window in order, so the sequence depends only on the
@@ -114,16 +225,19 @@ def project(G, target, loss_fn, cfg: ProjectionConfig, latent_mean, latent_std,
     `generator` (a CPU torch.Generator), or from `noise_seq` [steps,
     *latent.shape] when given. W+ mode (cfg.w_plus) maps a z-shaped init
     through the mapping network with the configured truncation first.
-    Freezes G's weights (G.requires_grad_(False))."""
-    if cfg.noise_regularize > 0.0:
-        raise NotImplementedError("noise_regularize > 0 needs noise cotangents through the "
-                                  "kernels; not ported yet")
+    With cfg.noise_regularize > 0 (batch 1) the noise maps are optimized too
+    and come back, the best ones, in `ProjectionResult.noises`; G's buffers
+    are left as they were. Freezes G's weights (G.requires_grad_(False))."""
     if mesh is not None:
         raise NotImplementedError("mesh sharding of the projection is not ported yet")
     dev = next(G.parameters()).device
     G.requires_grad_(False)
     target = torch.as_tensor(target, dtype=torch.float32, device=dev)
     batch = target.shape[0]
+    opt_noise = cfg.noise_regularize > 0.0
+    if opt_noise and batch != 1:
+        raise ValueError(f"noise_regularize optimizes batch-shared noise maps: batch 1 only, "
+                         f"got {batch}")
     k, z_dim = latent_mean.shape
     if init_latent is not None:
         latent = torch.as_tensor(init_latent, dtype=torch.float32)
@@ -142,8 +256,16 @@ def project(G, target, loss_fn, cfg: ProjectionConfig, latent_mean, latent_std,
     latent = latent.contiguous().clone().requires_grad_(True)
     std = torch.as_tensor(latent_std, dtype=torch.float32, device=dev)
 
-    opt = torch.optim.Adam([latent], lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
-                           weight_decay=cfg.weight_decay)
+    noises = best_noises = None
+    if opt_noise:
+        noises = {k: v.detach().clone() for k, v in split_noise_buffers(G).items()}
+        if not noises:
+            raise ValueError("noise_regularize: the generator has no const-noise buffers")
+        best_noises = {k: v.clone() for k, v in noises.items()}
+    # One Adam over the latent and the noise maps: JAX's optax chain decays
+    # and updates the whole tree.
+    opt = torch.optim.Adam([latent, *(noises or {}).values()], lr=cfg.lr, betas=(0.9, 0.999),
+                           eps=1e-8, weight_decay=cfg.weight_decay)
     best_loss = torch.full((batch,), 1e30, device=dev)
     best_latent = latent.detach().clone()
     best_step = torch.zeros(batch, dtype=torch.int64, device=dev)
@@ -167,21 +289,34 @@ def project(G, target, loss_fn, cfg: ProjectionConfig, latent_mean, latent_std,
         lr = cosine_ramp_lr(t, cfg.lr, cfg.lr_rampdown, cfg.lr_rampup)
         strength = std * cfg.noise * max(0.0, 1.0 - t / cfg.noise_ramp) ** 2
         latent_n = latent.detach() + window[step % cfg.chunk] * strength
-        per_img, comps, grad = loss_and_grad(G, latent_n, target, loss_fn, cfg)
+        if opt_noise:
+            used = {k: v.clone() for k, v in noises.items()}
+            per_img, comps, loss, grad, dnoise = loss_and_grads_with_noise(
+                G, latent_n, used, target, loss_fn, cfg)
+            for k, n in noises.items():
+                n.grad = dnoise[k]
+        else:
+            per_img, comps, grad = loss_and_grad(G, latent_n, target, loss_fn, cfg)
+            loss = per_img.mean()
         latent.grad = grad
         opt.param_groups[0]["lr"] = lr
         opt.step()
+        if opt_noise:
+            normalize_noises(noises)
 
         improved = per_img < best_loss
+        if opt_noise:    # batch-shared maps: kept when any image improved
+            best_noises = {k: torch.where(improved.any(), used[k], best_noises[k])
+                           for k in used}
         best_loss = torch.where(improved, per_img, best_loss)
         best_latent = torch.where(improved[expand], latent_n, best_latent)
         best_step = torch.where(improved, step, best_step)
-        losses.append(per_img.mean())
+        losses.append(loss)
         comps_hist.append(comps)
         if progress is not None and ((step + 1) % cfg.chunk == 0 or step + 1 == cfg.steps):
             progress(step + 1, float(losses[-1]), float(best_loss.mean()))
 
-    with torch.no_grad():
+    with torch.no_grad(), noise_buffers(G, best_noises or {}):
         best_img = synthesize_latent(G, best_latent, cfg)
     return ProjectionResult(
         latent=best_latent,
@@ -193,4 +328,5 @@ def project(G, target, loss_fn, cfg: ProjectionConfig, latent_mean, latent_std,
                             for k in (comps_hist[0] if comps_hist else {})},
         per_image_loss=best_loss,
         per_image_step=best_step,
+        noises=best_noises,
     )

@@ -5,7 +5,9 @@ Reference training/training_loop.py: the dataset feed (:41-50), nets and
 resume (:74-111), the kimg tick loop with snapshots and visualisations
 (:384-453), stats.jsonl (:258-302), snapshot retention (:129-130), and
 auto-resume from the newest snapshot, its kimg read from the name
-(run_network.py:327-360).
+(run_network.py:327-360), and the metrics of `eval_metrics` on the EMA
+generator at each snapshot tick and after the last (:227-236,
+metric_main.py), appended to <run_dir>/metric-<name>.jsonl.
 
 A snapshot `network-snapshot-<kimg>` holds arch.json, G.msgpack,
 Gs.msgpack (the EMA generator) and D.msgpack, which the JAX package loads
@@ -63,7 +65,10 @@ class LoopConfig:
     snapshot_ticks: int = 50          # <= 0 disables snapshots
     img_snapshot_ticks: int = 50      # <= 0 disables image snapshots/vis
     last_snapshots: int = 10          # retention GC (training_loop.py:129-130)
-    eval_metrics: tuple = ()          # not ported yet: a non-empty tuple raises
+    eval_metrics: tuple = ()          # computed at snapshot ticks (training_loop.py:227-236)
+    eval_images_num: int = 50000
+    eval_batch: int = 16
+    detector: str = "auto"            # "auto" | "raw" | <inception .npz path>
     vis: tuple = ("grid",)            # of: grid, interp, mixing, noise
     tensorboard: bool = True          # tfevents mirror of stats.jsonl
     snapshot_backend: str = "msgpack"  # "msgpack" | "async" (background writes)
@@ -177,9 +182,11 @@ def select_feed(dataset: ImageFolderDataset, batch_size: int, seed: int):
 # ------------------------------------------------------------ the loop
 
 def _check(l_cfg: LoopConfig):
-    if l_cfg.eval_metrics:
-        raise NotImplementedError("metrics in the training loop are not ported yet "
-                                  '(ROADMAP.md queue 1, "Metrics")')
+    from morphganformer_tpu_torch.metrics.registry import is_valid_metric, list_valid_metrics
+
+    unknown = [m for m in l_cfg.eval_metrics if not is_valid_metric(m)]
+    if unknown:
+        raise ValueError(f"unknown metric {unknown}; valid: {list_valid_metrics()}")
     if l_cfg.snapshot_backend == "orbax":
         raise ValueError('the port has no Orbax; snapshot_backend="async" writes snapshots '
                          "on a background thread")
@@ -245,12 +252,16 @@ def training_loop(g_cfg: GANformerConfig, d_cfg: DiscriminatorConfig, t_cfg: Tra
     last_snap_kimg = -1
 
     def maybe_snapshot(force=False):
-        """Snapshot unless this kimg has one (a forced one overwrites it)."""
+        """Snapshot unless this kimg has one (a forced one overwrites it);
+        returns the directory, or None where it was skipped and a resumed
+        run's directory holds it."""
         nonlocal last_snap_kimg
         kimg = state.cur_nimg // 1000
         snap_dir = os.path.join(l_cfg.run_dir, f"network-snapshot-{kimg:06d}")
-        if not force and (kimg == last_snap_kimg or os.path.exists(snap_dir)):
-            return
+        if not force and kimg == last_snap_kimg:
+            return snap_dir if os.path.exists(snap_dir) else None
+        if not force and os.path.exists(snap_dir):
+            return None
         last_snap_kimg = kimg
         save_generator(snap_dir, g_cfg, state.G, role="G")
         save_generator(snap_dir, g_cfg, state.G_ema, role="Gs")
@@ -261,6 +272,28 @@ def training_loop(g_cfg: GANformerConfig, d_cfg: DiscriminatorConfig, t_cfg: Tra
             save_train_state(os.path.join(snap_dir, TRAIN_STATE_FILE), state)
         print(f"snapshot {snap_dir} at cur_nimg {state.cur_nimg}", flush=True)
         prune_snapshots(l_cfg.run_dir, l_cfg.last_snapshots)
+        return snap_dir
+
+    def evaluate(snapshot_dir=None):
+        """The metrics of `eval_metrics` on G_ema against `eval_images_num`
+        dataset images, cycled in order (JAX's loop.py:273-301)."""
+        from morphganformer_tpu_torch.metrics.detector import detector_kind, resolve_detector
+        from morphganformer_tpu_torch.metrics.registry import compute_metric, report_metric
+
+        for metric in l_cfg.eval_metrics:
+            detector = resolve_detector(l_cfg.detector, kind=detector_kind(metric), device=dev)
+
+            def data_iter():
+                n = 0
+                while n < l_cfg.eval_images_num:
+                    b = min(l_cfg.eval_batch, len(dataset) - n % len(dataset))
+                    yield np.stack([dataset[(n + j) % len(dataset)][0] for j in range(b)])
+                    n += b
+
+            result = compute_metric(metric, detector=detector, dataset=data_iter(),
+                                    G=state.G_ema, batch=l_cfg.eval_batch,
+                                    max_items=l_cfg.eval_images_num, device=dev)
+            report_metric(result, run_dir=l_cfg.run_dir, snapshot_pkl=snapshot_dir)
 
     def save_visualizations():
         """Image-snapshot products (reference training_loop.py -> vis())."""
@@ -309,11 +342,11 @@ def training_loop(g_cfg: GANformerConfig, d_cfg: DiscriminatorConfig, t_cfg: Tra
             if l_cfg.img_snapshot_ticks > 0 and tick % l_cfg.img_snapshot_ticks == 0:
                 save_visualizations()
             if l_cfg.snapshot_ticks > 0 and tick % l_cfg.snapshot_ticks == 0:
-                maybe_snapshot()
+                evaluate(snapshot_dir=maybe_snapshot())
             if max_ticks is not None and ticks_done >= max_ticks:
                 break
 
-    maybe_snapshot(force=True)
+    evaluate(snapshot_dir=maybe_snapshot(force=True))
     batches.close()
     if snapshotter is not None:
         snapshotter.close()

@@ -43,6 +43,14 @@ def test_training_modules_are_checked():
         "ops/second_order.py", "ops/second_order_native.py", "bench_reg.py")} <= names
 
 
+def test_metrics_modules_are_checked():
+    """Every module of the metrics package is on the list above."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"morphganformer_tpu_torch/metrics/{m}.py" for m in (
+        "__init__", "core", "feature_stats", "inception", "detector", "extract", "ppl",
+        "registry")} <= names
+
+
 def test_build_is_one_plain_nvcc_call_for_sm_90a():
     from morphganformer_tpu_torch.ops import _build
 

@@ -133,7 +133,9 @@ def test_project_entry_point(tmp_path, small):
 
 def test_morph_pair_and_image_demorph_entry_points(tmp_path, small):
     G, (a, b) = small
-    res, img, w = cli.run_morph_pair(G, a, b, tmp_path / "m", steps=6, n_mean_latent=128)
+    (res, imgs, ws), = cli.run_morph_pairs(G, [(a, b)], tmp_path / "m", steps=6,
+                                           n_mean_latent=128)
+    img, w = imgs[0], ws[0]
     assert sorted(os.listdir(tmp_path / "m")) == [
         "alice.mat", "alice_bob_morph.mat", "alice_bob_morph.png", "alice_rec.png",
         "bob.mat", "bob_rec.png"]

@@ -201,8 +201,9 @@ def test_unported_options_raise(small):
     target = _target(G, 1)
     mean, std = latent_stats(G.cfg, torch.Generator().manual_seed(1), 64)
     loss_fn = build_loss_stack({"mse": 1.0})
-    with pytest.raises(NotImplementedError, match="noise_regularize"):
-        project(G, target, loss_fn, ProjectionConfig(steps=2, noise_regularize=1e5), mean, std)
+    with pytest.raises(ValueError, match="batch 1"):
+        project(G, torch.cat([target] * 2), loss_fn,
+                ProjectionConfig(steps=2, noise_regularize=1e5), mean, std)
     with pytest.raises(NotImplementedError, match="mesh"):
         project(G, target, loss_fn, ProjectionConfig(steps=2), mean, std, mesh=object())
     with pytest.raises(ValueError, match="noise_seq"):

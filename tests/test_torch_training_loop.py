@@ -403,7 +403,7 @@ def test_prune_keeps_the_newest(tmp_path):
 
 
 @pytest.mark.parametrize("change,error,match", [
-    ({"eval_metrics": ("fid50k_full",)}, NotImplementedError, '"Metrics"'),
+    ({"eval_metrics": ("fid50k_full", "fid99")}, ValueError, "unknown metric"),
     ({"vis": ("grid", "attention")}, NotImplementedError, "return_att"),
     ({"vis": ("grid", "video")}, ValueError, "unknown vis"),
     ({"snapshot_backend": "orbax"}, ValueError, '"async"'),
@@ -421,7 +421,6 @@ TRAIN_FLAGS = ["train", "--resolution", str(RES), "--components-num", "2", "--la
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--metrics", "fid50k_full"], '"Metrics"'), (["--eval"], '"Metrics"'),
     (["--multihost"], '"Parallel"'), (["--coordinator", "localhost:1234"], '"Parallel"'),
     (["--num-processes", "2"], '"Parallel"'), (["--process-id", "0"], '"Parallel"'),
     (["--dtype", "bfloat16"], "float32"),
