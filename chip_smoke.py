@@ -142,20 +142,40 @@ Phases, each printing its wall time:
               accumulation rounds (batch 8), stage times and peak memory,
               and one iteration under torch.profiler (with the host time of
               the FusedUpConv2 and FusedDownConv2 backwards).
+              Then training in bfloat16 (`train --dtype bfloat16`): the
+              training roles' bfloat16 entry points at the same call shapes
+              (K3-forward and the dw kernels on bfloat16 operands, K2's
+              use_dw role on the tensor cores), each against its plain
+              bfloat16 version by phase bf16's rule, with kernel, plain,
+              cuDNN's bfloat16 and same-function times beside the bf16
+              bound; D's conv0 and the second-order route's degenerate K1
+              launches through the tensor-core kernels; each grad
+              Function's term in bfloat16 at its 16 call shapes; each
+              stage's gradients (G_main, G_reg, D_main, D_reg) on the
+              kernels and on the plain bfloat16 route against the float32
+              plain route (`bf16_train_checks`); a bfloat16 and a float32
+              train_iteration with all four stages (seconds, stage ms, peak
+              memory, exact launches on the `_bf16` entry points) and one
+              traced bfloat16 iteration (device busy time, idle share, the
+              five training roles' bfloat16 launches, no float32
+              least-work kernel).
   12. loop    16 images of 1024^2 (G(z) from seeds; half of them with every
               row Paeth-filtered, half Sub-filtered, by the encoder below)
               under <tmp>/data/1024/; one 1024^2 PNG decoded by the native
               loader and by read_png, Paeth and Sub; then training_loop at
               FFHQ-1024 with a 1024^2 D from seed 0, batch 4, 2 iterations a
-              tick, snapshots and image snapshots every tick (grid and
-              interp), tensorboard on: two ticks, then a resumed tick
+              tick, snapshots every tick, tensorboard on: two ticks with
+              image snapshots (grid and interp), then a resumed tick
               (msgpack), then a resumed tick with the async backend. Checks:
               the run's files; every iteration launches exactly phase
               train's kernels of one iteration and, where a reg stage is
               due (steps 0 and 4), that stage's scoped launches of phase
               reg; each resumed run starts at
               the saved cur_nimg from a state bit-equal to the saved one;
-              cli.get_model(<snapshot>) gives G_ema's image. Each
+              cli.get_model(<snapshot>) gives G_ema's image; then `train
+              --dtype bfloat16` through cli.main for one tick on the same
+              PNGs (a bfloat16 snapshot, every role on its bf16 entry
+              point, no float32 launch). Each
               iteration's seconds inside train_iteration and around it (the
               feed, the stats copy, the tick), the feed it took, the
               snapshot's bytes and its synchronous, asynchronous and load
@@ -197,7 +217,9 @@ Phases, each printing its wall time:
               cuDNN runs in deterministic mode through this phase, so the
               trained state that the checks see is the same on every run.
 
-The last line is {"ok": true, "device": {...}}; any failure raises before it
+The line before the last lists every kernel (name, route, source, the TPU
+kernel it replaces, launches on the main path, error, ms, plain, bound,
+library); the last line is {"ok": true, "device": {...}}; any failure raises before it
 and exits non-zero. Nothing is written inside the repository except the
 kernel build in morphganformer_tpu_torch/_build/.
 """
@@ -882,7 +904,8 @@ def _per_step(steps, forwards, bf16=False):
     main = {"modconv3x3": 4 * (steps + forwards), "upconv2": 6 * (steps + forwards),
             "modconv3x3_adj": 4 * steps, "upconv2_adj": 6 * steps}
     counts = {**dict.fromkeys(main, 0), **dict.fromkeys(BF16_KEYS.values(), 0),
-              **dict.fromkeys(TRAIN_KEYS.values(), 0), **dict.fromkeys(K4_KEYS, 0)}
+              **dict.fromkeys(TRAIN_KEYS.values(), 0), **dict.fromkeys(K4_KEYS, 0),
+              **dict.fromkeys(TRAIN_BF16_KEYS.values(), 0)}
     counts.update({(BF16_KEYS[k] if bf16 else k): v for k, v in main.items()})
     return counts
 
@@ -1036,6 +1059,16 @@ def train_calls():
 
 TRAIN_KEYS = {"K3-forward": "downconv2", "K2-use_dw": "downconv2_adj",
               "K2-use_dw-dw": "downconv2_dw", "K1-dw": "modconv3x3_dw", "K3-dw": "upconv2_dw"}
+# The training roles' bfloat16 entry points: their launch counts, and the
+# kernel each launches (its name in a profiler trace).
+TRAIN_BF16_KEYS = {role: f"{key}_bf16" for role, key in TRAIN_KEYS.items()}
+TRAIN_BF16_KERNELS = {"K3-forward": "downconv2_lw_kernel", "K2-use_dw": "upconv2_tc_kernel",
+                      "K2-use_dw-dw": "fir_dw_kernel", "K1-dw": "conv_dw_lw_kernel",
+                      "K3-dw": "fir_dw_kernel"}
+# The float32 least-work kernels, which no bfloat16 iteration launches (the
+# first three also have bfloat16 instantiations, named with __nv_bfloat16).
+F32_LW_KERNELS = ("downconv2_lw_kernel", "conv_dw_lw_kernel", "fir_dw_kernel",
+                  "conv3x3_lw_kernel", "upconv2_lw_kernel")
 K4_KEYS = ("conv3x3", "conv3x3_adj")
 # The kernel each bfloat16 role launches (its name in a profiler trace).
 BF16_KERNELS = {"modconv3x3": "conv3x3_fwd_tc_kernel", "upconv2": "upconv2_tc_kernel",
@@ -1045,15 +1078,21 @@ BF16_KEYS = {"modconv3x3": "modconv3x3_bf16", "upconv2": "upconv2_bf16",
              "modconv3x3_adj": "modconv3x3_adj_bf16", "upconv2_adj": "upconv2_adj_bf16"}
 
 
-def check_train_kernel(torch, fc, gen, call):
-    """One training role at one call shape, batch 4: kernel against plain on
-    random inputs, times, bound, and one cuDNN call of the bare convolution
-    (without the FIR) as the yardstick."""
+def train_case(torch, fc, gen, call, dt):
+    """One training role at one call shape, batch 4, on random activations
+    of type `dt` (the weights float32 parameters): (key, run_k, run_p,
+    run_ref, run_lib, run_same, flops, elements, rel). run_k launches the
+    kernel, run_p is its plain version, run_ref the plain version on the
+    activations widened to float32; run_lib one cuDNN call of the bare
+    convolution (without the FIR) and run_same the same-function call
+    (`conv2d_weight` of the FIR-composed kernel, its fold onto w untimed;
+    for K1's dw `conv2d_weight` of x * s and gd, the multiply included),
+    both in `dt`; elements those of the inputs and of the output, for the
+    bound; rel whether the output is held relative to its largest entry."""
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_weight
 
     from morphganformer_tpu_torch.bench_dw import same_function_dw_call
-    from morphganformer_tpu_torch.bench_k1dw import same_function_call as k1_dw_same_call
     from morphganformer_tpu_torch.bench_k3 import same_function_call
     from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter
 
@@ -1068,11 +1107,10 @@ def check_train_kernel(torch, fc, gen, call):
     w = randn(kh, kh, cin, cout, scale=1 / math.sqrt(kh * kh * cin))
     nchw = lambda t: t.permute(0, 3, 1, 2)                              # noqa: E731
     pad = kh // 2
-    run_same = None
     if role in ("K3-forward", "K2-use_dw", "K2-use_dw-dw"):
         conv1 = layer == "conv1"
-        x = randn(n, 2 * h, 2 * h, cin)
-        gz = randn(n, h, h, cout)
+        x = randn(n, 2 * h, 2 * h, cin).to(dt)
+        gz = randn(n, h, h, cout).to(dt)
         # Least work: the separable 4-tap FIR (at every input pixel before a
         # strided 3x3; at the output pixels only for the 1x1 skip) and the
         # stride-2 conv at output resolution.
@@ -1080,52 +1118,54 @@ def check_train_kernel(torch, fc, gen, call):
         flops = 2 * n * h * h * kh * kh * cin * cout + fir
         if role == "K3-forward":
             b = randn(cout, scale=0.1) if conv1 else None
-            r = randn(n, h, h, cout) if conv1 else None
+            r = randn(n, h, h, cout).to(dt) if conv1 else None
             gain, alpha = (1.0, 0.2) if conv1 else (math.sqrt(0.5), 1.0)
-            run_k = lambda: fc.fused_downconv2(x, w, f, b, r, gain, alpha)        # noqa: E731
-            run_p = lambda: fc.downconv2_plain(x, w, f, b, r, gain, alpha)        # noqa: E731
-            w_lib = w.permute(3, 2, 0, 1).contiguous()
+            kern, plain, args = fc.fused_downconv2, fc.downconv2_plain, (x, w, f, b, r, gain,
+                                                                         alpha)
+            w_lib = w.permute(3, 2, 0, 1).to(dt).contiguous()
             run_lib = lambda: F.conv2d(nchw(x), w_lib, stride=2, padding=pad)    # noqa: E731
             op, w_same, pad_same = same_function_call("K3-forward", w, f, True)
+            w_same = w_same.to(dt)
             run_same = lambda: op(nchw(x), w_same, stride=2, padding=pad_same)   # noqa: E731
-            tensors, out_numel, rel = [x, w, b, r], n * h * h * cout, False
+            elements, rel = [x, w, b, r, n * h * h * cout], False             # the last: y
         elif role == "K2-use_dw":
-            run_k = lambda: fc.downconv2_adjoint(gz, w, f)                         # noqa: E731
-            run_p = lambda: fc.downconv2_adjoint_plain(gz, w, f)                   # noqa: E731
-            w_lib = w.permute(3, 2, 0, 1).contiguous()
+            kern, plain, args = fc.downconv2_adjoint, fc.downconv2_adjoint_plain, (gz, w, f)
+            w_lib = w.permute(3, 2, 0, 1).to(dt).contiguous()
             run_lib = lambda: F.conv_transpose2d(nchw(gz), w_lib, stride=2, padding=pad,  # noqa
                                                  output_padding=1)
             op, w_same, pad_same = same_function_call("K2-use_dw", w, f, True)
+            w_same = w_same.to(dt)
             run_same = lambda: op(nchw(gz), w_same, stride=2, padding=pad_same)  # noqa: E731
-            tensors, out_numel, rel = [gz, w], n * 4 * h * h * cin, True
+            elements, rel = [gz, w, n * 4 * h * h * cin], True               # the last: dx
         else:
-            run_k = lambda: fc.downconv2_dw(x, gz, w, f)                            # noqa: E731
-            run_p = lambda: fc.downconv2_dw_plain(x, gz, w, f)                      # noqa: E731
+            kern, plain, args = fc.downconv2_dw, fc.downconv2_dw_plain, (x, gz, w, f)
             run_lib = lambda: conv2d_weight(nchw(x), (cout, cin, kh, kh), nchw(gz),  # noqa
                                             stride=2, padding=pad)
             op, _ = same_function_dw_call(role, w, f, True)
             run_same = lambda: op(nchw(x), nchw(gz))                                # noqa: E731
-            tensors, out_numel, rel = [x, gz], kh * kh * cin * cout, True
+            elements, rel = [x, gz, kh * kh * cin * cout], True
     else:
-        x = randn(n, h, h, cin)
+        x = randn(n, h, h, cin).to(dt)
         s = (torch.rand((n, cin), generator=gen, device=dev) + 0.5) if block[0] == "G" else None
         if role == "K1-dw":
-            gd = randn(n, h, h, cout)
-            run_k = lambda: fc.conv_dw(x, gd, s)                                     # noqa: E731
-            run_p = lambda: fc.conv_dw_plain(x, gd, s, 1, 1, 3, (0, 0))[0]          # noqa: E731
+            gd = randn(n, h, h, cout).to(dt)
+            kern, args = fc.conv_dw, (x, gd, s)
+            plain = lambda *a: fc.conv_dw_plain(*a, 1, 1, 3, (0, 0))[0]           # noqa: E731
             run_lib = lambda: conv2d_weight(nchw(x), (cout, cin, 3, 3), nchw(gd),   # noqa: E731
                                             padding=1)
-            run_same = k1_dw_same_call(x, gd, s)
+
+            def run_same():
+                xs = x if s is None else (x * s[:, None, None, :]).to(dt)
+                return conv2d_weight(nchw(xs), (cout, cin, 3, 3), nchw(gd), padding=1)
             flops = 2 * n * h * h * 9 * cin * cout
-            tensors, out_numel = [x, gd, s], 9 * cin * cout
+            elements = [x, gd, s, 9 * cin * cout]
         else:
-            gd = randn(n, 2 * h, 2 * h, cout)
-            run_k = lambda: fc.upconv2_dw(x, gd, s, w, f)                           # noqa: E731
-            run_p = lambda: fc.upconv2_dw_plain(x, gd, s, w, f)                     # noqa: E731
+            gd = randn(n, 2 * h, 2 * h, cout).to(dt)
+            kern, plain, args = fc.upconv2_dw, fc.upconv2_dw_plain, (x, gd, s, w, f)
             run_lib = lambda: conv2d_weight(nchw(gd), (cin, cout, kh, kh), nchw(x),  # noqa
                                             stride=2, padding=pad)
             op, _ = same_function_dw_call(role, w, f, False)
-            xs = x * s[:, None, None, :]
+            xs = (x * s[:, None, None, :]).to(dt)
             run_same = lambda: op(nchw(gd), nchw(xs))                               # noqa: E731
             # The weight gradient of a transposed conv at input resolution
             # and the FIR's adjoint, separable: at every output-resolution
@@ -1133,10 +1173,23 @@ def check_train_kernel(torch, fc, gen, call):
             # (3 per gd value) before the 1x1 skip's one tap.
             fir = 2 * n * (2 * h) ** 2 * (8 if kh == 3 else 3) * cout
             flops = 2 * n * h * h * kh * kh * cin * cout + fir
-            tensors, out_numel = [x, gd, s], kh * kh * cin * cout
+            elements = [x, gd, s, kh * kh * cin * cout]
         rel = True
+    wide = tuple(a.float() if isinstance(a, torch.Tensor) and a.dtype == dt else a for a in args)
+    key = TRAIN_KEYS[role] + ("" if dt == torch.float32 else "_bf16")
+    return (key, lambda: kern(*args), lambda: plain(*args), lambda: plain(*wide), run_lib,
+            run_same, flops, elements, rel)
 
-    key = TRAIN_KEYS[role]
+
+def check_train_kernel(torch, fc, gen, call):
+    """One training role at one call shape, batch 4 (`train_case`), in
+    float32: kernel against plain on random inputs (1e-3 max abs, or 1e-4
+    of the largest entry), times, bound, one cuDNN call of the bare
+    convolution (without the FIR) and the same-function call as
+    yardsticks."""
+    role, block, layer = call[:3]
+    key, run_k, run_p, _, run_lib, run_same, flops, elements, rel = train_case(
+        torch, fc, gen, call, torch.float32)
     before = fc.launch_counts[key]
     got = run_k()
     assert fc.launch_counts[key] == before + 1, (role, fc.launch_counts)
@@ -1151,12 +1204,12 @@ def check_train_kernel(torch, fc, gen, call):
         assert err <= 1e-4 * scale, f"{role} {block} {layer}: err {err} > 1e-4 of {scale}"
     else:
         assert err <= 1e-3, f"{role} {block} {layer}: max abs err {err} > 1e-3"
-    nbytes = 4 * (sum(t.numel() for t in tensors if t is not None) + out_numel)
+    nbytes = 4 * sum(t if isinstance(t, int) else t.numel() for t in elements if t is not None)
     bound_ms, bound_by = bound(flops, nbytes)
     ms = cuda_ms(torch, run_k, reps=5, warmup=1)
     plain_ms = cuda_ms(torch, run_p, reps=3, warmup=1)
     library_ms = cuda_ms(torch, run_lib, reps=5, warmup=1)
-    same_ms = None if run_same is None else cuda_ms(torch, run_same, reps=5, warmup=1)
+    same_ms = cuda_ms(torch, run_same, reps=5, warmup=1)
     print(f"  {role} {block} {layer}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
           f"{library_ms:.4f}{_same(same_ms)} bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
     return dict(kernel=role, block=block, role=layer, max_abs_err=err, ref_scale=scale, ms=ms,
@@ -1179,7 +1232,17 @@ def per_iteration(rounds=1):
               "modconv3x3_adj": 2 * 2, "upconv2_adj": 0, "downconv2_adj": 2 * 4,
               "modconv3x3_dw": 2 * 2, "upconv2_dw": 0, "downconv2_dw": 2 * 4}
     counts = {k: rounds * (g_main[k] + d_main[k]) for k in g_main}
-    return {**counts, **dict.fromkeys(K4_KEYS, 0), **dict.fromkeys(BF16_KEYS.values(), 0)}
+    return {**counts, **dict.fromkeys(K4_KEYS, 0), **dict.fromkeys(BF16_KEYS.values(), 0),
+            **dict.fromkeys(TRAIN_BF16_KEYS.values(), 0)}
+
+
+def as_bf16(counts):
+    """Launch counts by role as a bfloat16 run makes them: each role's
+    under its `_bf16` key."""
+    out = dict.fromkeys(counts, 0)
+    for k, v in counts.items():
+        out[f"{k}_bf16" if f"{k}_bf16" in counts else k] += v
+    return out
 
 
 def check_per_sample_noise(torch, fc, gen):
@@ -1255,17 +1318,16 @@ def grad_calls():
     return calls
 
 
-def check_grad_vjp(torch, so, gen, call):
-    """The second-order term of one grad Function at one call shape
-    (`modconv3x3_bwd_vjp`, `upconv2_bwd_vjp`, `downconv2_bwd_vjp`, the
-    backwards of ModConv3x3Grad, UpConv2Grad and DownConv2Grad) on the
-    kernels against the plain versions, at the cotangents its stage feeds
-    (path length cdx and cds, R1 cdx alone), on random inputs with y the
-    plain forward's output: each output (c_x, c_w, c_s, c_noise, c_bias,
-    c_resid, c_y, c_g) within 1e-4 of its largest entry. Printed beside
-    it, a control of float32 rounding: plain with w nudged by 1e-6 of
-    itself and the same y (so the same lrelu masks), against plain. Times
-    of either route (CUDA events)."""
+def grad_case(torch, so, gen, call, dt):
+    """One grad Function's second-order term at one call shape: random
+    activations of type `dt` (x, the forward's resid, g and the x-sized
+    cotangent cdx; the weights, styles, noise, bias and cds float32) at the
+    cotangents its stage feeds (path length cdx and cds, R1 cdx alone).
+    Returns (names, w, acts, fwd, vjp): fwd(w_, acts) is the plain forward's
+    y, vjp(w_, y, acts, plain) the term's outputs (`modconv3x3_bwd_vjp`,
+    `upconv2_bwd_vjp` or `downconv2_bwd_vjp`, the backwards of
+    ModConv3x3Grad, UpConv2Grad and DownConv2Grad); acts = (x, g, resid,
+    cots)."""
     from morphganformer_tpu_torch.ops import fused_conv as fc
     from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter
 
@@ -1280,57 +1342,75 @@ def check_grad_vjp(torch, so, gen, call):
     styled = block[0] == "G" and layer != "skip"
     s = (torch.rand((n, cin), generator=gen, device=dev) + 0.5) if styled else None
     if kind == "K1":
-        x = randn(n, h, h, cin)
+        x = randn(n, h, h, cin).to(dt)
         noisy = layer == "conv1"
         noise = randn(n, h, h, scale=0.1) if noisy else None
         bias = randn(cout, scale=0.1) if layer != "conv_last" else None
-        resid = randn(n, h, h, cout) if noisy else None
+        resid = randn(n, h, h, cout).to(dt) if noisy else None
         gain, alpha = (math.sqrt(2), 0.2) if layer != "conv_last" else (1.0, 1.0)
         names = ("c_x", "c_w", "c_s", "c_noise", "c_bias", "c_resid", "c_y", "c_g")
 
-        def fwd(w_):
-            return fc.modconv3x3_plain(x, w_, s, noise, bias, resid, gain, alpha, styled)
+        def fwd(w_, a):
+            return fc.modconv3x3_plain(a[0], w_, s, noise, bias, a[2], gain, alpha, styled)
 
-        def vjp(w_, y, plain):
-            return so.modconv3x3_bwd_vjp(x, w_, s, noise, bias, resid, y, g, cots, gain, alpha,
+        def vjp(w_, y, a, plain):
+            x_, g_, r_, cots = a
+            return so.modconv3x3_bwd_vjp(x_, w_, s, noise, bias, r_, y, g_, cots, gain, alpha,
                                          styled, plain)
-        g = randn(n, h, h, cout)
+        g = randn(n, h, h, cout).to(dt)
     elif kind == "K2":
-        x = randn(n, h, h, cin)
+        x = randn(n, h, h, cin).to(dt)
         noise = randn(n, 2 * h, 2 * h, scale=0.1) if styled else None
         bias = randn(cout, scale=0.1) if styled else None
+        resid = None
         gain, alpha = (math.sqrt(2), 0.2) if styled else (math.sqrt(0.5), 1.0)
         names = ("c_x", "c_w", "c_s", "c_noise", "c_bias", "c_y", "c_g")
 
-        def fwd(w_):
-            return fc.upconv2_plain(x, w_, s, f, noise, bias, gain, alpha, styled)
+        def fwd(w_, a):
+            return fc.upconv2_plain(a[0], w_, s, f, noise, bias, gain, alpha, styled)
 
-        def vjp(w_, y, plain):
-            return so.upconv2_bwd_vjp(x, w_, s, f, noise, bias, y, g, cots, gain, alpha, styled,
-                                      False, plain)
-        g = randn(n, 2 * h, 2 * h, cout)
+        def vjp(w_, y, a, plain):
+            x_, g_, _, cots = a
+            return so.upconv2_bwd_vjp(x_, w_, s, f, noise, bias, y, g_, cots, gain, alpha,
+                                      styled, False, plain)
+        g = randn(n, 2 * h, 2 * h, cout).to(dt)
     else:
-        x = randn(n, 2 * h, 2 * h, cin)
+        x = randn(n, 2 * h, 2 * h, cin).to(dt)
         conv1 = layer == "conv1"
         bias = randn(cout, scale=0.1) if conv1 else None
-        resid = randn(n, h, h, cout) if conv1 else None
+        resid = randn(n, h, h, cout).to(dt) if conv1 else None
         gain, alpha = (1.0, 0.2) if conv1 else (math.sqrt(0.5), 1.0)
         names = ("c_x", "c_w", "c_g")
 
-        def fwd(w_):
-            return fc.downconv2_plain(x, w_, f, bias, resid, gain, alpha)
+        def fwd(w_, a):
+            return fc.downconv2_plain(a[0], w_, f, bias, a[2], gain, alpha)
 
-        def vjp(w_, y, plain):
-            return so.downconv2_bwd_vjp(x, w_, f, resid, y, g, cots, gain, alpha, True, plain)
-        g = randn(n, h, h, cout)
-    cdx = randn(*x.shape)
+        def vjp(w_, y, a, plain):
+            x_, g_, r_, cots = a
+            return so.downconv2_bwd_vjp(x_, w_, f, r_, y, g_, cots, gain, alpha, True, plain)
+        g = randn(n, h, h, cout).to(dt)
+    cdx = randn(*x.shape).to(dt)
     if kind == "down":
         cots = (cdx, None, None)
     else:
         cots = (cdx, None, randn(n, cin) if styled else None, None, None)
-    y = fwd(w)
-    got, want = vjp(w, y, False), vjp(w, y, True)
-    ctrl = vjp(w * (1 + 1e-6 * randn(*w.shape)), y, True)
+    return names, w, (x, g, resid, cots), fwd, vjp
+
+
+def check_grad_vjp(torch, so, gen, call):
+    """The second-order term of one grad Function at one call shape
+    (`grad_case`, float32) on the kernels against the plain versions, with
+    y the plain forward's output: each output (c_x, c_w, c_s, c_noise,
+    c_bias, c_resid, c_y, c_g) within 1e-4 of its largest entry. Printed
+    beside it, a control of float32 rounding: plain with w nudged by 1e-6
+    of itself and the same y (so the same lrelu masks), against plain.
+    Times of either route (CUDA events)."""
+    kind, block, layer, n = call[0], call[1], call[2], call[7]
+    names, w, acts, fwd, vjp = grad_case(torch, so, gen, call, torch.float32)
+    y = fwd(w, acts)
+    got, want = vjp(w, y, acts, False), vjp(w, y, acts, True)
+    ctrl = vjp(w * (1 + 1e-6 * torch.randn(w.shape, generator=gen, device=w.device)), y, acts,
+               True)
     torch.cuda.synchronize()
     errs = {}
     for name, a, b, c in zip(names, got, want, ctrl):
@@ -1340,8 +1420,8 @@ def check_grad_vjp(torch, so, gen, call):
         assert torch.isfinite(a).all().item(), (block, layer, name)
         scale = max(b.abs().max().item(), 1e-30)
         errs[name] = ((a - b).abs().max().item() / scale, (c - b).abs().max().item() / scale)
-    ms = cuda_ms(torch, lambda: vjp(w, y, False), reps=3, warmup=1)
-    plain_ms = cuda_ms(torch, lambda: vjp(w, y, True), reps=2, warmup=1)
+    ms = cuda_ms(torch, lambda: vjp(w, y, acts, False), reps=3, warmup=1)
+    plain_ms = cuda_ms(torch, lambda: vjp(w, y, acts, True), reps=2, warmup=1)
     print(f"  grad VJP {kind} {block} {layer} batch {n}: rel err (control) "
           + ", ".join(f"{k} {e:.3e} ({c:.3e})" for k, (e, c) in errs.items())
           + f"; ms kernels {ms:.3f}, plain {plain_ms:.3f}", flush=True)
@@ -1405,6 +1485,317 @@ def pooled_strengths(rows):
 
 def _fmt(rows, k=3):
     return [(r[1], f"{r[0]:.3e}", f"{r[2]:.3e}") for r in rows[:k]]
+
+
+def check_train_kernel_bf16(torch, fc, gen, call):
+    """One training role in bfloat16 at one call shape, batch 4
+    (`train_case`; the `_bf16` entry points: K3-forward and the dw kernels
+    their least-work kernels on bfloat16 operands, K2's use_dw role
+    `upconv2_tc_kernel`): the kernel and the plain bfloat16 version, each
+    against the float32 plain version on the same bfloat16-rounded
+    activations, phase bf16's rule (the kernel's error at most BF16_RATIO
+    times the plain one's, or within BF16_FLOOR of the output's largest
+    entry). Times of the kernel (its wrapper; and the kernel's own device
+    time under torch.profiler), the plain version, cuDNN's bfloat16 call of
+    the bare convolution and the same-function call in bfloat16; the bound
+    at 2 bytes an element and the bf16 tensor-core peak."""
+    from morphganformer_tpu_torch.bench_k3 import device_split
+
+    role, block, layer = call[:3]
+    key, run_k, run_p, run_ref, run_lib, run_same, flops, elements, _ = train_case(
+        torch, fc, gen, call, torch.bfloat16)
+    before = dict(fc.launch_counts)
+    got = run_k()
+    assert fc.launch_counts[key] == before[key] + 1, (role, fc.launch_counts)
+    assert fc.launch_counts[TRAIN_KEYS[role]] == before[TRAIN_KEYS[role]], role
+    plain, ref = run_p(), run_ref()
+    torch.cuda.synchronize()
+    assert got.dtype == plain.dtype and got.shape == ref.shape
+    assert torch.isfinite(got).all().item()
+    ek, ep, kp = _bf16_errs((got,), (plain,), (ref,))
+    print(f"  {role} bf16 {block} {layer}: vs float32 on the same inputs, kernel {ek:.3e}, "
+          f"plain {ep:.3e} (of the largest entry); kernel vs plain {kp:.3e}", flush=True)
+    assert ek <= max(BF16_RATIO * ep, BF16_FLOOR), \
+        f"{role} bf16 {block} {layer}: kernel err {ek} > max({BF16_RATIO} x {ep}, {BF16_FLOOR})"
+    bound_ms, bound_by = bf16_bound(flops, sum(t if isinstance(t, int) else t.numel()
+                                               for t in elements if t is not None))
+    ms = cuda_ms(torch, run_k, reps=5, warmup=1)
+    plain_ms = cuda_ms(torch, run_p, reps=1, warmup=0)     # warm: it ran for the check
+    library_ms = cuda_ms(torch, run_lib, reps=5, warmup=1)
+    same_ms = cuda_ms(torch, run_same, reps=5, warmup=1)
+    # None where the profiler attributes no device time to the kernel.
+    kernel_ms = device_split(run_k, TRAIN_BF16_KERNELS[role])[0] or None
+    print(f"  {role} bf16 {block} {layer}: ms {ms:.4f} (kernel's device ms {kernel_ms}) "
+          f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f}{_same(same_ms)} "
+          f"bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
+    return dict(kernel=f"{role} bf16", block=block, role=layer, batch=TRAIN_BATCH,
+                max_abs_err=kp, err_kernel=ek, err_plain=ep, ms=ms, kernel_device_ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=library_ms, same_function_ms=same_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_d_conv0_bf16(torch, fc, gen, res, c):
+    """D's conv0 at one of its two 1024^2 call shapes, batch 4, in bfloat16
+    through the tensor-core kernels with no styles and no demodulation:
+    the forward (bias, lrelu) and the adjoint's dx alone (what D's backward
+    asks for), and the second-order route's degenerate forward (gain =
+    alpha = 1, no bias, a resid) and dx; each against the float32 plain
+    version by phase bf16's rule. Returns the worst errors."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def f32(args):
+        return tuple(a.float() if isinstance(a, torch.Tensor) and a.dtype == bf else a
+                     for a in args)
+
+    x = randn(TRAIN_BATCH, res, res, c).to(bf)
+    w = randn(3, 3, c, c, scale=1 / math.sqrt(9 * c))
+    g = randn(TRAIN_BATCH, res, res, c).to(bf)
+    worst = (0.0, 0.0)
+    for label, fwd in (("conv0", (x, w, None, None, randn(c, scale=0.1), None, math.sqrt(2),
+                                  0.2, False)),
+                       ("degenerate", (x, w, None, None, None,
+                                       randn(TRAIN_BATCH, res, res, c).to(bf), 1.0, 1.0,
+                                       False))):
+        before = dict(fc.launch_counts)
+        y = fc.fused_modconv3x3(*fwd)
+        args = (g, x, w, None, y, None, fwd[4], fwd[5], fwd[6], fwd[7], False)
+        dx = fc.modconv3x3_adjoint(*args, need_ds=False)[0]
+        torch.cuda.synchronize()
+        assert fc.launch_counts["modconv3x3_bf16"] == before["modconv3x3_bf16"] + 1
+        assert fc.launch_counts["modconv3x3_adj_bf16"] == before["modconv3x3_adj_bf16"] + 1
+        ek, ep, _ = _bf16_errs((y, dx), (fc.modconv3x3_plain(*fwd),
+                                         fc.modconv3x3_adjoint_plain(*args, need_ds=False)[0]),
+                               (fc.modconv3x3_plain(*f32(fwd)),
+                                fc.modconv3x3_adjoint_plain(*f32(args), need_ds=False)[0]))
+        print(f"  K1 bf16 D b{res} {label}, no styles (forward and dx): vs float32, kernel "
+              f"{ek:.3e}, plain {ep:.3e}", flush=True)
+        assert ek <= max(BF16_RATIO * ep, BF16_FLOOR), (res, label, ek, ep)
+        worst = (max(worst[0], ek), max(worst[1], ep))
+    return worst
+
+
+def check_grad_vjp_bf16(torch, so, gen, call):
+    """`grad_case` in bfloat16 (the second-order route's launches on the
+    `_bf16` entry points): kernels and plain versions, each against the
+    plain version on the same values in float32, by phase bf16's rule on
+    every output. Returns the worst errors and the kernels' ms."""
+    from morphganformer_tpu_torch.ops import fused_conv as fc
+
+    kind, block, layer, n = call[0], call[1], call[2], call[7]
+    _, w, acts, fwd, vjp = grad_case(torch, so, gen, call, torch.bfloat16)
+    y = fwd(w, acts)
+    before = dict(fc.launch_counts)
+    got = vjp(w, y, acts, False)
+    launched = {k: v - before[k] for k, v in fc.launch_counts.items() if v != before[k]}
+    assert launched and all(k.endswith("_bf16") for k in launched), launched
+    plain = vjp(w, y, acts, True)
+    x, g, resid, cots = acts
+    wide = (x.float(), g.float(), None if resid is None else resid.float(),
+            tuple(None if c is None else c.float() for c in cots))
+    ref = vjp(w, y.float(), wide, True)
+    torch.cuda.synchronize()
+    assert all(a is None or torch.isfinite(a).all().item() for a in got)
+    ek, ep, kp = _bf16_errs(got, plain, ref)
+    ms = cuda_ms(torch, lambda: vjp(w, y, acts, False), reps=2, warmup=1)
+    print(f"  grad VJP bf16 {kind} {block} {layer} batch {n}: vs float32, kernels {ek:.3e}, "
+          f"plain {ep:.3e}; kernels vs plain {kp:.3e}; ms kernels {ms:.3f}; launches "
+          f"{launched}", flush=True)
+    assert ek <= max(BF16_RATIO * ep, BF16_FLOOR), f"grad VJP bf16 {kind} {block} {layer}"
+    return dict(kind=kind, block=block, layer=layer, err_kernel=ek, err_plain=ep, ms=ms)
+
+
+SMALL_LEAF = 256       # leaves of fewer entries are held as one vector leaf (bf16 stages)
+
+
+@contextlib.contextmanager
+def plain_wrappers(fc):
+    """Every kernel wrapper on its plain version, on the card too (each takes
+    the plain version where `_on_cpu` says so): a stage's plain route, the
+    second-order one included."""
+    real = fc._on_cpu
+    fc._on_cpu = lambda x: True
+    try:
+        yield
+    finally:
+        fc._on_cpu = real
+
+
+def bf16_train_checks(torch, fc, gen, g_cfg, d_cfg, reals):
+    """Training in bfloat16 at 1024^2, batch 4 (`train --dtype bfloat16`):
+    a bfloat16 GANTrainer and a float32 one from the same seed (so the same
+    weights), noise strengths set alike.
+      1. Each stage's parameter gradients (G_main, G_reg, D_main, D_reg; one
+         round, the same draws on every route): the bfloat16 route on the
+         kernels and on the plain versions (`plain_wrappers`), each against
+         the float32 plain route, by relative L2 error: each weight whose
+         cotangent a dw kernel forms (the fused blocks' conv weights) at
+         most BF16_RATIO times the plain bfloat16 route's, or within
+         BF16_FLOOR; the other leaves as one vector, the leaves of fewer
+         than SMALL_LEAF entries as one (as phase train holds the noise
+         strengths) and the stage's whole gradient the same way. The two
+         routes round at other places (the kernels the small weights, the
+         plain versions the FIR-composed ones), so their errors are two
+         draws of one size. On an H100 a leaf's largest entry error
+         differed by up to 2x between them (medians 0.88-1.14), and so did
+         the L2 error of leaves far from the kernels whose error is a few
+         directions carried through the whole net (the mapping's and
+         attention's, up to 1.55x at a median of 0.88).
+      2. train_iteration at step 16 (all four stages due) in bfloat16 and
+         in float32 (warm: part 1 ran every stage in both types): seconds,
+         each stage's milliseconds, peak memory; the bfloat16 one's
+         launches exactly phase reg's per-iteration launches on the `_bf16`
+         entry points.
+      3. One traced bfloat16 iteration (G_main and D_main): device busy
+         time and idle share, the five training roles' bfloat16 launches,
+         and no launch of a float32 least-work kernel.
+    Returns (stats, launches of the timed bfloat16 iteration)."""
+    import dataclasses
+
+    from morphganformer_tpu_torch.bench_dw import HOST_TIMED, traced_run
+    from morphganformer_tpu_torch.models.discriminator import packed_d_block_eligible
+    from morphganformer_tpu_torch.training import GANTrainer, TrainConfig
+
+    t_cfg = TrainConfig(batch_size=TRAIN_BATCH, batch_gpu=4)
+    trainers = {dt: GANTrainer(dataclasses.replace(g_cfg, dtype=dt),
+                               dataclasses.replace(d_cfg, dtype=dt), t_cfg)
+                for dt in ("float32", "bfloat16")}
+    states = {dt: t.init_state(seed=0) for dt, t in trainers.items()}
+    for st in states.values():
+        set_noise_strengths(torch, st.G, torch.Generator(device="cuda").manual_seed(5))
+    w_avg = states["float32"].G.mapping.w_avg.clone()
+    z = torch.randn((1, TRAIN_BATCH, g_cfg.k, g_cfg.z_dim), generator=gen, device="cuda")
+    # The weights whose cotangent the dw kernels form: the fused blocks'.
+    fused_g = [r for r in g_cfg.block_resolutions if r >= 256]
+    fused_d = [r for r in d_cfg.block_resolutions if packed_d_block_eligible(d_cfg, r)]
+    kernel_leaves = ({f"synthesis.b{r}.{layer}.weight" for r in fused_g
+                      for layer in ("conv0", "conv1", "skip", "conv_last")}
+                     | {f"b{r}.{layer}.weight" for r in fused_d
+                        for layer in ("conv0", "conv1", "skip")})
+    real = reals[None, :TRAIN_BATCH]
+
+    def stage_grads(dt, stage, plain):
+        trainer, state = trainers[dt], states[dt]
+        state.G.mapping.w_avg.copy_(w_avg)
+        rng = torch.Generator(device="cuda").manual_seed(11)
+        with plain_wrappers(fc) if plain else contextlib.nullcontext():
+            if stage == "g_main":
+                return trainer.g_main_grads(state, z, gen=rng)[0]
+            if stage == "d_main":
+                return trainer.d_main_grads(state, real, z, gen=rng)[0]
+            if stage == "g_reg":
+                return trainer.g_reg_grads(state, z, gen=rng)[0]
+            return trainer.d_reg_grads(state, real)[0]
+
+    grads, failures = {}, []
+    for stage in ("g_main", "g_reg", "d_main", "d_reg"):
+        net = states["float32"].G if stage.startswith("g") else states["float32"].D
+        names = [n for n, _ in net.named_parameters()]
+        t0 = time.perf_counter()
+        ref = stage_grads("float32", stage, True)
+        kern = stage_grads("bfloat16", stage, False)
+        plain = stage_grads("bfloat16", stage, True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        assert all(torch.isfinite(t).all().item() for t in kern), stage
+        # Squared L2 norms: each leaf's error on either route and its own.
+        sq = {n: ((k.double() - r.double()).square().sum().item(),
+                  (p.double() - r.double()).square().sum().item(),
+                  r.double().square().sum().item(), r.numel())
+              for n, k, p, r in zip(names, kern, plain, ref)}
+        small = [n for n in names if sq[n][3] < SMALL_LEAF]
+        direct = [n for n in names if n in kernel_leaves]
+        groups = {n: [n] for n in direct}
+        groups.update({"the other leaves as one": [n for n in names
+                                                   if n not in small and n not in direct],
+                       "small leaves as one": small, "the stage": names})
+        rows, bad = {}, []
+        for g, members in groups.items():
+            ek, ep, nr = (math.sqrt(sum(sq[n][i] for n in members)) for i in range(3))
+            rel = (ek / max(nr, 1e-30), ep / max(nr, 1e-30))
+            rows[g] = rel
+            if rel[0] > max(BF16_RATIO * rel[1], BF16_FLOOR):
+                bad.append((g, *rel))
+        leaves = [n for n in names if n not in small]
+
+        def ratio(n):
+            ek, ep = (math.sqrt(sq[n][i]) for i in (0, 1))
+            return ek / max(ep, 1e-300)
+        ratios = sorted((ratio(n), n) for n in leaves)
+        direct_worst = max(((rows[n][0] / max(rows[n][1], 1e-30), n) for n in direct),
+                           default=(0.0, None))
+        grads[stage] = dict(stage=rows["the stage"], small_leaves=rows["small leaves as one"],
+                            others=rows["the other leaves as one"], n_small=len(small),
+                            n_direct=len(direct), direct_largest_ratio=direct_worst,
+                            median_ratio=ratios[len(ratios) // 2][0],
+                            largest_ratio=ratios[-1], failures=bad, seconds=secs)
+        print(f"  bf16 {stage} gradients against the float32 plain route, relative L2 errors "
+              f"(kernels / plain bfloat16): the stage {rows['the stage'][0]:.3e} / "
+              f"{rows['the stage'][1]:.3e}; {len(small)} small leaves as one "
+              f"{rows['small leaves as one'][0]:.3e} / {rows['small leaves as one'][1]:.3e}; the "
+              f"other leaves as one {rows['the other leaves as one'][0]:.3e} / "
+              f"{rows['the other leaves as one'][1]:.3e}; {len(direct)} leaves from the dw "
+              f"kernels, largest kernel/plain {direct_worst[0]:.3f} ({direct_worst[1]}); all "
+              f"{len(leaves)} leaves, kernel/plain median {ratios[len(ratios) // 2][0]:.3f}, "
+              f"largest {ratios[-1][0]:.3f} ({ratios[-1][1]}); {secs:.3f} s; failing {bad}",
+              flush=True)
+        if bad:
+            failures.append((stage, bad))
+        del ref, kern, plain
+    assert not failures, f"bf16 stage gradients: {failures}"
+
+    timings = {}
+    bf16_launches = None
+    for dt in ("bfloat16", "float32"):
+        trainer, state = trainers[dt], states[dt]
+        stage_ms, _ = timed_stages(torch, trainer, ("g_main", "g_reg", "d_main", "d_reg"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fc.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = host(trainer.train_iteration(state, reals[:TRAIN_BATCH], 16))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(fc.launch_counts)
+        assert all(math.isfinite(v) for v in stats.values()), (dt, stats)
+        want = loop_launches(16)
+        if dt == "bfloat16":
+            want, bf16_launches = as_bf16(want), launches
+        assert launches == want, (dt, launches, want)
+        timings[dt] = dict(seconds=secs, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                           **{f"{k}_ms": v[-1] for k, v in stage_ms.items()})
+        print(f"  {dt} train_iteration at step 16 (all four stages), batch 4: {secs:.3f} s; "
+              + ", ".join(f"{k} {v[-1]:.3f} ms" for k, v in stage_ms.items())
+              + f"; peak {timings[dt]['peak_gib']:.3f} GiB; {json.dumps(stats)}; launches "
+              f"{launches}", flush=True)
+        for name in stage_ms:
+            delattr(trainer, f"{name}_step")
+
+    trainer, state = trainers["bfloat16"], states["bfloat16"]
+    fc.reset_launch_counts()
+    prof, averages, r = traced_run(
+        lambda: trainer.train_iteration(state, reals[:TRAIN_BATCH], 17), HAND_WRITTEN,
+        HOST_TIMED)
+    traced_launches = dict(fc.launch_counts)
+    f32_lw = {e.key: e.count for e in averages if e.device_type.name == "CUDA"
+              and any(k in e.key for k in F32_LW_KERNELS) and "bfloat16" not in e.key}
+    busy, window = r["busy_ms"], r["window_ms"]
+    print(averages.table(sort_by="self_cuda_time_total", row_limit=14), flush=True)
+    print(f"  traced bfloat16 training iteration batch 4 (G_main, D_main): window "
+          f"{window:.3f} ms, device busy {busy:.3f} ms, idle share {1 - busy / window:.4f}, "
+          f"{r['launches']} device ops; hand-written kernels (device ms, launches): "
+          + ", ".join(f"{k} {v[0]:.3f} ({v[1]})" for k, v in r["kernels"].items())
+          + f"; float32 least-work kernels {f32_lw}; launches {traced_launches}", flush=True)
+    assert traced_launches == as_bf16(per_iteration()), traced_launches
+    assert all(traced_launches[k] > 0 for k in TRAIN_BF16_KEYS.values()), traced_launches
+    assert not f32_lw, f"a float32 least-work kernel ran in a bfloat16 iteration: {f32_lw}"
+    stats = dict(grads=grads, iteration=timings,
+                 traced=dict(window_ms=window, busy_ms=busy, device_ops=r["launches"],
+                             kernels=r["kernels"], host=r["host"]))
+    del trainers, states
+    return stats, bf16_launches
 
 
 def train_phase(torch, fc):
@@ -1555,12 +1946,25 @@ def train_phase(torch, fc):
     traced = traced_forward(torch,
                             lambda: trainer.train_iteration(state, reals[:TRAIN_BATCH], 6),
                             "training iteration batch 4", host_of=HOST_TIMED)
+    print(f"  peak memory over steps 1-3: {peak / 2**30:.3f} GiB", flush=True)
+    del state, two
+
+    # Training in bfloat16: the roles at every call shape, D's conv0 and the
+    # degenerate launches, the grad Functions' terms, then the iteration.
+    t0 = time.perf_counter()
+    bf16_rows = [check_train_kernel_bf16(torch, fc, gen, call) for call in train_calls()]
+    d_conv0 = {f"b{res}": check_d_conv0_bf16(torch, fc, gen, res, c)
+               for res, c in ((1024, 32), (512, 64))}
+    grad_bf16 = [check_grad_vjp_bf16(torch, so, gen, call) for call in grad_calls()]
+    bf16_stats, bf16_launches = bf16_train_checks(torch, fc, gen, g_cfg, d_cfg, reals)
+    bf16_stats.update(d_conv0=d_conv0, grad_vjp=grad_bf16,
+                      seconds=time.perf_counter() - t0)
+    print(f"  the bfloat16 training checks: {bf16_stats['seconds']:.3f} s", flush=True)
     stats = dict(iteration_ms=iter_ms, g_main_ms=stage_ms["g_main"][:3], traced=traced,
                  d_main_ms=stage_ms["d_main"][:3], two_round_ms=two_ms, peak_gib=peak / 2**30,
                  g_grads=errs["g"], d_grads=errs["d"], round_ms=round_ms,
-                 per_sample_noise=noise_errs, grad_vjp=grad_rows)
-    print(f"  peak memory over steps 1-3: {peak / 2**30:.3f} GiB", flush=True)
-    return rows, total, stats
+                 per_sample_noise=noise_errs, grad_vjp=grad_rows, bf16=bf16_stats)
+    return rows, total, stats, bf16_rows, bf16_launches
 
 
 def k4_calls():
@@ -1885,8 +2289,8 @@ def inner_pass_launches(torch, fc, out):
 def reg_checks(torch, trainer, state, reals, gen):
     """Each reg stage's parameter gradients (one round of batch 4) in
     float32 on the default scoped route against the same stage in float64
-    on the unpacked route (MGT_PACKED_SECOND_ORDER=0; the kernels take only
-    float32) on float64 copies of the nets, beside two controls: the
+    on the unpacked route (MGT_PACKED_SECOND_ORDER=0; the kernels take no
+    float64) on float64 copies of the nets, beside two controls: the
     float32 unpacked route against float64, and float64 with every weight
     nudged by 1e-7 of itself (about float32's rounding) against float64.
     Bounds: the penalties within 1e-3 of each other, every leaf within 1e-2
@@ -2285,11 +2689,13 @@ def loop_phase(torch, fc, cli, G, train_stats):
                 k: fc.launch_counts[k] - before[k] for k in before}))
             return out
 
-        def run(max_ticks, resume, backend):
+        def run(max_ticks, resume, backend, images=True):
+            """`images`: image snapshots every tick (the resumed runs leave
+            them out: the first run checks them)."""
             record["calls"], record["first_state"] = [], None
             l_cfg = tloop.LoopConfig(run_dir=run_dir, total_kimg=1,
                                      kimg_per_tick=2 * TRAIN_BATCH / 1000, snapshot_ticks=1,
-                                     img_snapshot_ticks=1, vis=("grid", "interp"),
+                                     img_snapshot_ticks=int(images), vis=("grid", "interp"),
                                      tensorboard=True, snapshot_backend=backend, seed=0)
             out = io.StringIO()
             GANTrainer.train_iteration = recording
@@ -2339,12 +2745,12 @@ def loop_phase(torch, fc, cli, G, train_stats):
         saved1 = saved_tree()
         n_leaves = assert_same_tree(saved1, tloop.train_state_tree(state1), "saved vs in memory")
 
-        state2, text2, calls2, wall2 = run(1, "auto", "msgpack")
+        state2, text2, calls2, wall2 = run(1, "auto", "msgpack", images=False)
         assert f"at cur_nimg {4 * TRAIN_BATCH}" in text2 and state2.cur_nimg == 6 * TRAIN_BATCH
         assert_same_tree(record["first_state"], saved1, "resumed (msgpack) vs saved")
         saved2 = saved_tree()
         del state1, state2
-        state3, text3, calls3, wall3 = run(1, "auto", "async")
+        state3, text3, calls3, wall3 = run(1, "auto", "async", images=False)
         assert f"at cur_nimg {6 * TRAIN_BATCH}" in text3 and state3.cur_nimg == 8 * TRAIN_BATCH
         assert_same_tree(record["first_state"], saved2, "resumed (async) vs saved")
         assert_same_tree(saved_tree(), tloop.train_state_tree(state3), "async saved vs memory")
@@ -2394,6 +2800,35 @@ def loop_phase(torch, fc, cli, G, train_stats):
               f"{load_s:.3f} s; cli.get_model(snapshot) vs G_ema max abs diff {img_diff:.3e}",
               flush=True)
 
+        # `train --dtype bfloat16` through the entry point and training_loop
+        # on the same PNGs: one tick of two iterations (G_reg and D_reg due
+        # at step 0), every fused block on the bfloat16 entry points.
+        del fresh, state3
+        fc.reset_launch_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main(["train", "--data-dir", data, "--result-dir", os.path.join(tmp, "bf16runs"),
+                      "--expname", "bf16", "--resolution", str(res), "--batch", str(TRAIN_BATCH),
+                      "--batch-gpu", str(TRAIN_BATCH), "--kimg-per-tick",
+                      str(2 * TRAIN_BATCH / 1000), "--max-ticks", "1", "--img-snapshot-ticks",
+                      "0", "--dtype", "bfloat16", "--device", DEV])
+        torch.cuda.synchronize()
+        bf16_train_s = time.perf_counter() - t0
+        bf16_launches = dict(fc.launch_counts)
+        snap = tloop.latest_snapshot(os.path.join(tmp, "bf16runs", "bf16-000"))
+        with open(os.path.join(snap, "arch.json")) as f:
+            arch = json.load(f)
+        lines = [x for x in out.getvalue().splitlines() if x.startswith(("feed:", "tick "))]
+        print(f"  train --dtype bfloat16 (cli.main, one tick of 2 iterations at batch "
+              f"{TRAIN_BATCH}): {bf16_train_s:.3f} s; {lines}; launches {bf16_launches}",
+              flush=True)
+        assert arch["G"]["dtype"] == arch["Gs"]["dtype"] == arch["D"]["dtype"] == "bfloat16"
+        assert all(bf16_launches[f"{k}_bf16"] > 0 for k in (*TRAIN_KEYS.values(), *BF16_KEYS)), \
+            bf16_launches
+        assert not any(v for k, v in bf16_launches.items() if not k.endswith("_bf16")), \
+            bf16_launches
+
     calls = calls1 + calls2 + calls3
     # Odd steps: no reg stage inside, and no tick (after each odd step) in
     # the gap before them.
@@ -2409,7 +2844,8 @@ def loop_phase(torch, fc, cli, G, train_stats):
         {k: c[k] for k in ("step", "inside_s", "gap_s")} for c in calls],
         loop_wall_s=[wall1, wall2, wall3], snapshot_bytes=nbytes, nets_save_s=nets_s,
         train_state_sync_s=sync_s, train_state_async_return_s=async_return_s,
-        train_state_async_s=async_s, train_state_load_s=load_s, g_snapshot_diff=img_diff)
+        train_state_async_s=async_s, train_state_load_s=load_s, g_snapshot_diff=img_diff,
+        train_bf16_s=bf16_train_s, train_bf16_launches=bf16_launches)
 
 
 # ------------------------------------------------------------ this slice's paths
@@ -3045,7 +3481,8 @@ def main():
         phases["metrics"] = ph.seconds
 
     with Phase("train") as ph:
-        train_rows, train_launches, train_stats = train_phase(torch, fc)
+        train_rows, train_launches, train_stats, train_bf16_rows, train_bf16_launches = \
+            train_phase(torch, fc)
     phases["train"] = ph.seconds
 
     with Phase("loop") as ph:
@@ -3061,6 +3498,7 @@ def main():
     phases["reg"] = ph.seconds
 
     print("kernel_calls " + json.dumps(rows + train_rows + k4_rows), flush=True)
+    print("kernel_calls_train_bf16 " + json.dumps(train_bf16_rows), flush=True)
     print("projection " + json.dumps(proj_stats), flush=True)
     print("noise_regularize " + json.dumps(nr_stats), flush=True)
     print("morph " + json.dumps(morph_stats), flush=True)
@@ -3211,6 +3649,46 @@ def main():
             "reg_launches": reg_stats["reg_launches"][TRAIN_KEYS[role]],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["ms"] for r in mine),
+            "plain_ms": sum(r["plain_ms"] for r in mine),
+            "bound_ms": b_ms,
+            "bound_by": "operations" if 2 * ops_ms >= b_ms else "bytes",
+            "library_ms": sum(r["library_ms"] for r in mine),
+            "same_function_ms": _same_sum(mine),
+        })
+    for role, name, replaces in (
+            ("K3-forward", "mgt_downconv2_fwd_bf16 (D-tower forward in bfloat16 training, "
+             "pallas_conv.py:2054-2072: downconv2_lw_kernel on bfloat16 x, small weight and "
+             "resid, the FIR, the sums and the epilogue in float32, y rounded once)",
+             K3_REPLACES),
+            ("K2-use_dw", "mgt_upconv2_fwd_bf16 in the use_dw role (dx of the D down-conv in "
+             "bfloat16, pallas_conv.py:2121-2157: upconv2_tc_kernel with no styles, no d, no "
+             "bias, gain = alpha = 1)", K2_REPLACES),
+            ("K2-use_dw-dw", "mgt_fir_dw_bf16 (the D down-conv's dw in bfloat16, "
+             "pallas_conv.py:1225-1246: fir_dw_kernel on bfloat16 x and gz, the FIR, the "
+             "partials and the result in float32)", K2_DW_REPLACES),
+            ("K1-dw", "mgt_conv_dw_bf16 (K1's dw taps in bfloat16, pallas_conv.py:256-285: "
+             "conv_dw_lw_kernel on bfloat16 x and gd, x * s rounded to bfloat16 as it lands, "
+             "float32 partials)", K1_DW_REPLACES),
+            ("K3-dw", "mgt_fir_dw_bf16 (K3's dw taps in bfloat16, pallas_conv.py:1387-1416: "
+             "fir_dw_kernel on bfloat16 gd and x, x * s rounded to bfloat16)",
+             K3_DW_REPLACES)):
+        mine = [r for r in train_bf16_rows if r["kernel"] == f"{role} bf16"]
+        b_ms = sum(r["bound_ms"] for r in mine)
+        ops_ms = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")
+        kernels.append({
+            "name": f"{role} bf16 {name} (the call shapes of one 1024^2 training iteration, "
+                    f"batch {TRAIN_BATCH}: " + ", ".join(f"{r['block']} {r['role']}" for r in mine)
+                    + "; launches over one bfloat16 train_iteration with G_reg and D_reg due; "
+                      "max_abs_err: kernel vs plain bfloat16, of the float32 reference's "
+                      "largest entry)",
+            "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "launches": train_bf16_launches[TRAIN_BF16_KEYS[role]],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "err_vs_f32": max(r["err_kernel"] for r in mine),
+            "plain_err_vs_f32": max(r["err_plain"] for r in mine),
+            "ms": sum(r["ms"] for r in mine),
+            "kernel_device_ms": (None if any(r["kernel_device_ms"] is None for r in mine)
+                                 else sum(r["kernel_device_ms"] for r in mine)),
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": b_ms,
             "bound_by": "operations" if 2 * ops_ms >= b_ms else "bytes",

@@ -29,7 +29,9 @@ runs on the card; `--device cpu` asks for the CPU. `--dtype` is the
 synthesis' compute type, with JAX's defaults: bfloat16 for project, morph
 and demorph, float32 for generate and merge (the weights, the latent, Adam
 and the loss stay float32); calc_metrics has no `--dtype` and runs float32,
-as JAX's does. Latents are fed to the
+as JAX's does. `train --dtype bfloat16` trains with G's synthesis and D's
+blocks in bfloat16 (the parameters, Adam, the EMA, pl_mean and the losses
+stay float32; the metrics run G_ema in float32). Latents are fed to the
 generator as z, as the JAX entry points do. Projection targets are PNGs of
 any size (Lanczos-resized and centre-cropped, as JAX's load_target does).
 `project --loss` takes JAX's whole loss stack: the pixel terms and lpips,
@@ -504,6 +506,7 @@ def run_eval(args):
         raise FileNotFoundError(f"no snapshot to evaluate under {args.result_dir}/"
                                 f"{args.expname}-*")
     _, G = load_network(snaps[-1], role="Gs", device=args.device)
+    set_compute_dtype(G, "float32")         # the metrics run G in float32, as calc_metrics
     for metric in (args.metrics or ["fid2k_full"]):
         result = compute_metric(
             metric, detector=resolve_detector(args.detector, kind=detector_kind(metric),
@@ -555,9 +558,10 @@ def build_train_configs(args):
         channel_base=args.channel_base, channel_max=args.channel_max,
         architecture=args.g_arch, transformer=args.transformer, start_res=args.start_res,
         end_res=args.end_res, component_dropout=args.component_dropout,
-        mapping=mapping, attention=attention)
+        mapping=mapping, attention=attention, dtype=args.dtype)
     d_cfg = DiscriminatorConfig(img_resolution=args.resolution, channel_base=args.channel_base,
-                                channel_max=args.channel_max, architecture=args.d_arch)
+                                channel_max=args.channel_max, architecture=args.d_arch,
+                                dtype=args.dtype)
     batch = args.batch if args.batch is not None else min(min(4096 // args.resolution, 32), 64)
     lr = args.lrate if args.lrate is not None else (0.002 if args.resolution >= 1024 else 0.0025)
     t_cfg = TrainConfig(batch_size=batch, batch_gpu=args.batch_gpu, g_lr=lr, d_lr=lr,
@@ -573,9 +577,6 @@ def run_train(args):
 
     if args.multihost or args.coordinator or args.num_processes or args.process_id is not None:
         raise NotImplementedError(PARALLEL_NOT_PORTED)
-    if args.dtype != "float32":
-        raise NotImplementedError("the port trains in float32 only (bfloat16 training needs "
-                                  "the D-tower roles and the dw kernels in bfloat16)")
     if args.eval:
         run_eval(args)
         return None
@@ -640,7 +641,8 @@ def train_parser(sub):
     t.add_argument("--style-mixing", type=float, default=0.9)
     t.add_argument("--component-mixing", type=float, default=0.0)
     t.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="bfloat16 is refused")
+                   help="compute type of G's synthesis and D's blocks (the parameters, the "
+                        "optimizer state and the losses stay float32)")
     t.add_argument("--kimg-per-tick", type=float, default=4)
     t.add_argument("--snapshot-ticks", type=int, default=50)
     t.add_argument("--img-snapshot-ticks", type=int, default=50)

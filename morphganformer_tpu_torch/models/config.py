@@ -13,6 +13,8 @@ import json
 import math
 from typing import Optional, Tuple
 
+from morphganformer_tpu_torch.utils.dtype import COMPUTE_DTYPES
+
 
 @dataclasses.dataclass(frozen=True)
 class MappingConfig:
@@ -176,7 +178,13 @@ class DiscriminatorConfig:
     resample_kernel: Tuple[int, ...] = (1, 3, 3, 1)
     mbstd_group_size: Optional[int] = 4
     mbstd_num_channels: int = 1
+    # Compute dtype of the blocks ("float32" or "bfloat16"); the parameters,
+    # the minibatch-std layer and the epilogue stay float32.
     dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(COMPUTE_DTYPES)}, got {self.dtype!r}")
 
     @property
     def block_resolutions(self) -> Tuple[int, ...]:

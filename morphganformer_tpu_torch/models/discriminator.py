@@ -1,7 +1,10 @@
 """StyleGAN2-style discriminator (port of morphganformer_tpu/models/discriminator.py).
 
-Resnet down-sampling blocks, the minibatch-std layer and the epilogue. NHWC,
-float32. Blocks that pass `packed_d_block_eligible` (at 1024^2: b1024 and
+Resnet down-sampling blocks, the minibatch-std layer and the epilogue. NHWC;
+the blocks compute in `cfg.dtype` (float32, or bfloat16 as JAX's blocks
+cast x and fromrgb's input, `discriminator.py:64-98`), the minibatch-std
+layer and the epilogue in float32, so the logits are float32; the
+parameters stay float32. Blocks that pass `packed_d_block_eligible` (at 1024^2: b1024 and
 b512) run every conv on the fused kernels of ops/fused_conv.py, as the JAX
 package runs them on its Pallas kernels:
 
@@ -38,7 +41,7 @@ from morphganformer_tpu_torch.ops.fused_conv import lw_fir_ok, lw_widths_ok
 from morphganformer_tpu_torch.ops.packed_override import packed_paths_disabled
 from morphganformer_tpu_torch.ops.upfirdn2d import downsample2d, setup_filter
 from morphganformer_tpu_torch.utils.device import resolve_device
-from morphganformer_tpu_torch.utils.dtype import at_least_f32
+from morphganformer_tpu_torch.utils.dtype import at_least_f32, to_compute
 
 
 def packed_d_structural_ok(cfg: DiscriminatorConfig, res: int) -> bool:
@@ -82,8 +85,10 @@ class DiscriminatorBlock(nn.Module):
         """(x, img) -> (x at half the resolution, img): `skip` hands the next
         block the image down-sampled, the other layouts hand `img` on."""
         skip = self.cfg.architecture == "skip"
+        if x is not None:
+            x = to_compute(x, self.cfg)
         if self.stem or skip:
-            y = self.fromrgb(img)
+            y = self.fromrgb(to_compute(img, self.cfg))
             x = y if x is None else x + y
             if skip:
                 img = downsample2d(img, self.resample_filter)

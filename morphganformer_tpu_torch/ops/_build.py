@@ -60,12 +60,13 @@ _SIGNATURES = {
     # N, H, W of the base grid -> the number of tiles of a mgt_fir_dw launch
     "mgt_fir_dw_tiles": [_I, _I, _I],
 }
-# The bfloat16 entry points of K1 (forward, adjoint) and K2 take the float32
-# ones' arguments (pointers to bfloat16 where the kernel reads or writes the
-# compute type); K3's adjoint takes the output cotangent g for gd and d
-# after s.
+# The bfloat16 entry points of K1 (forward, adjoint), K2, K3's forward and
+# the dw kernels take the float32 ones' arguments (pointers to bfloat16
+# where the kernel reads or writes the compute type); K3's adjoint takes the
+# output cotangent g for gd and d after s.
 _SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
-    "mgt_modconv3x3_fwd", "mgt_modconv3x3_bwd", "mgt_upconv2_fwd")})
+    "mgt_modconv3x3_fwd", "mgt_modconv3x3_bwd", "mgt_upconv2_fwd", "mgt_downconv2_fwd",
+    "mgt_conv_dw", "mgt_fir_dw")})
 # g, wk, fir, s, d, x, y, noise, dx, dot, dd1, dd2, N, H, W, O, C, kh, pad, gain, alpha,
 # noise_ns, device, stream
 _SIGNATURES["mgt_upconv2_bwd_bf16"] = [_P] * 12 + [_I] * 7 + [_F, _F, _I, _I, _P]

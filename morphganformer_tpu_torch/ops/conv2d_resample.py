@@ -17,6 +17,8 @@ import os
 import torch
 import torch.nn.functional as F
 
+from morphganformer_tpu_torch.ops.packed_override import (in_second_order_scope,
+                                                          packed_paths_disabled)
 from morphganformer_tpu_torch.ops.upfirdn2d import (
     _get_filter_size,
     _pad_nchw,
@@ -61,7 +63,19 @@ def _conv(x, w, *, stride=1, padding=(0, 0, 0, 0), groups=1, flip_weight=True):
     if not flip_weight:
         w = w.flip((0, 1))
     y = _pad_nchw(x.permute(0, 3, 1, 2), *padding)
-    y = F.conv2d(y, _to_oihw(w).to(x.dtype), stride=stride, groups=groups)
+    k = _to_oihw(w).to(x.dtype)
+    if (x.dtype == torch.bfloat16 and x.device.type == "cpu"
+            and (in_second_order_scope() or packed_paths_disabled())):
+        # torch's bfloat16 convolution on the CPU (oneDNN) takes a wrong
+        # second derivative at some shapes (an 18 x 18 input of 16 channels:
+        # the double backward's relative error 1.0, where float32's is 5e-7;
+        # the card's is 1.8e-3). So inside a reg stage (the only place that
+        # differentiates twice) the bfloat16 operands are summed in float32
+        # on the CPU and y is rounded once; elsewhere the CPU's bfloat16
+        # convolution stays, which rounds as XLA's does.
+        y = F.conv2d(y.float(), k.float(), stride=stride, groups=groups).to(x.dtype)
+    else:
+        y = F.conv2d(y, k, stride=stride, groups=groups)
     return y.permute(0, 2, 3, 1)
 
 

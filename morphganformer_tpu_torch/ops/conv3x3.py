@@ -15,7 +15,9 @@ with no scale slot, no demodulation and no epilogue) and its dx
 `mgt_conv3x3_dx`, K1's adjoint launch on the cotangent with no mask, scale
 or taps, which reads flip(w)^T from w by index, as JAX's VJP reuses K4.
 Both sum in cuDNN's order, so the route gives the F.conv2d path's results
-to the bit; like K1, they take channel counts in fours. Its dw is nine tap
+to the bit; like K1, they take channel counts in fours, and float32 alone:
+a bfloat16 operand raises on either device, never runs on cuDNN (K4's
+bfloat16 role is not ported). Its dw is nine tap
 sums, one matrix product per tap: JAX forms them with an XLA einsum outside
 any Pallas kernel, so there is no TPU kernel to port, and the products take
 any C and O without the padding that `mgt_conv_dw` needs. On a CPU tensor
@@ -102,6 +104,11 @@ def _conv3x3(t, w, key):
     version for a CPU tensor."""
     t, w = t.contiguous(), w.contiguous()
     dx = key == "conv3x3_adj"
+    if t.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "K4 (mgt_conv3x3_fwd and its dx, the MGT_PALLAS_CONV=1 route of the skip/orig "
+            "layouts) takes float32 only: its bfloat16 role is not ported (ROADMAP.md queue "
+            "2A); unset MGT_PALLAS_CONV to run these layouts in bfloat16")
     if _on_cpu(t):
         return conv3x3_same_plain(t, conv3x3_adjoint_weights(w) if dx else w)
     n, h, wd, _ = t.shape

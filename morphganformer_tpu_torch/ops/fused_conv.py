@@ -61,22 +61,25 @@ forward and the plain backward on any device. The plain forwards follow
 `second_order.py::modconv_ref` / `upconv_ref` / `dconv_ref`.
 `launch_counts` counts kernel launches (never plain calls), one key per role.
 
-The compute type is x's: float32, or bfloat16 for K1, K2 and K3's adjoint
-on the synthesis path (JAX's `project`, `morph` and `demorph` default).
+The compute type is x's: float32, or bfloat16 in every role (JAX's
+`project`, `morph` and `demorph` default, and `train --dtype bfloat16`).
 The weights, styles and noise are float32 at the interface and are cast as
 JAX's Pallas wrappers cast them (pallas_conv.py:673-700, :1699-1715,
-:838-847, :1798-1851): in bfloat16 the kernels read bfloat16 operands
-(x * s formed and rounded in bfloat16 in the forwards; K2's and K3's
-weights composed with the FIR in float32 and then rounded on the plain
-route, the small weight rounded in the kernels), sum in float32, run the
-epilogue and the ds/dd taps in float32 (d, bias, the adjoints' scale s)
-and round the output once; the adjoints form gd = g * mask * d in bfloat16
-inside their kernels (K1's and K3's on the tensor cores,
+:838-847, :1798-1851, :2054-2068, :2121-2157): in bfloat16 the kernels read
+bfloat16 operands (x * s formed and rounded in bfloat16 in the forwards;
+K2's and K3's weights composed with the FIR in float32 and then rounded on
+the plain route, the small weight rounded in the kernels), sum in float32,
+run the epilogue and the ds/dd taps in float32 (d, bias, the adjoints'
+scale s) and round the output once; the adjoints form gd = g * mask * d in
+bfloat16 inside their kernels (K1's and K3's on the tensor cores,
 `conv3x3_adj_tc_kernel` and `downconv2_tc_kernel`, as K2's bfloat16
-forward, `upconv2_tc_kernel`).
-A bfloat16 tensor on a card launches the `_bf16` entry points or raises;
-the D-tower roles and the dw kernels take float32 only (training runs in
-float32).
+forward, `upconv2_tc_kernel`, which also runs K2's use_dw role). The D
+tower's forward (`downconv2_lw_kernel`) and the dw kernels
+(`conv_dw_lw_kernel`, `fir_dw_kernel`) read bfloat16 operands into their
+float32 tiles: the dw kernels round x * s (base * s) to bfloat16 as JAX's
+u_t (pallas_conv.py:270-271, :1399-1401), keep the FIR and their partials
+in float32 and return a float32 cotangent (`dw.astype(w.dtype)`).
+A bfloat16 tensor on a card launches the `_bf16` entry points or raises.
 """
 
 from __future__ import annotations
@@ -93,13 +96,11 @@ from morphganformer_tpu_torch.ops.packed_override import scope_reaches
 from morphganformer_tpu_torch.utils.dtype import at_least_f32
 
 # One key per role; "conv3x3" and "conv3x3_adj" are K4's (ops/conv3x3.py);
-# the `_bf16` keys count the bfloat16 instantiations of K1, K2 and K3's
-# adjoint.
-launch_counts = {"modconv3x3": 0, "upconv2": 0, "modconv3x3_adj": 0, "upconv2_adj": 0,
-                 "downconv2": 0, "downconv2_adj": 0, "modconv3x3_dw": 0, "upconv2_dw": 0,
-                 "downconv2_dw": 0, "conv3x3": 0, "conv3x3_adj": 0,
-                 "modconv3x3_bf16": 0, "upconv2_bf16": 0, "modconv3x3_adj_bf16": 0,
-                 "upconv2_adj_bf16": 0}
+# a `_bf16` key counts the bfloat16 entry point of its role.
+_ROLES = ("modconv3x3", "upconv2", "modconv3x3_adj", "upconv2_adj", "downconv2",
+          "downconv2_adj", "modconv3x3_dw", "upconv2_dw", "downconv2_dw")
+launch_counts = {**dict.fromkeys(_ROLES, 0), "conv3x3": 0, "conv3x3_adj": 0,
+                 **dict.fromkeys((f"{r}_bf16" for r in _ROLES), 0)}
 
 # Blocks of one least-work dw launch (`mgt_conv_dw`, `mgt_fir_dw`): one wave
 # at 2 per SM of an H100.
@@ -428,11 +429,16 @@ def upconv2_plain(x, w, styles, f, noise=None, bias=None, gain=1.0, alpha=0.2,
 def downconv2_plain(x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2, flip_weight=True):
     """Plain K3 forward (the D down-conv). x [N,2H,2W,I]; w [kh,kw,I,O] with
     kh in (1, 3); f: FIR from setup_filter (or None); bias [O] or None;
-    resid [N,H,W,O] or None, added after the activation. Returns [N,H,W,O],
-    equal to conv2d_resample(x, w, f, down=2, padding=kh//2) + bias_act."""
+    resid [N,H,W,O] or None, added after the activation. Returns [N,H,W,O]
+    in x's type, equal to conv2d_resample(x, w, f, down=2, padding=kh//2) +
+    bias_act. In bfloat16 the composed kernel is rounded after its float32
+    composition and resid is rounded, the sums and the epilogue run in
+    float32 and y is rounded once (`_dconv_fwd_impl` :2061-2068)."""
+    dt = x.dtype
     wf, hb = downconv2_parity_kernels(w, f, flip_weight)
-    y = _lrelu(_parity_downconv(x, wf, hb) + (0 if bias is None else bias), gain, alpha)
-    return y if resid is None else y + resid
+    y = _parity_downconv(at_least_f32(x), _widened(wf, dt), hb)
+    y = _lrelu(y + (0 if bias is None else bias), gain, alpha)
+    return (y if resid is None else y + _widened(resid, dt)).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -553,8 +559,11 @@ def upconv2_adjoint_plain(g, x, w, styles, f, y, noise=None, bias=None, gain=1.0
 def downconv2_adjoint_plain(gz, w, f, flip_weight=True):
     """Plain K2 in its use_dw role: dx of `downconv2_plain` from gz [N,H,W,O],
     the cotangent of the conv output (g * lrelu'), as the up-conv of gz with
-    the flipped, transposed parity taps. Returns [N,2H,2W,I]."""
-    return _phase_upconv(gz, *downconv2_adjoint_kernels(w, f, flip_weight))
+    the flipped, transposed parity taps. Returns [N,2H,2W,I] in gz's type:
+    in bfloat16 the taps are rounded after their float32 composition, the
+    sums run in float32 and dx is rounded once (`_dconv_bwd_impl` :2150)."""
+    wt, hbt = downconv2_adjoint_kernels(w, f, flip_weight)
+    return _phase_upconv(at_least_f32(gz), _widened(wt, gz.dtype), hbt).to(gz.dtype)
 
 
 _PARITIES = ((0, 0), (0, 1), (1, 0), (1, 1))
@@ -566,10 +575,12 @@ def conv_dw_plain(a, b, s, pa, pb, nt, hb):
     outside it. A_p is a * s (pa = 1) or parity plane p = (qy, qx) of a
     (pa = 2); B_p is b (pb = 1) or its parity plane p (pb = 2); one p when
     both are 1. a [N,pa*H,pa*W,I]; b [N,pb*H,pb*W,O]; s [N,I] or None.
-    Returns [NP,NT,NT,I,O], summed in float32 (JAX's taps take float32)."""
+    Returns [NP,NT,NT,I,O], summed in float32 (JAX's taps take float32); in
+    bfloat16 a * s is rounded to bfloat16 first, as JAX's u_t (:270-271)."""
+    dt = a.dtype
     a, b = at_least_f32(a), at_least_f32(b)
     if s is not None:
-        a = a * s[:, None, None, :]
+        a = _widened(a * s[:, None, None, :], dt)
     out = []
     for qy, qx in (_PARITIES if max(pa, pb) == 2 else ((0, 0),)):
         ap = a[:, qy::2, qx::2] if pa == 2 else a
@@ -589,12 +600,15 @@ def fir_dw_plain(src, base, s, fk, pad, kh):
         out[a, b, u, v] = sum_{n,m,l} B[n, 2m + a, 2l + b, u] (base * s)[n, m, l, v],
         B[n, p, r, u]   = sum_{iy,ix} fk[iy, ix] src[n, p + iy - pad, r + ix - pad, u],
     src zero outside the image. src [N,2H,2W,U]; base [N,H,W,V]; s [N,V] or
-    None; fk [4,4] -> [kh,kh,U,V]. The tests hold the kernel's operands with
-    it; the main path never calls it."""
+    None; fk [4,4] -> [kh,kh,U,V], in float32 (bfloat16 operands widened,
+    base * s rounded to bfloat16 as the kernel rounds it). The tests hold
+    the kernel's operands with it; the main path never calls it."""
     n, h, wd, _ = base.shape
     u = src.shape[-1]
+    dt = base.dtype
+    src, base = at_least_f32(src), at_least_f32(base)
     if s is not None:
-        base = base * s[:, None, None, :]
+        base = _widened(base * s[:, None, None, :], dt)
     hi = kh + 2 - pad
     b = F.conv2d(F.pad(_nchw(src), (pad, hi, pad, hi)), fk.to(src.dtype).expand(u, 1, 4, 4),
                  groups=u)
@@ -666,14 +680,13 @@ def _check_noise(name, noise, n, h, wd, device, dtype=torch.float32):
     return _check(name, noise, (h, wd), device, dtype), 0
 
 
-# The kernels' entry points by compute type: the float32 ones, and the
-# bfloat16 ones of K1 (forward, adjoint), K2 (forward) and K3's adjoint.
+# The kernels' entry points by compute type: the float32 ones and the
+# bfloat16 ones.
 _SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
 def _kernel_dtype(t, name="x"):
-    """The compute type of a launch of K1, K2 or K3's adjoint: t's, float32
-    or bfloat16."""
+    """The compute type of a launch: t's, float32 or bfloat16."""
     if t.dtype not in _SUFFIX:
         raise TypeError(f"{name}: the kernels take float32 or bfloat16, got {t.dtype}")
     return t.dtype
@@ -785,21 +798,24 @@ def _upconv2_forward(x, w, styles, f, noise=None, bias=None, gain=1.0, alpha=0.2
 
 
 def _downconv2_forward(x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2, flip_weight=True):
-    """K3 forward: the plain version for a CPU tensor, the kernel for a CUDA one."""
+    """K3 forward: the plain version for a CPU tensor; for a CUDA one a launch
+    of `mgt_downconv2_fwd` (float32) or `mgt_downconv2_fwd_bf16` (x, the
+    small weight and resid rounded to bfloat16; the FIR, the bias and the
+    sums float32), both downconv2_lw_kernel."""
     if _on_cpu(x):
         return downconv2_plain(x, w, f, bias, resid, gain, alpha, flip_weight)
     n, h2, w2, ci = x.shape
     h, wd = h2 // 2, w2 // 2
-    dev = x.device
+    dev, dt = x.device, _kernel_dtype(x)
     wk, fk, pad = downconv2_leastwork(w, f, flip_weight)
     kh, co = int(wk.shape[0]), int(wk.shape[-1])
-    ptrs = [_aligned("x", _check("x", x, (n, 2 * h, 2 * wd, ci), dev)),
-            *_lw_weights(wk, fk, dev), _check("bias", bias, (co,), dev),
-            _aligned("resid", _check("resid", resid, (n, h, wd, co), dev))]
-    y = torch.empty((n, h, wd, co), device=dev, dtype=torch.float32)
-    _launch("mgt_downconv2_fwd", *ptrs, y.data_ptr(), n, h, wd, ci, co, kh, pad,
+    ptrs = [_aligned("x", _check("x", x, (n, 2 * h, 2 * wd, ci), dev, dt)),
+            *_lw_weights(_as(wk, dt), fk, dev, dt), _check("bias", bias, (co,), dev),
+            _aligned("resid", _check("resid", resid, (n, h, wd, co), dev, dt))]
+    y = torch.empty((n, h, wd, co), device=dev, dtype=dt)
+    _launch("mgt_downconv2_fwd" + _SUFFIX[dt], *ptrs, y.data_ptr(), n, h, wd, ci, co, kh, pad,
             float(gain), float(alpha), *_stream(dev))
-    launch_counts["downconv2"] += 1
+    launch_counts["downconv2" + _SUFFIX[dt]] += 1
     return y
 
 
@@ -957,14 +973,15 @@ def upconv2_adjoint(g, x, w, styles, f, y, noise=None, bias=None, gain=1.0, alph
 
 def downconv2_adjoint(gz, w, f, flip_weight=True):
     """K2 in its use_dw role (dx of the D down-conv): `downconv2_adjoint_plain`
-    for a CPU tensor; for a CUDA tensor one launch of K2's least-work kernel
-    with the down-conv's operands read back, no scale and no epilogue."""
+    for a CPU tensor; for a CUDA tensor one launch of K2's kernel with the
+    down-conv's operands read back, no scale and no epilogue: the
+    least-work kernel in float32, the tensor-core one (`upconv2_tc_kernel`)
+    in bfloat16."""
     if _on_cpu(gz):
         return downconv2_adjoint_plain(gz, w, f, flip_weight)
-    _check("gz", gz, gz.shape, gz.device)   # the D tower runs in float32 only
     dx = _upconv2_launch(gz.contiguous(), downconv2_adjoint_leastwork(w, f, flip_weight),
                          None, None, None, None, 1.0, 1.0)
-    launch_counts["downconv2_adj"] += 1
+    launch_counts["downconv2_adj" + _SUFFIX[dx.dtype]] += 1
     return dx
 
 
@@ -985,10 +1002,12 @@ def dw_slices(ntiles, groups):
 def conv_dw(x, gd, s):
     """K1's dw taps (`conv_dw_plain` with pa = pb = 1, 3 taps, hb 0): the
     plain version for a CPU tensor; for a CUDA tensor one launch of the
-    least-work kernel (`mgt_conv_dw`), whose per-slice partials are summed
-    here in a fixed order. x [N,H,W,C], gd [N,H,W,O], s [N,C] or None ->
-    [3,3,C,O]. The kernel tiles C and O by 32: other widths are padded with
-    zero channels, whose cotangent entries are cut off."""
+    least-work kernel (`mgt_conv_dw`, or `mgt_conv_dw_bf16` on bfloat16 x
+    and gd, x * s rounded to bfloat16 as it lands), whose float32
+    per-slice partials are summed here in a fixed order. x [N,H,W,C], gd
+    [N,H,W,O], s [N,C] (float32) or None -> float32 [3,3,C,O]. The kernel
+    tiles C and O by 32: other widths are padded with zero channels, whose
+    cotangent entries are cut off."""
     if _on_cpu(x):
         return conv_dw_plain(x, gd, s, 1, 1, 3, (0, 0))[0]
     n, h, wd, ci = x.shape
@@ -997,25 +1016,26 @@ def conv_dw(x, gd, s):
         pad_a, pad_b = (0, -ci % 32), (0, -co % 32)
         s = None if s is None else F.pad(s, pad_a)
         return conv_dw(F.pad(x, pad_a), F.pad(gd, pad_b), s)[..., :ci, :co]
-    dev = x.device
-    ptrs = [_aligned("x", _check("x", x, (n, h, wd, ci), dev)),
-            _aligned("gd", _check("gd", gd, (n, h, wd, co), dev)),
+    dev, dt = x.device, _kernel_dtype(x)
+    ptrs = [_aligned("x", _check("x", x, (n, h, wd, ci), dev, dt)),
+            _aligned("gd", _check("gd", gd, (n, h, wd, co), dev, dt)),
             _aligned("s", _check("s", s, (n, ci), dev))]
     ot = k1_dw_ot(co)
     slices, per = dw_slices(_library().mgt_conv_dw_tiles(n, h, wd, ot), (ci // 32) * (co // ot))
     part = torch.empty((slices, 3, 3, ci, co), device=dev, dtype=torch.float32)
-    _launch("mgt_conv_dw", *ptrs, part.data_ptr(), n, h, wd, ci, co, ot, slices, per,
-            *_stream(dev))
-    launch_counts["modconv3x3_dw"] += 1
+    _launch("mgt_conv_dw" + _SUFFIX[dt], *ptrs, part.data_ptr(), n, h, wd, ci, co, ot, slices,
+            per, *_stream(dev))
+    launch_counts["modconv3x3_dw" + _SUFFIX[dt]] += 1
     return part.sum(0)
 
 
 def _fir_dw_launch(src, base, s, fk, pad, kh):
-    """One launch of the least-work dw kernel (`mgt_fir_dw`): `fir_dw_plain`
-    of src [N,2H,2W,U] (filtered), base [N,H,W,V] and s [N,V] or None, with
-    the partials of its slices summed here in a fixed order; [kh,kh,U,V].
-    The kernel tiles U by 32 and V by 64: other widths are padded with zero
-    channels, whose entries are cut off."""
+    """One launch of the least-work dw kernel (`mgt_fir_dw`, or
+    `mgt_fir_dw_bf16` on bfloat16 src and base): `fir_dw_plain` of src
+    [N,2H,2W,U] (filtered), base [N,H,W,V] and s [N,V] (float32) or None,
+    with the float32 partials of its slices summed here in a fixed order;
+    [kh,kh,U,V]. The kernel tiles U by 32 and V by 64: other widths are
+    padded with zero channels, whose entries are cut off."""
     n, h, wd, cv = base.shape
     cu = src.shape[-1]
     if cu % 32 or cv % 64:
@@ -1025,14 +1045,14 @@ def _fir_dw_launch(src, base, s, fk, pad, kh):
         return out[..., :cu, :cv]
     if kh not in (1, 3):
         raise ValueError(f"the least-work dw kernel takes a 1x1 or 3x3 weight, got {kh}x{kh}")
-    dev = base.device
-    ptrs = [_aligned("src", _check("src", src, (n, 2 * h, 2 * wd, cu), dev)),
-            _aligned("base", _check("base", base, (n, h, wd, cv), dev)),
+    dev, dt = base.device, _kernel_dtype(base, "base")
+    ptrs = [_aligned("src", _check("src", src, (n, 2 * h, 2 * wd, cu), dev, dt)),
+            _aligned("base", _check("base", base, (n, h, wd, cv), dev, dt)),
             _check("s", s, (n, cv), dev), _check("fir", fk, (4, 4), dev)]
     slices, per = dw_slices(_library().mgt_fir_dw_tiles(n, h, wd), (cu // 32) * (cv // 64))
     part = torch.empty((slices, kh, kh, cu, cv), device=dev, dtype=torch.float32)
-    _launch("mgt_fir_dw", *ptrs, part.data_ptr(), n, h, wd, cu, cv, kh, pad, slices, per,
-            *_stream(dev))
+    _launch("mgt_fir_dw" + _SUFFIX[dt], *ptrs, part.data_ptr(), n, h, wd, cu, cv, kh, pad,
+            slices, per, *_stream(dev))
     return part.sum(0)
 
 
@@ -1047,7 +1067,7 @@ def upconv2_dw(x, gd, styles, w, f, flip_weight=False):
         return upconv2_dw_plain(x, gd, styles, w, f, flip_weight)
     flip, fk, pad = upconv2_dw_leastwork(w, f, flip_weight)
     dwk = _fir_dw_launch(gd.contiguous(), x, styles, fk, pad, int(w.shape[0])).transpose(2, 3)
-    launch_counts["upconv2_dw"] += 1
+    launch_counts["upconv2_dw" + _SUFFIX[x.dtype]] += 1
     return dwk.flip((0, 1)) if flip else dwk
 
 
@@ -1062,7 +1082,7 @@ def downconv2_dw(x, gz, w, f, flip_weight=True):
         return downconv2_dw_plain(x, gz, w, f, flip_weight)
     flip, fk, pad = downconv2_dw_leastwork(w, f, flip_weight)
     dwk = _fir_dw_launch(x, gz.contiguous(), None, fk, pad, int(w.shape[0]))
-    launch_counts["downconv2_dw"] += 1
+    launch_counts["downconv2_dw" + _SUFFIX[x.dtype]] += 1
     return dwk.flip((0, 1)) if flip else dwk
 
 
@@ -1178,7 +1198,7 @@ def downconv2_backward(g, x, w, f, y, bias, resid, gain, alpha, flip_weight, nee
     if need_dw:
         dw = (downconv2_dw_plain if plain else downconv2_dw)(x, gz, w, f, flip_weight)
     if need_db:
-        db = gz.sum(dim=(0, 1, 2))
+        db = at_least_f32(gz).sum(dim=(0, 1, 2))
     return dx, dw, db
 
 
@@ -1377,7 +1397,8 @@ def fused_downconv2(x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2, flip_we
                     plain=False):
     """K3 forward: the D tower's 2x-down conv with the FIR composed in, bias,
     lrelu * gain and the resnet skip added after. Shapes as
-    `downconv2_plain`; float32, contiguous. Differentiable in x, w, bias and
+    `downconv2_plain`; x and resid float32 or bfloat16 (the compute type),
+    w and bias float32; contiguous. Differentiable in x, w, bias and
     resid (`FusedDownConv2`, whose backward is K2's use_dw role);
     `plain=True` runs the plain forward and backward on any device."""
     return FusedDownConv2.apply(x, w, f, bias, resid, gain, alpha, flip_weight, plain)

@@ -74,13 +74,11 @@ def _c(t):
     return t.contiguous()
 
 
-def _not_bf16(*ts):
-    """The second-order route runs in float32 (or float64, the reference):
-    a bfloat16 operand raises rather than run in another type."""
-    for t in ts:
-        if t is not None and t.dtype == torch.bfloat16:
-            raise TypeError("the second-order route takes float32 or float64, got bfloat16 "
-                            "(training in bfloat16 is not ported)")
+def _like(cots, inputs):
+    """Each cotangent in its input's type (JAX's `.astype(x.dtype)` on the
+    VJP's outputs): the x-sized ones in the compute type, the weights',
+    styles', noise's and bias' float32; None stays None."""
+    return tuple(None if c is None else c.to(t.dtype) for c, t in zip(cots, inputs))
 
 
 def modconv3x3_ops(plain):
@@ -153,7 +151,8 @@ def modconv3x3_bwd_vjp(x, w, styles, noise, bias, resid, y, g, cots, gain, alpha
         x, w, styles, noise, bias, y_act, g, cots, gain, alpha, demodulate,
         conv_ops=(conv, convT, wg), conv_resid=conv_resid)
     cresid = None if resid is None or cy is None else -cy
-    return cx, cw, cs, cn, cb, cresid, cy, cg
+    return _like((cx, cw, cs, cn, cb, cresid, cy, cg),
+                 (x, w, styles, noise, bias, resid, y, g))
 
 
 def upconv2_bwd_vjp(x, w, styles, f, noise, bias, y, g, cots, gain, alpha, demodulate,
@@ -164,7 +163,7 @@ def upconv2_bwd_vjp(x, w, styles, f, noise, bias, y, g, cots, gain, alpha, demod
     cx, cw, cs, cn, cb, cy, cg = sn.modconv_bwd_vjp_from_y(
         x, w, styles, noise, bias, y, g, cots, gain, alpha, demodulate,
         conv_ops=upconv2_ops(f, flip_weight, w, plain))
-    return cx, cw, cs, cn, cb, cy, cg
+    return _like((cx, cw, cs, cn, cb, cy, cg), (x, w, styles, noise, bias, y, g))
 
 
 def downconv2_bwd_vjp(x, w, f, resid, y, g, cots, gain, alpha, flip_weight, plain=False):
@@ -175,8 +174,9 @@ def downconv2_bwd_vjp(x, w, f, resid, y, g, cots, gain, alpha, flip_weight, plai
         c_x = adjoint(gu; cdw)       K2's use_dw launch, cdw in the kernel slot
         c_w = dw(cdx, gu)            the down-conv's dw launch
         c_g = m * (down(cdx; w) + down(x; cdw) + cdbias)
-    the two down-convs chained through K3-forward's resid slot. The
-    cotangents of bias, resid and y are zero."""
+    the two down-convs chained through K3-forward's resid slot, c_g
+    formed in at least float32 and rounded to g's type (`_dconv_bwd_so_bwd`).
+    The cotangents of bias, resid and y are zero."""
     cdx, cdw, cdb = cots
     adjoint = fc.downconv2_adjoint_plain if plain else fc.downconv2_adjoint
     dw = fc.downconv2_dw_plain if plain else fc.downconv2_dw
@@ -193,8 +193,8 @@ def downconv2_bwd_vjp(x, w, f, resid, y, g, cots, gain, alpha, flip_weight, plai
         pre = fwd(_c(cdx), w, f, None, pre, 1.0, 1.0, flip_weight)
     if cdb is not None:
         pre = cdb if pre is None else pre + cdb
-    cg = None if pre is None else m * pre
-    return cx, cw, cg
+    cg = None if pre is None else (m * pre).to(g.dtype)
+    return cx, None if cw is None else cw.to(w.dtype), cg
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +211,6 @@ class ModConv3x3Grad(torch.autograd.Function):
     def forward(ctx, x, w, styles, noise, bias, resid, y, g, gain, alpha, demodulate, needs,
                 plain):
         ctx.set_materialize_grads(False)
-        _not_bf16(x, y, g, resid)
         ctx.save_for_backward(x, w, styles, noise, bias, resid, y, g)
         ctx.opts = (gain, alpha, demodulate, plain)
         return fc.modconv3x3_backward(g, x, w, styles, y, noise, bias, resid, gain, alpha,
@@ -233,7 +232,6 @@ class UpConv2Grad(torch.autograd.Function):
     def forward(ctx, x, w, styles, f, noise, bias, y, g, gain, alpha, demodulate, flip_weight,
                 needs, plain):
         ctx.set_materialize_grads(False)
-        _not_bf16(x, y, g)
         ctx.save_for_backward(x, w, styles, f, noise, bias, y, g)
         ctx.opts = (gain, alpha, demodulate, flip_weight, plain)
         return fc.upconv2_backward(g, x, w, styles, f, y, noise, bias, gain, alpha, demodulate,
@@ -255,7 +253,6 @@ class DownConv2Grad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, f, bias, resid, y, g, gain, alpha, flip_weight, needs, plain):
         ctx.set_materialize_grads(False)
-        _not_bf16(x, y, g, resid)
         ctx.save_for_backward(x, w, f, resid, y, g)
         ctx.opts = (gain, alpha, flip_weight, plain)
         return fc.downconv2_backward(g, x, w, f, y, bias, resid, gain, alpha, flip_weight,

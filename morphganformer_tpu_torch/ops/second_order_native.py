@@ -18,16 +18,21 @@ term is one of the three primitives with swapped operands; the rest is
 primitives by the port's kernel launches (or their plain versions) for K1,
 K2 and the D down-conv.
 
-NHWC activations, HWIO weights. Unlike JAX's module, which accumulates the
-[N,C]-sized algebra in float32, everything here runs in the inputs' dtype,
-so a float64 run is float64 throughout. `s` may be None for an unmodulated
-conv (the 1x1 skip, D's conv0): no style scale and no style cotangent.
+NHWC activations, HWIO weights. The dtypes follow JAX's module: every
+x-sized stream stays in its input's type (bfloat16 in bfloat16 training,
+the [N,C] factors s and d rounded to it where they scale it), the
+[N,C]/[C,O]-sized demodulation algebra and every pixel reduction in at
+least float32 (`at_least_f32`), so a float64 run is float64 throughout.
+`s` may be None for an unmodulated conv (the 1x1 skip, D's conv0): no style
+scale and no style cotangent.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from morphganformer_tpu_torch.utils.dtype import at_least_f32
 
 _EPS = 1e-8
 
@@ -88,8 +93,10 @@ def upconv2_conv_ops():
     return up, upT, upwg
 
 
-def _sN(s):
-    return s[:, None, None, :]
+def _sN(s, dtype=None):
+    """[N,C] -> [N,1,1,C], in `dtype` (an x-sized stream's) when given."""
+    s = s[:, None, None, :]
+    return s if dtype is None else s.to(dtype)
 
 
 def _demod(w, s, demodulate):
@@ -204,30 +211,31 @@ def modconv_bwd_vjp_from_y(x, w, s, noise, bias, y_act, g, cots, gain, alpha, de
     wsq, d = _demod(w, s, demodulate)
     m = _mask(y_act, gain, alpha)
     gu = g * m
-    dz = gu if d is None else gu * _sN(d)
+    gt = gu.dtype
+    dz = gu if d is None else gu * _sN(d, gt)
 
     def red(t):
-        return t.sum(dim=(1, 2))
+        return at_least_f32(t).sum(dim=(1, 2))
 
     def add(a, b):
         return b if a is None else a + b
 
     c_gu = c_x = c_w = c_s = c_d = None
     if cdb is not None:
-        c_gu = add(c_gu, cdb[None, None, None, :])
+        c_gu = add(c_gu, cdb.to(gt)[None, None, None, :])
     if cdn is not None:
-        c_gu = add(c_gu, cdn[None, :, :, None] if cdn.dim() == 2 else cdn[..., None])
+        c_gu = add(c_gu, (cdn[None, :, :, None] if cdn.dim() == 2 else cdn[..., None]).to(gt))
 
     # dx = dxs * s, ds_conv = sum x * dxs, with dxs = convT(dz, w): [A].
     c_dxs = None
     if cdx is not None:
-        c_dxs = cdx if s is None else cdx * _sN(s)
+        c_dxs = cdx if s is None else cdx * _sN(s, x.dtype)
     if cds is not None:
-        c_dxs = add(c_dxs, _sN(cds) * x)
+        c_dxs = add(c_dxs, _sN(cds, x.dtype) * x)
     # dw_conv = wg(xs, dz): its xs and dz dependences, [B] and [L2].
     c_xs = t2 = None
     if cdw is not None:
-        xs = x if s is None else x * _sN(s)
+        xs = x if s is None else x * _sN(s, x.dtype)
         c_xs = convT(dz, cdw)
         t2 = conv(xs, cdw)
     c_dz = t2
@@ -238,10 +246,10 @@ def modconv_bwd_vjp_from_y(x, w, s, noise, bias, y_act, g, cots, gain, alpha, de
             if cdx is not None and s is not None:
                 c_s = add(c_s, red(cdx * dxs))
             if cds is not None:
-                c_x = add(c_x, _sN(cds) * dxs)
+                c_x = add(c_x, (_sN(cds, dxs.dtype) * dxs).to(x.dtype))
         else:
             cw_a = wg(c_dxs, dz)
-        c_w = add(c_w, cw_a)
+        c_w = add(c_w, at_least_f32(cw_a))
         if t2 is not None and conv_resid is not None:
             c_dz = conv_resid(c_dxs, w, t2)
         else:
@@ -250,7 +258,7 @@ def modconv_bwd_vjp_from_y(x, w, s, noise, bias, y_act, g, cots, gain, alpha, de
     # The demodulation chain of the primal (dd, dq, dwsq): live with cds or cdw.
     c_z = z = None
     if d is not None and (cds is not None or cdw is not None):
-        _, z = _recover_from_y(y_act, noise, bias, d, gain, alpha)
+        _, z = _recover_from_y(y_act, noise, bias, d.to(y_act.dtype), gain, alpha)
         dd = red(gu * z)
         dq = -0.5 * d ** 3 * dd
         c_dq = torch.zeros_like(dq)
@@ -265,15 +273,16 @@ def modconv_bwd_vjp_from_y(x, w, s, noise, bias, y_act, g, cots, gain, alpha, de
             c_s = add(c_s, 2.0 * s * torch.einsum("io,no->ni", c_dwsq, dq))
             c_dq = c_dq + torch.einsum("io,ni->no", c_dwsq, s.square())
         c_d = add(c_d, -1.5 * d ** 2 * dd * c_dq)
-        c_dd = _sN(-0.5 * d ** 3 * c_dq)
-        c_gu = add(c_gu, z * c_dd)
+        c_dd = _sN(-0.5 * d ** 3 * c_dq, gt)
+        c_gu = add(c_gu, z.to(gt) * c_dd)
         c_z = gu * c_dd
     else:
         c_wsq = None
 
     # dz = gu * d
     if c_dz is not None:
-        c_gu = add(c_gu, c_dz if d is None else c_dz * _sN(d))
+        c_dz = c_dz.to(gt)
+        c_gu = add(c_gu, c_dz if d is None else c_dz * _sN(d, gt))
         if d is not None:
             c_d = add(c_d, red(gu * c_dz))
 
@@ -281,20 +290,20 @@ def modconv_bwd_vjp_from_y(x, w, s, noise, bias, y_act, g, cots, gain, alpha, de
     # part is the real route; the noise, bias and d parts cancel against it.
     c_y = c_n = c_b = None
     if c_z is not None:
-        czd = c_z / _sN(d)
-        c_y = czd / m
+        czd = c_z / _sN(d, c_z.dtype)
+        c_y = czd / m.to(czd.dtype)
         if noise is not None:
-            rr = czd.sum(dim=-1)
+            rr = at_least_f32(czd).sum(dim=-1)
             c_n = -(rr.sum(dim=0) if noise.dim() == 2 else rr)
         if bias is not None:
-            c_b = -czd.sum(dim=(0, 1, 2))
-        c_d = add(c_d, -red(z * czd))
+            c_b = -at_least_f32(czd).sum(dim=(0, 1, 2))
+        c_d = add(c_d, -red(z.to(czd.dtype) * czd))
 
     # xs = x * s
     if c_xs is not None:
-        c_x = add(c_x, c_xs if s is None else c_xs * _sN(s))
+        c_x = add(c_x, (c_xs if s is None else c_xs * _sN(s, c_xs.dtype)).to(x.dtype))
         if s is not None:
-            c_s = add(c_s, red(x * c_xs))
+            c_s = add(c_s, red(x * c_xs.to(x.dtype)))
 
     # d = rsqrt(q + eps), q = s^2 @ wsq, wsq = sum w^2
     if d is not None and c_d is not None:

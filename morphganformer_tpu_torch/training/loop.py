@@ -47,6 +47,7 @@ from morphganformer_tpu_torch.checkpoint.io import save_discriminator, save_gene
 from morphganformer_tpu_torch.checkpoint.msgpack_codec import msgpack_restore
 from morphganformer_tpu_torch.data.dataset import ImageFolderDataset, infinite_batches
 from morphganformer_tpu_torch.models.config import DiscriminatorConfig, GANformerConfig
+from morphganformer_tpu_torch.models.generator import set_compute_dtype
 from morphganformer_tpu_torch.training import visualize as vz
 from morphganformer_tpu_torch.training.stats import Collector
 from morphganformer_tpu_torch.training.tensorboard import EventWriter
@@ -276,7 +277,9 @@ def training_loop(g_cfg: GANformerConfig, d_cfg: DiscriminatorConfig, t_cfg: Tra
 
     def evaluate(snapshot_dir=None):
         """The metrics of `eval_metrics` on G_ema against `eval_images_num`
-        dataset images, cycled in order (JAX's loop.py:273-301)."""
+        dataset images, cycled in order (JAX's loop.py:273-301). G_ema runs
+        in float32 there whatever the training type, as calc_metrics runs
+        it, and goes back to the training type after."""
         from morphganformer_tpu_torch.metrics.detector import detector_kind, resolve_detector
         from morphganformer_tpu_torch.metrics.registry import compute_metric, report_metric
 
@@ -290,9 +293,13 @@ def training_loop(g_cfg: GANformerConfig, d_cfg: DiscriminatorConfig, t_cfg: Tra
                     yield np.stack([dataset[(n + j) % len(dataset)][0] for j in range(b)])
                     n += b
 
-            result = compute_metric(metric, detector=detector, dataset=data_iter(),
-                                    G=state.G_ema, batch=l_cfg.eval_batch,
-                                    max_items=l_cfg.eval_images_num, device=dev)
+            set_compute_dtype(state.G_ema, "float32")
+            try:
+                result = compute_metric(metric, detector=detector, dataset=data_iter(),
+                                        G=state.G_ema, batch=l_cfg.eval_batch,
+                                        max_items=l_cfg.eval_images_num, device=dev)
+            finally:
+                set_compute_dtype(state.G_ema, g_cfg.dtype)
             report_metric(result, run_dir=l_cfg.run_dir, snapshot_pkl=snapshot_dir)
 
     def save_visualizations():

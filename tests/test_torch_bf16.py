@@ -46,7 +46,6 @@ from morphganformer_tpu_torch.ops.bias_act import bias_act as tbias_act
 from morphganformer_tpu_torch.ops.conv2d_resample import _compose_kernel_fir as tcompose
 from morphganformer_tpu_torch.ops import fused_conv as fc
 from morphganformer_tpu_torch.ops.modulated_conv import modulated_conv2d as tmodconv
-from morphganformer_tpu_torch.ops import second_order as so
 from morphganformer_tpu_torch.ops import setup_filter
 from morphganformer_tpu_torch.projection import ProjectionConfig, latent_stats, loss_and_grad, project
 from morphganformer_tpu_torch.utils.dtype import compute_dtype, scalar
@@ -353,21 +352,6 @@ def test_get_model_sets_the_compute_dtype():
     assert img.dtype == torch.float32 and torch.isfinite(img).all()
     with pytest.raises(ValueError, match="dtype"):
         set_compute_dtype(G, "float16")
-
-
-def test_train_in_bfloat16_still_raises():
-    with pytest.raises(NotImplementedError, match="float32 only"):
-        cli.main(["train", "--data-dir", "nowhere", "--dtype", "bfloat16", "--device", "cpu"])
-
-
-def test_second_order_route_raises_on_bf16():
-    x = torch.randn(1, 4, 4, 8).bfloat16().requires_grad_(True)
-    w = torch.randn(3, 3, 8, 8) / 8
-    s = torch.rand(1, 8) + 0.5
-    with so.second_order_scope(("x",)):
-        y = fc.fused_modconv3x3(x, w, s)
-    with pytest.raises(TypeError, match="bfloat16"):
-        torch.autograd.grad(y.float().sum(), x, create_graph=True)
 
 
 @pytest.mark.parametrize("base,fused", [(1024, [8, 16]), (1000, [])])

@@ -8,9 +8,12 @@ route, generator forwards of configs whose blocks the gates send
 unfused, and the bfloat16 kernels (K1's and K2's forwards and K1's and
 K3's adjoints on the tensor cores also at sizes off their tiles and at
 single pixels on every edge; K1's forward and the adjoints also at their
-1024^2 call shapes, gd formed in the adjoints; HMMA in K1's forward), and
-the float32 K1 and K4 bit-equal to the builds before K1's bfloat16 adjoint
-and forward moved to the tensor cores.
+1024^2 call shapes, gd formed in the adjoints; HMMA in K1's forward), the
+bfloat16 training roles (K3's D-tower forward, K2's use_dw role, the dw
+kernels, D's conv0 and the grad Functions' terms), and the float32 K1 and
+K4 bit-equal to the builds before K1's bfloat16 adjoint and forward moved
+to the tensor cores, and K2, K3 and the dw kernels to the build before
+they took bfloat16 operands.
 
 This file imports no JAX, so it runs on the GPU machine, where JAX is not
 installed; tests/conftest.py imports JAX, so run it there with
@@ -942,8 +945,8 @@ def test_bf16_k2_and_k3_adjoint_match_plain(cuda_device, cin, kh, styles, noise,
 def test_bf16_launchers_refuse_mixed_types(cuda_device):
     """A bfloat16 launch takes bfloat16 activations only (the weights,
     styles and noise are float32 parameters it casts, as JAX's wrappers);
-    the training roles take float32 only; a bfloat16 tensor never reaches a
-    float32 kernel."""
+    the training roles take one type for every activation they read; a
+    bfloat16 tensor never reaches a float32 kernel."""
     x, w, s, nz, b, r, g = _bf16_k1(cuda_device, (1, 8, 16, 16), True, True, True)
     before = dict(fc.launch_counts)
     with pytest.raises(TypeError, match="resid"):
@@ -960,14 +963,16 @@ def test_bf16_launchers_refuse_mixed_types(cuda_device):
     f = setup_filter(FIR).to(cuda_device)
     xd = torch.zeros(1, 16, 16, 16, device=cuda_device, dtype=torch.bfloat16)
     wd = torch.zeros(3, 3, 16, 32, device=cuda_device)
-    with pytest.raises(TypeError):
-        fc.fused_downconv2(xd, wd, f)
-    with pytest.raises(TypeError):
-        fc.downconv2_adjoint(torch.zeros(1, 8, 8, 32, device=cuda_device, dtype=torch.bfloat16),
+    with pytest.raises(TypeError, match="resid"):
+        fc.fused_downconv2(xd, wd, f, resid=torch.zeros(1, 8, 8, 32, device=cuda_device))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fc.downconv2_adjoint(torch.zeros(1, 8, 8, 32, device=cuda_device, dtype=torch.half),
                              wd, f)
-    with pytest.raises(TypeError):
-        fc.conv_dw(xd, torch.zeros(1, 16, 16, 32, device=cuda_device, dtype=torch.bfloat16),
-                   None)
+    with pytest.raises(TypeError, match="gd"):
+        fc.conv_dw(xd, torch.zeros(1, 16, 16, 32, device=cuda_device), None)
+    with pytest.raises(TypeError, match="src"):
+        fc.downconv2_dw(xd.float(), torch.zeros(1, 8, 8, 32, device=cuda_device,
+                                                dtype=torch.bfloat16), wd, f)
     assert dict(fc.launch_counts) == before
 
 
@@ -1619,5 +1624,290 @@ def test_float32_k1_and_k4_bit_equal_to_the_build_before_the_tc_forward(cuda_dev
     monkeypatch.setattr(fc, "_library", lambda: parent)
     old = run()
     assert len(new) == len(old) == 4 * 7
+    for i, (a, e) in enumerate(zip(new, old)):
+        assert torch.equal(a, e), i
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 training: the D tower's K3 forward, K2's use_dw role on the
+# tensor cores, K1's dw and the FIR dw on bfloat16 operands, D's conv0 and
+# the second-order route's launches through the bfloat16 kernels, and the
+# float32 kernels bit-equal to the build before these roles took bfloat16.
+# ---------------------------------------------------------------------------
+
+# (n, h, cin, cout, kh, bias, resid): D conv1 at b1024's and b512's widths
+# with the skip added in, and their 1x1 skips; odd output sizes.
+BF16_DCONV_CASES = [
+    (2, 16, 32, 64, 3, True, True), (2, 16, 32, 64, 1, False, False),
+    (1, 9, 64, 128, 3, True, True), (2, 7, 64, 128, 1, False, False),
+    (1, 13, 32, 64, 3, True, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,cin,cout,kh,bias,resid", BF16_DCONV_CASES)
+def test_bf16_k3_forward_and_k2_use_dw_match_plain(cuda_device, n, h, cin, cout, kh, bias,
+                                                   resid):
+    """`mgt_downconv2_fwd_bf16` (downconv2_lw_kernel on bfloat16 x, small
+    weight and resid) and K2's use_dw role on `upconv2_tc_kernel` against
+    their plain bfloat16 versions, both held against float32 by the bf16
+    rule; and the cotangents through FusedDownConv2 in their inputs'
+    types."""
+    dev = cuda_device
+    gen = torch.Generator(dev).manual_seed(21)
+    randn = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale  # noqa
+    f = setup_filter(FIR).to(dev)
+    x = randn(n, 2 * h, 2 * h, cin).bfloat16()
+    w = randn(kh, kh, cin, cout, scale=1 / math.sqrt(kh * kh * cin))
+    b = randn(cout, scale=0.1) if bias else None
+    r = randn(n, h, h, cout).bfloat16() if resid else None
+    gain, alpha = (1.0, 0.2) if kh == 3 else (math.sqrt(0.5), 1.0)
+    fwd = (x, w, f, b, r, gain, alpha)
+    before = dict(fc.launch_counts)
+    y = fc.fused_downconv2(*fwd)
+    assert y.dtype == torch.bfloat16
+    assert fc.launch_counts["downconv2_bf16"] == before["downconv2_bf16"] + 1
+    assert fc.launch_counts["downconv2"] == before["downconv2"]
+    _bf16_close(y, fc.downconv2_plain(*fwd), fc.downconv2_plain(*_widen(fwd)))
+    gz = randn(n, h, h, cout).bfloat16()
+    dx = fc.downconv2_adjoint(gz, w, f)
+    assert dx.dtype == torch.bfloat16
+    assert fc.launch_counts["downconv2_adj_bf16"] == before["downconv2_adj_bf16"] + 1
+    assert fc.launch_counts["upconv2_bf16"] == before["upconv2_bf16"]
+    _bf16_close(dx, fc.downconv2_adjoint_plain(gz, w, f),
+                fc.downconv2_adjoint_plain(gz.float(), w, f))
+    inputs = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+    g = randn(n, h, h, cout).bfloat16()
+    got = torch.autograd.grad(fc.fused_downconv2(inputs[0], inputs[1], f, b, r, gain, alpha),
+                              inputs, g)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    plain = torch.autograd.grad(fc.fused_downconv2(inputs[0], inputs[1], f, b, r, gain, alpha,
+                                                   plain=True), inputs, g)
+    xf = inputs[0].detach().float().requires_grad_()
+    ref = torch.autograd.grad(fc.fused_downconv2(xf, inputs[1], f, b, None if r is None
+                                                 else r.float(), gain, alpha, plain=True),
+                              [xf, inputs[1]], g.float())
+    _bf16_close(got, plain, ref)
+
+
+# (role, n, h, w, cin, cout, kh, scaled): K1's dw (x and gd at h x w), K3's
+# (x at h x w, gd at 2h x 2w) and the D down-conv's (x at 2h x 2w, gz at h
+# x w), at the 1024^2 widths, odd sizes and widths the tiles do not divide.
+BF16_DW_CASES = [
+    ("k1", 2, 16, 16, 32, 32, 3, True), ("k1", 2, 13, 11, 64, 64, 3, False),
+    ("k1", 1, 9, 12, 36, 100, 3, True),
+    ("up", 2, 16, 16, 64, 32, 3, True), ("up", 2, 9, 11, 64, 32, 1, False),
+    ("down", 2, 16, 16, 32, 64, 3, False), ("down", 1, 7, 13, 64, 128, 1, False),
+    ("down", 2, 6, 5, 40, 72, 3, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role,n,h,w,cin,cout,kh,scaled", BF16_DW_CASES)
+def test_bf16_dw_kernels_match_plain(cuda_device, role, n, h, w, cin, cout, kh, scaled):
+    """`mgt_conv_dw_bf16` and `mgt_fir_dw_bf16` (x * s or base * s rounded to
+    bfloat16 as it lands, the FIR and the sums in float32) against the
+    plain versions on the same bfloat16 operands, which round alike: to
+    1e-4 of the largest entry, as the float32 kernels (float32 sums of the
+    same products in another order)."""
+    dev = cuda_device
+    gen = torch.Generator(dev).manual_seed(22)
+    f = setup_filter(FIR).to(dev)
+    wt = torch.randn((kh, kh, cin, cout), generator=gen, device=dev)
+    bf = torch.bfloat16
+    if role == "k1":
+        x = torch.randn((n, h, w, cin), generator=gen, device=dev).to(bf)
+        t = torch.randn((n, h, w, cout), generator=gen, device=dev).to(bf)
+        s = torch.rand((n, cin), generator=gen, device=dev) + 0.5 if scaled else None
+        key, run = "modconv3x3_dw", lambda: fc.conv_dw(x, t, s)  # noqa: E731
+        want = fc.conv_dw_plain(x, t, s, 1, 1, 3, (0, 0))[0]
+    elif role == "up":
+        x = torch.randn((n, h, w, cin), generator=gen, device=dev).to(bf)
+        t = torch.randn((n, 2 * h, 2 * w, cout), generator=gen, device=dev).to(bf)
+        s = torch.rand((n, cin), generator=gen, device=dev) + 0.5 if scaled else None
+        key, run = "upconv2_dw", lambda: fc.upconv2_dw(x, t, s, wt, f)  # noqa: E731
+        want = fc.upconv2_dw_plain(x, t, s, wt, f)
+    else:
+        x = torch.randn((n, 2 * h, 2 * w, cin), generator=gen, device=dev).to(bf)
+        t = torch.randn((n, h, w, cout), generator=gen, device=dev).to(bf)
+        key, run = "downconv2_dw", lambda: fc.downconv2_dw(x, t, wt, f)  # noqa: E731
+        want = fc.downconv2_dw_plain(x, t, wt, f)
+    before = dict(fc.launch_counts)
+    got = run()
+    torch.cuda.synchronize()
+    assert fc.launch_counts[key + "_bf16"] == before[key + "_bf16"] + 1
+    assert fc.launch_counts[key] == before[key]
+    assert got.dtype == want.dtype == torch.float32
+    _rel_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,c", [(32, 32), (24, 64)])
+def test_bf16_k1_without_styles_matches_plain(cuda_device, res, c):
+    """D's conv0 in bfloat16 (no styles, no demodulation, bias, lrelu) and
+    the second-order route's degenerate launches (no bias, gain = alpha =
+    1, a resid; the adjoint for dx alone) through the tensor-core kernels,
+    against the plain versions by the bf16 rule."""
+    dev = cuda_device
+    gen = torch.Generator(dev).manual_seed(23)
+    randn = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale  # noqa
+    x = randn(4, res, res, c).bfloat16()
+    w = randn(3, 3, c, c, scale=1 / math.sqrt(9 * c))
+    b = randn(c, scale=0.1)
+    g = randn(4, res, res, c).bfloat16()
+    for fwd in ((x, w, None, None, b, None, math.sqrt(2), 0.2, False),
+                (x, w, None, None, None, randn(4, res, res, c).bfloat16(), 1.0, 1.0, False)):
+        before = dict(fc.launch_counts)
+        y = fc.fused_modconv3x3(*fwd)
+        assert fc.launch_counts["modconv3x3_bf16"] == before["modconv3x3_bf16"] + 1
+        _bf16_close(y, fc.modconv3x3_plain(*fwd), fc.modconv3x3_plain(*_widen(fwd)))
+        args = (g, x, w, None, y, None, fwd[4], fwd[5], fwd[6], fwd[7], False)
+        got = fc.modconv3x3_adjoint(*args, need_ds=False)
+        assert fc.launch_counts["modconv3x3_adj_bf16"] == before["modconv3x3_adj_bf16"] + 1
+        assert got[1:] == (None, None, None)
+        _bf16_close(got[0], fc.modconv3x3_adjoint_plain(*args, need_ds=False)[0],
+                    fc.modconv3x3_adjoint_plain(*_widen(args), need_ds=False)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["K1", "K1-unstyled", "K2", "K2-skip", "down-conv1",
+                                  "down-skip"])
+def test_bf16_grad_vjps_match_plain(cuda_device, kind):
+    """The second-order term of each grad Function in bfloat16 (x, y, g and
+    the x-sized cotangents bfloat16) at the cotangents the reg stages feed
+    (path length cdx and cds, R1 cdx), kernels against the plain versions,
+    both against the plain version on the same values in float32, by the
+    bf16 rule on every output."""
+    from morphganformer_tpu_torch.ops import second_order as so
+
+    dev = cuda_device
+    gen = torch.Generator(dev).manual_seed(24)
+    randn = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale  # noqa
+    f = setup_filter(FIR).to(dev)
+    n, h, cin, cout = 2, 16, 64, 32
+    styled = kind in ("K1", "K2")
+    bf = torch.bfloat16
+    if kind.startswith("K1"):
+        cin = cout
+        x = randn(n, h, h, cin).to(bf)
+        w = randn(3, 3, cin, cout, scale=1 / math.sqrt(9 * cin))
+        s = torch.rand((n, cin), generator=gen, device=dev) + 0.5 if styled else None
+        nz = randn(n, h, h, scale=0.1) if styled else None
+        b, r = randn(cout, scale=0.1), randn(n, h, h, cout).to(bf)
+        y = fc.modconv3x3_plain(x, w, s, nz, b, r, math.sqrt(2), 0.2, styled)
+        g = randn(n, h, h, cout).to(bf)
+
+        def vjp(a, plain):
+            x_, y_, g_, r_, cots = a
+            return so.modconv3x3_bwd_vjp(x_, w, s, nz, b, r_, y_, g_, cots, math.sqrt(2), 0.2,
+                                         styled, plain)
+        cots = (randn(*x.shape).to(bf), None, randn(n, cin) if styled else None, None, None)
+        args = (x, y, g, r, cots)
+    elif kind.startswith("K2"):
+        kh = 3 if styled else 1
+        x = randn(n, h, h, cin).to(bf)
+        w = randn(kh, kh, cin, cout, scale=1 / math.sqrt(kh * kh * cin))
+        s = torch.rand((n, cin), generator=gen, device=dev) + 0.5 if styled else None
+        nz = randn(n, 2 * h, 2 * h, scale=0.1) if styled else None
+        b = randn(cout, scale=0.1) if styled else None
+        gain, alpha = (math.sqrt(2), 0.2) if styled else (math.sqrt(0.5), 1.0)
+        y = fc.upconv2_plain(x, w, s, f, nz, b, gain, alpha, styled)
+        g = randn(n, 2 * h, 2 * h, cout).to(bf)
+
+        def vjp(a, plain):
+            x_, y_, g_, _, cots = a
+            return so.upconv2_bwd_vjp(x_, w, s, f, nz, b, y_, g_, cots, gain, alpha, styled,
+                                      False, plain)
+        cots = (randn(*x.shape).to(bf), None, randn(n, cin) if styled else None, None, None)
+        args = (x, y, g, None, cots)
+    else:
+        conv1 = kind == "down-conv1"
+        kh, cin, cout = (3 if conv1 else 1), 32, 64
+        x = randn(n, 2 * h, 2 * h, cin).to(bf)
+        w = randn(kh, kh, cin, cout, scale=1 / math.sqrt(kh * kh * cin))
+        b = randn(cout, scale=0.1) if conv1 else None
+        r = randn(n, h, h, cout).to(bf) if conv1 else None
+        gain, alpha = (1.0, 0.2) if conv1 else (math.sqrt(0.5), 1.0)
+        y = fc.downconv2_plain(x, w, f, b, r, gain, alpha)
+        g = randn(n, h, h, cout).to(bf)
+
+        def vjp(a, plain):
+            x_, y_, g_, r_, cots = a
+            return so.downconv2_bwd_vjp(x_, w, f, r_, y_, g_, cots, gain, alpha, True, plain)
+        cots = (randn(*x.shape).to(bf), None, None)
+        args = (x, y, g, r, cots)
+    before = dict(fc.launch_counts)
+    got = vjp(args, False)
+    launched = {k: v - before[k] for k, v in fc.launch_counts.items() if v != before[k]}
+    assert launched and all(k.endswith("_bf16") for k in launched), launched
+    plain = vjp(args, True)
+    wide = tuple(tuple(None if c is None else c.float() for c in a) if isinstance(a, tuple)
+                 else (None if a is None else a.float()) for a in args)
+    ref = vjp(wide, True)
+    for k, p in zip(got, plain):
+        assert (k is None) == (p is None)
+        assert k is None or (k.dtype == p.dtype and torch.isfinite(k).all())
+    _bf16_close(got, plain, ref)
+
+
+@pytest.mark.cuda
+def test_float32_kernels_bit_equal_to_the_build_before_the_bf16_training_roles(cuda_device,
+                                                                              monkeypatch):
+    """K2 (forward and use_dw), K3 (forward and adjoint), K1's dw and the
+    FIR dw in float32 give the same bits as a build of fused_conv.cu from
+    before these kernels took bfloat16 operands and upconv2_lw_kernel lost
+    its bfloat16 branch (commit 1cbb5b8): `git show
+    1cbb5b8:morphganformer_tpu_torch/csrc/fused_conv.cu >
+    build/train_bf16_parent.cu`, or MGT_TRAIN_BF16_PARENT_SOURCE names the
+    file."""
+    import os
+    from pathlib import Path
+
+    from morphganformer_tpu_torch.bench_k3 import load_parent
+    from morphganformer_tpu_torch.ops import _build
+
+    default = Path(__file__).resolve().parent.parent / "build" / "train_bf16_parent.cu"
+    src = Path(os.environ.get("MGT_TRAIN_BF16_PARENT_SOURCE", default))
+    if not src.exists():
+        pytest.skip(f"needs the earlier source at {src}")
+    names = ("mgt_upconv2_fwd", "mgt_downconv2_fwd", "mgt_upconv2_bwd", "mgt_downconv2_tiles",
+             "mgt_conv_dw", "mgt_conv_dw_tiles", "mgt_fir_dw", "mgt_fir_dw_tiles")
+    parent = load_parent(src, {k: _build._SIGNATURES[k] for k in names},
+                         "libmgt_train_bf16_parent_test.so")
+    dev = cuda_device
+    gen = torch.Generator(dev).manual_seed(25)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    f = setup_filter(FIR).to(dev)
+    cases = []
+    for h, cin, cout, kh in ((16, 64, 32, 3), (13, 64, 32, 1), (9, 128, 64, 3)):
+        cases.append(dict(x=randn(2, h, h, cin), w=randn(kh, kh, cin, cout) / 8,
+                          s=torch.rand((2, cin), generator=gen, device=dev) + 0.5,
+                          nz=randn(2 * h, 2 * h), b=randn(cout), g=randn(2, 2 * h, 2 * h, cout),
+                          xd=randn(2, 2 * h, 2 * h, cout), wd=randn(kh, kh, cout, cin) / 8,
+                          bd=randn(cin), rd=randn(2, h, h, cin), gz=randn(2, h, h, cin)))
+
+    def run():
+        outs = []
+        for c in cases:
+            styled = c["w"].shape[0] == 3
+            s = c["s"] if styled else None
+            y = fc.fused_upconv2(c["x"], c["w"], s, f, c["nz"] if styled else None, c["b"],
+                                 math.sqrt(2), 0.2, styled, False)
+            adj = fc.upconv2_adjoint(c["g"], c["x"], c["w"], s, f, y,
+                                     c["nz"] if styled else None, c["b"], math.sqrt(2), 0.2,
+                                     styled, False)
+            yd = fc.fused_downconv2(c["xd"], c["wd"], f, c["bd"], c["rd"], 1.0, 0.2)
+            outs += [y, *[t for t in adj if t is not None], yd,
+                     fc.downconv2_adjoint(c["gz"], c["wd"], f),
+                     fc.upconv2_dw(c["x"], c["g"], s, c["w"], f),
+                     fc.downconv2_dw(c["xd"], c["gz"], c["wd"], f),
+                     fc.conv_dw(c["x"], c["x"], s)]
+        torch.cuda.synchronize()
+        return outs
+
+    new = run()
+    monkeypatch.setattr(fc, "_library", lambda: parent)
+    old = run()
+    assert len(new) == len(old)
     for i, (a, e) in enumerate(zip(new, old)):
         assert torch.equal(a, e), i

@@ -423,7 +423,6 @@ TRAIN_FLAGS = ["train", "--resolution", str(RES), "--components-num", "2", "--la
 @pytest.mark.parametrize("flags,match", [
     (["--multihost"], '"Parallel"'), (["--coordinator", "localhost:1234"], '"Parallel"'),
     (["--num-processes", "2"], '"Parallel"'), (["--process-id", "0"], '"Parallel"'),
-    (["--dtype", "bfloat16"], "float32"),
 ])
 def test_train_entry_point_refuses_flags(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
