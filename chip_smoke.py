@@ -144,8 +144,8 @@ Phases, each printing its wall time:
               the FusedUpConv2 and FusedDownConv2 backwards).
               Then training in bfloat16 (`train --dtype bfloat16`): the
               training roles' bfloat16 entry points at the same call shapes
-              (K3-forward and the dw kernels on bfloat16 operands, K2's
-              use_dw role on the tensor cores), each against its plain
+              (K3-forward, K1's dw and K2's use_dw role on the tensor cores,
+              the FIR dw on bfloat16 operands), each against its plain
               bfloat16 version by phase bf16's rule, with kernel, plain,
               cuDNN's bfloat16 and same-function times beside the bf16
               bound; D's conv0 and the second-order route's degenerate K1
@@ -157,8 +157,8 @@ Phases, each printing its wall time:
               train_iteration with all four stages (seconds, stage ms, peak
               memory, exact launches on the `_bf16` entry points) and one
               traced bfloat16 iteration (device busy time, idle share, the
-              five training roles' bfloat16 launches, no float32
-              least-work kernel).
+              five training roles' bfloat16 launches, each on its kernel,
+              no float32 least-work kernel).
   12. loop    16 images of 1024^2 (G(z) from seeds; half of them with every
               row Paeth-filtered, half Sub-filtered, by the encoder below)
               under <tmp>/data/1024/; one 1024^2 PNG decoded by the native
@@ -193,6 +193,14 @@ Phases, each printing its wall time:
               iteration; one G_main and one D_main round's gradients, K4 on
               against K4 off (every leaf within 1e-3 of its largest entry,
               floored; the noise strengths as one); stage times, peak memory.
+              Then K4 in bfloat16 (`mgt_conv3x3_fwd_bf16` and its dx, the
+              tensor-core K1 kernels' degenerate launches) at the five call
+              shapes at batch 4 against the plain bfloat16 version by phase
+              bf16's rule, with kernel (and its own device), plain and
+              cuDNN's bfloat16 times beside the bf16 bound; and two
+              bfloat16 train_iteration steps of the skip layouts with
+              MGT_PALLAS_CONV=1: finite losses, exactly the float32
+              iteration's K4 launches, on the `_bf16` keys.
   14. reg     train_iteration at steps 0 and 16, where all four stages are
               due, at batch 4, on the resnet pair of phase train and on the
               skip pair, the reg stages on their default scoped
@@ -253,7 +261,8 @@ K4_REPLACES = "morphganformer_tpu/ops/pallas_conv.py:74"
 SOURCE = "morphganformer_tpu_torch/csrc/fused_conv.cu"
 HAND_WRITTEN = ("conv3x3_lw_kernel", "conv3x3_fwd_tc_kernel", "conv3x3_adj_tc_kernel",
                 "upconv2_lw_kernel", "upconv2_tc_kernel", "downconv2_lw_kernel",
-                "downconv2_tc_kernel", "conv_dw_lw_kernel", "fir_dw_kernel")
+                "downconv2_tc_kernel", "downconv2_fwd_tc_kernel", "conv_dw_lw_kernel",
+                "conv_dw_tc_kernel", "fir_dw_kernel")
 PROJECT_STEPS = 50
 MORPH_STEPS = 25
 DEMORPH_STEPS = 5
@@ -1062,14 +1071,15 @@ TRAIN_KEYS = {"K3-forward": "downconv2", "K2-use_dw": "downconv2_adj",
 # The training roles' bfloat16 entry points: their launch counts, and the
 # kernel each launches (its name in a profiler trace).
 TRAIN_BF16_KEYS = {role: f"{key}_bf16" for role, key in TRAIN_KEYS.items()}
-TRAIN_BF16_KERNELS = {"K3-forward": "downconv2_lw_kernel", "K2-use_dw": "upconv2_tc_kernel",
-                      "K2-use_dw-dw": "fir_dw_kernel", "K1-dw": "conv_dw_lw_kernel",
+TRAIN_BF16_KERNELS = {"K3-forward": "downconv2_fwd_tc_kernel", "K2-use_dw": "upconv2_tc_kernel",
+                      "K2-use_dw-dw": "fir_dw_kernel", "K1-dw": "conv_dw_tc_kernel",
                       "K3-dw": "fir_dw_kernel"}
-# The float32 least-work kernels, which no bfloat16 iteration launches (the
-# first three also have bfloat16 instantiations, named with __nv_bfloat16).
+# The float32 least-work kernels, which no bfloat16 iteration launches
+# (fir_dw_kernel also has a bfloat16 instantiation, named with
+# __nv_bfloat16; the others have none).
 F32_LW_KERNELS = ("downconv2_lw_kernel", "conv_dw_lw_kernel", "fir_dw_kernel",
                   "conv3x3_lw_kernel", "upconv2_lw_kernel")
-K4_KEYS = ("conv3x3", "conv3x3_adj")
+K4_KEYS = ("conv3x3", "conv3x3_adj", "conv3x3_bf16", "conv3x3_adj_bf16")
 # The kernel each bfloat16 role launches (its name in a profiler trace).
 BF16_KERNELS = {"modconv3x3": "conv3x3_fwd_tc_kernel", "upconv2": "upconv2_tc_kernel",
                 "modconv3x3_adj": "conv3x3_adj_tc_kernel", "upconv2_adj": "downconv2_tc_kernel"}
@@ -1487,20 +1497,48 @@ def _fmt(rows, k=3):
     return [(r[1], f"{r[0]:.3e}", f"{r[2]:.3e}") for r in rows[:k]]
 
 
+def launch_events_ms(torch, fn, reps=5):
+    """The kernel's own device ms in one call of `fn`, from CUDA events
+    recorded on the launch's stream just before and after each kernel
+    launch (`_launch` of ops/fused_conv.py and ops/conv3x3.py), summed over
+    a call and averaged over `reps` calls after a warm one. (In the full
+    script the profiler attributes no device time to most of these
+    kernels: PR 23's runs left them null.)"""
+    from morphganformer_tpu_torch.ops import conv3x3 as k4
+    from morphganformer_tpu_torch.ops import fused_conv as fc
+
+    real, events = fc._launch, []
+
+    def timed(name, *args):
+        pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        real(name, *args)
+        pair[1].record()
+        events.append(pair)
+    fn()
+    fc._launch = k4._launch = timed
+    try:
+        for _ in range(reps):
+            fn()
+    finally:
+        fc._launch = k4._launch = real
+    torch.cuda.synchronize()
+    return sum(e0.elapsed_time(e1) for e0, e1 in events) / reps
+
+
 def check_train_kernel_bf16(torch, fc, gen, call):
     """One training role in bfloat16 at one call shape, batch 4
-    (`train_case`; the `_bf16` entry points: K3-forward and the dw kernels
-    their least-work kernels on bfloat16 operands, K2's use_dw role
-    `upconv2_tc_kernel`): the kernel and the plain bfloat16 version, each
+    (`train_case`; the `_bf16` entry points: K3-forward
+    `downconv2_fwd_tc_kernel`, K1's dw `conv_dw_tc_kernel`, K2's use_dw role
+    `upconv2_tc_kernel`, the FIR dw `fir_dw_kernel` on bfloat16 operands):
+    the kernel and the plain bfloat16 version, each
     against the float32 plain version on the same bfloat16-rounded
     activations, phase bf16's rule (the kernel's error at most BF16_RATIO
     times the plain one's, or within BF16_FLOOR of the output's largest
     entry). Times of the kernel (its wrapper; and the kernel's own device
-    time under torch.profiler), the plain version, cuDNN's bfloat16 call of
+    time from its launch's CUDA events), the plain version, cuDNN's bfloat16 call of
     the bare convolution and the same-function call in bfloat16; the bound
     at 2 bytes an element and the bf16 tensor-core peak."""
-    from morphganformer_tpu_torch.bench_k3 import device_split
-
     role, block, layer = call[:3]
     key, run_k, run_p, run_ref, run_lib, run_same, flops, elements, _ = train_case(
         torch, fc, gen, call, torch.bfloat16)
@@ -1523,9 +1561,8 @@ def check_train_kernel_bf16(torch, fc, gen, call):
     plain_ms = cuda_ms(torch, run_p, reps=1, warmup=0)     # warm: it ran for the check
     library_ms = cuda_ms(torch, run_lib, reps=5, warmup=1)
     same_ms = cuda_ms(torch, run_same, reps=5, warmup=1)
-    # None where the profiler attributes no device time to the kernel.
-    kernel_ms = device_split(run_k, TRAIN_BF16_KERNELS[role])[0] or None
-    print(f"  {role} bf16 {block} {layer}: ms {ms:.4f} (kernel's device ms {kernel_ms}) "
+    kernel_ms = launch_events_ms(torch, run_k)
+    print(f"  {role} bf16 {block} {layer}: ms {ms:.4f} (kernel's device ms {kernel_ms:.4f}) "
           f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f}{_same(same_ms)} "
           f"bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
     return dict(kernel=f"{role} bf16", block=block, role=layer, batch=TRAIN_BATCH,
@@ -1791,6 +1828,13 @@ def bf16_train_checks(torch, fc, gen, g_cfg, d_cfg, reals):
     assert traced_launches == as_bf16(per_iteration()), traced_launches
     assert all(traced_launches[k] > 0 for k in TRAIN_BF16_KEYS.values()), traced_launches
     assert not f32_lw, f"a float32 least-work kernel ran in a bfloat16 iteration: {f32_lw}"
+    # K3's forward and K1's dw on the tensor cores: their kernels ran, and no
+    # FMA kernel of either role did (they have no bfloat16 instantiation).
+    for role in ("K3-forward", "K1-dw"):
+        assert r["kernels"].get(TRAIN_BF16_KERNELS[role], (0.0, 0))[1] > 0, (role, r["kernels"])
+    fma = {e.key: e.count for e in averages if e.device_type.name == "CUDA"
+           and any(k in e.key for k in ("downconv2_lw_kernel", "conv_dw_lw_kernel"))}
+    assert not fma, f"an FMA kernel of K3's forward or K1's dw ran in bfloat16: {fma}"
     stats = dict(grads=grads, iteration=timings,
                  traced=dict(window_ms=window, busy_ms=busy, device_ops=r["launches"],
                              kernels=r["kernels"], host=r["host"]))
@@ -1975,34 +2019,47 @@ def k4_calls():
             ("D b512", "conv0", 512, 64, 64)]
 
 
-def check_k4(torch, k4, fc, gen, call, n, role):
-    """K4's forward ("fwd") or dx role at one call shape and batch against
-    the plain version on random inputs: error, times, the bound, and one
-    cuDNN call of the same convolution (`F.conv2d`; `conv2d_input` for dx)."""
+def k4_case(torch, k4, gen, call, n, role, dt):
+    """K4's forward ("fwd") or dx role at one call shape and batch on random
+    inputs of type `dt`: (key, name, run_k, run_p (the plain version),
+    run_ref (the plain version on the same values in float32), run_lib (one
+    cuDNN call of the same convolution: `F.conv2d`; `conv2d_input` for
+    dx), FLOP, the elements read and written)."""
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_input
 
     block, layer, h, c, o = call
     dev = torch.device(DEV)
-    x = torch.randn((n, h, h, c), generator=gen, device=dev)
-    w = torch.randn((3, 3, c, o), generator=gen, device=dev) / math.sqrt(9 * c)
+    x = torch.randn((n, h, h, c), generator=gen, device=dev).to(dt)
+    w = (torch.randn((3, 3, c, o), generator=gen, device=dev) / math.sqrt(9 * c)).to(dt)
     w_lib = w.permute(3, 2, 0, 1).contiguous()
+    sfx = "" if dt == torch.float32 else "_bf16"
     if role == "fwd":
-        key, name = "conv3x3", "K4 fwd"
+        key, name, t, wk = "conv3x3", "K4 fwd", x, w
         run_k = lambda: k4.conv3x3_forward(x, w)                             # noqa: E731
-        run_p = lambda: k4.conv3x3_same_plain(x, w)                          # noqa: E731
-        x_nchw = x.permute(0, 3, 1, 2)
-        run_lib = lambda: F.conv2d(x_nchw, w_lib, padding=1)                 # noqa: E731
-        tensors, out_numel = [x, w], n * h * h * o
+        run_lib = lambda: F.conv2d(x.permute(0, 3, 1, 2), w_lib, padding=1)  # noqa: E731
+        out_numel = n * h * h * o
     else:
         key, name = "conv3x3_adj", "K4 dx"
-        g = torch.randn((n, h, h, o), generator=gen, device=dev)
-        wt = k4.conv3x3_adjoint_weights(w)
-        run_k = lambda: k4.conv3x3_dx(g, w)                                  # noqa: E731
-        run_p = lambda: k4.conv3x3_same_plain(g, wt)                         # noqa: E731
-        g_nchw = g.permute(0, 3, 1, 2)
-        run_lib = lambda: conv2d_input((n, c, h, h), w_lib, g_nchw, padding=1)  # noqa: E731
-        tensors, out_numel = [g, w], n * h * h * c
+        t = torch.randn((n, h, h, o), generator=gen, device=dev).to(dt)
+        wk = k4.conv3x3_adjoint_weights(w)
+        run_k = lambda: k4.conv3x3_dx(t, w)                                  # noqa: E731
+        run_lib = lambda: conv2d_input((n, c, h, h), w_lib, t.permute(0, 3, 1, 2),  # noqa
+                                       padding=1)
+        out_numel = n * h * h * c
+    return (key + sfx, name + sfx.replace("_", " "), run_k,
+            lambda: k4.conv3x3_same_plain(t, wk),
+            lambda: k4.conv3x3_same_plain(t.float(), wk.float()), run_lib,
+            2 * n * h * h * 9 * c * o, t.numel() + w.numel() + out_numel)
+
+
+def check_k4(torch, k4, fc, gen, call, n, role):
+    """K4's forward ("fwd") or dx role at one call shape and batch against
+    the plain version on random inputs (`k4_case`): error, times, the
+    bound, and one cuDNN call of the same convolution."""
+    block, layer = call[:2]
+    key, name, run_k, run_p, _, run_lib, flops, elements = k4_case(
+        torch, k4, gen, call, n, role, torch.float32)
     before = fc.launch_counts[key]
     got = run_k()
     assert fc.launch_counts[key] == before + 1, (name, fc.launch_counts)
@@ -2013,8 +2070,7 @@ def check_k4(torch, k4, fc, gen, call, n, role):
           f"(largest entry {scale:.3e})", flush=True)
     assert got.shape == want.shape and torch.isfinite(got).all().item()
     assert err <= 1e-5 * scale, f"{name} {block} {layer} batch {n}: {err} > 1e-5 of {scale}"
-    flops = 2 * n * h * h * 9 * c * o
-    nbytes = 4 * (sum(t.numel() for t in tensors) + out_numel)
+    nbytes = 4 * elements
     bound_ms, bound_by = bound(flops, nbytes)
     ms = cuda_ms(torch, run_k)
     plain_ms = cuda_ms(torch, run_p)
@@ -2024,6 +2080,71 @@ def check_k4(torch, k4, fc, gen, call, n, role):
     return dict(kernel=name, block=block, role=layer, batch=n, max_abs_err=err, ref_scale=scale,
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6)
+
+
+def check_k4_bf16(torch, k4, fc, gen, call, n, role):
+    """K4's bfloat16 forward ("fwd", `mgt_conv3x3_fwd_bf16`) or dx
+    (`mgt_conv3x3_dx_bf16`) at one call shape and batch (`k4_case`): the
+    kernel and the plain bfloat16 version, each against the float32 plain
+    version on the same bfloat16 inputs, phase bf16's rule; times of the
+    kernel (its wrapper, and its own device time from its launch's CUDA
+    events), the plain version and
+    cuDNN's bfloat16 call of the same convolution, beside the bf16 bound."""
+    block, layer = call[:2]
+    key, name, run_k, run_p, run_ref, run_lib, flops, elements = k4_case(
+        torch, k4, gen, call, n, role, torch.bfloat16)
+    before = fc.launch_counts[key]
+    got = run_k()
+    assert fc.launch_counts[key] == before + 1, (name, fc.launch_counts)
+    plain, ref = run_p(), run_ref()
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert torch.isfinite(got).all().item()
+    ek, ep, kp = _bf16_errs((got,), (plain,), (ref,))
+    print(f"  {name} {block} {layer} batch {n}: vs float32 on the same inputs, kernel "
+          f"{ek:.3e}, plain {ep:.3e}; kernel vs plain {kp:.3e}", flush=True)
+    assert ek <= max(BF16_RATIO * ep, BF16_FLOOR), (name, block, layer, ek, ep)
+    bound_ms, bound_by = bf16_bound(flops, elements)
+    ms = cuda_ms(torch, run_k)
+    plain_ms = cuda_ms(torch, run_p, reps=3, warmup=1)
+    library_ms = cuda_ms(torch, run_lib)
+    kernel_ms = launch_events_ms(torch, run_k)
+    print(f"  {name} {block} {layer} batch {n}: ms {ms:.4f} (kernel's device ms {kernel_ms:.4f}) "
+          f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} "
+          f"({bound_by})", flush=True)
+    return dict(kernel=name, block=block, role=layer, batch=n, max_abs_err=kp, err_kernel=ek,
+                err_plain=ep, ms=ms, kernel_device_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def skip_bf16_iterations(torch, fc, g_cfg, d_cfg, reals):
+    """train_iteration steps 1 and 2 (G_main, D_main) of the skip layouts at
+    FFHQ-1024 widths in bfloat16, batch 4, from seed 0, with
+    MGT_PALLAS_CONV=1: finite losses and exactly the float32 iteration's K4
+    launches, on the `_bf16` keys. Returns (step 2's launches, stats)."""
+    import dataclasses
+
+    from morphganformer_tpu_torch.training import GANTrainer, TrainConfig
+
+    trainer = GANTrainer(dataclasses.replace(g_cfg, dtype="bfloat16"),
+                         dataclasses.replace(d_cfg, dtype="bfloat16"),
+                         TrainConfig(batch_size=TRAIN_BATCH, batch_gpu=4), device=DEV)
+    state = trainer.init_state(seed=0)
+    iter_ms = []
+    with pallas_conv(True):
+        for step in (1, 2):
+            fc.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = host(trainer.train_iteration(state, reals, step))
+            torch.cuda.synchronize()
+            iter_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = dict(fc.launch_counts)
+            print(f"  skip bfloat16 step {step}: {iter_ms[-1]:.3f} ms; {json.dumps(stats)}; "
+                  f"launches {launches}", flush=True)
+            assert all(math.isfinite(v) for v in stats.values()), stats
+            assert launches == as_bf16(layout_per_iteration()), launches
+    return launches, dict(iteration_ms=iter_ms, stats=stats)
 
 
 def layout_per_iteration(rounds=1):
@@ -2201,10 +2322,17 @@ def layouts_phase(torch, fc, k4):
                 total[k] += v
         peak = torch.cuda.max_memory_allocated()
     print(f"  skip peak memory over steps 1-3: {peak / 2**30:.3f} GiB", flush=True)
+    del trainer, state, G, D
+
+    # K4 in bfloat16: its roles at the five call shapes, then the skip
+    # layouts' bfloat16 iterations on it.
+    rows += [check_k4_bf16(torch, k4, fc, gen, call, TRAIN_BATCH, role)
+             for call in k4_calls() for role in ("fwd", "dx")]
+    bf16_launches, bf16_stats = skip_bf16_iterations(torch, fc, g_cfg, d_cfg, reals)
     stats = dict(forward_diff=diff, forward_ms=fwd_ms, iteration_ms=iter_ms,
                  g_main_ms=stage_ms["g_main"], d_main_ms=stage_ms["d_main"],
-                 peak_gib=peak / 2**30, grads=grads)
-    return rows, total, stats
+                 peak_gib=peak / 2**30, grads=grads, bf16=bf16_stats)
+    return rows, total, bf16_launches, stats
 
 
 def reg_launches(stage, inner=False):
@@ -3490,7 +3618,7 @@ def main():
     phases["loop"] = ph.seconds
 
     with Phase("layouts") as ph:
-        k4_rows, k4_launches, layout_stats = layouts_phase(torch, fc, k4)
+        k4_rows, k4_launches, k4_bf16_launches, layout_stats = layouts_phase(torch, fc, k4)
     phases["layouts"] = ph.seconds
 
     with Phase("reg") as ph:
@@ -3657,9 +3785,10 @@ def main():
         })
     for role, name, replaces in (
             ("K3-forward", "mgt_downconv2_fwd_bf16 (D-tower forward in bfloat16 training, "
-             "pallas_conv.py:2054-2072: downconv2_lw_kernel on bfloat16 x, small weight and "
-             "resid, the FIR, the sums and the epilogue in float32, y rounded once)",
-             K3_REPLACES),
+             "pallas_conv.py:2054-2072: downconv2_fwd_tc_kernel, downconv2_tc_kernel's "
+             "pipeline with x staged as it lands, the FIR in float32 into bfloat16 hi and lo "
+             "parity planes, each tap an implicit GEMM on bf16 mma.sync with float32 "
+             "accumulators, the epilogue on the accumulators, y rounded once)", K3_REPLACES),
             ("K2-use_dw", "mgt_upconv2_fwd_bf16 in the use_dw role (dx of the D down-conv in "
              "bfloat16, pallas_conv.py:2121-2157: upconv2_tc_kernel with no styles, no d, no "
              "bias, gain = alpha = 1)", K2_REPLACES),
@@ -3667,8 +3796,9 @@ def main():
              "pallas_conv.py:1225-1246: fir_dw_kernel on bfloat16 x and gz, the FIR, the "
              "partials and the result in float32)", K2_DW_REPLACES),
             ("K1-dw", "mgt_conv_dw_bf16 (K1's dw taps in bfloat16, pallas_conv.py:256-285: "
-             "conv_dw_lw_kernel on bfloat16 x and gd, x * s rounded to bfloat16 as it lands, "
-             "float32 partials)", K1_DW_REPLACES),
+             "conv_dw_tc_kernel, x * s rounded to bfloat16 in shared memory, per tap a GEMM "
+             "over the pixels on bf16 mma.sync with float32 accumulators, both operands by "
+             "ldmatrix.trans from the pixel-major tiles, float32 partials)", K1_DW_REPLACES),
             ("K3-dw", "mgt_fir_dw_bf16 (K3's dw taps in bfloat16, pallas_conv.py:1387-1416: "
              "fir_dw_kernel on bfloat16 gd and x, x * s rounded to bfloat16)",
              K3_DW_REPLACES)):
@@ -3687,8 +3817,7 @@ def main():
             "err_vs_f32": max(r["err_kernel"] for r in mine),
             "plain_err_vs_f32": max(r["err_plain"] for r in mine),
             "ms": sum(r["ms"] for r in mine),
-            "kernel_device_ms": (None if any(r["kernel_device_ms"] is None for r in mine)
-                                 else sum(r["kernel_device_ms"] for r in mine)),
+            "kernel_device_ms": sum(r["kernel_device_ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": b_ms,
             "bound_by": "operations" if 2 * ops_ms >= b_ms else "bytes",
@@ -3718,6 +3847,34 @@ def main():
             "bound_by": "operations" if 2 * ops_ms >= b_ms else "bytes",
             "library_ms": sum(r["library_ms"] for r in mine),
             "same_function_ms": _same_sum(mine),
+        })
+    for role, name in (("K4 fwd bf16", "mgt_conv3x3_fwd_bf16 (pallas_conv.py:74-111, "
+                                       ":322-353 in a bfloat16 program: conv3x3_fwd_tc_kernel "
+                                       "with no styles, demodulation or epilogue)"),
+                       ("K4 dx bf16", "mgt_conv3x3_dx_bf16 (the custom VJP, pallas_conv.py"
+                                      ":356-370, in bfloat16: conv3x3_adj_tc_kernel with no "
+                                      "mask, scale or taps)")):
+        mine = [r for r in k4_rows if r["kernel"] == role]
+        b_ms = sum(r["bound_ms"] for r in mine)
+        ops_ms = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")
+        key = "conv3x3_bf16" if role == "K4 fwd bf16" else "conv3x3_adj_bf16"
+        kernels.append({
+            "name": f"{role} {name}: the SAME 3x3 convs of the skip/orig layouts in bfloat16 "
+                    f"with MGT_PALLAS_CONV=1 (the call shapes of one 1024^2 training iteration, "
+                    f"batch {TRAIN_BATCH}: " + ", ".join(f"{r['block']} {r['role']}" for r in mine)
+                    + "; launches over one bfloat16 skip-layout train_iteration; max_abs_err: "
+                      "kernel vs plain bfloat16, of the float32 reference's largest entry)",
+            "route": "cuda", "source": SOURCE, "replaces": K4_REPLACES,
+            "launches": k4_bf16_launches[key],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "err_vs_f32": max(r["err_kernel"] for r in mine),
+            "plain_err_vs_f32": max(r["err_plain"] for r in mine),
+            "ms": sum(r["ms"] for r in mine),
+            "kernel_device_ms": sum(r["kernel_device_ms"] for r in mine),
+            "plain_ms": sum(r["plain_ms"] for r in mine),
+            "bound_ms": b_ms,
+            "bound_by": "operations" if 2 * ops_ms >= b_ms else "bytes",
+            "library_ms": sum(r["library_ms"] for r in mine),
         })
     phases["total"] = time.perf_counter() - t_start
     print("phases " + json.dumps(phases), flush=True)

@@ -240,15 +240,15 @@ def traced_run(fn, kernels, host_of=(), shapes=False):
     return prof, averages, out
 
 
-def iteration_ab(new, earlier, kernels):
+def iteration_ab(new, earlier, kernels, dtype="float32"):
     """Traced first-order iterations, earlier, new, new, earlier: `new` and
     `earlier` map names of `fc`'s wrappers to the functions that stand in
     them on each route; `kernels` are the kernel names whose device time
-    each traced iteration reports."""
+    each traced iteration reports; G and D compute in `dtype`."""
     from morphganformer_tpu_torch.models.config import DiscriminatorConfig, ffhq1024_config
     from morphganformer_tpu_torch.training import GANTrainer, TrainConfig
 
-    trainer = GANTrainer(ffhq1024_config(), DiscriminatorConfig(),
+    trainer = GANTrainer(ffhq1024_config(dtype=dtype), DiscriminatorConfig(dtype=dtype),
                          TrainConfig(batch_size=BATCH, batch_gpu=BATCH))
     state = trainer.init_state(seed=0)
     gen = torch.Generator(device="cuda").manual_seed(1)

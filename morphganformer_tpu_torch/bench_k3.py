@@ -55,6 +55,33 @@ of de47318): device ms, device ops and each kernel's device ms, and the
 host ms of an untraced step. Exits non-zero if a check fails, if the new
 kernel has no HMMA, if the float32 outputs differ, or if the new bf16
 launch is not faster than the earlier build's at some shape.
+
+With --bf16-fwd, K3's bfloat16 D-tower forward (`mgt_downconv2_fwd_bf16`,
+on the tensor cores: `downconv2_fwd_tc_kernel`) against the build of
+3932729, whose entry point of the same signature runs the float32
+least-work kernel on bfloat16 operands (`downconv2_lw_kernel`, FMA):
+
+    git show 3932729:morphganformer_tpu_torch/csrc/fused_conv.cu > build/tc_train_parent.cu
+    python -m morphganformer_tpu_torch.bench_k3 --bf16-fwd build/tc_train_parent.cu
+
+At the four K3-forward shapes of a 1024^2 training iteration at batch 4
+(chip_smoke.py's `train_calls`; D b1024 and b512 conv1 with bias and the
+skip added in, and their 1x1 skips) and at the reg route's chained
+forwards at the same shapes (DownConv2Grad: no bias, gain = alpha = 1, a
+resid), on inputs made as chip_smoke.py's `train_case` makes them (seed 0),
+both builds' bare launches are held against the float32 plain version on
+the same bfloat16 inputs by chip_smoke.py's bf16 rule (the largest error
+beside the plain bfloat16 version's), then timed with CUDA events in the
+order earlier, new, new, earlier, with the float32 forward of both builds
+on the same inputs in float32 (bit-equal, and timed in the same turns);
+then the new wrapper, the plain bfloat16 version, cuDNN's bfloat16 call of
+the bare convolution and the same-function call in bfloat16 with
+torch.backends.cudnn.benchmark off and on; the kernel's own device time in
+one wrapper call under torch.profiler; the bf16 bound. It prints the
+builds' ptxas lines and HMMA counts (cuobjdump -sass) of their K3 kernels.
+Exits non-zero if a check fails, if the new kernel has no HMMA, if the
+float32 outputs differ, or if the new launch is not faster than the
+earlier build's at some shape.
 """
 
 from __future__ import annotations
@@ -642,7 +669,167 @@ def bf16_main(parent_source):
     return 1 if failed else 0
 
 
+# The earlier build's bfloat16 and float32 K3 forwards (3932729): x, wk, fir,
+# bias, resid, y, N, H, W, Cin, Cout, kh, pad, gain, alpha, device, stream.
+_FWD = [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P]
+FWD_PARENT_SIGNATURES = {"mgt_downconv2_fwd_bf16": _FWD, "mgt_downconv2_fwd": _FWD}
+FWD_TC_KERNEL = "downconv2_fwd_tc_kernel"
+
+
+def downconv2_fwd_launch(lib, x, w, f, bias, resid, gain, alpha, flip_weight=True, y=None):
+    """One launch of `lib`'s K3 forward in x's type (`mgt_downconv2_fwd` or
+    `mgt_downconv2_fwd_bf16`) on the wrapper's least-work operands (as
+    `fc._downconv2_forward` forms them), into y (made when None): (the
+    launch, y, the tensors it points into)."""
+    n, h2, w2, ci = x.shape
+    dt = x.dtype
+    wk, fk, pad = fc.downconv2_leastwork(w, f, flip_weight)
+    wk = wk.to(dt).contiguous()
+    kh, co = int(wk.shape[0]), int(wk.shape[-1])
+    r = None if resid is None else resid.to(dt).contiguous()
+    if y is None:
+        y = torch.empty((n, h2 // 2, w2 // 2, co), device=x.device, dtype=dt)
+    fn = "mgt_downconv2_fwd" + fc._SUFFIX[dt]
+    launch = functools.partial(_call, lib, fn, x.data_ptr(), wk.data_ptr(), fk.data_ptr(),
+                               _ptr(bias), _ptr(r), y.data_ptr(), n, h2 // 2, w2 // 2, ci, co,
+                               kh, pad, float(gain), float(alpha), *_stream(x.device))
+    return launch, y, (x, wk, fk, bias, r)
+
+
+def parent_downconv2_forward(lib, x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2,
+                             flip_weight=True):
+    """`fc._downconv2_forward` on `lib` (the earlier build's route), for a
+    CUDA tensor."""
+    launch, y, _ = downconv2_fwd_launch(lib, x.contiguous(), w, f, bias, resid, gain, alpha,
+                                        flip_weight)
+    launch()
+    return y
+
+
+def bf16_fwd_cases():
+    """(label, n, h, cin, cout, kh, bias, resid, gain, alpha): the train
+    shapes, then the reg route's chained forwards at the same shapes."""
+    cases = []
+    for res, cin in ((1024, 32), (512, 64)):
+        cases += [(f"D b{res} conv1", 4, res // 2, cin, 2 * cin, 3, True, True, 1.0, 0.2),
+                  (f"D b{res} skip", 4, res // 2, cin, 2 * cin, 1, False, False,
+                   math.sqrt(0.5), 1.0)]
+    for res, cin in ((1024, 32), (512, 64)):
+        for layer, kh in (("conv1", 3), ("skip", 1)):
+            cases.append((f"D b{res} {layer} (reg)", 4, res // 2, cin, 2 * cin, kh, False, True,
+                          1.0, 1.0))
+    return cases
+
+
+def bf16_fwd_main(parent_source):
+    """`--bf16-fwd`: see the module's docstring."""
+    from morphganformer_tpu_torch.bench_k1 import ptxas_report
+    from morphganformer_tpu_torch.bench_k2 import (BF16_FLOOR, BF16_RATIO, PEAK_BF16_FLOPS,
+                                                   hmma_counts)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    name = "libmgt_k3_fwd_bf16_parent.so"
+    parent = load_parent(Path(parent_source), FWD_PARENT_SIGNATURES, name)
+    _, build_s, log = _build.build()
+    print(json.dumps({"build_s": build_s, "ptxas": [
+        line for line in ptxas_report(log) if "downconv2" in line or "registers" in line]}),
+        flush=True)
+    libs = {"new": _build.library(), "earlier": parent}
+    hmma = {"new": hmma_counts(_build.library_path(), "downconv2"),
+            "earlier": hmma_counts(_build.BUILD_DIR / name, "downconv2")}
+    new_hmma = {k: v for k, v in hmma["new"].items() if FWD_TC_KERNEL in k}
+    print(json.dumps({"hmma": hmma}), flush=True)
+    failed = [] if new_hmma and all(new_hmma.values()) else [f"no HMMA in {FWD_TC_KERNEL}"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f = setup_filter([1, 3, 3, 1]).cuda()
+    bf, f32 = torch.bfloat16, torch.float32
+    rows = []
+    for label, n, h, cin, cout, kh, bias, resid, gain, alpha in bf16_fwd_cases():
+        randn = lambda *s, scale=1.0: torch.randn(s, generator=gen, device="cuda") * scale  # noqa
+        w = randn(kh, kh, cin, cout, scale=1 / math.sqrt(kh * kh * cin))
+        x = randn(n, 2 * h, 2 * h, cin)
+        b = randn(cout, scale=0.1) if bias else None
+        r = randn(n, h, h, cout) if resid else None
+        xb, rb = x.to(bf), None if r is None else r.to(bf)
+        args = (xb, w, f, b, rb, gain, alpha)
+        wide = (xb.float(), w, f, b, None if rb is None else rb.float(), gain, alpha)
+        launch = {(k, dt): downconv2_fwd_launch(libs[k], xt, w, f, b, rt, gain, alpha)
+                  for k in ("earlier", "new")
+                  for dt, xt, rt in ((bf, xb, rb), (f32, x, r))}
+        for v in launch.values():
+            v[0]()
+        plain, ref = fc.downconv2_plain(*args), fc.downconv2_plain(*wide)
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        errs = {k: (launch[k, bf][1].float() - ref).abs().max().item() / scale
+                for k in ("earlier", "new")}
+        errs["plain"] = (plain.float() - ref).abs().max().item() / scale
+        row = dict(role="K3-forward bf16", shape=label, batch=n,
+                   **{f"err_{k}": v for k, v in errs.items()},
+                   err_ratio=errs["new"] / max(errs["plain"], 1e-30),
+                   wrapper_equals_bare=bool(torch.equal(fc.fused_downconv2(*args),
+                                                        launch["new", bf][1])),
+                   f32_equal=bool(torch.equal(launch["earlier", f32][1], launch["new", f32][1])))
+        t = {}
+        for k in ("earlier", "new", "new", "earlier"):
+            t.setdefault(k, []).append(cuda_ms(launch[k, bf][0], reps=20))
+            t.setdefault(f"f32_{k}", []).append(cuda_ms(launch[k, f32][0], reps=20))
+        x_nchw = xb.permute(0, 3, 1, 2)
+        w_lib = w.permute(3, 2, 0, 1).to(bf).contiguous()
+        op, w_same, pad_same = same_function_call("K3-forward", w, f, True)
+        w_same = w_same.to(bf)
+        same = lambda: op(x_nchw, w_same, stride=2, padding=pad_same)  # noqa: E731
+        for k, run in (("wrapper", lambda: fc.fused_downconv2(*args)),
+                       ("plain", lambda: fc.downconv2_plain(*args)),
+                       ("library", lambda: F.conv2d(x_nchw, w_lib, stride=2, padding=kh // 2)),
+                       ("same_function", same)):
+            t[k] = [cuda_ms(run)]
+        torch.backends.cudnn.benchmark = True
+        t["same_function_benchmark"] = [cuda_ms(same, warmup=3)]
+        torch.backends.cudnn.benchmark = False
+        own = device_split(lambda: fc.fused_downconv2(*args), FWD_TC_KERNEL)[0]
+        if own == 0.0:    # the profiler drops a kernel's events now and then
+            own = device_split(lambda: fc.fused_downconv2(*args), FWD_TC_KERNEL)[0]
+        fir = 2 * n * (2 * h) ** 2 * (8 if kh == 3 else 3) * cin
+        flops = 2 * n * h * h * kh * kh * cin * cout + fir
+        elements = xb.numel() + w.numel() + n * h * h * cout + (cout if bias else 0) + \
+            (n * h * h * cout if resid else 0)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, 2 * elements / PEAK_BYTES
+        row.update({f"{k}_ms": sum(v) / len(v) for k, v in t.items()},
+                   new_ms_runs=t["new"], earlier_ms_runs=t["earlier"],
+                   new_kernel_device_ms=own, bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        row["speedup"] = row["earlier_ms"] / row["new_ms"]
+        row["bound_share"] = row["bound_ms"] / row["new_ms"]
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        tol = max(BF16_RATIO * errs["plain"], BF16_FLOOR)
+        for k in ("new", "earlier"):
+            if not errs[k] <= tol:
+                failed.append(f"{label}: err_{k} {errs[k]} > {tol}")
+        if not row["wrapper_equals_bare"]:
+            failed.append(f"{label}: the wrapper's y differs from the bare launch's")
+        if not row["f32_equal"]:
+            failed.append(f"{label}: the float32 forward differs between the builds")
+        if not max(t["new"]) < min(t["earlier"]):
+            failed.append(f"{label}: new {t['new']} not faster than earlier {t['earlier']}")
+    print(smi, flush=True)
+    keys = ("new_ms", "earlier_ms", "wrapper_ms", "plain_ms", "library_ms", "same_function_ms",
+            "same_function_benchmark_ms", "bound_ms", "new_kernel_device_ms", "f32_new_ms",
+            "f32_earlier_ms")
+    sums = {part: {k: sum(r[k] for r in rows if ("(reg)" in r["shape"]) == (part == "reg"))
+                   for k in keys} for part in ("train", "reg")}
+    print(json.dumps({"sums": sums, "failed": failed}), flush=True)
+    return 1 if failed else 0
+
+
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--bf16" and torch.cuda.is_available():
-        sys.exit(bf16_main(sys.argv[2]))
+    if len(sys.argv) == 3 and torch.cuda.is_available():
+        if sys.argv[1] == "--bf16":
+            sys.exit(bf16_main(sys.argv[2]))
+        if sys.argv[1] == "--bf16-fwd":
+            sys.exit(bf16_fwd_main(sys.argv[2]))
     sys.exit(main(sys.argv))

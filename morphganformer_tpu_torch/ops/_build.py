@@ -52,21 +52,23 @@ _SIGNATURES = {
     "mgt_upconv2_bwd": [_P] * 11 + [_I] * 7 + [_F, _F, _I, _I, _P],
     # x, gd, s, part, N, H, W, C, O, ot, slices, tiles_per_slice, device, stream
     "mgt_conv_dw": [_P] * 4 + [_I] * 8 + [_I, _P],
-    # N, H, W, ot -> the number of tiles of a mgt_conv_dw launch
+    # N, H, W, ot -> the number of tiles of a mgt_conv_dw launch (and of a
+    # mgt_conv_dw_bf16 one)
     "mgt_conv_dw_tiles": [_I] * 4,
+    "mgt_conv_dw_tiles_bf16": [_I] * 4,
     # src, base, s, fir, part, N, H, W, CB, CK, kh, pad, slices, tiles_per_slice, device,
     # stream
     "mgt_fir_dw": [_P] * 5 + [_I] * 9 + [_I, _P],
     # N, H, W of the base grid -> the number of tiles of a mgt_fir_dw launch
     "mgt_fir_dw_tiles": [_I, _I, _I],
 }
-# The bfloat16 entry points of K1 (forward, adjoint), K2, K3's forward and
-# the dw kernels take the float32 ones' arguments (pointers to bfloat16
+# The bfloat16 entry points of K1 (forward, adjoint), K2, K3's forward, K4
+# and the dw kernels take the float32 ones' arguments (pointers to bfloat16
 # where the kernel reads or writes the compute type); K3's adjoint takes the
 # output cotangent g for gd and d after s.
 _SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
     "mgt_modconv3x3_fwd", "mgt_modconv3x3_bwd", "mgt_upconv2_fwd", "mgt_downconv2_fwd",
-    "mgt_conv_dw", "mgt_fir_dw")})
+    "mgt_conv3x3_fwd", "mgt_conv3x3_dx", "mgt_conv_dw", "mgt_fir_dw")})
 # g, wk, fir, s, d, x, y, noise, dx, dot, dd1, dd2, N, H, W, O, C, kh, pad, gain, alpha,
 # noise_ns, device, stream
 _SIGNATURES["mgt_upconv2_bwd_bf16"] = [_P] * 12 + [_I] * 7 + [_F, _F, _I, _I, _P]

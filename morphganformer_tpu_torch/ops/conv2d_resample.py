@@ -168,7 +168,7 @@ def conv2d_resample(x, w, f=None, up=1, down=1, padding=0, groups=1,
             from morphganformer_tpu_torch.ops.conv3x3 import conv3x3_eligible, conv3x3_same
 
             if conv3x3_eligible(x, w, groups):
-                return conv3x3_same(x, w if flip_weight else w.flip((0, 1)))
+                return conv3x3_same(x, (w if flip_weight else w.flip((0, 1))).to(x.dtype))
         return _conv(x, w, padding=(px0, px0, py0, py0), groups=groups,
                      flip_weight=flip_weight)
 

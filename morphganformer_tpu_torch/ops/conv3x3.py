@@ -15,12 +15,18 @@ with no scale slot, no demodulation and no epilogue) and its dx
 `mgt_conv3x3_dx`, K1's adjoint launch on the cotangent with no mask, scale
 or taps, which reads flip(w)^T from w by index, as JAX's VJP reuses K4.
 Both sum in cuDNN's order, so the route gives the F.conv2d path's results
-to the bit; like K1, they take channel counts in fours, and float32 alone:
-a bfloat16 operand raises on either device, never runs on cuDNN (K4's
-bfloat16 role is not ported). Its dw is nine tap
-sums, one matrix product per tap: JAX forms them with an XLA einsum outside
-any Pallas kernel, so there is no TPU kernel to port, and the products take
-any C and O without the padding that `mgt_conv_dw` needs. On a CPU tensor
+to the bit; like K1, they take channel counts in fours. In bfloat16 (x and
+w cast to x's type, as JAX's route casts k) the forward is
+`mgt_conv3x3_fwd_bf16`, K1's tensor-core forward (`conv3x3_fwd_tc_kernel`)
+with no styles, no demodulation and no epilogue, and the dx
+`mgt_conv3x3_dx_bf16`, K1's tensor-core adjoint (`conv3x3_adj_tc_kernel`)
+with no mask, scale or taps: bfloat16 products summed in float32, the
+output rounded once, as `_conv3x3_kernel` computes them
+(`preferred_element_type`, pallas_conv.py:322-370). Its dw is nine tap
+sums, one matrix product per tap, in float32 on widened operands, returned
+in w's type: JAX forms them with an XLA einsum outside any Pallas kernel
+(:371-383), so there is no TPU kernel to port, and the products take any C
+and O without the padding that `mgt_conv_dw` needs. On a CPU tensor
 the forward and dx take the plain version. Only the cotangents that
 `ctx.needs_input_grad` asks for are formed, and the backward is
 once-differentiable (`first_order_only`: it raises under create_graph=True):
@@ -31,7 +37,8 @@ and `second_order_scope()` (the same module).
 The TPU lane packing of `conv3x3_same_packed` (a reshape that fills
 128-lane MXU tiles, the same function) is not carried over. The kernel
 launches are counted in `fused_conv.launch_counts` under "conv3x3"
-(forward) and "conv3x3_adj" (dx).
+(forward) and "conv3x3_adj" (dx), in bfloat16 under "conv3x3_bf16" and
+"conv3x3_adj_bf16".
 """
 
 from __future__ import annotations
@@ -40,8 +47,10 @@ import torch
 import torch.nn.functional as F
 
 from morphganformer_tpu_torch.ops.fused_conv import (
+    _SUFFIX,
     _aligned,
     _check,
+    _kernel_dtype,
     _launch,
     _on_cpu,
     _stream,
@@ -54,12 +63,16 @@ from morphganformer_tpu_torch.ops.packed_override import (
     in_second_order_scope,
     packed_paths_disabled,
 )
+from morphganformer_tpu_torch.utils.dtype import at_least_f32
 
 
 def conv3x3_same_plain(x, w):
-    """SAME-padded stride-1 3x3 correlation. x [N,H,W,C]; w [3,3,C,O] -> [N,H,W,O]."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
-    return y.permute(0, 2, 3, 1)
+    """SAME-padded stride-1 3x3 correlation. x [N,H,W,C]; w [3,3,C,O] -> [N,H,W,O],
+    in x's type: a bfloat16 x (and w) is summed in float32 on the widened
+    operands and rounded once, as `_conv3x3_kernel` sums it."""
+    y = F.conv2d(at_least_f32(x).permute(0, 3, 1, 2), at_least_f32(w).permute(3, 2, 0, 1),
+                 padding=1)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def conv3x3_adjoint_weights(w):
@@ -69,10 +82,11 @@ def conv3x3_adjoint_weights(w):
 
 def conv3x3_dw(x, g):
     """dw[dy,dx,c,o] = sum_{n,y,x} xpad[n, y+dy, x+dx, c] * g[n, y, x, o]
-    (pallas_conv.py:371-385), one matrix product per tap."""
+    (pallas_conv.py:371-385), one matrix product per tap, in float32 (a
+    bfloat16 x and g widened) -> float32 [3,3,C,O]."""
     n, h, wd, c = x.shape
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    g2 = g.reshape(-1, g.shape[-1])
+    xp = F.pad(at_least_f32(x), (0, 0, 1, 1, 1, 1))
+    g2 = at_least_f32(g).reshape(-1, g.shape[-1])
     return torch.stack([torch.stack([xp[:, dy:dy + h, dx:dx + wd].reshape(-1, c).T @ g2
                                      for dx in range(3)]) for dy in range(3)])
 
@@ -85,7 +99,8 @@ def conv3x3_eligible(x, w, groups) -> bool:
     """JAX's rule (`pallas_conv_eligible`): groups 1, a 3x3 kernel, square
     input of side >= 512, C <= 64, O <= 64, even width; the tensor on a card
     in place of the TPU backend; never under `force_unpacked()`. And what
-    the kernel takes: C and O in fours (the rest runs on cuDNN, as JAX's
+    the kernels take: C and O in fours, and an image's offsets in 32 bits
+    (the tensor-core kernels' index type; the rest runs on cuDNN, as JAX's
     ineligible convs run on XLA). Never inside `second_order_scope()`
     either, where JAX's gate would admit K4 and its second derivative
     would then fail."""
@@ -94,33 +109,29 @@ def conv3x3_eligible(x, w, groups) -> bool:
     kh, kw, _, co = w.shape
     _, h, wd, c = x.shape
     return (kh, kw) == (3, 3) and h == wd and h >= 512 and c <= 64 and co <= 64 \
-        and wd % 2 == 0 and lw_widths_ok(c, co)
+        and wd % 2 == 0 and lw_widths_ok(c, co) and h * wd * max(c, co) < 2 ** 31
 
 
 def _conv3x3(t, w, key):
-    """One K4 launch, counted under `key`: the forward conv3x3_same(t, w)
-    ("conv3x3", `mgt_conv3x3_fwd`), or the dx of the cotangent t,
-    conv3x3_same(t, flip(w)^T) ("conv3x3_adj", `mgt_conv3x3_dx`); the plain
-    version for a CPU tensor."""
+    """One K4 launch, counted under `key` (+ "_bf16" in bfloat16): the
+    forward conv3x3_same(t, w) ("conv3x3", `mgt_conv3x3_fwd`), or the dx of
+    the cotangent t, conv3x3_same(t, flip(w)^T) ("conv3x3_adj",
+    `mgt_conv3x3_dx`), in t's type (w of the same type); the plain version
+    for a CPU tensor."""
     t, w = t.contiguous(), w.contiguous()
     dx = key == "conv3x3_adj"
-    if t.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "K4 (mgt_conv3x3_fwd and its dx, the MGT_PALLAS_CONV=1 route of the skip/orig "
-            "layouts) takes float32 only: its bfloat16 role is not ported (ROADMAP.md queue "
-            "2A); unset MGT_PALLAS_CONV to run these layouts in bfloat16")
     if _on_cpu(t):
         return conv3x3_same_plain(t, conv3x3_adjoint_weights(w) if dx else w)
     n, h, wd, _ = t.shape
     c, o = w.shape[2], w.shape[3]
-    dev = t.device
+    dev, dt = t.device, _kernel_dtype(t, "t")
     k1_widths(c, o)
-    ptrs = [_aligned("t", _check("t", t, (n, h, wd, o if dx else c), dev)),
-            _aligned("w", _check("w", w, (3, 3, c, o), dev))]
-    out = torch.empty((n, h, wd, c if dx else o), device=dev, dtype=torch.float32)
-    _launch("mgt_conv3x3_dx" if dx else "mgt_conv3x3_fwd", *ptrs, out.data_ptr(), n, h, wd, c,
-            o, *_stream(dev))
-    launch_counts[key] += 1
+    ptrs = [_aligned("t", _check("t", t, (n, h, wd, o if dx else c), dev, dt)),
+            _aligned("w", _check("w", w, (3, 3, c, o), dev, dt))]
+    out = torch.empty((n, h, wd, c if dx else o), device=dev, dtype=dt)
+    _launch(("mgt_conv3x3_dx" if dx else "mgt_conv3x3_fwd") + _SUFFIX[dt], *ptrs,
+            out.data_ptr(), n, h, wd, c, o, *_stream(dev))
+    launch_counts[key + _SUFFIX[dt]] += 1
     return out
 
 
@@ -148,7 +159,7 @@ class Conv3x3Same(torch.autograd.Function):
         x, w = ctx.saved_tensors
         need_dx, need_dw = ctx.needs_input_grad
         return (conv3x3_dx(g, w) if need_dx else None,
-                conv3x3_dw(x, g) if need_dw else None)
+                conv3x3_dw(x, g).to(w.dtype) if need_dw else None)
 
 
 def conv3x3_same(x, w):

@@ -74,11 +74,12 @@ scale s) and round the output once; the adjoints form gd = g * mask * d in
 bfloat16 inside their kernels (K1's and K3's on the tensor cores,
 `conv3x3_adj_tc_kernel` and `downconv2_tc_kernel`, as K2's bfloat16
 forward, `upconv2_tc_kernel`, which also runs K2's use_dw role). The D
-tower's forward (`downconv2_lw_kernel`) and the dw kernels
-(`conv_dw_lw_kernel`, `fir_dw_kernel`) read bfloat16 operands into their
-float32 tiles: the dw kernels round x * s (base * s) to bfloat16 as JAX's
-u_t (pallas_conv.py:270-271, :1399-1401), keep the FIR and their partials
-in float32 and return a float32 cotangent (`dw.astype(w.dtype)`).
+tower's forward (`downconv2_fwd_tc_kernel`) and K1's dw
+(`conv_dw_tc_kernel`) run on the tensor cores too; the FIR dw
+(`fir_dw_kernel`) reads bfloat16 operands into its float32 tiles. The dw
+kernels round x * s (base * s) to bfloat16 as JAX's u_t
+(pallas_conv.py:270-271, :1399-1401), keep the FIR and their partials in
+float32 and return a float32 cotangent (`dw.astype(w.dtype)`).
 A bfloat16 tensor on a card launches the `_bf16` entry points or raises.
 """
 
@@ -100,7 +101,8 @@ from morphganformer_tpu_torch.utils.dtype import at_least_f32
 _ROLES = ("modconv3x3", "upconv2", "modconv3x3_adj", "upconv2_adj", "downconv2",
           "downconv2_adj", "modconv3x3_dw", "upconv2_dw", "downconv2_dw")
 launch_counts = {**dict.fromkeys(_ROLES, 0), "conv3x3": 0, "conv3x3_adj": 0,
-                 **dict.fromkeys((f"{r}_bf16" for r in _ROLES), 0)}
+                 **dict.fromkeys((f"{r}_bf16" for r in _ROLES), 0),
+                 "conv3x3_bf16": 0, "conv3x3_adj_bf16": 0}
 
 # Blocks of one least-work dw launch (`mgt_conv_dw`, `mgt_fir_dw`): one wave
 # at 2 per SM of an H100.
@@ -799,9 +801,10 @@ def _upconv2_forward(x, w, styles, f, noise=None, bias=None, gain=1.0, alpha=0.2
 
 def _downconv2_forward(x, w, f, bias=None, resid=None, gain=1.0, alpha=0.2, flip_weight=True):
     """K3 forward: the plain version for a CPU tensor; for a CUDA one a launch
-    of `mgt_downconv2_fwd` (float32) or `mgt_downconv2_fwd_bf16` (x, the
-    small weight and resid rounded to bfloat16; the FIR, the bias and the
-    sums float32), both downconv2_lw_kernel."""
+    of `mgt_downconv2_fwd` (float32, downconv2_lw_kernel) or
+    `mgt_downconv2_fwd_bf16` (x, the small weight and resid rounded to
+    bfloat16; the FIR, the bias and the sums float32; on the tensor cores,
+    downconv2_fwd_tc_kernel)."""
     if _on_cpu(x):
         return downconv2_plain(x, w, f, bias, resid, gain, alpha, flip_weight)
     n, h2, w2, ci = x.shape
@@ -1002,12 +1005,12 @@ def dw_slices(ntiles, groups):
 def conv_dw(x, gd, s):
     """K1's dw taps (`conv_dw_plain` with pa = pb = 1, 3 taps, hb 0): the
     plain version for a CPU tensor; for a CUDA tensor one launch of the
-    least-work kernel (`mgt_conv_dw`, or `mgt_conv_dw_bf16` on bfloat16 x
-    and gd, x * s rounded to bfloat16 as it lands), whose float32
-    per-slice partials are summed here in a fixed order. x [N,H,W,C], gd
-    [N,H,W,O], s [N,C] (float32) or None -> float32 [3,3,C,O]. The kernel
-    tiles C and O by 32: other widths are padded with zero channels, whose
-    cotangent entries are cut off."""
+    least-work kernel (`mgt_conv_dw`), or on bfloat16 x and gd of the
+    tensor-core one (`mgt_conv_dw_bf16`, x * s rounded to bfloat16 as it
+    lands), whose float32 per-slice partials are summed here in a fixed
+    order. x [N,H,W,C], gd [N,H,W,O], s [N,C] (float32) or None -> float32
+    [3,3,C,O]. Both kernels tile C and O by 32: other widths are padded
+    with zero channels, whose cotangent entries are cut off."""
     if _on_cpu(x):
         return conv_dw_plain(x, gd, s, 1, 1, 3, (0, 0))[0]
     n, h, wd, ci = x.shape
@@ -1021,7 +1024,8 @@ def conv_dw(x, gd, s):
             _aligned("gd", _check("gd", gd, (n, h, wd, co), dev, dt)),
             _aligned("s", _check("s", s, (n, ci), dev))]
     ot = k1_dw_ot(co)
-    slices, per = dw_slices(_library().mgt_conv_dw_tiles(n, h, wd, ot), (ci // 32) * (co // ot))
+    tiles = getattr(_library(), "mgt_conv_dw_tiles" + _SUFFIX[dt])(n, h, wd, ot)
+    slices, per = dw_slices(tiles, (ci // 32) * (co // ot))
     part = torch.empty((slices, 3, 3, ci, co), device=dev, dtype=torch.float32)
     _launch("mgt_conv_dw" + _SUFFIX[dt], *ptrs, part.data_ptr(), n, h, wd, ci, co, ot, slices,
             per, *_stream(dev))

@@ -483,7 +483,7 @@ def test_bf16_r1_matches_jax(small_d, monkeypatch):
 
 
 # --------------------------------------------------------------------------
-# The entry point and the refusal that stays.
+# The entry point, and D on K4.
 # --------------------------------------------------------------------------
 
 
@@ -517,20 +517,52 @@ def test_train_entry_point_trains_in_bf16(tmp_path, capsys):
                if isinstance(v, dict) and "mean" in v)
 
 
-def test_bf16_k4_route_raises_naming_k4(monkeypatch):
-    """bfloat16 with MGT_PALLAS_CONV=1 on a `skip` D: its conv0 at 512^2
-    would take K4, whose bfloat16 role is not ported, so the forward raises
-    and names K4 instead of running on another convolution (the gate is
-    made to see a card so that the route is taken here)."""
+def test_bf16_skip_discriminator_on_k4_matches_jax(monkeypatch):
+    """A `skip` D at 512^2 in bfloat16 with MGT_PALLAS_CONV=1: its conv0 at
+    512^2 takes K4 on both sides (the port's gate made to see a card, so
+    that its plain version runs here; JAX's gate made to take the CPU, so
+    that its Pallas kernel runs in interpret mode, through
+    `conv3x3_same_packed`). The logits and the gradient of their sum w.r.t.
+    the image are held by `_closer` against JAX in bfloat16 and float32 on
+    the same route; the float32 port takes K4 there too."""
+    res, n = 512, 2
+    args = dict(img_resolution=res, channel_base=2048, channel_max=8, architecture="skip",
+                mbstd_group_size=1)
+    variables = jax.device_get(JDiscriminator(jcfg.DiscriminatorConfig(**args)).init(
+        jax.random.PRNGKey(0), jnp.zeros((n, res, res, 3))))
     monkeypatch.setenv("MGT_PALLAS_CONV", "1")
+    monkeypatch.setattr(jpc, "pallas_conv_eligible",
+                        lambda xs, ws, groups: groups == 1 and tuple(ws[:2]) == (3, 3)
+                        and xs[1] == xs[2] and xs[1] >= 512 and xs[3] <= 64 and ws[3] <= 64
+                        and xs[2] % 2 == 0)
+    calls = {"jax": 0, "port": 0}
+    real_j, real_t = jpc.conv3x3_same_packed, k4.conv3x3_same
+
+    def counting(side, real):
+        def run(*a, **k):
+            calls[side] += 1
+            return real(*a, **k)
+        return run
+    monkeypatch.setattr(jpc, "conv3x3_same_packed", counting("jax", real_j))
+    monkeypatch.setattr(k4, "conv3x3_same", counting("port", real_t))
     monkeypatch.setattr(k4, "_on_card", lambda x: True)
-    cfg = tcfg.DiscriminatorConfig(img_resolution=512, channel_base=2048, channel_max=8,
-                                   architecture="skip", mbstd_group_size=1, dtype="bfloat16")
-    D = tdisc.init_discriminator(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="K4"):
-        D(torch.zeros(1, 512, 512, 3))
-    assert fc.launch_counts["conv3x3"] == 0
-    # The float32 route takes K4 there (its plain version on the CPU).
-    D32 = tdisc.init_discriminator(dataclasses.replace(cfg, dtype="float32"), device="cpu")
+    img = np.random.RandomState(4).uniform(-1, 1, (n, res, res, 3)).astype(np.float32)
+    want = {}
+    for dt in ("float32", "bfloat16"):
+        net = JDiscriminator(jcfg.DiscriminatorConfig(**args, dtype=dt))
+        logits, vjp = jax.vjp(lambda i: net.apply(variables, i), jnp.asarray(img))
+        want[dt] = (logits, *vjp(jnp.ones_like(logits)))
+    assert calls["jax"] == 2
+    D = load_flax(tdisc.init_discriminator(tcfg.DiscriminatorConfig(**args, dtype="bfloat16"),
+                                           device="cpu"), variables)
+    it = torch.from_numpy(img).requires_grad_(True)
+    logits = D(it)
+    grad, = torch.autograd.grad(logits.sum(), it)
+    assert calls["port"] == 1 and logits.dtype == grad.dtype == torch.float32
+    assert fc.launch_counts["conv3x3_bf16"] == fc.launch_counts["conv3x3_adj_bf16"] == 0
+    for got, w_bf, w_f32 in zip((logits, grad), want["bfloat16"], want["float32"]):
+        _closer(got, w_bf, w_f32)
+    D32 = tdisc.init_discriminator(tcfg.DiscriminatorConfig(**args), device="cpu")
     with torch.no_grad():
-        assert torch.isfinite(D32(torch.zeros(1, 512, 512, 3))).all()
+        assert torch.isfinite(D32(torch.zeros(1, res, res, 3))).all()
+    assert calls["port"] == 2

@@ -10,10 +10,15 @@ K3's adjoints on the tensor cores also at sizes off their tiles and at
 single pixels on every edge; K1's forward and the adjoints also at their
 1024^2 call shapes, gd formed in the adjoints; HMMA in K1's forward), the
 bfloat16 training roles (K3's D-tower forward, K2's use_dw role, the dw
-kernels, D's conv0 and the grad Functions' terms), and the float32 K1 and
-K4 bit-equal to the builds before K1's bfloat16 adjoint and forward moved
-to the tensor cores, and K2, K3 and the dw kernels to the build before
-they took bfloat16 operands.
+kernels, D's conv0 and the grad Functions' terms; K3's forward and K1's dw
+on the tensor cores also at sizes off their tiles, at their 1024^2 and
+reg-route call shapes and at single pixels on every edge, with HMMA in
+their SASS), K4 in bfloat16 (the tensor-core K1 kernels' degenerate
+launches, and its route), and the float32 K1 and K4 bit-equal to the
+builds before K1's bfloat16 adjoint and forward moved to the tensor cores,
+K2, K3 and the dw kernels to the build before they took bfloat16 operands,
+and every float32 kernel to the build before K3's bfloat16 forward and
+K1's bfloat16 dw moved to the tensor cores.
 
 This file imports no JAX, so it runs on the GPU machine, where JAX is not
 installed; tests/conftest.py imports JAX, so run it there with
@@ -1629,8 +1634,8 @@ def test_float32_k1_and_k4_bit_equal_to_the_build_before_the_tc_forward(cuda_dev
 
 
 # ---------------------------------------------------------------------------
-# bfloat16 training: the D tower's K3 forward, K2's use_dw role on the
-# tensor cores, K1's dw and the FIR dw on bfloat16 operands, D's conv0 and
+# bfloat16 training: the D tower's K3 forward, K2's use_dw role and K1's dw
+# on the tensor cores, the FIR dw on bfloat16 operands, D's conv0 and
 # the second-order route's launches through the bfloat16 kernels, and the
 # float32 kernels bit-equal to the build before these roles took bfloat16.
 # ---------------------------------------------------------------------------
@@ -1648,8 +1653,8 @@ BF16_DCONV_CASES = [
 @pytest.mark.parametrize("n,h,cin,cout,kh,bias,resid", BF16_DCONV_CASES)
 def test_bf16_k3_forward_and_k2_use_dw_match_plain(cuda_device, n, h, cin, cout, kh, bias,
                                                    resid):
-    """`mgt_downconv2_fwd_bf16` (downconv2_lw_kernel on bfloat16 x, small
-    weight and resid) and K2's use_dw role on `upconv2_tc_kernel` against
+    """`mgt_downconv2_fwd_bf16` (downconv2_fwd_tc_kernel on bfloat16 x,
+    small weight and resid) and K2's use_dw role on `upconv2_tc_kernel` against
     their plain bfloat16 versions, both held against float32 by the bf16
     rule; and the cotangents through FusedDownConv2 in their inputs'
     types."""
@@ -1705,8 +1710,9 @@ BF16_DW_CASES = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("role,n,h,w,cin,cout,kh,scaled", BF16_DW_CASES)
 def test_bf16_dw_kernels_match_plain(cuda_device, role, n, h, w, cin, cout, kh, scaled):
-    """`mgt_conv_dw_bf16` and `mgt_fir_dw_bf16` (x * s or base * s rounded to
-    bfloat16 as it lands, the FIR and the sums in float32) against the
+    """`mgt_conv_dw_bf16` (on the tensor cores) and `mgt_fir_dw_bf16` (x * s
+    or base * s rounded to bfloat16 as it lands, the FIR and the sums in
+    float32) against the
     plain versions on the same bfloat16 operands, which round alike: to
     1e-4 of the largest entry, as the float32 kernels (float32 sums of the
     same products in another order)."""
@@ -1888,6 +1894,379 @@ def test_float32_kernels_bit_equal_to_the_build_before_the_bf16_training_roles(c
 
     def run():
         outs = []
+        for c in cases:
+            styled = c["w"].shape[0] == 3
+            s = c["s"] if styled else None
+            y = fc.fused_upconv2(c["x"], c["w"], s, f, c["nz"] if styled else None, c["b"],
+                                 math.sqrt(2), 0.2, styled, False)
+            adj = fc.upconv2_adjoint(c["g"], c["x"], c["w"], s, f, y,
+                                     c["nz"] if styled else None, c["b"], math.sqrt(2), 0.2,
+                                     styled, False)
+            yd = fc.fused_downconv2(c["xd"], c["wd"], f, c["bd"], c["rd"], 1.0, 0.2)
+            outs += [y, *[t for t in adj if t is not None], yd,
+                     fc.downconv2_adjoint(c["gz"], c["wd"], f),
+                     fc.upconv2_dw(c["x"], c["g"], s, c["w"], f),
+                     fc.downconv2_dw(c["xd"], c["gz"], c["wd"], f),
+                     fc.conv_dw(c["x"], c["x"], s)]
+        torch.cuda.synchronize()
+        return outs
+
+    new = run()
+    monkeypatch.setattr(fc, "_library", lambda: parent)
+    old = run()
+    assert len(new) == len(old)
+    for i, (a, e) in enumerate(zip(new, old)):
+        assert torch.equal(a, e), i
+
+
+# ---------------------------------------------------------------------------
+# K3's D-tower forward and K1's dw in bfloat16 on the tensor cores
+# (downconv2_fwd_tc_kernel, conv_dw_tc_kernel), K4 in bfloat16 on the
+# tensor-core K1 kernels, and the float32 kernels bit-equal to the build
+# before these roles moved.
+# ---------------------------------------------------------------------------
+
+def _dconv_tc_args(gen, dev, n, h, w, cin, cout, kh, bias, resid, gain, alpha):
+    """fused_downconv2's arguments: x [n, 2h, 2w, cin] and resid bfloat16,
+    the weight, the FIR and the bias float32."""
+    randn = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale  # noqa
+    x = randn(n, 2 * h, 2 * w, cin).bfloat16()
+    wt = randn(kh, kh, cin, cout, scale=1 / math.sqrt(kh * kh * cin))
+    b = randn(cout, scale=0.1) if bias else None
+    r = randn(n, h, w, cout).bfloat16() if resid else None
+    return (x, wt, setup_filter(FIR).to(dev), b, r, gain, alpha)
+
+
+def _dconv_tc_check(args):
+    before = dict(fc.launch_counts)
+    y = fc.fused_downconv2(*args)
+    assert fc.launch_counts["downconv2_bf16"] == before["downconv2_bf16"] + 1
+    assert fc.launch_counts["downconv2"] == before["downconv2"]
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y).all()
+    _bf16_close(y, fc.downconv2_plain(*args), fc.downconv2_plain(*_widen(args)))
+
+
+# (n, h, w, cin, cout, kh, bias, resid): output sizes off the 8 x 16 tile,
+# Cin off the 16-channel chunk, Cout off the 64-channel group, Cin or Cout
+# not in eights (the 8-byte copies and stores).
+K3_TC_FWD_ODD = [(1, 9, 13, 32, 64, 3, True, True), (2, 7, 17, 20, 36, 3, True, False),
+                 (1, 8, 16, 16, 132, 3, False, True), (2, 5, 6, 12, 72, 1, False, False),
+                 (1, 11, 9, 64, 128, 1, True, True), (1, 16, 33, 36, 64, 3, True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,kh,bias,resid", K3_TC_FWD_ODD)
+def test_bf16_k3_tc_forward_at_odd_sizes(cuda_device, n, h, w, cin, cout, kh, bias, resid):
+    gen = torch.Generator(cuda_device).manual_seed(50)
+    gain, alpha = (1.0, 0.2) if kh == 3 else (math.sqrt(0.5), 1.0)
+    _dconv_tc_check(_dconv_tc_args(gen, cuda_device, n, h, w, cin, cout, kh, bias, resid, gain,
+                                   alpha))
+
+
+# The D down-conv's calls of a 1024^2 iteration at batch 4 (b1024 and b512
+# conv1 with the skip added in, their 1x1 skips), and the second-order
+# route's (DownConv2Grad's chained forwards: no bias, gain = alpha = 1, a
+# resid) at the same shapes.
+K3_TC_FWD_CALLS = [(4, 512, 512, 32, 64, 3, True, True, 1.0, 0.2),
+                   (4, 512, 512, 32, 64, 1, False, False, math.sqrt(0.5), 1.0),
+                   (4, 256, 256, 64, 128, 3, True, True, 1.0, 0.2),
+                   (4, 256, 256, 64, 128, 1, False, False, math.sqrt(0.5), 1.0),
+                   (4, 512, 512, 32, 64, 3, False, True, 1.0, 1.0),
+                   (4, 256, 256, 64, 128, 1, False, True, 1.0, 1.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,kh,bias,resid,gain,alpha", K3_TC_FWD_CALLS)
+def test_bf16_k3_tc_forward_at_the_1024_call_shapes(cuda_device, n, h, w, cin, cout, kh, bias,
+                                                    resid, gain, alpha):
+    gen = torch.Generator(cuda_device).manual_seed(51)
+    _dconv_tc_check(_dconv_tc_args(gen, cuda_device, n, h, w, cin, cout, kh, bias, resid, gain,
+                                   alpha))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kh", [3, 1])
+def test_bf16_k3_tc_forward_single_pixels(cuda_device, kh):
+    """One nonzero x pixel at a time on a 34 x 70 input (y 17 x 35: three
+    tiles down, three across; the pixels of `_k3_edge_pixels`, on both
+    sides of the tiles' inner edges and at the border), a FIR with no
+    symmetry, no bias, resid or activation: y is that pixel's composed
+    kernel read back in its place, which pins each tap's plane and shift
+    and the halo at the tile edges; the nonzero entries land where the
+    plain version's do, within the bf16 rule of the float32 plain version."""
+    dev = cuda_device
+    rng = np.random.RandomState(52)
+    h, w, cin, cout = 17, 35, 20, 36
+    f = setup_filter(rng.rand(4, 4) + 0.1).to(dev)
+    wt = torch.from_numpy(rng.randn(kh, kh, cin, cout).astype(np.float32)).to(dev)
+    for py, px in _k3_edge_pixels(2 * h, 2 * w):
+        x = torch.zeros(1, 2 * h, 2 * w, cin, device=dev)
+        x[0, py, px] = torch.from_numpy(rng.randn(cin).astype(np.float32)).to(dev)
+        args = (x.bfloat16(), wt, f, None, None, 1.0, 1.0)
+        got = fc.fused_downconv2(*args)
+        want = fc.downconv2_plain(*args)
+        assert bool(((got != 0) == (want != 0)).all()), (py, px)
+        _bf16_close(got, want, fc.downconv2_plain(*_widen(args)))
+
+
+def _dw_tc_check(x, gd, s):
+    before = dict(fc.launch_counts)
+    got = fc.conv_dw(x, gd, s)
+    torch.cuda.synchronize()
+    assert fc.launch_counts["modconv3x3_dw_bf16"] == before["modconv3x3_dw_bf16"] + 1
+    assert fc.launch_counts["modconv3x3_dw"] == before["modconv3x3_dw"]
+    want = fc.conv_dw_plain(x, gd, s, 1, 1, 3, (0, 0))[0]
+    assert got.dtype == want.dtype == torch.float32 and torch.isfinite(got).all()
+    # The same bfloat16 products summed in float32 (in another order), and
+    # against float32 on the same inputs (x * s unrounded) by the bf16 rule.
+    _rel_close(got, want)
+    _bf16_close(got, want, fc.conv_dw_plain(x.float(), gd.float(), s, 1, 1, 3, (0, 0))[0])
+
+
+# (n, h, w, c, o, scaled): sizes off the tiles (16 columns; 8 rows at 64 gd
+# channels a block, 16 at 32), both channel tilings, several channel
+# groups, widths the kernel pads to 32.
+K1_DW_TC_ODD = [(2, 16, 16, 32, 32, True), (1, 13, 21, 32, 64, False), (2, 9, 35, 64, 32, True),
+                (1, 17, 18, 96, 128, True), (1, 10, 12, 36, 100, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,o,scaled", K1_DW_TC_ODD)
+def test_bf16_k1_dw_tc_at_odd_sizes(cuda_device, n, h, w, c, o, scaled):
+    gen = torch.Generator(cuda_device).manual_seed(53)
+    x = torch.randn((n, h, w, c), generator=gen, device=cuda_device).bfloat16()
+    gd = torch.randn((n, h, w, o), generator=gen, device=cuda_device).bfloat16()
+    s = torch.rand((n, c), generator=gen, device=cuda_device) + 0.5 if scaled else None
+    _dw_tc_check(x, gd, s)
+
+
+# K1's dw calls of a 1024^2 iteration at batch 4 (G b256, b512, b1024 conv1
+# and conv_last with styles; D b1024 and b512 conv0 without) and the reg
+# route's `wg` of G at batch 2 (no styles).
+K1_DW_TC_CALLS = [(4, 256, 128, True), (4, 512, 64, True), (4, 1024, 32, True),
+                  (4, 1024, 32, False), (4, 512, 64, False), (2, 256, 128, False),
+                  (2, 512, 64, False), (2, 1024, 32, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,res,c,scaled", K1_DW_TC_CALLS)
+def test_bf16_k1_dw_tc_at_the_1024_call_shapes(cuda_device, n, res, c, scaled):
+    gen = torch.Generator(cuda_device).manual_seed(54)
+    x = torch.randn((n, res, res, c), generator=gen, device=cuda_device).bfloat16()
+    gd = torch.randn((n, res, res, c), generator=gen, device=cuda_device).bfloat16()
+    s = torch.rand((n, c), generator=gen, device=cuda_device) + 0.5 if scaled else None
+    _dw_tc_check(x, gd, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["x", "gd"])
+@pytest.mark.parametrize("c,o", [(32, 32), (64, 64)])
+def test_bf16_k1_dw_tc_single_pixels(cuda_device, c, o, operand):
+    """One nonzero pixel of x (or of gd) at a time on a 33 x 35 image, the
+    other operand random: each tap's cotangent is that pixel's outer
+    product with the other operand's pixel the tap reaches, cut at the
+    border, which pins the taps' shifts and the halo on both sides of
+    every tile edge (rows 7 | 8 and 15 | 16 | 17, columns 15 | 16 | 17)."""
+    dev = cuda_device
+    gen = torch.Generator(dev).manual_seed(55)
+    h, w = 33, 35
+    s = torch.rand((1, c), generator=gen, device=dev) + 0.5
+    for py in (0, 7, 8, 15, 16, 17, h - 1):
+        for px in (0, 15, 16, 17, w - 1):
+            x = torch.randn((1, h, w, c), generator=gen, device=dev)
+            gd = torch.randn((1, h, w, o), generator=gen, device=dev)
+            one = x if operand == "x" else gd
+            keep = one[0, py, px].clone()
+            one.zero_()
+            one[0, py, px] = keep
+            _dw_tc_check(x.bfloat16(), gd.bfloat16(), s)
+
+
+@pytest.mark.cuda
+def test_bf16_tc_training_roles_refuse_mixed_types(cuda_device):
+    """The tensor-core K3 forward and K1 dw take one type for every
+    activation they read and raise, naming the operand, on another; a
+    bfloat16 tensor never reaches a float32 kernel, nor a float32 one the
+    bfloat16 kernels."""
+    dev = cuda_device
+    f = setup_filter(FIR).to(dev)
+    x = torch.zeros(1, 32, 32, 32, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 32, 64, device=dev)
+    before = dict(fc.launch_counts)
+    with pytest.raises(TypeError, match="resid"):
+        fc.fused_downconv2(x, w, f, resid=torch.zeros(1, 16, 16, 64, device=dev))
+    with pytest.raises(TypeError, match="resid"):
+        fc.fused_downconv2(x.float(), w, f, resid=torch.zeros(1, 16, 16, 64, device=dev,
+                                                             dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="gd"):
+        fc.conv_dw(x, torch.zeros(1, 32, 32, 32, device=dev), None)
+    with pytest.raises(TypeError, match="gd"):
+        fc.conv_dw(x.float(), torch.zeros(1, 32, 32, 32, device=dev, dtype=torch.bfloat16), None)
+    with pytest.raises(TypeError, match="w"):
+        k4.conv3x3_forward(x, torch.zeros(3, 3, 32, 32, device=dev))
+    with pytest.raises(TypeError, match="w"):
+        k4.conv3x3_dx(x, torch.zeros(3, 3, 32, 32, device=dev))
+    assert dict(fc.launch_counts) == before
+
+
+@pytest.mark.cuda
+def test_bf16_tc_training_kernels_run_on_the_tensor_cores(cuda_device):
+    """The built library's SASS (cuobjdump -sass) holds HMMA instructions in
+    every instantiation of downconv2_fwd_tc_kernel and conv_dw_tc_kernel."""
+    from morphganformer_tpu_torch.bench_k2 import hmma_counts
+    from morphganformer_tpu_torch.ops import _build
+
+    _build.library()
+    for name, instantiations in (("downconv2_fwd_tc_kernel", 4), ("conv_dw_tc_kernel", 2)):
+        counts = hmma_counts(_build.library_path(), name)
+        assert len(counts) == instantiations and all(v > 0 for v in counts.values()), counts
+
+
+def _k4_bf16_check(x, w, g):
+    """K4's bfloat16 forward and dx, each one launch of its `_bf16` entry
+    point, against the plain version by the bf16 rule."""
+    before = dict(fc.launch_counts)
+    y = k4.conv3x3_forward(x, w)
+    dx = k4.conv3x3_dx(g, w)
+    assert fc.launch_counts["conv3x3_bf16"] == before["conv3x3_bf16"] + 1
+    assert fc.launch_counts["conv3x3_adj_bf16"] == before["conv3x3_adj_bf16"] + 1
+    assert fc.launch_counts["conv3x3"] == before["conv3x3"]
+    assert y.dtype == dx.dtype == torch.bfloat16
+    wt = k4.conv3x3_adjoint_weights(w)
+    _bf16_close(y, k4.conv3x3_same_plain(x, w), k4.conv3x3_same_plain(x.float(), w.float()))
+    _bf16_close(dx, k4.conv3x3_same_plain(g, wt), k4.conv3x3_same_plain(g.float(), wt.float()))
+
+
+# K4's odd sizes and its five call shapes of a 1024^2 iteration at batch 4.
+K4_BF16_CASES = K4_CASES + [(4, 512, 512, 64, 64), (4, 1024, 1024, 32, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,o", K4_BF16_CASES)
+def test_bf16_k4_kernel_and_dx_match_plain(cuda_device, n, h, w, c, o):
+    gen = torch.Generator(cuda_device).manual_seed(56)
+    x = torch.randn((n, h, w, c), generator=gen, device=cuda_device).bfloat16()
+    wt = (torch.randn((3, 3, c, o), generator=gen, device=cuda_device) / math.sqrt(9 * c))
+    g = torch.randn((n, h, w, o), generator=gen, device=cuda_device).bfloat16()
+    _k4_bf16_check(x, wt.bfloat16(), g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,o", [(20, 36), (36, 24)])
+def test_bf16_k4_single_pixels(cuda_device, c, o):
+    """A unit cotangent at one pixel (corners, the border, both sides of the
+    tiles' inner edges) spreads w's taps over the 3 x 3 input window that
+    pixel reads, cut at the border: one product each, so dx is w's bfloat16
+    entries to the bit; and the forward of a unit pixel the same way."""
+    dev = cuda_device
+    h, w = 33, 35
+    wt = torch.randn((3, 3, c, o), generator=torch.Generator(dev).manual_seed(57),
+                     device=dev).bfloat16()
+    for py, px in ((0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1), (7, 15), (8, 16), (15, 16),
+                   (16, 17), (17, 15), (h // 2, w - 1)):
+        g = torch.zeros(1, h, w, o, device=dev, dtype=torch.bfloat16)
+        g[0, py, px, 2] = 1.0
+        want = torch.zeros(1, h, w, c, device=dev, dtype=torch.bfloat16)
+        x = torch.zeros(1, h, w, c, device=dev, dtype=torch.bfloat16)
+        x[0, py, px, 3] = 1.0
+        want_y = torch.zeros(1, h, w, o, device=dev, dtype=torch.bfloat16)
+        for dy in range(3):
+            for dxx in range(3):
+                iy, ix = py + dy - 1, px + dxx - 1
+                if 0 <= iy < h and 0 <= ix < w:
+                    want[0, iy, ix] = wt[dy, dxx, :, 2]
+                oy, ox = py - dy + 1, px - dxx + 1
+                if 0 <= oy < h and 0 <= ox < w:
+                    want_y[0, oy, ox] = wt[dy, dxx, 3]
+        assert torch.equal(k4.conv3x3_dx(g, wt), want), (py, px)
+        assert torch.equal(k4.conv3x3_forward(x, wt), want_y), (py, px)
+
+
+@pytest.mark.cuda
+def test_bf16_k4_route_and_gradients_match_the_cudnn_path(cuda_device, monkeypatch):
+    """conv2d_resample on bfloat16 x with MGT_PALLAS_CONV=1 at D b512's
+    conv0 (batch 2): one K4 forward and one dx launch on the `_bf16` keys,
+    the weight cast to bfloat16 and its cotangent float32; y, dx and dw
+    within the bf16 rule of the same route in float32, beside cuDNN's
+    bfloat16 route (MGT_PALLAS_CONV unset)."""
+    from morphganformer_tpu_torch.ops.conv2d_resample import conv2d_resample
+
+    dev = cuda_device
+    gen = torch.Generator(dev).manual_seed(58)
+    x = torch.randn((2, 512, 512, 64), generator=gen, device=dev)
+    wt = torch.randn((3, 3, 64, 64), generator=gen, device=dev) / 24
+    g = torch.randn((2, 512, 512, 64), generator=gen, device=dev).bfloat16()
+
+    def route(k4_on, xs, gs):
+        monkeypatch.setenv("MGT_PALLAS_CONV", "1") if k4_on else \
+            monkeypatch.delenv("MGT_PALLAS_CONV", raising=False)
+        xi, wi = xs.clone().requires_grad_(), wt.clone().requires_grad_()
+        y = conv2d_resample(xi, wi, padding=1)
+        return (y, *torch.autograd.grad(y, (xi, wi), gs))
+
+    before = dict(fc.launch_counts)
+    got = route(True, x.bfloat16(), g)
+    torch.cuda.synchronize()
+    assert fc.launch_counts["conv3x3_bf16"] == before["conv3x3_bf16"] + 1
+    assert fc.launch_counts["conv3x3_adj_bf16"] == before["conv3x3_adj_bf16"] + 1
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.bfloat16, torch.float32]
+    cudnn = route(False, x.bfloat16(), g)
+    ref = route(True, x.bfloat16().float(), g.float())
+    _bf16_close(got, cudnn, ref)
+
+
+@pytest.mark.cuda
+def test_float32_kernels_bit_equal_to_the_build_before_the_tc_training_roles(cuda_device,
+                                                                            monkeypatch):
+    """Every float32 entry point (K1's forward and adjoint, K4's forward and
+    dx, K2's forward and use_dw role, K3's forward and adjoint, K1's dw and
+    the FIR dw) gives the same bits as a build of fused_conv.cu from before
+    K3's bfloat16 forward and K1's bfloat16 dw moved to the tensor cores and
+    their float32 kernels lost their bfloat16 instantiations (commit
+    3932729): `git show 3932729:morphganformer_tpu_torch/csrc/fused_conv.cu
+    > build/tc_train_parent.cu`, or MGT_TC_TRAIN_PARENT_SOURCE names the
+    file."""
+    import os
+    from pathlib import Path
+
+    from morphganformer_tpu_torch.bench_k3 import load_parent
+    from morphganformer_tpu_torch.ops import _build
+
+    default = Path(__file__).resolve().parent.parent / "build" / "tc_train_parent.cu"
+    src = Path(os.environ.get("MGT_TC_TRAIN_PARENT_SOURCE", default))
+    if not src.exists():
+        pytest.skip(f"needs the earlier source at {src}")
+    names = ("mgt_modconv3x3_fwd", "mgt_modconv3x3_bwd", "mgt_bwd_tiles", "mgt_conv3x3_fwd",
+             "mgt_conv3x3_dx", "mgt_upconv2_fwd", "mgt_downconv2_fwd", "mgt_upconv2_bwd",
+             "mgt_downconv2_tiles", "mgt_conv_dw", "mgt_conv_dw_tiles", "mgt_fir_dw",
+             "mgt_fir_dw_tiles")
+    parent = load_parent(src, {k: _build._SIGNATURES[k] for k in names},
+                         "libmgt_tc_train_parent_test.so")
+    dev = cuda_device
+    gen = torch.Generator(dev).manual_seed(59)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    f = setup_filter(FIR).to(dev)
+    rng = np.random.RandomState(60)
+    k1_cases = []
+    for res, c, last in ((64, 64, False), (48, 32, True), (33, 36, False)):
+        x, w, s, nz, b, r, gain, alpha = _k1_call(rng, dev, 2, res, c, c, last)
+        g = torch.from_numpy(rng.randn(2, res, res, c).astype(np.float32)).to(dev)
+        k1_cases.append((x, w, s, nz, b, r, gain, alpha, g))
+    cases = []
+    for h, cin, cout, kh in ((16, 64, 32, 3), (13, 64, 32, 1), (9, 128, 64, 3)):
+        cases.append(dict(x=randn(2, h, h, cin), w=randn(kh, kh, cin, cout) / 8,
+                          s=torch.rand((2, cin), generator=gen, device=dev) + 0.5,
+                          nz=randn(2 * h, 2 * h), b=randn(cout), g=randn(2, 2 * h, 2 * h, cout),
+                          xd=randn(2, 2 * h, 2 * h, cout), wd=randn(kh, kh, cout, cin) / 8,
+                          bd=randn(cin), rd=randn(2, h, h, cin), gz=randn(2, h, h, cin)))
+
+    def run():
+        outs = []
+        for x, w, s, nz, b, r, gain, alpha, g in k1_cases:
+            y = fc.fused_modconv3x3(x, w, s, nz, b, r, gain, alpha, True)
+            adj = fc.modconv3x3_adjoint(g, x, w, s, y, nz, b, r, gain, alpha, True)
+            outs += [y, *[t for t in adj if t is not None], k4.conv3x3_forward(x, w),
+                     k4.conv3x3_dx(g, w), fc.conv_dw(x, g, s)]
         for c in cases:
             styled = c["w"].shape[0] == 3
             s = c["s"] if styled else None
