@@ -144,8 +144,8 @@ Phases, each printing its wall time:
               the FusedUpConv2 and FusedDownConv2 backwards).
               Then training in bfloat16 (`train --dtype bfloat16`): the
               training roles' bfloat16 entry points at the same call shapes
-              (K3-forward, K1's dw and K2's use_dw role on the tensor cores,
-              the FIR dw on bfloat16 operands), each against its plain
+              (K3-forward, K1's dw, K2's use_dw role and the FIR dw of K3
+              and of the D down-conv, all on the tensor cores), each against its plain
               bfloat16 version by phase bf16's rule, with kernel, plain,
               cuDNN's bfloat16 and same-function times beside the bf16
               bound; D's conv0 and the second-order route's degenerate K1
@@ -262,7 +262,7 @@ SOURCE = "morphganformer_tpu_torch/csrc/fused_conv.cu"
 HAND_WRITTEN = ("conv3x3_lw_kernel", "conv3x3_fwd_tc_kernel", "conv3x3_adj_tc_kernel",
                 "upconv2_lw_kernel", "upconv2_tc_kernel", "downconv2_lw_kernel",
                 "downconv2_tc_kernel", "downconv2_fwd_tc_kernel", "conv_dw_lw_kernel",
-                "conv_dw_tc_kernel", "fir_dw_kernel")
+                "conv_dw_tc_kernel", "fir_dw_kernel", "fir_dw_tc_kernel")
 PROJECT_STEPS = 50
 MORPH_STEPS = 25
 DEMORPH_STEPS = 5
@@ -1072,11 +1072,10 @@ TRAIN_KEYS = {"K3-forward": "downconv2", "K2-use_dw": "downconv2_adj",
 # kernel each launches (its name in a profiler trace).
 TRAIN_BF16_KEYS = {role: f"{key}_bf16" for role, key in TRAIN_KEYS.items()}
 TRAIN_BF16_KERNELS = {"K3-forward": "downconv2_fwd_tc_kernel", "K2-use_dw": "upconv2_tc_kernel",
-                      "K2-use_dw-dw": "fir_dw_kernel", "K1-dw": "conv_dw_tc_kernel",
-                      "K3-dw": "fir_dw_kernel"}
+                      "K2-use_dw-dw": "fir_dw_tc_kernel", "K1-dw": "conv_dw_tc_kernel",
+                      "K3-dw": "fir_dw_tc_kernel"}
 # The float32 least-work kernels, which no bfloat16 iteration launches
-# (fir_dw_kernel also has a bfloat16 instantiation, named with
-# __nv_bfloat16; the others have none).
+# (none has a bfloat16 instantiation).
 F32_LW_KERNELS = ("downconv2_lw_kernel", "conv_dw_lw_kernel", "fir_dw_kernel",
                   "conv3x3_lw_kernel", "upconv2_lw_kernel")
 K4_KEYS = ("conv3x3", "conv3x3_adj", "conv3x3_bf16", "conv3x3_adj_bf16")
@@ -1530,7 +1529,8 @@ def check_train_kernel_bf16(torch, fc, gen, call):
     """One training role in bfloat16 at one call shape, batch 4
     (`train_case`; the `_bf16` entry points: K3-forward
     `downconv2_fwd_tc_kernel`, K1's dw `conv_dw_tc_kernel`, K2's use_dw role
-    `upconv2_tc_kernel`, the FIR dw `fir_dw_kernel` on bfloat16 operands):
+    `upconv2_tc_kernel`, the FIR dw `fir_dw_tc_kernel`, all on the tensor
+    cores):
     the kernel and the plain bfloat16 version, each
     against the float32 plain version on the same bfloat16-rounded
     activations, phase bf16's rule (the kernel's error at most BF16_RATIO
@@ -1817,7 +1817,7 @@ def bf16_train_checks(torch, fc, gen, g_cfg, d_cfg, reals):
         HOST_TIMED)
     traced_launches = dict(fc.launch_counts)
     f32_lw = {e.key: e.count for e in averages if e.device_type.name == "CUDA"
-              and any(k in e.key for k in F32_LW_KERNELS) and "bfloat16" not in e.key}
+              and any(k in e.key for k in F32_LW_KERNELS)}
     busy, window = r["busy_ms"], r["window_ms"]
     print(averages.table(sort_by="self_cuda_time_total", row_limit=14), flush=True)
     print(f"  traced bfloat16 training iteration batch 4 (G_main, D_main): window "
@@ -1828,13 +1828,11 @@ def bf16_train_checks(torch, fc, gen, g_cfg, d_cfg, reals):
     assert traced_launches == as_bf16(per_iteration()), traced_launches
     assert all(traced_launches[k] > 0 for k in TRAIN_BF16_KEYS.values()), traced_launches
     assert not f32_lw, f"a float32 least-work kernel ran in a bfloat16 iteration: {f32_lw}"
-    # K3's forward and K1's dw on the tensor cores: their kernels ran, and no
-    # FMA kernel of either role did (they have no bfloat16 instantiation).
-    for role in ("K3-forward", "K1-dw"):
+    # K3's forward, K1's dw and the FIR dw (both its roles, K3's dw and the D
+    # down-conv's, whose launches per_iteration counts above) on the tensor
+    # cores: their kernels ran (and, above, no FMA kernel did).
+    for role in ("K3-forward", "K1-dw", "K2-use_dw-dw", "K3-dw"):
         assert r["kernels"].get(TRAIN_BF16_KERNELS[role], (0.0, 0))[1] > 0, (role, r["kernels"])
-    fma = {e.key: e.count for e in averages if e.device_type.name == "CUDA"
-           and any(k in e.key for k in ("downconv2_lw_kernel", "conv_dw_lw_kernel"))}
-    assert not fma, f"an FMA kernel of K3's forward or K1's dw ran in bfloat16: {fma}"
     stats = dict(grads=grads, iteration=timings,
                  traced=dict(window_ms=window, busy_ms=busy, device_ops=r["launches"],
                              kernels=r["kernels"], host=r["host"]))
@@ -3793,15 +3791,17 @@ def main():
              "bfloat16, pallas_conv.py:2121-2157: upconv2_tc_kernel with no styles, no d, no "
              "bias, gain = alpha = 1)", K2_REPLACES),
             ("K2-use_dw-dw", "mgt_fir_dw_bf16 (the D down-conv's dw in bfloat16, "
-             "pallas_conv.py:1225-1246: fir_dw_kernel on bfloat16 x and gz, the FIR, the "
-             "partials and the result in float32)", K2_DW_REPLACES),
+             "pallas_conv.py:1225-1246: fir_dw_tc_kernel, the FIR in float32 on the staged "
+             "bfloat16 x into bfloat16 hi and lo parity planes, per tap a GEMM over the "
+             "pixels on bf16 mma.sync with float32 accumulators, hi and lo each against gz, "
+             "both operands by ldmatrix.trans, float32 partials)", K2_DW_REPLACES),
             ("K1-dw", "mgt_conv_dw_bf16 (K1's dw taps in bfloat16, pallas_conv.py:256-285: "
              "conv_dw_tc_kernel, x * s rounded to bfloat16 in shared memory, per tap a GEMM "
              "over the pixels on bf16 mma.sync with float32 accumulators, both operands by "
              "ldmatrix.trans from the pixel-major tiles, float32 partials)", K1_DW_REPLACES),
             ("K3-dw", "mgt_fir_dw_bf16 (K3's dw taps in bfloat16, pallas_conv.py:1387-1416: "
-             "fir_dw_kernel on bfloat16 gd and x, x * s rounded to bfloat16)",
-             K3_DW_REPLACES)):
+             "fir_dw_tc_kernel on bfloat16 gd and x, x * s rounded to bfloat16 in shared "
+             "memory, as K2-use_dw-dw)", K3_DW_REPLACES)):
         mine = [r for r in train_bf16_rows if r["kernel"] == f"{role} bf16"]
         b_ms = sum(r["bound_ms"] for r in mine)
         ops_ms = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")

@@ -38,6 +38,38 @@ traced iterations, where "earlier" routes the two dw roles through the
 earlier build and its fold (everything else the same): the device's busy
 time, the dw kernels' device time and the host time of the FusedUpConv2 and
 FusedDownConv2 backwards. Needs a CUDA card.
+
+With --bf16, the FIR dw in bfloat16 (`mgt_fir_dw_bf16`, on the tensor
+cores: `fir_dw_tc_kernel`) against the build of d375170, whose entry point
+of the same signature runs the float32 least-work kernel on bfloat16
+operands (`fir_dw_kernel`, FMA):
+
+    git show d375170:morphganformer_tpu_torch/csrc/fused_conv.cu > build/fir_dw_bf16_parent.cu
+    python -m morphganformer_tpu_torch.bench_dw --bf16 build/fir_dw_bf16_parent.cu
+    python -m morphganformer_tpu_torch.bench_dw --bf16 build/fir_dw_bf16_parent.cu --iteration
+
+Both builds compile at once. At the 10 call shapes above at batch 4 and at
+the reg route's K3 dw calls (G's conv0 and skip at batch 2; the D
+down-conv's reg calls are the batch-4 shapes), on bfloat16 operands, both
+builds' bare launches (their partials, each build's slices) are held
+against `fir_dw_plain` on the same operands (B unrounded, to 1e-4 of its
+largest entry) and against it on the float32 values of the same inputs
+(base * s unrounded) by chip_smoke.py's bf16 rule beside the plain
+version's error, then timed with CUDA events in the order earlier, new,
+new, earlier, with the float32 `mgt_fir_dw` of both builds on the same
+inputs in float32 (bit-equal, and timed in the same turns); then the new
+wrapper (the launch and the partials' sum), the plain version, cuDNN's
+bfloat16 `conv2d_weight` of the bare convolution and the same-function call
+in bfloat16 (`conv2d_weight` of the FIR-composed kernel, its operands
+formed outside the timed call) with torch.backends.cudnn.benchmark off and
+on; the kernel's own device time in one wrapper call under torch.profiler;
+the bf16 bound. It prints both builds' ptxas lines for the dw kernels and
+their HMMA counts (cuobjdump -sass). Exits non-zero if a check fails, if
+the new kernel has no HMMA, if the float32 outputs differ, or if the new
+launch is not faster than the earlier build's at some shape. With
+--iteration it times, instead, traced bfloat16 iterations (G_main and
+D_main, `iteration_ab` on bfloat16 G and D), where "earlier" routes both
+FIR dw roles through the earlier build.
 """
 
 from __future__ import annotations
@@ -283,7 +315,185 @@ def dw_routes(lib):
     return new, earlier
 
 
+BF16_PARENT_SIGNATURES = {
+    # src, base, s, fir, part, N, H, W, CB, CK, kh, pad, slices, tiles_per_slice, device,
+    # stream; N, H, W of the base grid -> its tiles
+    "mgt_fir_dw_bf16": [_P] * 5 + [_I] * 9 + [_I, _P],
+    "mgt_fir_dw": [_P] * 5 + [_I] * 9 + [_I, _P],
+    "mgt_fir_dw_tiles": [_I, _I, _I],
+}
+TC_KERNEL = "fir_dw_tc_kernel"
+# The hand-written kernels whose device time a traced bfloat16 iteration reports.
+BF16_ITERATION_KERNELS = (TC_KERNEL, KERNEL, "conv_dw_tc_kernel", "downconv2_fwd_tc_kernel",
+                          "downconv2_tc_kernel", "conv3x3_fwd_tc_kernel", "conv3x3_adj_tc_kernel",
+                          "upconv2_tc_kernel")
+# The 10 shapes at batch 4, then the reg route's K3 dw calls of G at batch 2.
+BF16_SHAPES = [(*shape, BATCH) for shape in SHAPES] + \
+    [(role, f"{block} (reg)", layer, h, cin, cout, kh, 2)
+     for role, block, layer, h, cin, cout, kh in SHAPES if role == "K3-dw"]
+
+
+def fir_dw_launch(lib, src, base, s, fk, pad, kh):
+    """One bare launch of `lib`'s FIR dw in src's type (`mgt_fir_dw` or
+    `mgt_fir_dw_bf16`), its slices as the wrapper cuts them for that build's
+    tiles, for widths in the kernels' tiles: (the launch, its partials)."""
+    n, h, wd, cv = base.shape
+    cu = src.shape[-1]
+    bf = src.dtype == torch.bfloat16
+    tiles_fn = "mgt_fir_dw_tiles_bf16" if bf and hasattr(lib, "mgt_fir_dw_tiles_bf16") \
+        else "mgt_fir_dw_tiles"
+    slices, per = fc.dw_slices(getattr(lib, tiles_fn)(n, h, wd), (cu // 32) * (cv // 64))
+    part = torch.empty((slices, kh, kh, cu, cv), device=src.device)
+    fn = "mgt_fir_dw_bf16" if bf else "mgt_fir_dw"
+    return (lambda: _call(lib, fn, src.data_ptr(), base.data_ptr(),
+                          None if s is None else s.data_ptr(), fk.data_ptr(), part.data_ptr(),
+                          n, h, wd, cu, cv, kh, pad, slices, per, *_stream(src.device))), part
+
+
+def parent_fir_dw(lib, src, base, s, fk, pad, kh):
+    """`fc._fir_dw_launch` on `lib` (the earlier build's route), for widths
+    in the kernels' tiles."""
+    launch, part = fir_dw_launch(lib, src.contiguous(), base.contiguous(), s, fk, pad, kh)
+    launch()
+    return part.sum(0)
+
+
+def bf16_main(parent_source, iteration):
+    """`--bf16`: see the module's docstring."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from morphganformer_tpu_torch.bench_k2 import (BF16_FLOOR, BF16_RATIO, PEAK_BF16_FLOPS,
+                                                   hmma_counts)
+    from morphganformer_tpu_torch.bench_k3 import device_split
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    name = "libmgt_fir_dw_bf16_parent.so"
+    with ThreadPoolExecutor(2) as pool:      # both nvcc runs at once
+        parent_job = pool.submit(load_parent, Path(parent_source), BF16_PARENT_SIGNATURES, name)
+        _, build_s, log = _build.build()
+        parent = parent_job.result()
+    print(json.dumps({"build_s": build_s, "ptxas": [
+        line for line in ptxas_report(log) if "fir_dw" in line or "registers" in line
+        or "spill" in line]}), flush=True)
+    libs = {"new": _build.library(), "earlier": parent}
+    if iteration:
+        iteration_ab({"_fir_dw_launch": fc._fir_dw_launch},
+                     {"_fir_dw_launch": lambda *a: parent_fir_dw(parent, *a)},
+                     BF16_ITERATION_KERNELS, dtype="bfloat16")
+        print(smi, flush=True)
+        return 0
+    hmma = {"new": hmma_counts(_build.library_path(), "fir_dw"),
+            "earlier": hmma_counts(_build.BUILD_DIR / name, "fir_dw")}
+    new_hmma = {k: v for k, v in hmma["new"].items() if TC_KERNEL in k}
+    print(json.dumps({"hmma": hmma}), flush=True)
+    failed = [] if len(new_hmma) == 2 and all(new_hmma.values()) else [f"no HMMA in {TC_KERNEL}"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf, f32 = torch.bfloat16, torch.float32
+    nchw = lambda t: t.permute(0, 3, 1, 2)                                          # noqa: E731
+    f = setup_filter([1, 3, 3, 1]).to("cuda")
+    rows = []
+    for role, block, layer, h, cin, cout, kh, n in BF16_SHAPES:
+        randn = lambda *sh: torch.randn(sh, generator=gen, device="cuda")       # noqa: E731
+        w = randn(kh, kh, cin, cout) / math.sqrt(kh * kh * cin)
+        if role == "K3-dw":
+            x, t = randn(n, h, h, cin), randn(n, 2 * h, 2 * h, cout)
+            s = torch.rand((n, cin), generator=gen, device="cuda") + 0.5
+            _, fk, pad = fc.upconv2_dw_leastwork(w, f, False)
+            src, base = t, x
+        else:
+            x, t = randn(n, 2 * h, 2 * h, cin), randn(n, h, h, cout)
+            s = None
+            _, fk, pad = fc.downconv2_dw_leastwork(w, f, True)
+            src, base = x, t
+        sb, bb = src.to(bf), base.to(bf)
+        launch = {(k, dt): fir_dw_launch(libs[k], st, bt, s, fk, pad, kh)
+                  for k in ("earlier", "new") for dt, st, bt in ((bf, sb, bb), (f32, src, base))}
+        for v in launch.values():
+            v[0]()
+        got = {k: launch[k, bf][1].sum(0) for k in ("earlier", "new")}
+        plain = fc.fir_dw_plain(sb, bb, s, fk, pad, kh)
+        ref = fc.fir_dw_plain(sb.float(), bb.float(), s, fk, pad, kh)
+        torch.cuda.synchronize()
+        scale_p, scale_r = plain.abs().max().item(), ref.abs().max().item()
+        row = dict(role=f"{role} bf16", block=block, layer=layer, batch=n)
+        for k in ("earlier", "new"):
+            row[f"err_{k}_vs_plain"] = (got[k] - plain).abs().max().item() / scale_p
+            row[f"err_{k}"] = (got[k] - ref).abs().max().item() / scale_r
+        row["err_plain"] = (plain - ref).abs().max().item() / scale_r
+        row["err_ratio"] = row["err_new"] / row["err_plain"] if row["err_plain"] else None
+        row["wrapper_equals_bare"] = bool(torch.equal(
+            fc._fir_dw_launch(sb, bb, s, fk, pad, kh), got["new"]))
+        row["f32_equal"] = bool(torch.equal(launch["earlier", f32][1], launch["new", f32][1]))
+        tm = {}
+        for k in ("earlier", "new", "new", "earlier"):
+            tm.setdefault(k, []).append(cuda_ms(launch[k, bf][0], reps=5, warmup=1))
+            tm.setdefault(f"f32_{k}", []).append(cuda_ms(launch[k, f32][0], reps=5, warmup=1))
+        call, _ = same_function_dw_call(role, w, f, role == "K2-use_dw-dw")
+        if role == "K3-dw":
+            xs = (x.to(bf) * s[:, None, None, :]).to(bf)
+            same_in, lib_in = (nchw(t.to(bf)), nchw(xs)), (nchw(t.to(bf)), nchw(x.to(bf)))
+            lib_shape = (cin, cout, kh, kh)
+        else:
+            same_in, lib_in = (nchw(x.to(bf)), nchw(t.to(bf))), (nchw(x.to(bf)), nchw(t.to(bf)))
+            lib_shape = (cout, cin, kh, kh)
+        same = lambda: call(*same_in)                                          # noqa: E731
+        for k, run in (("wrapper", lambda: fc._fir_dw_launch(sb, bb, s, fk, pad, kh)),
+                       ("plain", lambda: fc.fir_dw_plain(sb, bb, s, fk, pad, kh)),
+                       ("library", lambda: conv2d_weight(lib_in[0], lib_shape, lib_in[1],
+                                                         stride=2, padding=kh // 2)),
+                       ("same_function", same)):
+            tm[k] = [cuda_ms(run, reps=3, warmup=1)]
+        torch.backends.cudnn.benchmark = True
+        tm["same_function_benchmark"] = [cuda_ms(same, reps=3, warmup=3)]
+        torch.backends.cudnn.benchmark = False
+        own = device_split(lambda: fc._fir_dw_launch(sb, bb, s, fk, pad, kh), TC_KERNEL)[0]
+        if own == 0.0:    # the profiler drops a kernel's events now and then
+            own = device_split(lambda: fc._fir_dw_launch(sb, bb, s, fk, pad, kh), TC_KERNEL)[0]
+        # chip_smoke.py's count: the taps, and the separable FIR at every src
+        # value for a 3x3, at the even positions only for the 1x1.
+        fir = 2 * n * (2 * h) ** 2 * (8 if kh == 3 else 3) * src.shape[-1]
+        flops = 2 * n * h * h * kh * kh * cin * cout + fir
+        elements = src.numel() + base.numel() + (0 if s is None else s.numel()) + \
+            kh * kh * cin * cout
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, 2 * elements / PEAK_BYTES
+        row.update({f"{k}_ms": sum(v) / len(v) for k, v in tm.items()},
+                   new_ms_runs=tm["new"], earlier_ms_runs=tm["earlier"],
+                   new_kernel_device_ms=own, bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        row["speedup"] = row["earlier_ms"] / row["new_ms"]
+        row["bound_share"] = row["bound_ms"] / row["new_ms"]
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        tol = max(BF16_RATIO * row["err_plain"], BF16_FLOOR)
+        label = f"{role} {block} {layer}"
+        for k in ("new", "earlier"):
+            if not row[f"err_{k}"] <= tol or not row[f"err_{k}_vs_plain"] <= 1e-4:
+                failed.append(f"{label}: err_{k} {row[f'err_{k}']} (tol {tol}), vs plain "
+                              f"{row[f'err_{k}_vs_plain']}")
+        if not row["wrapper_equals_bare"]:
+            failed.append(f"{label}: the wrapper's dw differs from the bare launch's")
+        if not row["f32_equal"]:
+            failed.append(f"{label}: the float32 dw differs between the builds")
+        if not max(tm["new"]) < min(tm["earlier"]):
+            failed.append(f"{label}: new {tm['new']} not faster than earlier {tm['earlier']}")
+    print(smi, flush=True)
+    keys = ("new_ms", "earlier_ms", "wrapper_ms", "plain_ms", "library_ms", "same_function_ms",
+            "same_function_benchmark_ms", "bound_ms", "new_kernel_device_ms", "f32_new_ms",
+            "f32_earlier_ms")
+    sums = {part: {k: sum(r[k] for r in rows if r["role"] == f"{part.split()[0]} bf16"
+                          and ("(reg)" in r["block"]) == part.endswith("reg")) for k in keys}
+            for part in ("K2-use_dw-dw", "K3-dw", "K3-dw reg")}
+    print(json.dumps({"sums": sums, "failed": failed}), flush=True)
+    return 1 if failed else 0
+
+
 def main(argv):
+    if len(argv) >= 3 and argv[1] == "--bf16" and torch.cuda.is_available() and (
+            len(argv) == 3 or argv[3:] == ["--iteration"]):
+        return bf16_main(argv[2], len(argv) == 4)
     if len(argv) not in (2, 3) or not torch.cuda.is_available() or (
             len(argv) == 3 and argv[2] != "--iteration"):
         print(__doc__, file=sys.stderr)

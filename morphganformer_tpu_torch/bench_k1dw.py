@@ -171,7 +171,7 @@ TC_KERNEL = "conv_dw_tc_kernel"
 # The hand-written kernels whose device time a traced bfloat16 iteration reports.
 BF16_ITERATION_KERNELS = (TC_KERNEL, KERNEL, "downconv2_fwd_tc_kernel", "downconv2_lw_kernel",
                           "downconv2_tc_kernel", "conv3x3_fwd_tc_kernel", "conv3x3_adj_tc_kernel",
-                          "upconv2_tc_kernel", "fir_dw_kernel")
+                          "upconv2_tc_kernel", "fir_dw_kernel", "fir_dw_tc_kernel")
 # (label, batch, resolution, C = O, styles): the 6 shapes, then the reg
 # route's wg of G at batch 2.
 BF16_SHAPES = [(f"{b} {layer}", BATCH, res, c, styles) for b, layer, res, c, styles in SHAPES] + \

@@ -60,7 +60,9 @@ _SIGNATURES = {
     # stream
     "mgt_fir_dw": [_P] * 5 + [_I] * 9 + [_I, _P],
     # N, H, W of the base grid -> the number of tiles of a mgt_fir_dw launch
+    # (and of a mgt_fir_dw_bf16 one)
     "mgt_fir_dw_tiles": [_I, _I, _I],
+    "mgt_fir_dw_tiles_bf16": [_I, _I, _I],
 }
 # The bfloat16 entry points of K1 (forward, adjoint), K2, K3's forward, K4
 # and the dw kernels take the float32 ones' arguments (pointers to bfloat16

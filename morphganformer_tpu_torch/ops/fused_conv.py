@@ -74,12 +74,12 @@ scale s) and round the output once; the adjoints form gd = g * mask * d in
 bfloat16 inside their kernels (K1's and K3's on the tensor cores,
 `conv3x3_adj_tc_kernel` and `downconv2_tc_kernel`, as K2's bfloat16
 forward, `upconv2_tc_kernel`, which also runs K2's use_dw role). The D
-tower's forward (`downconv2_fwd_tc_kernel`) and K1's dw
-(`conv_dw_tc_kernel`) run on the tensor cores too; the FIR dw
-(`fir_dw_kernel`) reads bfloat16 operands into its float32 tiles. The dw
-kernels round x * s (base * s) to bfloat16 as JAX's u_t
-(pallas_conv.py:270-271, :1399-1401), keep the FIR and their partials in
-float32 and return a float32 cotangent (`dw.astype(w.dtype)`).
+tower's forward (`downconv2_fwd_tc_kernel`), K1's dw (`conv_dw_tc_kernel`)
+and the FIR dw of K3 and of the D down-conv (`fir_dw_tc_kernel`: the FIR in
+float32, its B reaching the tensor cores as bfloat16 hi and lo) run on the
+tensor cores too. The dw kernels round x * s (base * s) to bfloat16 as
+JAX's u_t (pallas_conv.py:270-271, :1399-1401), keep the FIR and their
+partials in float32 and return a float32 cotangent (`dw.astype(w.dtype)`).
 A bfloat16 tensor on a card launches the `_bf16` entry points or raises.
 """
 
@@ -1034,12 +1034,13 @@ def conv_dw(x, gd, s):
 
 
 def _fir_dw_launch(src, base, s, fk, pad, kh):
-    """One launch of the least-work dw kernel (`mgt_fir_dw`, or
-    `mgt_fir_dw_bf16` on bfloat16 src and base): `fir_dw_plain` of src
-    [N,2H,2W,U] (filtered), base [N,H,W,V] and s [N,V] (float32) or None,
-    with the float32 partials of its slices summed here in a fixed order;
-    [kh,kh,U,V]. The kernel tiles U by 32 and V by 64: other widths are
-    padded with zero channels, whose entries are cut off."""
+    """One launch of the FIR dw kernel (`mgt_fir_dw`, the least-work one, or
+    on bfloat16 src and base `mgt_fir_dw_bf16`, the tensor-core one):
+    `fir_dw_plain` of src [N,2H,2W,U] (filtered), base [N,H,W,V] and s
+    [N,V] (float32) or None, with the float32 partials of its slices summed
+    here in a fixed order; [kh,kh,U,V]. Both kernels tile U by 32 and V by
+    64: other widths are padded with zero channels, whose entries are cut
+    off."""
     n, h, wd, cv = base.shape
     cu = src.shape[-1]
     if cu % 32 or cv % 64:
@@ -1052,8 +1053,9 @@ def _fir_dw_launch(src, base, s, fk, pad, kh):
     dev, dt = base.device, _kernel_dtype(base, "base")
     ptrs = [_aligned("src", _check("src", src, (n, 2 * h, 2 * wd, cu), dev, dt)),
             _aligned("base", _check("base", base, (n, h, wd, cv), dev, dt)),
-            _check("s", s, (n, cv), dev), _check("fir", fk, (4, 4), dev)]
-    slices, per = dw_slices(_library().mgt_fir_dw_tiles(n, h, wd), (cu // 32) * (cv // 64))
+            _aligned("s", _check("s", s, (n, cv), dev)), _check("fir", fk, (4, 4), dev)]
+    tiles = getattr(_library(), "mgt_fir_dw_tiles" + _SUFFIX[dt])(n, h, wd)
+    slices, per = dw_slices(tiles, (cu // 32) * (cv // 64))
     part = torch.empty((slices, kh, kh, cu, cv), device=dev, dtype=torch.float32)
     _launch("mgt_fir_dw" + _SUFFIX[dt], *ptrs, part.data_ptr(), n, h, wd, cu, cv, kh, pad,
             slices, per, *_stream(dev))

@@ -13,12 +13,15 @@ bfloat16 training roles (K3's D-tower forward, K2's use_dw role, the dw
 kernels, D's conv0 and the grad Functions' terms; K3's forward and K1's dw
 on the tensor cores also at sizes off their tiles, at their 1024^2 and
 reg-route call shapes and at single pixels on every edge, with HMMA in
-their SASS), K4 in bfloat16 (the tensor-core K1 kernels' degenerate
-launches, and its route), and the float32 K1 and K4 bit-equal to the
-builds before K1's bfloat16 adjoint and forward moved to the tensor cores,
-K2, K3 and the dw kernels to the build before they took bfloat16 operands,
-and every float32 kernel to the build before K3's bfloat16 forward and
-K1's bfloat16 dw moved to the tensor cores.
+their SASS), the FIR dw's bfloat16 kernel on the tensor cores for both its
+roles (odd sizes, the 1024^2 and reg-route call shapes, single pixels on
+every tile edge, mixed types refused, HMMA in its SASS), K4 in bfloat16
+(the tensor-core K1 kernels' degenerate launches, and its route), and the
+float32 K1 and K4 bit-equal to the builds before K1's bfloat16 adjoint and
+forward moved to the tensor cores, K2, K3 and the dw kernels to the build
+before they took bfloat16 operands, and every float32 kernel to the builds
+before K3's bfloat16 forward and K1's bfloat16 dw moved to the tensor cores
+and before the FIR dw's did.
 
 This file imports no JAX, so it runs on the GPU machine, where JAX is not
 installed; tests/conftest.py imports JAX, so run it there with
@@ -2082,6 +2085,164 @@ def test_bf16_k1_dw_tc_single_pixels(cuda_device, c, o, operand):
             _dw_tc_check(x.bfloat16(), gd.bfloat16(), s)
 
 
+def _fir_dw_tc_check(role, x, t, s, wt, f, flip_weight):
+    """The FIR dw role's wrapper on bfloat16 activations: one launch of
+    `mgt_fir_dw_bf16` (`fir_dw_tc_kernel`) on the role's `_bf16` key and
+    none on its float32 key; the float32 cotangent against the plain route
+    on the same bfloat16 operands (the same products of the unrounded B,
+    float32 sums in another order: 1e-4 of the largest entry) and against
+    float32 on the same inputs (base * s unrounded) by the bf16 rule."""
+    if role == "up":
+        key, run = "upconv2_dw", lambda a, b: fc.upconv2_dw(a, b, s, wt, f, flip_weight)  # noqa
+        plain = lambda a, b: fc.upconv2_dw_plain(a, b, s, wt, f, flip_weight)           # noqa
+    else:
+        key, run = "downconv2_dw", lambda a, b: fc.downconv2_dw(a, b, wt, f, flip_weight)  # noqa
+        plain = lambda a, b: fc.downconv2_dw_plain(a, b, wt, f, flip_weight)             # noqa
+    before = dict(fc.launch_counts)
+    got = run(x, t)
+    torch.cuda.synchronize()
+    assert fc.launch_counts[key + "_bf16"] == before[key + "_bf16"] + 1
+    assert fc.launch_counts[key] == before[key]
+    want = plain(x, t)
+    assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    _rel_close(got, want)
+    _bf16_close(got, want, plain(x.float(), t.float()))
+
+
+def _fir_dw_tc_operands(dev, seed, role, n, h, w, cin, cout, kh, scaled):
+    gen = torch.Generator(dev).manual_seed(seed)
+    wt = torch.randn((kh, kh, cin, cout), generator=gen, device=dev) / math.sqrt(kh * kh * cin)
+    s = torch.rand((n, cin), generator=gen, device=dev) + 0.5 if scaled else None
+    if role == "up":
+        x = torch.randn((n, h, w, cin), generator=gen, device=dev)
+        t = torch.randn((n, 2 * h, 2 * w, cout), generator=gen, device=dev)
+    else:
+        x = torch.randn((n, 2 * h, 2 * w, cin), generator=gen, device=dev)
+        t = torch.randn((n, h, w, cout), generator=gen, device=dev)
+    return x.bfloat16(), t.bfloat16(), s, wt
+
+
+# (role, n, h, w, cin, cout, kh, scaled, flip_weight): K3's dw ("up") and
+# the D down-conv's ("down") at sizes off the tiles (4 base rows, 16
+# columns), a 1 x 1 grid, widths the wrapper pads (32 B channels, 64 base
+# channels a block), several channel groups, both weight orientations.
+FIR_DW_TC_ODD = [
+    ("up", 2, 9, 17, 64, 32, 3, True, False), ("up", 1, 5, 33, 100, 36, 3, False, True),
+    ("up", 2, 7, 18, 64, 128, 1, True, False), ("up", 1, 1, 1, 32, 64, 3, True, False),
+    ("down", 2, 6, 5, 40, 72, 3, False, True), ("down", 1, 13, 35, 64, 128, 1, False, True),
+    ("down", 1, 4, 16, 32, 64, 3, False, False), ("down", 3, 11, 3, 96, 200, 3, False, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role,n,h,w,cin,cout,kh,scaled,flip_weight", FIR_DW_TC_ODD)
+def test_bf16_fir_dw_tc_at_odd_sizes(cuda_device, role, n, h, w, cin, cout, kh, scaled,
+                                     flip_weight):
+    x, t, s, wt = _fir_dw_tc_operands(cuda_device, 61, role, n, h, w, cin, cout, kh, scaled)
+    _fir_dw_tc_check(role, x, t, s, wt, setup_filter(FIR).to(cuda_device), flip_weight)
+
+
+# The FIR dw's calls of a 1024^2 iteration at batch 4 (the D down-conv's at
+# D b1024 and b512, conv1 and skip; K3's at G b256, b512 and b1024, conv0
+# with styles and skip without: base resolution h, Cin, Cout, kh) and the
+# reg route's K3 dw calls of G at batch 2 (the D down-conv's reg calls are
+# the batch-4 ones).
+FIR_DW_TC_CALLS = ([("down", 4, res // 2, cin, 2 * cin, kh, False)
+                    for res, cin in ((1024, 32), (512, 64)) for kh in (3, 1)]
+                   + [("up", n, res // 2, cin, cout, kh, kh == 3) for n in (4, 2)
+                      for res, cin, cout in ((256, 256, 128), (512, 128, 64), (1024, 64, 32))
+                      for kh in (3, 1)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role,n,h,cin,cout,kh,scaled", FIR_DW_TC_CALLS)
+def test_bf16_fir_dw_tc_at_the_1024_call_shapes(cuda_device, role, n, h, cin, cout, kh, scaled):
+    x, t, s, wt = _fir_dw_tc_operands(cuda_device, 62, role, n, h, h, cin, cout, kh, scaled)
+    _fir_dw_tc_check(role, x, t, s, wt, setup_filter(FIR).to(cuda_device), role == "down")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["src", "base"])
+@pytest.mark.parametrize("kh", [3, 1])
+def test_bf16_fir_dw_tc_single_pixels(cuda_device, kh, operand):
+    """One nonzero pixel of src (or of base) at a time on a 9 x 33 base grid
+    (three tiles down, three across), the other operand random, a FIR with
+    no zero tap and no symmetry: `fc._fir_dw_launch` keeps exactly the taps
+    of `fir_dw_plain` that reach the pixel and agrees with it to 1e-4 of
+    the largest entry, on both sides of every tile edge (base rows 3 | 4 |
+    5 and 7 | 8, columns 15 | 16 | 17 and 31 | 32; src rows and columns
+    twice those) and at the borders, through every tap, plane and shift."""
+    dev = cuda_device
+    rng = np.random.RandomState(63)
+    n, h, w, c, k = 1, 9, 33, 32, 64
+    f = setup_filter(rng.rand(4, 4) + 0.1).to(dev)
+    _, fk, pad = fc.downconv2_dw_leastwork(torch.zeros(kh, kh, c, k, device=dev), f)
+    s = torch.from_numpy((rng.rand(n, k) + 0.5).astype(np.float32)).to(dev)
+    rows, cols = (h, w) if operand == "base" else (2 * h, 2 * w)
+    step = 1 if operand == "base" else 2
+    edges = lambda size, tile: sorted({0, size - 1} | {  # noqa: E731
+        p for e in range(tile, size, tile) for p in (e - 1, e, e + 1) if p < size})
+    for py in edges(rows, step * 4):
+        for px in edges(cols, step * 16):
+            src = torch.from_numpy(rng.randn(n, 2 * h, 2 * w, c).astype(np.float32)).to(dev)
+            base = torch.from_numpy(rng.randn(n, h, w, k).astype(np.float32)).to(dev)
+            one = src if operand == "src" else base
+            keep = one[0, py, px].clone()
+            one.zero_()
+            one[0, py, px] = keep
+            src, base = src.bfloat16(), base.bfloat16()
+            got = fc._fir_dw_launch(src, base, s, fk, pad, kh)
+            want = fc.fir_dw_plain(src, base, s, fk, pad, kh)
+            torch.cuda.synchronize()
+            assert want.abs().max() > 0
+            assert torch.equal(got.abs().sum((2, 3)) == 0, want.abs().sum((2, 3)) == 0), (py, px)
+            _rel_close(got, want)
+
+
+@pytest.mark.cuda
+def test_bf16_fir_dw_refuses_mixed_types(cuda_device):
+    """The FIR dw takes one type for src and base and a float32 s, and
+    raises, naming the operand, on another: a bfloat16 tensor never reaches
+    the float32 kernel, nor a float32 one the tensor-core kernel."""
+    dev = cuda_device
+    f = setup_filter(FIR).to(dev)
+    bf = torch.bfloat16
+    w = torch.zeros(3, 3, 32, 64, device=dev)
+    x, gd = torch.zeros(1, 8, 8, 32, device=dev), torch.zeros(1, 16, 16, 64, device=dev)
+    xd, gz = torch.zeros(1, 16, 16, 32, device=dev), torch.zeros(1, 8, 8, 64, device=dev)
+    s = torch.ones(1, 32, device=dev)
+    before = dict(fc.launch_counts)
+    with pytest.raises(TypeError, match="src"):
+        fc.upconv2_dw(x.to(bf), gd, s, w, f)
+    with pytest.raises(TypeError, match="src"):
+        fc.upconv2_dw(x, gd.to(bf), s, w, f)
+    with pytest.raises(TypeError, match="s:"):
+        fc.upconv2_dw(x.to(bf), gd.to(bf), s.to(bf), w, f)
+    with pytest.raises(TypeError, match="src"):
+        fc.downconv2_dw(xd.to(bf), gz, w, f)
+    with pytest.raises(TypeError, match="src"):
+        fc.downconv2_dw(xd, gz.to(bf), w, f)
+    assert dict(fc.launch_counts) == before
+
+
+@pytest.mark.cuda
+def test_bf16_fir_dw_runs_on_the_tensor_cores(cuda_device):
+    """The built library's SASS (cuobjdump -sass) holds HMMA instructions in
+    both instantiations of fir_dw_tc_kernel (KH 3 and 1), and fir_dw_kernel
+    is instantiated for float32 alone (its two weight sizes, no HMMA)."""
+    from morphganformer_tpu_torch.bench_k2 import hmma_counts
+    from morphganformer_tpu_torch.ops import _build
+
+    _build.library()
+    counts = hmma_counts(_build.library_path(), "fir_dw")
+    tc = {k: v for k, v in counts.items() if "fir_dw_tc_kernel" in k}
+    fma = {k: v for k, v in counts.items() if "fir_dw_kernel" in k}
+    assert len(tc) == 2 and all(v > 0 for v in tc.values()), counts
+    assert len(fma) == 2 and not any(fma.values()) and not any("bfloat16" in k for k in fma), \
+        counts
+
+
 @pytest.mark.cuda
 def test_bf16_tc_training_roles_refuse_mixed_types(cuda_device):
     """The tensor-core K3 forward and K1 dw take one type for every
@@ -2215,34 +2376,27 @@ def test_bf16_k4_route_and_gradients_match_the_cudnn_path(cuda_device, monkeypat
     _bf16_close(got, cudnn, ref)
 
 
-@pytest.mark.cuda
-def test_float32_kernels_bit_equal_to_the_build_before_the_tc_training_roles(cuda_device,
-                                                                            monkeypatch):
+def _float32_kernels_bit_equal(dev, monkeypatch, env, file, libname):
     """Every float32 entry point (K1's forward and adjoint, K4's forward and
     dx, K2's forward and use_dw role, K3's forward and adjoint, K1's dw and
-    the FIR dw) gives the same bits as a build of fused_conv.cu from before
-    K3's bfloat16 forward and K1's bfloat16 dw moved to the tensor cores and
-    their float32 kernels lost their bfloat16 instantiations (commit
-    3932729): `git show 3932729:morphganformer_tpu_torch/csrc/fused_conv.cu
-    > build/tc_train_parent.cu`, or MGT_TC_TRAIN_PARENT_SOURCE names the
-    file."""
+    the FIR dw) against a build of the earlier fused_conv.cu at
+    build/`file` (or the file the environment variable `env` names): the
+    same bits on the same inputs."""
     import os
     from pathlib import Path
 
     from morphganformer_tpu_torch.bench_k3 import load_parent
     from morphganformer_tpu_torch.ops import _build
 
-    default = Path(__file__).resolve().parent.parent / "build" / "tc_train_parent.cu"
-    src = Path(os.environ.get("MGT_TC_TRAIN_PARENT_SOURCE", default))
+    default = Path(__file__).resolve().parent.parent / "build" / file
+    src = Path(os.environ.get(env, default))
     if not src.exists():
         pytest.skip(f"needs the earlier source at {src}")
     names = ("mgt_modconv3x3_fwd", "mgt_modconv3x3_bwd", "mgt_bwd_tiles", "mgt_conv3x3_fwd",
              "mgt_conv3x3_dx", "mgt_upconv2_fwd", "mgt_downconv2_fwd", "mgt_upconv2_bwd",
              "mgt_downconv2_tiles", "mgt_conv_dw", "mgt_conv_dw_tiles", "mgt_fir_dw",
              "mgt_fir_dw_tiles")
-    parent = load_parent(src, {k: _build._SIGNATURES[k] for k in names},
-                         "libmgt_tc_train_parent_test.so")
-    dev = cuda_device
+    parent = load_parent(src, {k: _build._SIGNATURES[k] for k in names}, libname)
     gen = torch.Generator(dev).manual_seed(59)
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
     f = setup_filter(FIR).to(dev)
@@ -2290,3 +2444,29 @@ def test_float32_kernels_bit_equal_to_the_build_before_the_tc_training_roles(cud
     assert len(new) == len(old)
     for i, (a, e) in enumerate(zip(new, old)):
         assert torch.equal(a, e), i
+
+
+@pytest.mark.cuda
+def test_float32_kernels_bit_equal_to_the_build_before_the_tc_training_roles(cuda_device,
+                                                                            monkeypatch):
+    """Every float32 entry point gives the same bits as a build of
+    fused_conv.cu from before K3's bfloat16 forward and K1's bfloat16 dw
+    moved to the tensor cores and their float32 kernels lost their bfloat16
+    instantiations (commit 3932729): `git show
+    3932729:morphganformer_tpu_torch/csrc/fused_conv.cu >
+    build/tc_train_parent.cu`, or MGT_TC_TRAIN_PARENT_SOURCE names the
+    file."""
+    _float32_kernels_bit_equal(cuda_device, monkeypatch, "MGT_TC_TRAIN_PARENT_SOURCE",
+                               "tc_train_parent.cu", "libmgt_tc_train_parent_test.so")
+
+
+@pytest.mark.cuda
+def test_float32_kernels_bit_equal_to_the_build_before_the_tc_fir_dw(cuda_device, monkeypatch):
+    """Every float32 entry point gives the same bits as a build of
+    fused_conv.cu from before the FIR dw's bfloat16 role moved to the tensor
+    cores and `fir_dw_kernel` lost its bfloat16 instantiation (commit
+    d375170): `git show d375170:morphganformer_tpu_torch/csrc/fused_conv.cu
+    > build/fir_dw_bf16_parent.cu`, or MGT_FIR_DW_PARENT_SOURCE names the
+    file."""
+    _float32_kernels_bit_equal(cuda_device, monkeypatch, "MGT_FIR_DW_PARENT_SOURCE",
+                               "fir_dw_bf16_parent.cu", "libmgt_fir_dw_parent_test.so")

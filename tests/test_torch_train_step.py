@@ -8,6 +8,8 @@ deterministic given z, which both sides get from numpy. The random pieces
 are tested on their own: the mixing cutoff against JAX's `_mix_axis`, the
 attention dropout by its keep rate and by its result on fixed masks, the
 per-sample noise through the fused ops in test_torch_training_ops.py.
+G_main's step is held in tests/test_torch_train_step_g.py, with this
+file's pair, inputs and tolerances.
 
 The port runs its fused blocks (G's b8 and b16, D's b16 under a forced
 gate) on their plain versions; JAX runs its unpacked path. Tolerances:
@@ -116,40 +118,6 @@ def _check_updates(new_t, old, new_j, grads_j, lr, eps=1e-8):
         tol = 1e-6 + lr * np.minimum(2.0, 2 * delta * eps / near ** 2)
         assert (np.abs(got - want) <= tol).all(), name
         assert not np.array_equal(want, old[name]) or g.max() == 0, name
-
-
-def test_g_main_step_matches_jax():
-    jtrainer, jstate, host, ttrainer, tstate = _pair()
-    z, _ = _inputs(1, 4)
-
-    def loss_fn(params):
-        g_vars = {"params": params, "moving_stats": host["g"]["moving_stats"]}
-        return jloss.g_main_loss(jtrainer.G, jtrainer.D, g_vars, {"params": host["d"]["params"]},
-                                 jnp.asarray(z[0]), None, jax.random.PRNGKey(0),
-                                 jtrainer.cfg.loss)
-
-    (loss_j, aux_j), grads_j = jax.value_and_grad(loss_fn, has_aux=True)(host["g"]["params"])
-    grads_j = _flat(grads_j)
-    grads_t, stats = ttrainer.g_main_grads(tstate, torch.from_numpy(z))
-    names = [n for n, _ in tstate.G.named_parameters()]
-    assert set(names) == set(grads_j)
-    np.testing.assert_allclose(stats["Loss/G/loss"], float(loss_j), rtol=1e-5)
-    for name, g in zip(names, grads_t):
-        assert rel_err(g, grads_j[name]) <= 1e-4, name
-    # D was frozen for the stage and is trainable again.
-    assert all(p.requires_grad for p in tstate.D.parameters())
-
-    # One update: Adam after the stage, and w_avg moved once.
-    jstate, jaux = jtrainer.g_main_step(jstate, jnp.asarray(z), None, jax.random.PRNGKey(0))
-    tstate.G.mapping.w_avg.copy_(torch.tensor(host["g"]["moving_stats"]["mapping"]["w_avg"]))
-    tstats = ttrainer.g_main_step(tstate, torch.from_numpy(z))
-    np.testing.assert_allclose(tstats["Loss/G/loss"], float(jaux["Loss/G/loss"]), rtol=1e-5)
-    lr = jtrainer.cfg.g_lr * 4 / 5
-    _check_updates(tstate.G.named_parameters(), _flat(host["g"]["params"]),
-                   _flat(jax.device_get(jstate["g"]["params"])), grads_j, lr)
-    np.testing.assert_allclose(tstate.G.mapping.w_avg.numpy(),
-                               np.asarray(jstate["g"]["moving_stats"]["mapping"]["w_avg"]),
-                               rtol=1e-5, atol=1e-6)
 
 
 def test_d_main_step_matches_jax():
