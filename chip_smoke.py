@@ -25,6 +25,14 @@ Phases, each printing its wall time:
               versions to 1e-3; forward times at batch 1 and 2, and one
               forward each under torch.profiler (device time by kernel and
               the device's idle share).
+  4b. vis    the attention maps at FFHQ-1024, batch 4: G(z, return_att=True)
+              bit-equal in its image to the forward without it, with the
+              same 4 K1 and 6 K2 launches; maps [4, 16, 11, 1, 1024, 1024]
+              whose every layer sums to 1 over the components within 1e-5;
+              the same forward on the plain versions within 1e-3; seconds
+              and peak memory; attention_blends (4 sample and 4 attention
+              PNGs, the same launches); make_video of the 4 blends, its GIF
+              walked block by block (frames, delays, NETSCAPE loop 0).
   5. project  a 50-step 1024^2 projection at batch 1 through the project
               entry point onto a reachable target (G(z) written as a PNG):
               finite losses, a best loss below the first step's, exactly 4
@@ -51,6 +59,13 @@ Phases, each printing its wall time:
               (and one row under --min-similarity) at --pairs-per-batch 4
               (one batch-8 projection), and at 1 on the first pair: exact
               launches, every file, pair-steps/s and peak memory.
+  6b. warp   warp_morphs on phase morph's morph PNG and its two targets:
+              --predict-landmarks on the card, then the same warp through
+              --batch-list on landmark CSVs of save_landmarks_csv (within
+              one level of the first); the card's float64 warp against the
+              CPU path on the same landmarks within 1e-6 (0-255 scale), the
+              CSV route's PNG equal to the CPU warp truncated away from
+              integers; the card's warp in CUDA-event ms, the CPU path's s.
   7. bf16     the synthesis path in bfloat16 (JAX's default for project,
               morph and demorph): the four bfloat16 roles (K1, K2, K1's
               adjoint launch, K3's adjoint; the `_bf16` entry points, each
@@ -159,6 +174,13 @@ Phases, each printing its wall time:
               traced bfloat16 iteration (device busy time, idle share, the
               five training roles' bfloat16 launches, each on its kernel,
               no float32 least-work kernel).
+  11b. dataset
+              dataset_tool on six PNGs of non-square sizes cut from G's
+              images: create_from_images --resolution 1024 --lods 2, display,
+              compare of the folder with itself (exit 0) and with a copy
+              with one pixel changed (exit 1, one difference), extract; one
+              batch of the result through the native feed, each image one
+              of the dataset's.
   12. loop    16 images of 1024^2 (G(z) from seeds; half of them with every
               row Paeth-filtered, half Sub-filtered, by the encoder below)
               under <tmp>/data/1024/; one 1024^2 PNG decoded by the native
@@ -237,6 +259,8 @@ import io
 import json
 import math
 import os
+import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -3352,6 +3376,276 @@ def metrics_phase(torch, fc, cli, G, tmp):
     return rows, out
 
 
+VIS_BATCH = 4
+VIS_FPS = 4
+
+
+def gif_blocks(data):
+    """A GIF89a walked block by block: ((width, height), frames, each
+    frame's delay in hundredths of a second, the NETSCAPE loop count)."""
+    assert data[:6] == b"GIF89a", data[:6]
+    w, h, packed = struct.unpack("<HHB", data[6:11])
+    pos = 13 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+    frames, delays, loop = 0, [], None
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:                       # extension: label, sub-blocks
+            label, pos = data[pos + 1], pos + 2
+            blocks = []
+            while data[pos]:
+                blocks.append(data[pos + 1:pos + 1 + data[pos]])
+                pos += 1 + data[pos]
+            pos += 1
+            if label == 0xF9:
+                delays.append(struct.unpack("<H", blocks[0][1:3])[0])
+            elif label == 0xFF and blocks[0] == b"NETSCAPE2.0":
+                loop = struct.unpack("<H", blocks[1][1:3])[0]
+        elif data[pos] == 0x2C:                     # image: descriptor, table, LZW data
+            fw, fh, packed = struct.unpack("<HHB", data[pos + 5:pos + 10])
+            assert (fw, fh) == (w, h), (fw, fh)
+            pos += 10 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0) + 1
+            while data[pos]:
+                pos += 1 + data[pos]
+            pos += 1
+            frames += 1
+        else:
+            raise ValueError(f"GIF: unexpected block 0x{data[pos]:02x} at {pos}")
+    return (w, h), frames, delays, loop
+
+
+def vis_phase(torch, fc, cli, G, tmp, card):
+    """Phase vis: the attention maps (return_att) of FFHQ-1024 at batch 4,
+    attention_blends, and make_video of its four blends."""
+    import numpy as np
+
+    from morphganformer_tpu_torch.training import visualize as vz
+
+    cfg = G.cfg
+    z = torch.randn((VIS_BATCH, cfg.k, cfg.z_dim), generator=torch.Generator().manual_seed(21))
+    zc = z.cuda()
+    with torch.no_grad():
+        fc.reset_launch_counts()
+        img = G(z=zc, truncation_psi=0.7)
+        plain_launches = dict(fc.launch_counts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fc.reset_launch_counts()
+        t0 = time.perf_counter()
+        img_att, att = G(z=zc, truncation_psi=0.7, return_att=True)
+        torch.cuda.synchronize()
+        att_s = time.perf_counter() - t0
+        att_launches = dict(fc.launch_counts)
+        att_peak = torch.cuda.max_memory_allocated()
+        L = sum(1 + (r > 4) for r in cfg.block_resolutions if cfg.use_attention(r))
+        want_shape = (VIS_BATCH, cfg.k - 1, L, cfg.attention.num_heads, 1024, 1024)
+        sum_err = (att.sum(dim=1) - 1).abs().max().item()
+        print(f"  return_att at batch {VIS_BATCH}: maps {tuple(att.shape)} "
+              f"({att.numel() * 4 / 2**30:.3f} GiB), {att_s:.3f} s, peak memory "
+              f"{att_peak / 2**30:.3f} GiB ({card}); launches {att_launches}; each layer's maps "
+              f"sum to 1 within {sum_err:.3e}", flush=True)
+        assert tuple(att.shape) == want_shape == (4, 16, 11, 1, 1024, 1024), att.shape
+        assert torch.equal(img, img_att), "return_att changed the image"
+        assert plain_launches == att_launches == _per_step(0, 1), (plain_launches, att_launches)
+        assert sum_err <= 1e-5, sum_err
+        img_p, att_p = G(z=zc, truncation_psi=0.7, return_att=True, plain=True)
+        img_diff = (img_att - img_p).abs().max().item()
+        att_diff = (att - att_p).abs().max().item()
+        del att, att_p
+        print(f"  kernels vs plain with return_att: image {img_diff:.3e}, maps {att_diff:.3e}",
+              flush=True)
+        assert img_diff <= 1e-3 and att_diff <= 1e-3, (img_diff, att_diff)
+
+    vis_dir = os.path.join(tmp, "vis")
+    os.makedirs(vis_dir)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    blends = vz.attention_blends(G, cfg, num=VIS_BATCH, out_dir=vis_dir, z=z.numpy())
+    blend_s = time.perf_counter() - t0
+    blend_launches = dict(fc.launch_counts)
+    blend_peak = torch.cuda.max_memory_allocated()
+    print(f"  attention_blends: {VIS_BATCH} images in {blend_s:.3f} s (PNGs included), peak "
+          f"memory {blend_peak / 2**30:.3f} GiB ({card}); launches {blend_launches}", flush=True)
+    assert blends.shape == (VIS_BATCH, 1024, 1024, 3) and np.isfinite(blends).all()
+    assert blend_launches == _per_step(0, 1), blend_launches
+    assert sorted(os.listdir(vis_dir)) == sorted(
+        [f"attention_{i}.png" for i in range(VIS_BATCH)]
+        + [f"sample_{i}.png" for i in range(VIS_BATCH)])
+
+    frames = os.path.join(tmp, "frames.txt")
+    with open(frames, "w") as f:
+        f.write("".join(os.path.join(vis_dir, f"attention_{i}.png\n") for i in range(VIS_BATCH)))
+    gif = os.path.join(tmp, "attention.gif")
+    t0 = time.perf_counter()
+    cli.main(["make_video", "--list", frames, "--out", gif, "--fps", str(VIS_FPS)])
+    gif_s = time.perf_counter() - t0
+    with open(gif, "rb") as f:
+        data = f.read()
+    size, n_frames, delays, loop = gif_blocks(data)
+    print(f"  make_video: {n_frames} frames of {size[0]}x{size[1]}, {len(data)} bytes in "
+          f"{gif_s:.3f} s on the host ({card}); delays {delays} cs, loop {loop}", flush=True)
+    assert size == (1024, 1024) and n_frames == VIS_BATCH and loop == 0
+    assert delays == [int(1000 / VIS_FPS) // 10] * VIS_BATCH, delays
+    return dict(att_s=att_s, att_peak_gib=att_peak / 2**30, blends_s=blend_s,
+                blends_peak_gib=blend_peak / 2**30, att_sum_err=sum_err, img_vs_plain=img_diff,
+                att_vs_plain=att_diff, gif_s=gif_s, gif_bytes=len(data), card=card)
+
+
+def warp_phase(torch, cli, morph_png, png_a, png_b, tmp, card):
+    """Phase warp: warp_morphs on phase morph's morph and its two targets,
+    with predicted landmarks and again from CSVs; the card's float64 warp
+    against the CPU path."""
+    import numpy as np
+
+    from morphganformer_tpu_torch.losses.landmarks import save_landmarks_csv
+    from morphganformer_tpu_torch.morph.warp import (
+        load_landmarks_csv,
+        warp_morph_to_average_landmarks,
+    )
+    from morphganformer_tpu_torch.utils.image import read_png, read_png_rgb
+
+    name = os.path.splitext(os.path.basename(morph_png))[0]
+    out_p, out_b = os.path.join(tmp, "warped_predict"), os.path.join(tmp, "warped_list")
+    t0 = time.perf_counter()
+    cli.main(["warp_morphs", "--morph", morph_png, "--img-a", png_a, "--img-b", png_b,
+              "--predict-landmarks", "--out", out_p])
+    predict_s = time.perf_counter() - t0
+
+    predict = cli.landmark_predictor(device="cuda")
+    csvs = []
+    for path in (png_a, png_b, morph_png):
+        csvs.append(os.path.join(tmp, os.path.basename(path) + ".csv"))
+        save_landmarks_csv(csvs[-1], predict(read_png_rgb(path).astype(np.float32)))
+    batch = os.path.join(tmp, "warp_list.txt")
+    with open(batch, "w") as f:
+        f.write(f"{morph_png},{csvs[0]},{csvs[1]},{csvs[2]}\n")
+    t0 = time.perf_counter()
+    cli.main(["warp_morphs", "--batch-list", batch, "--out", out_b])
+    list_s = time.perf_counter() - t0
+    by_predict = read_png(os.path.join(out_p, f"{name}_warped.png")).astype(int)
+    by_list = read_png(os.path.join(out_b, f"{name}_warped.png")).astype(int)
+    csv_diff = np.abs(by_predict - by_list)
+
+    lm_a, lm_b, lm_m = (load_landmarks_csv(c) for c in csvs)
+    img = read_png_rgb(morph_png).astype(np.float32)
+    gpu = torch.from_numpy(img).cuda()
+    warped = warp_morph_to_average_landmarks(gpu, lm_m, lm_a, lm_b)
+    t0 = time.perf_counter()
+    on_cpu = warp_morph_to_average_landmarks(torch.from_numpy(img), lm_m, lm_a, lm_b)
+    cpu_s = time.perf_counter() - t0
+    warp_ms = cuda_ms(torch, lambda: warp_morph_to_average_landmarks(gpu, lm_m, lm_a, lm_b),
+                      reps=3, warmup=1)
+    err = (warped.cpu() - on_cpu).abs().max().item()
+    exact = on_cpu.numpy()
+    keep = np.abs(exact - np.rint(exact)) >= 1e-6
+    truncated = np.clip(exact, 0, 255).astype(np.uint8)
+    mismatch = int((by_list != truncated)[keep].sum())
+    moved = float(np.abs(exact - img).mean())
+    print(f"  warp_morphs --predict-landmarks {predict_s:.3f} s, --batch-list {list_s:.3f} s "
+          f"(set-up, PNGs included); CSV (3 decimals) vs predicted landmarks: max "
+          f"{csv_diff.max()}, {(csv_diff > 0).mean():.4f} of the values; the warp moved the "
+          f"morph by {moved:.3f} levels on average", flush=True)
+    print(f"  float64 warp at 1024^2: card {warp_ms:.3f} ms (CUDA events, the triangulation "
+          f"on the host included), CPU path {cpu_s:.3f} s ({card}); card vs CPU max abs "
+          f"{err:.3e}; the CSV route's PNG vs the CPU warp truncated: {mismatch} values apart "
+          f"among the {keep.mean():.4f} of them away from integers", flush=True)
+    assert warped.dtype == torch.float64 and tuple(warped.shape) == (1024, 1024, 3)
+    assert err <= 1e-6, err
+    assert mismatch == 0 and keep.mean() > 0.1, (mismatch, keep.mean())
+    assert csv_diff.max() <= 1 and moved > 0
+    return dict(predict_s=predict_s, batch_list_s=list_s, card_ms=warp_ms, cpu_s=cpu_s,
+                card_vs_cpu=err, csv_vs_predict_max=int(csv_diff.max()), card=card)
+
+
+DATASET_SIZES = ((1100, 1300), (1300, 1100), (1200, 1250), (1030, 1500), (1500, 1030),
+                 (1111, 1234))    # (h, w) of the crops
+
+
+def dataset_phase(torch, cli, G, card):
+    """Phase dataset: dataset_tool's four subcommands on six non-square
+    PNGs cut from G's images, and one batch of the result through the
+    native feed."""
+    import numpy as np
+
+    from morphganformer_tpu_torch.data import native_loader
+    from morphganformer_tpu_torch.data.dataset import dataset_files
+    from morphganformer_tpu_torch.utils.image import read_png, to_uint8, write_png
+
+    n = len(DATASET_SIZES)
+    with tempfile.TemporaryDirectory(prefix="mgt_ds_") as tmp:
+        src, out = os.path.join(tmp, "photos"), os.path.join(tmp, "ds")
+        os.makedirs(src)
+        z = torch.randn((n, G.cfg.k, G.cfg.z_dim), generator=torch.Generator().manual_seed(200))
+        faces = np.concatenate([cli.synthesize(G, z[i:i + 2]).cpu().numpy()
+                                for i in range(0, n, 2)])
+        for i, (face, (h, w)) in enumerate(zip(faces, DATASET_SIZES)):
+            big = np.pad(to_uint8(face), ((250, 250), (250, 250), (0, 0)), mode="reflect")
+            top, left = (1524 - h) // 2 + i, (1524 - w) // 2 - i
+            write_png(os.path.join(src, f"photo_{i}.png"), big[top:top + h, left:left + w])
+
+        def tool(*argv):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                try:
+                    cli.main(["dataset_tool", *argv])
+                    code = 0
+                except SystemExit as e:
+                    code = e.code
+            return code, buf.getvalue()
+
+        t0 = time.perf_counter()
+        code, text = tool("create_from_images", out, src, "--resolution", "1024", "--lods", "2")
+        create_s = time.perf_counter() - t0
+        assert code == 0 and f"wrote {n} images at levels [1024, 512]" in text, text
+        for r in (1024, 512):
+            files = dataset_files(out, r)
+            assert [os.path.basename(f) for f in files] == [f"{i:08d}.png" for i in range(n)]
+            assert all(read_png(f).shape == (r, r, 3) for f in files)
+        assert tool("display", out, "--resolution", "1024")[0] == 0
+        assert read_png(os.path.join(out, "preview_1024.png")).shape[2] == 3
+
+        code, text = tool("compare", out, out, "--resolution", "1024")
+        assert code == 0 and text.strip().endswith("identical"), text
+        copy = os.path.join(tmp, "copy")
+        shutil.copytree(out, copy)
+        changed = os.path.join(copy, "1024", "00000002.png")
+        img = read_png(changed)
+        img[300, 400, 0] ^= 1
+        write_png(changed, img)
+        code, text = tool("compare", out, copy, "--resolution", "1024")
+        assert code == 1 and "item 2 differs (max abs diff 1)" in text, (code, text)
+        assert text.strip().endswith("1 differences"), text
+
+        extracted = os.path.join(tmp, "extracted")
+        assert tool("extract", out, extracted, "--resolution", "512")[0] == 0
+        items = [read_png(f) for f in dataset_files(out, 512)]
+        got = [read_png(os.path.join(extracted, f"img{i:08d}.png")) for i in range(n)]
+        assert sorted(os.listdir(extracted)) == [f"img{i:08d}.png" for i in range(n)]
+        assert all(np.array_equal(a, b) for a, b in zip(got, items))
+
+        assert native_loader.native_available(), native_loader.build_error()
+        decoded = [read_png(f) for f in dataset_files(out, 1024)]
+        # One worker: it takes a batch's four indices in order from one shuffled
+        # pass over the six items, so they are distinct. With several workers
+        # the indices interleave and a batch may cross into the next pass.
+        batches = native_loader.native_infinite_batches(out, 1024, 4, seed=0, num_threads=1)
+        t0 = time.perf_counter()
+        x, labels = next(batches)
+        feed_s = time.perf_counter() - t0
+        batches.close()
+        assert x.shape == (4, 1024, 1024, 3) and x.dtype == np.float32 and labels.shape == (4, 0)
+        as_uint8 = np.rint((x + 1) * 127.5).astype(np.uint8)
+        found = [next((i for i, d in enumerate(decoded) if np.array_equal(b, d)), None)
+                 for b in as_uint8]
+        print(f"  dataset_tool create_from_images: {n} PNGs of "
+              + ", ".join(f"{w}x{h}" for h, w in DATASET_SIZES)
+              + f" at levels 1024 and 512 in {create_s:.3f} s on the host ({card}); display, "
+              f"compare (0 and 1 differences), extract ok; the native feed's first batch "
+              f"({feed_s:.3f} s) holds items {found}", flush=True)
+        assert None not in found and len(set(found)) == 4, found
+    return dict(create_s=create_s, feed_s=feed_s, card=card)
+
+
 def _fmt_list(xs):
     return "[" + ", ".join(f"{x:.3f}" for x in xs) + "]"
 
@@ -3437,6 +3731,10 @@ def main():
                           f"{ms:.3f} ms, {1e3 * b / ms:.3f} imgs/s", flush=True)
                 traced_forward(torch, lambda: cli.synthesize(G, zb), f"forward batch {b}")
         phases["generate"] = ph.seconds
+
+        with Phase("vis") as ph:
+            vis_stats = vis_phase(torch, fc, cli, G, tmp, smi[0])
+        phases["vis"] = ph.seconds
 
         from morphganformer_tpu_torch.losses import build_loss_stack
         from morphganformer_tpu_torch.projection import (ProjectionConfig, latent_stats,
@@ -3580,6 +3878,11 @@ def main():
             assert np.isfinite(w_di).all()
             csv_rows, csv_stats = morph_csv_check(torch, fc, cli, G, tmp)
         phases["morph"] = ph.seconds
+
+        with Phase("warp") as ph:
+            warp_stats = warp_phase(torch, cli, os.path.join(tmp, "pm", "alice_bob_morph.png"),
+                                    png_a, png_b, tmp, smi[0])
+        phases["warp"] = ph.seconds
         morph_stats = dict(pair_steps_per_s=pair_rate, peak_gib=pair_peak / 2**30,
                            wall_s=pair_s, demorph_image_s=demorph_img_s)
 
@@ -3611,6 +3914,10 @@ def main():
             train_phase(torch, fc)
     phases["train"] = ph.seconds
 
+    with Phase("dataset") as ph:
+        dataset_stats = dataset_phase(torch, cli, G, smi[0])
+    phases["dataset"] = ph.seconds
+
     with Phase("loop") as ph:
         loop_stats = loop_phase(torch, fc, cli, G, train_stats)
     phases["loop"] = ph.seconds
@@ -3638,6 +3945,9 @@ def main():
     print("loop " + json.dumps(loop_stats), flush=True)
     print("layouts " + json.dumps(layout_stats), flush=True)
     print("reg " + json.dumps(reg_stats), flush=True)
+    print("vis " + json.dumps(vis_stats), flush=True)
+    print("warp " + json.dumps(warp_stats), flush=True)
+    print("dataset " + json.dumps(dataset_stats), flush=True)
     kernels = []
     for kernel, name, replaces, key in (
             ("K1", "fused_modconv3x3 (mgt_modconv3x3_fwd; least work: conv3x3_lw_kernel, a "

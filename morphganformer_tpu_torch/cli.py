@@ -1,5 +1,5 @@
-"""Entry points of the port: generate, merge, project, morph, demorph, train
-and calc_metrics.
+"""Entry points of the port: generate, merge, project, morph, demorph, train,
+calc_metrics, dataset_tool, warp_morphs and make_video.
 
     python -m morphganformer_tpu_torch.cli generate --model init:1024 --output-dir images
     python -m morphganformer_tpu_torch.cli merge --model init:1024 --latents a.mat b.mat \
@@ -16,9 +16,15 @@ and calc_metrics.
         --ganformer-default --batch 4 --batch-gpu 4 --expname ffhq
     python -m morphganformer_tpu_torch.cli calc_metrics --model init:1024 \
         --data datasets/ffhq --metrics fid2k_full --detector raw --run-dir results
+    python -m morphganformer_tpu_torch.cli dataset_tool create_from_images datasets/faces \
+        photos/ --resolution 1024 --lods 2
+    python -m morphganformer_tpu_torch.cli warp_morphs --morph m.png --img-a a.png \
+        --img-b b.png --predict-landmarks --out warped
+    python -m morphganformer_tpu_torch.cli make_video --images frames/ --out clip.gif --fps 24
 
 They mirror cli/generate.py, cli/merge.py, cli/project.py, cli/morph.py,
-cli/demorph.py, cli/train.py and cli/calc_metrics.py of the JAX package. `--model <dir>` loads the
+cli/demorph.py, cli/train.py, cli/calc_metrics.py, cli/dataset_tool.py,
+cli/warp_morphs.py and cli/make_video.py of the JAX package. `--model <dir>` loads the
 EMA generator ("Gs") of a checkpoint directory (arch.json + Gs.msgpack,
 written by either package; a training snapshot is one). `--model
 init:<res>` builds a randomly initialised FFHQ-style generator at that
@@ -47,6 +53,12 @@ latent and writes them beside it (<latent>.noises.npz); `merge --noises`
 applies such maps before generating. `morph --pairs-csv pairs.csv` projects
 the pairs of a CSV (img_a,img_b[,similarity]), `--pairs-per-batch` of them
 as one batch-2P projection.
+
+dataset_tool, warp_morphs and make_video read PNGs only (another format
+raises and names the file). warp_morphs warps on the card in float64 (the
+Delaunay triangulation is scipy's, on the host); make_video writes an
+animated GIF, and for another container prints JAX's fallback line and
+writes the GIF beside it.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ import numpy as np
 import torch
 
 from morphganformer_tpu_torch.checkpoint.io import load_network
+from morphganformer_tpu_torch.data import dataset_tool
 from morphganformer_tpu_torch.losses import (
     build_loss_stack,
     face_embedding,
@@ -93,9 +106,12 @@ from morphganformer_tpu_torch.projection import (
     merge_noise_buffers,
     project,
 )
+from morphganformer_tpu_torch.utils import video
+from morphganformer_tpu_torch.utils.device import resolve_device
 from morphganformer_tpu_torch.utils.image import (
     crop_max_rectangle,
     load_target,
+    read_png_rgb,
     to_uint8,
     write_png,
 )
@@ -492,6 +508,97 @@ def morph_qa(dir_a, dir_b, size=None, device="cuda"):
             "num_pairs": len(psnrs)}
 
 
+def landmark_predictor(weights=None, device="cuda"):
+    """img (HWC, 0-255 floats) -> [68, 2] (x, y) pixel landmarks from the
+    landmark net (`weights`, default the bundled model) at temperature
+    0.05, scaled by the image's size as JAX's `cli/warp_morphs.py:42-67`
+    scales them."""
+    path = weights or landmarks.bundled_landmark_path()
+    if path is None:
+        raise SystemExit("--predict-landmarks needs --landmark-weights "
+                         "(no bundled landmark model found)")
+    fn = landmarks.make_landmark_fn(landmarks.load_landmark_npz(path, device), temperature=0.05)
+
+    @torch.no_grad()
+    def predict(img):
+        unit = fn(torch.from_numpy(img[None] / 127.5 - 1.0).to(device))[0].cpu().numpy()
+        h, w = img.shape[:2]
+        return unit * np.asarray([w, h], dtype=np.float64)
+
+    return predict
+
+
+def _warp_jobs(args):
+    """(morph, morph CSV, a CSV, b CSV, image a, image b) per morph."""
+    if not args.batch_list:
+        if not args.morph:
+            raise SystemExit("--morph (or --batch-list) is required")
+        return [(args.morph, args.landmarks_morph, args.landmarks_a, args.landmarks_b,
+                 args.img_a, args.img_b)]
+    jobs = []
+    with open(args.batch_list) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = [p.strip() for p in line.split(",")]
+            if len(parts) not in (3, 4):
+                raise SystemExit(f"bad batch line: {line!r}")
+            morph, csv_a, csv_b = parts[:3]
+            jobs.append((morph, parts[3] if len(parts) == 4 else None, csv_a, csv_b, None, None))
+    return jobs
+
+
+def run_warp_morphs(args):
+    """The landmark-Delaunay warp of GAN morphs (JAX `cli/warp_morphs.py`):
+    each morph warped onto the average of its two bona fide landmark sets,
+    read from CSVs or predicted by the landmark net; the warp runs on
+    `args.device` in float64. Writes `<out>/<name>_warped.png`; returns
+    the paths."""
+    from morphganformer_tpu_torch.morph.warp import (
+        load_landmarks_csv,
+        warp_morph_to_average_landmarks,
+    )
+
+    def load(path):
+        return read_png_rgb(path).astype(np.float32)
+
+    device = resolve_device(args.device)
+    predict = (landmark_predictor(args.landmark_weights, device)
+               if args.predict_landmarks else None)
+    outputs, used_paths = [], set()
+    for morph_path, csv_m, csv_a, csv_b, img_a, img_b in _warp_jobs(args):
+        morph_img = load(morph_path)
+        if csv_m:
+            lm_m = load_landmarks_csv(csv_m)
+        elif predict is not None:
+            lm_m = predict(morph_img)
+        else:
+            raise SystemExit("need --landmarks-morph or --predict-landmarks")
+        if csv_a and csv_b:
+            lm_a, lm_b = load_landmarks_csv(csv_a), load_landmarks_csv(csv_b)
+        elif predict is not None and img_a and img_b:
+            lm_a, lm_b = predict(load(img_a)), predict(load(img_b))
+        else:
+            raise SystemExit("need --landmarks-a/--landmarks-b CSVs, or "
+                             "--img-a/--img-b with --predict-landmarks")
+        warped = warp_morph_to_average_landmarks(torch.from_numpy(morph_img).to(device),
+                                                 lm_m, lm_a, lm_b).cpu().numpy()
+        name = os.path.splitext(os.path.basename(morph_path))[0]
+        out_path = os.path.join(args.out, f"{name}_warped.png")
+        n = len(outputs)
+        while out_path in used_paths:  # same basename from another directory
+            out_path = os.path.join(args.out, f"{name}_{n:03d}_warped.png")
+            n += 1
+        used_paths.add(out_path)
+        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+        # JAX truncates: np.clip(...).astype(uint8).
+        write_png(out_path, np.clip(warped, 0, 255).astype(np.uint8))
+        outputs.append(out_path)
+        print(f"saved {out_path}")
+    return outputs
+
+
 def run_eval(args):
     """train --eval: the metrics (default fid2k_full) of the newest snapshot's
     Gs over the earlier runs of the same name, on 2000 images, written
@@ -647,7 +754,7 @@ def train_parser(sub):
     t.add_argument("--snapshot-ticks", type=int, default=50)
     t.add_argument("--img-snapshot-ticks", type=int, default=50)
     t.add_argument("--vis", nargs="*", default=["grid"],
-                   help="products at image-snapshot ticks: grid interp mixing noise")
+                   help="products at image-snapshot ticks: grid interp mixing attention noise")
     t.add_argument("--detector", default="auto",
                    help='the metrics\' detector: "auto", "raw" or an InceptionV3 .npz')
     t.add_argument("--max-ticks", type=int, default=None, help="stop after N ticks")
@@ -791,7 +898,43 @@ def main(argv=None):
     c.add_argument("--dir-b")
     c.add_argument("--size", type=int, default=None)
 
+    dataset_tool.add_parser(sub)
+
+    wm = sub.add_parser("warp_morphs", help="Delaunay landmark warp of GAN morphs")
+    wm.add_argument("--morph", help="generated morph image")
+    wm.add_argument("--img-a", help="bona fide photo A (with --predict-landmarks)")
+    wm.add_argument("--img-b", help="bona fide photo B")
+    wm.add_argument("--landmarks-morph", help="68-point CSV for the morph")
+    wm.add_argument("--landmarks-a", help="68-point CSV for identity A")
+    wm.add_argument("--landmarks-b", help="68-point CSV for identity B")
+    wm.add_argument("--batch-list", help="text file: morph.png,a.csv,b.csv[,morph.csv] per line")
+    wm.add_argument("--predict-landmarks", action="store_true",
+                    help="predict landmarks with the landmark net instead of reading CSVs")
+    wm.add_argument("--landmark-weights", default=None,
+                    help="landmark net .npz (default: the bundled synthetic-face model)")
+    wm.add_argument("--out", default="images/warped")
+    wm.add_argument("--device", default="cuda")
+
+    mv = sub.add_parser("make_video", help="PNG frames -> animated GIF")
+    mv.add_argument("--images", help="directory of frames")
+    mv.add_argument("--list", dest="list_file", help="text file of frame paths")
+    mv.add_argument("--out", required=True)
+    mv.add_argument("--fps", type=int, default=24)
+
     args = p.parse_args(argv)
+    if args.command == "dataset_tool":
+        code = dataset_tool.run(args)
+        if code:
+            raise SystemExit(code)
+        return
+    if args.command == "warp_morphs":
+        run_warp_morphs(args)
+        return
+    if args.command == "make_video":
+        frames = video.collect_frames(args.images, args.list_file)
+        out = video.write_video(frames, args.out, args.fps)
+        print(f"{len(frames)} frames -> {out}")
+        return
     if args.command == "train":
         run_train(args)
         return

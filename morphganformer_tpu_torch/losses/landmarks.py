@@ -109,3 +109,10 @@ def load_landmark_npz(path, device="cuda") -> Dict:
                 p.setdefault(name, {})[leaf] = data[key]
     return to_torch_params(p, device)
 
+
+def save_landmarks_csv(path, coords):
+    """Write [68, 2] (x, y) pixel landmarks as CSV rows, the format the
+    reference's batch extractor writes and `morph.warp.load_landmarks_csv`
+    reads (JAX `losses/landmarks.py:127-130`)."""
+    coords = coords.detach().cpu().numpy() if torch.is_tensor(coords) else coords
+    np.savetxt(path, np.asarray(coords), delimiter=",", fmt="%.3f")

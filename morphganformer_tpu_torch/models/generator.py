@@ -52,22 +52,29 @@ class Generator(nn.Module):
                             skip_w_avg_update=skip_w_avg_update, gen=gen)
 
     def run_synthesis(self, ws, noise_mode="const", plain=False, train=False, gen=None,
-                      mask=None):
+                      mask=None, return_att=False):
         if mask is None:
             mask = self.component_mask(ws.shape[0], ws.device, train, gen)
         return self.synthesis(ws, pos=self.pos, mask=mask, noise_mode=noise_mode, plain=plain,
-                              train=train, gen=gen)
+                              train=train, gen=gen, return_att=return_att)
 
     def forward(self, z=None, ws=None, truncation_psi=1.0, noise_mode="const",
-                return_ws=False, plain=False, truncation_cutoff=None, gen=None):
-        """Full forward from z (or from ws). `plain=True` runs the fused
-        blocks on the plain versions of their kernels; random noise draws
-        from `gen`."""
+                return_ws=False, plain=False, truncation_cutoff=None, gen=None,
+                return_att=False):
+        """Full forward from z (or from ws): img, or a tuple of img, the
+        attention maps [B, k-1, L, heads, H, W] under `return_att` and ws
+        under `return_ws`, in JAX's order (`generator.py:74-78`).
+        `plain=True` runs the fused blocks on the plain versions of their
+        kernels; random noise draws from `gen`."""
         if ws is None:
             ws = self.run_mapping(z, truncation_psi=truncation_psi,
                                   truncation_cutoff=truncation_cutoff)
-        img = self.run_synthesis(ws, noise_mode=noise_mode, plain=plain, gen=gen)
-        return (img, ws) if return_ws else img
+        out = self.run_synthesis(ws, noise_mode=noise_mode, plain=plain, gen=gen,
+                                 return_att=return_att)
+        ret = out if return_att else (out,)
+        if return_ws:
+            ret += (ws,)
+        return ret if len(ret) > 1 else ret[0]
 
 
 def set_compute_dtype(G: Generator, dtype: str) -> Generator:

@@ -27,7 +27,10 @@ conv1 and conv_last at FFHQ-1024 widths) run on K4 when MGT_PALLAS_CONV=1
 [N,H,W] drawn from an explicit `torch.Generator`; `train=True` applies the
 attention dropout. `plain=True` runs the fused blocks
 on the plain versions of the kernels and of their adjoints even on a card
-(used to check the kernels).
+(used to check the kernels). `return_att=True` also returns each attention
+layer's probabilities, stacked and up-sampled to the image as JAX's
+`_att_maps_to_tensor` does; asking for them changes neither the image nor
+the route of any block.
 """
 
 from __future__ import annotations
@@ -125,9 +128,11 @@ class SynthesisLayer(nn.Module):
 
     def forward(self, x, y, pos=None, mask=None, noise_mode="const", resid=None, fused=None,
                 train=False, gen=None):
-        """`resid`: the skip branch, added after the activation. `fused`
-        ("kernel" / "plain") runs the conv and its epilogue as K1 / K2.
-        Random noise and the attention dropout draw from `gen`."""
+        """(x, att): `att` is the transformer's attention probabilities
+        [B, heads, H * W, k - 1], or None without one. `resid`: the skip
+        branch, added after the activation. `fused` ("kernel" / "plain")
+        runs the conv and its epilogue as K1 / K2. Random noise and the
+        attention dropout draw from `gen`."""
         if noise_mode not in NOISE_MODES:
             raise ValueError(f"noise_mode must be one of {NOISE_MODES}, got {noise_mode!r}")
         styles = self.affine(at_least_f32(get_global(y)))
@@ -151,17 +156,18 @@ class SynthesisLayer(nn.Module):
             if self.up == 2:
                 x = fused_upconv2(x, w, styles, f, noise, b, act_gain, alpha, True, False,
                                   plain=plain)
-                return x if resid is None else x + resid
+                return (x if resid is None else x + resid), None
             return fused_modconv3x3(x, w, styles, noise, b,
                                     None if resid is None else resid.contiguous(),
-                                    act_gain, alpha, True, plain=plain)
+                                    act_gain, alpha, True, plain=plain), None
 
         x = modulated_conv2d(x, w.to(x.dtype), styles=styles, modulate=self.cfg.style,
                              up=self.up, padding=self.kernel_size // 2,
                              resample_kernel=f, flip_weight=(self.up == 1))
+        att = None
         if self.transformer is not None:
             b_, h, wd, c = x.shape
-            tokens, _ = self.transformer(
+            tokens, att = self.transformer(
                 x.reshape(b_, h * wd, c), get_components(y).to(x.dtype),
                 from_pos=self.grid_pos,
                 to_pos=pos if (self.cfg.mapping.use_pos and pos is not None) else None,
@@ -171,7 +177,7 @@ class SynthesisLayer(nn.Module):
             x = x + (noise[..., None] if noise.dim() == 3 else noise[None, :, :, None]).to(x.dtype)
         if self.biasAct is not None:
             x = self.biasAct(x)
-        return x if resid is None else x + resid.to(x.dtype)
+        return (x if resid is None else x + resid.to(x.dtype)), att
 
 
 class ToRGBLayer(nn.Module):
@@ -245,6 +251,8 @@ class SynthesisBlock(nn.Module):
 
     def forward(self, x, img, ws, pos=None, mask=None, noise_mode="const", fused=None,
                 train=False, gen=None):
+        """(x, img, maps): `maps` lists the attention probabilities of the
+        block's layers that have a transformer (JAX `synthesis.py:371-392`)."""
         cfg = self.cfg
         w_i = iter(range(ws.shape[2]))
         kw = dict(pos=pos, mask=mask, noise_mode=noise_mode, fused=fused, train=train, gen=gen)
@@ -255,24 +263,50 @@ class SynthesisBlock(nn.Module):
             else:
                 x = self.const[None].expand(ws.shape[0], -1, -1, -1)
         x = to_compute(x, cfg)
+        maps = []
         if self.stem:
-            x = self.conv1(x, ws[:, :, next(w_i)], **kw)
+            x, att = self.conv1(x, ws[:, :, next(w_i)], **kw)
+            maps.append(att)
         elif cfg.architecture == "resnet":
             y_skip = self.skip(x, fused=fused)
-            x = self.conv0(x, ws[:, :, next(w_i)], **kw)
-            x = self.conv1(x, ws[:, :, next(w_i)], resid=y_skip, **kw)
+            x, att = self.conv0(x, ws[:, :, next(w_i)], **kw)
+            maps.append(att)
+            x, att = self.conv1(x, ws[:, :, next(w_i)], resid=y_skip, **kw)
+            maps.append(att)
         else:
-            x = self.conv0(x, ws[:, :, next(w_i)], **kw)
-            x = self.conv1(x, ws[:, :, next(w_i)], **kw)
+            x, att = self.conv0(x, ws[:, :, next(w_i)], **kw)
+            maps.append(att)
+            x, att = self.conv1(x, ws[:, :, next(w_i)], **kw)
+            maps.append(att)
         if img is not None:
             img = upsample2d(img, self.resample_filter)
         if self.is_last:
-            x = self.conv_last(x, ws[:, :, next(w_i)], noise_mode=noise_mode, fused=fused,
-                               train=train, gen=gen)
+            x, _ = self.conv_last(x, ws[:, :, next(w_i)], noise_mode=noise_mode, fused=fused,
+                                  train=train, gen=gen)
         if self.is_last or cfg.architecture == "skip":
             y = self.torgb(x, ws[:, :, next(w_i)])
             img = img + y if img is not None else y
-        return x, img
+        return x, img, [a for a in maps if a is not None]
+
+
+def att_maps_to_tensor(maps, res, device=None):
+    """Attention maps [B, N, H_l * W_l, T] of L layers -> [B, T, L, N, res,
+    res] float32 (JAX `_att_maps_to_tensor`, `synthesis.py:423-443`). JAX
+    up-samples each map with `upsample2d` and a nearest-neighbour kernel of
+    a power-of-two factor: every output sums one non-zero product of weight
+    1, an exact copy of the value, which is what the repeat here writes.
+    Without attention layers: zeros([1]), as JAX returns."""
+    if not maps:
+        return torch.zeros(1, device=device)
+    b, n, _, t = maps[0].shape
+    out = torch.empty((b, t, len(maps), n, res, res), dtype=torch.float32,
+                      device=maps[0].device)
+    for i, a in enumerate(maps):
+        s = int(round(a.shape[2] ** 0.5))
+        f = res // s
+        src = a.permute(0, 3, 1, 2).reshape(b, t, n, s, 1, s, 1)
+        out[:, :, i].unflatten(-1, (s, f)).unflatten(-3, (s, f)).copy_(src)
+    return out
 
 
 class SynthesisNetwork(nn.Module):
@@ -283,18 +317,25 @@ class SynthesisNetwork(nn.Module):
             setattr(self, f"b{res}", SynthesisBlock(cfg, res))
 
     def forward(self, ws, pos=None, mask=None, noise_mode="const", plain=False, train=False,
-                gen=None):
+                gen=None, return_att=False):
+        """img, or (img, att) under `return_att`: att [B, k-1, L, heads,
+        res, res] (att_maps_to_tensor)."""
         cfg = self.cfg
         if tuple(ws.shape[1:]) != (cfg.k, cfg.num_ws, cfg.w_dim):
             raise ValueError(f"ws must be [B,{cfg.k},{cfg.num_ws},{cfg.w_dim}], "
                              f"got {tuple(ws.shape)}")
         ws = at_least_f32(ws)
         x = img = None
+        maps = []
         for res, (start, count) in zip(cfg.block_resolutions, cfg.block_w_slices()):
             fused = (("plain" if plain else "kernel")
                      if packed_structural_ok(cfg, res, noise_mode)
                      and not packed_paths_disabled() else None)
-            x, img = getattr(self, f"b{res}")(x, img, ws[:, :, start:start + count],
-                                              pos=pos, mask=mask, noise_mode=noise_mode,
-                                              fused=fused, train=train, gen=gen)
+            x, img, block_maps = getattr(self, f"b{res}")(
+                x, img, ws[:, :, start:start + count], pos=pos, mask=mask,
+                noise_mode=noise_mode, fused=fused, train=train, gen=gen)
+            if return_att:
+                maps += block_maps
+        if return_att:
+            return img, att_maps_to_tensor(maps, cfg.img_resolution, ws.device)
         return img

@@ -70,7 +70,7 @@ class LoopConfig:
     eval_images_num: int = 50000
     eval_batch: int = 16
     detector: str = "auto"            # "auto" | "raw" | <inception .npz path>
-    vis: tuple = ("grid",)            # of: grid, interp, mixing, noise
+    vis: tuple = ("grid",)            # of: grid, interp, mixing, attention, noise
     tensorboard: bool = True          # tfevents mirror of stats.jsonl
     snapshot_backend: str = "msgpack"  # "msgpack" | "async" (background writes)
     seed: int = 0
@@ -182,7 +182,7 @@ def select_feed(dataset: ImageFolderDataset, batch_size: int, seed: int):
 
 # ------------------------------------------------------------ the loop
 
-def _check(l_cfg: LoopConfig):
+def _check(g_cfg: GANformerConfig, l_cfg: LoopConfig):
     from morphganformer_tpu_torch.metrics.registry import is_valid_metric, list_valid_metrics
 
     unknown = [m for m in l_cfg.eval_metrics if not is_valid_metric(m)]
@@ -197,8 +197,9 @@ def _check(l_cfg: LoopConfig):
     unknown = sorted(set(l_cfg.vis) - set(VIS))
     if unknown:
         raise ValueError(f"unknown vis products {unknown}; known: {VIS}")
-    if "attention" in l_cfg.vis:
-        raise NotImplementedError(vz.ATTENTION_NOT_PORTED)
+    if "attention" in l_cfg.vis and not vz.has_attention(g_cfg):
+        raise ValueError("vis \"attention\" needs a generator with attention layers; "
+                         "this one has none")
 
 
 def training_loop(g_cfg: GANformerConfig, d_cfg: DiscriminatorConfig, t_cfg: TrainConfig,
@@ -206,7 +207,7 @@ def training_loop(g_cfg: GANformerConfig, d_cfg: DiscriminatorConfig, t_cfg: Tra
                   max_ticks: Optional[int] = None, device="cuda") -> TrainState:
     """Run (or resume) training until total_kimg or `max_ticks` ticks.
     Returns the final state."""
-    _check(l_cfg)
+    _check(g_cfg, l_cfg)
     if os.environ.get("MGT_DEBUG_NANS") == "1":
         torch.autograd.set_detect_anomaly(True)
 
@@ -318,6 +319,8 @@ def training_loop(g_cfg: GANformerConfig, d_cfg: DiscriminatorConfig, t_cfg: Tra
             vz.interpolation_grid(G, g_cfg, path=os.path.join(vis_dir, "interpolation.png"))
         if "mixing" in extras:
             vz.style_mixing_table(G, g_cfg, path=os.path.join(vis_dir, "style_mixing.png"))
+        if "attention" in extras:
+            vz.attention_blends(G, g_cfg, out_dir=vis_dir)
         if "noise" in extras and g_cfg.local_noise:
             vz.noise_variance_map(G, g_cfg, path=os.path.join(vis_dir, "noise_map.png"))
 

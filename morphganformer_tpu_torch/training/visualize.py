@@ -1,7 +1,7 @@
 """Visualisations written at image-snapshot ticks (port of
-morphganformer_tpu/training/visualize.py): sample grids, latent
-interpolations, style-mixing tables and noise-variance maps (reference
-visualize.py `vis()` :60-310).
+morphganformer_tpu/training/visualize.py): sample grids, attention blends,
+latent interpolations, style-mixing tables and noise-variance maps
+(reference visualize.py `vis()` :60-310).
 
 Each function takes the generator (its weights are on its device) and
 returns the picture as HWC uint8, written with `write_png` when `path` is
@@ -9,19 +9,28 @@ given. The latents are drawn from a CPU `torch.Generator` seeded with
 `seed` unless the caller passes them (JAX draws its own, so a comparison
 with JAX passes JAX's). Images are generated `batch` at a time, so 16
 images of 1024^2 need the memory of `batch`; the result does not depend on
-`batch`. Attention blends need the attention maps out of the synthesis,
-which the port does not return yet (ROADMAP.md queue 1, "Data and vis
-remainders").
+`batch`. Attention blends run their `num` images as one batch, as JAX's do:
+their maps take 4 bytes a pixel for each image, component, layer and head.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from morphganformer_tpu_torch.utils.image import adjust_range, create_img_grid, to_uint8, write_png
+
+# A fixed qualitative palette for component attention maps (JAX
+# `visualize.py:22-28`).
+_PALETTE = np.asarray([
+    [230, 25, 75], [60, 180, 75], [255, 225, 25], [0, 130, 200],
+    [245, 130, 48], [145, 30, 180], [70, 240, 240], [240, 50, 230],
+    [210, 245, 60], [250, 190, 190], [0, 128, 128], [230, 190, 255],
+    [170, 110, 40], [255, 250, 200], [128, 0, 0], [170, 255, 195],
+], dtype=np.float32)
 
 
 def slerp(a, b, t):
@@ -81,13 +90,37 @@ def sample_grid(G, cfg, num=16, psi=0.7, seed=0, path=None, z=None, batch=4):
     return _save(create_img_grid(_generate(G, z=z, psi=psi, batch=batch)), path)
 
 
-ATTENTION_NOT_PORTED = ("attention blends need return_att through the port's synthesis and "
-                        "transformer, which is not ported yet (ROADMAP.md queue 1, \"Data and "
-                        "vis remainders\": return_att and the attention vis)")
+def has_attention(cfg):
+    return any(cfg.use_attention(r) for r in cfg.block_resolutions)
 
 
-def attention_blends(G, cfg, *args, **kwargs):
-    raise NotImplementedError(ATTENTION_NOT_PORTED)
+@torch.no_grad()
+def attention_blends(G, cfg, num=4, psi=0.7, seed=0, out_dir=None, alpha=0.6, z=None):
+    """Per-component attention maps as coloured overlays on the generated
+    images (reference visualize.py:163-199; JAX `visualize.py:49-68`): the
+    maps' mean over layers and heads, its argmax over components, that
+    component's palette colour blended in with `alpha`. Writes
+    sample_{i}.png and attention_{i}.png into `out_dir` when given; returns
+    the blends [num, H, W, 3] float32 in [-1, 1]."""
+    if not has_attention(cfg):
+        raise ValueError("attention blends need a generator with attention layers "
+                         "(cfg.transformer, and a block whose log2 resolution is in "
+                         "[start_res, end_res))")
+    z = _draw((num, cfg.k, cfg.z_dim), seed) if z is None else z
+    imgs, att = G(z=_tensor(z, _device(G)), truncation_psi=psi, noise_mode="const",
+                  return_att=True)
+    hard = att.mean(dim=(2, 3)).argmax(dim=1).cpu().numpy()      # [B, H, W]
+    del att
+    imgs = imgs.cpu().numpy()
+    blends = []
+    for i in range(len(imgs)):
+        color = _PALETTE[hard[i] % len(_PALETTE)] / 255.0 * 2 - 1
+        blend = (1 - alpha) * imgs[i] + alpha * color
+        blends.append(blend)
+        if out_dir:
+            write_png(os.path.join(out_dir, f"sample_{i}.png"), to_uint8(imgs[i]))
+            write_png(os.path.join(out_dir, f"attention_{i}.png"), to_uint8(blend))
+    return np.stack(blends)
 
 
 def interpolation_grid(G, cfg, steps=8, psi=0.7, seed=0, space="z",

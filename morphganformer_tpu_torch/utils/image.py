@@ -147,6 +147,13 @@ def read_png(path):
     return out.reshape(h, w, c)
 
 
+def read_png_rgb(path):
+    """A PNG as HWC uint8 RGB, as Pillow's `convert("RGB")` gives it: gray
+    replicated to the three channels, alpha dropped."""
+    img = read_png(path)
+    return np.repeat(img[:, :, :1], 3, axis=2) if img.shape[2] <= 2 else img[:, :, :3]
+
+
 def _format_of(data):
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "a WebP image"
@@ -231,8 +238,7 @@ def load_target(path, size=1024, drange=(-1.0, 1.0)):
     Lanczos-resized to `size` (the longer to max(size, round(side *
     scale))), then the centre crop. Gray is replicated to RGB and alpha
     dropped before the resize. Other formats raise."""
-    img = read_png(path)
-    img = np.repeat(img[:, :, :1], 3, axis=2) if img.shape[2] <= 2 else img[:, :, :3]
+    img = read_png_rgb(path)
     h, w = img.shape[:2]
     scale = size / min(w, h)
     w, h = max(size, round(w * scale)), max(size, round(h * scale))

@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, flax, Pillow, msgpack or JAX package on
-its import path, and its kernels build with plain nvcc for sm_90a."""
+"""The port stands alone: no JAX, flax, Pillow, imageio, msgpack or JAX
+package on its import path, and its kernels build with plain nvcc for
+sm_90a."""
 
 import ast
 import pathlib
@@ -7,7 +8,7 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "PIL", "msgpack", "morphganformer_tpu")
+FORBIDDEN = ("jax", "flax", "PIL", "imageio", "msgpack", "morphganformer_tpu")
 PORT_FILES = sorted((ROOT / "morphganformer_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -49,6 +50,15 @@ def test_metrics_modules_are_checked():
     assert {f"morphganformer_tpu_torch/metrics/{m}.py" for m in (
         "__init__", "core", "feature_stats", "inception", "detector", "extract", "ppl",
         "registry")} <= names
+
+
+def test_warp_video_and_dataset_modules_are_checked():
+    """grid_sample, the warp, the GIF writer, the dataset tool and the
+    catalog are on the list above."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"morphganformer_tpu_torch/{m}.py" for m in (
+        "ops/grid_sample", "morph/warp", "utils/video", "data/dataset_tool",
+        "data/catalog")} <= names
 
 
 def test_build_is_one_plain_nvcc_call_for_sm_90a():

@@ -227,8 +227,11 @@ def test_noise_variance_map_matches_jax(carried, monkeypatch):
 
 
 def test_attention_blends_are_refused():
-    with pytest.raises(NotImplementedError, match="return_att"):
-        tvz.attention_blends(None, None)
+    """A generator without attention layers has no maps to blend (JAX's
+    fails inside numpy on its zeros([1]))."""
+    cfg = dataclasses.replace(g_cfg(tcfg), end_res=2)
+    with pytest.raises(ValueError, match="attention layers"):
+        tvz.attention_blends(None, cfg)
 
 
 def test_module_summaries_list_the_modules(carried):
@@ -404,14 +407,17 @@ def test_prune_keeps_the_newest(tmp_path):
 
 @pytest.mark.parametrize("change,error,match", [
     ({"eval_metrics": ("fid50k_full", "fid99")}, ValueError, "unknown metric"),
-    ({"vis": ("grid", "attention")}, NotImplementedError, "return_att"),
+    ({"vis": ("grid", "attention"), "G": {"end_res": 2}}, ValueError,
+     "attention layers"),
     ({"vis": ("grid", "video")}, ValueError, "unknown vis"),
     ({"snapshot_backend": "orbax"}, ValueError, '"async"'),
 ])
 def test_loop_refuses_what_it_cannot_do(data_root, tmp_path, change, error, match):
+    change = dict(change)
+    g = dataclasses.replace(g_cfg(tcfg), **change.pop("G", {}))
     l_cfg = dataclasses.replace(tloop.LoopConfig(run_dir=str(tmp_path)), **change)
     with pytest.raises(error, match=match):
-        tloop.training_loop(g_cfg(tcfg), d_cfg(tcfg), tts.TrainConfig(batch_size=4), l_cfg,
+        tloop.training_loop(g, d_cfg(tcfg), tts.TrainConfig(batch_size=4), l_cfg,
                             data_root, device="cpu")
 
 
