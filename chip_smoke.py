@@ -246,6 +246,28 @@ Phases, each printing its wall time:
               torch.profiler.
               cuDNN runs in deterministic mode through this phase, so the
               trained state that the checks see is the same on every run.
+  15. dist    data parallelism on torch.distributed: a world-1 NCCL group
+              met through initialize_distributed at a free localhost port;
+              two 1024^2 iterations at batch 4 on phase train's resnet pair
+              (step 0 with G_reg and D_reg due, step 1) from one state on
+              one set of z and reals, by the plain trainer and by the
+              trainer over make_data_mesh(), whose stages all-reduce their
+              gradients: G, D, G_ema and both Adams bit-equal, each
+              iteration exactly phase train's launches (cuDNN in
+              deterministic mode, phase reg's reason); then in the default
+              mode one main-stage iteration's all-reduces alone (CUDA
+              events; in a group of one rank a local copy, not the cost
+              at world > 1, which dist_probe.py measures on several
+              cards) against four main-only iterations each way, in
+              turns, beside the card's name and power limit; a 2-row
+              projection through mesh=[cuda:0] and mesh=None, latents and
+              losses equal, the same launches.
+
+The phase `extract` runs after metrics, in phase morph's directory:
+extract_features (random iresnet18 on the card) with --bona on
+morph_csv_check's 8 G(z) faces and --morph on its 4 morphs (JAX's JSON:
+accuracies in [0, 1], the counts), then --images on the faces to an npz of
+512-d rows in file order; no fused-kernel launch; seconds of each.
 
 The line before the last lists every kernel (name, route, source, the TPU
 kernel it replaces, launches on the main path, error, ms, plain, bound,
@@ -3646,6 +3668,196 @@ def dataset_phase(torch, cli, G, card):
     return dict(create_s=create_s, feed_s=feed_s, card=card)
 
 
+DIST_PROJECT_STEPS = 5
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    """cuDNN in deterministic mode inside the block."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def dist_phase(torch, fc, cli, card):
+    """Phase 15: data parallelism through torch.distributed on this card: a
+    world-1 NCCL group met through initialize_distributed at a free
+    localhost port; two 1024^2 iterations at batch 4 on phase train's
+    resnet pair (step 0 with G_reg and D_reg due, then step 1), from one
+    state and on one set of z and reals, by the plain trainer and by the
+    trainer over make_data_mesh() (each stage's gradients all-reduced):
+    every leaf of G, D, G_ema and both Adams bit-equal, and each iteration
+    exactly phase train's launches (`loop_launches`). cuDNN runs in
+    deterministic mode there (phase reg's reason), else two runs of one
+    iteration differ in their last bits. Then, in cuDNN's default mode, the
+    all-reduces of one main-stage iteration (G's and D's gradients, one
+    buffer each) alone in CUDA events, against four main-only iterations
+    each way, in turns: in a group of one rank an all-reduce is a local
+    copy, so this times the trainer's path, not data parallelism's cost
+    (dist_probe.py measures that on several cards). Last, deterministic again, a 2-row projection of
+    DIST_PROJECT_STEPS steps through mesh=[cuda:0] and mesh=None: latents
+    and losses equal, the same launches."""
+    import torch.distributed as dist
+
+    from morphganformer_tpu_torch.losses import build_loss_stack
+    from morphganformer_tpu_torch.models.config import DiscriminatorConfig, ffhq1024_config
+    from morphganformer_tpu_torch.parallel import free_port, initialize_distributed
+    from morphganformer_tpu_torch.parallel.mesh import all_mean_, make_data_mesh
+    from morphganformer_tpu_torch.projection import ProjectionConfig, latent_stats, project
+    from morphganformer_tpu_torch.training import GANTrainer, TrainConfig
+    from morphganformer_tpu_torch.training.loop import apply_train_state, train_state_tree
+
+    t0 = time.perf_counter()
+    rank = initialize_distributed(f"localhost:{free_port()}", 1, 0, device="cuda",
+                                  timeout_s=120)
+    try:
+        assert rank == 0 and dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        mesh = make_data_mesh()
+        assert mesh.world == 1 and mesh.devices == (torch.device("cuda", 0),), mesh
+        rendezvous_s = time.perf_counter() - t0
+        print(f"  NCCL group of 1 at localhost: {rendezvous_s:.3f} s; mesh {mesh}", flush=True)
+        g_cfg, d_cfg = ffhq1024_config(), DiscriminatorConfig()
+        cfg = TrainConfig(batch_size=TRAIN_BATCH, batch_gpu=4)
+        trainers = {"plain": GANTrainer(g_cfg, d_cfg, cfg),
+                    "mesh": GANTrainer(g_cfg, d_cfg, cfg, mesh=mesh)}
+        state = trainers["plain"].init_state(seed=0)
+        start = train_state_tree(state)
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        res = d_cfg.img_resolution
+        reals = torch.rand((2, TRAIN_BATCH, res, res, 3), generator=gen, device="cuda") * 2 - 1
+        zs = torch.randn((2, TRAIN_BATCH, g_cfg.k, g_cfg.z_dim), generator=gen, device="cuda")
+        trees, iter_ms = {}, {}
+        with cudnn_deterministic(torch):
+            for name, trainer in trainers.items():
+                apply_train_state(state, start)
+                state.gen = torch.Generator(device="cuda").manual_seed(0)
+                iter_ms[name] = []
+                for step in (0, 1):
+                    fc.reset_launch_counts()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    stats = host(trainer.train_iteration(state, reals[step], step, z=zs[step]))
+                    torch.cuda.synchronize()
+                    iter_ms[name].append((time.perf_counter() - t) * 1e3)
+                    launches = dict(fc.launch_counts)
+                    assert all(math.isfinite(v) for v in stats.values()), (name, stats)
+                    assert launches == loop_launches(step), (name, step, launches)
+                trees[name] = train_state_tree(state)
+                print(f"  {name} (deterministic cuDNN): steps 0 (reg) and 1: "
+                      f"{_fmt_list(iter_ms[name])} ms; launches as phase train's", flush=True)
+        n_leaves = assert_same_tree(trees["mesh"], trees["plain"], "mesh vs plain")
+        print(f"  mesh vs plain after two iterations: {n_leaves} leaves bit-equal", flush=True)
+        del trees, start
+
+        flats = {net: torch.randn(sum(p.numel() for p in getattr(state, net).parameters()),
+                                  generator=gen, device="cuda") for net in ("G", "D")}
+        n_params = {net: f.numel() for net, f in flats.items()}
+
+        def all_reduces():
+            all_mean_(flats["G"], mesh)
+            all_mean_(flats["D"], mesh)
+        ar_ms = cuda_ms(torch, all_reduces, reps=10, warmup=2)
+        del flats
+        main_ms = {"plain": [], "mesh": []}
+        for step in (1, 2, 3, 5):
+            for name in (("plain", "mesh") if step % 2 else ("mesh", "plain")):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                trainers[name].train_iteration(state, reals[step % 2], step, z=zs[step % 2])
+                torch.cuda.synchronize()
+                main_ms[name].append((time.perf_counter() - t) * 1e3)
+        share = ar_ms / min(main_ms["mesh"])
+        print(f"  all-reduces of one main-stage iteration (G {n_params['G']} + D "
+              f"{n_params['D']} float32 gradients) in a 1-rank group, a local copy: "
+              f"{ar_ms:.3f} ms (CUDA events); main-only iterations, in turns: mesh "
+              f"{_fmt_list(main_ms['mesh'])} ms, plain {_fmt_list(main_ms['plain'])} ms; the "
+              f"copies {100 * share:.2f} % of the fastest mesh iteration; {card}", flush=True)
+
+        G = state.G_ema
+        z = torch.randn((2, g_cfg.k, g_cfg.z_dim), generator=torch.Generator().manual_seed(4))
+        with torch.no_grad():
+            target = G(z=z.cuda(), truncation_psi=0.7)
+        mean, std = latent_stats(g_cfg, torch.Generator().manual_seed(1), 1000)
+        pcfg = ProjectionConfig(steps=DIST_PROJECT_STEPS, chunk=DIST_PROJECT_STEPS)
+        runs, proj_ms = {}, {}
+        with cudnn_deterministic(torch):
+            for name, m in (("mesh", [torch.device("cuda", 0)]), ("plain", None)):
+                fc.reset_launch_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = project(G, target, build_loss_stack({"mse": 1.0}), pcfg, mean, std,
+                            generator=torch.Generator().manual_seed(2), mesh=m)
+                torch.cuda.synchronize()
+                proj_ms[name] = (time.perf_counter() - t) * 1e3
+                runs[name] = (r, dict(fc.launch_counts))
+        (a, la), (b, lb) = runs["mesh"], runs["plain"]
+        assert la == lb == _per_step(DIST_PROJECT_STEPS, 1), (la, lb)
+        assert torch.equal(a.latent, b.latent) and torch.equal(a.loss_history, b.loss_history)
+        assert torch.isfinite(a.loss_history).all()
+        print(f"  projection of 2 rows, {DIST_PROJECT_STEPS} steps: mesh=[cuda:0] "
+              f"{proj_ms['mesh']:.3f} ms, mesh=None {proj_ms['plain']:.3f} ms; latents and "
+              f"losses equal; launches {la}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return dict(rendezvous_s=rendezvous_s, iteration_ms=iter_ms, all_reduce_ms=ar_ms,
+                main_iteration_ms=main_ms, all_reduce_share=share, params=n_params,
+                leaves_equal=n_leaves, projection_ms=proj_ms, card=card)
+
+
+def extract_phase(torch, fc, cli, tmp, card):
+    """Phase 10b: extract_features through the entry point with a random
+    iresnet18 backbone on the card: --bona on phase morph's CSV faces (the
+    G(z) PNGs of morph_csv_check) against --morph on its morph PNGs: JAX's
+    JSON, accuracies in [0, 1], the counts; then --images on the faces to an
+    npz of 512-d rows in file order, extract_dir's within 1e-5 of their
+    largest entry; no fused-kernel launch (the iresnet is plain
+    convolutions). Seconds of each."""
+    import numpy as np
+
+    from morphganformer_tpu_torch.losses.face_embedding import random_iresnet_params
+    from morphganformer_tpu_torch.metrics import fingerprint
+
+    faces = os.path.join(tmp, "csv_faces")
+    morphs = os.path.join(tmp, "extract_morphs")
+    os.makedirs(morphs)
+    src = os.path.join(tmp, f"csv_{CSV_PAIRS}")
+    for f in sorted(os.listdir(src)):
+        if f.endswith("_morph.png"):
+            shutil.copy(os.path.join(src, f), morphs)
+    n_bona, n_morph = len(os.listdir(faces)), len(os.listdir(morphs))
+    assert (n_bona, n_morph) == (2 * CSV_PAIRS, CSV_PAIRS), (n_bona, n_morph)
+    fc.reset_launch_counts()
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(["extract_features", "--random-backbone", "--bona", faces, "--morph", morphs])
+    svm_s = time.perf_counter() - t
+    result = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"  extract_features --bona ({n_bona}) --morph ({n_morph}): {svm_s:.3f} s; "
+          f"{json.dumps(result)}", flush=True)
+    assert set(result) == {"train_acc", "test_acc", "num_bona", "num_morph"}, result
+    assert (result["num_bona"], result["num_morph"]) == (n_bona, n_morph), result
+    assert 0.0 <= result["train_acc"] <= 1.0 and 0.0 <= result["test_acc"] <= 1.0, result
+    npz = os.path.join(tmp, "features.npz")
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["extract_features", "--random-backbone", "--images", faces, "--out", npz])
+    images_s = time.perf_counter() - t
+    data = np.load(npz)
+    files, feats = fingerprint.extract_dir(random_iresnet_params("iresnet18"), faces)
+    assert list(data["files"]) == files == sorted(files)
+    assert data["features"].shape == (n_bona, 512) and np.isfinite(data["features"]).all()
+    err = float(np.abs(data["features"] - feats).max())
+    assert err <= 1e-5 * float(np.abs(feats).max()), err
+    assert all(v == 0 for v in fc.launch_counts.values()), dict(fc.launch_counts)
+    print(f"  extract_features --images ({n_bona}) --out: {images_s:.3f} s; rows "
+          f"{data['features'].shape} in file order; {card}", flush=True)
+    return dict(svm=result, svm_s=svm_s, images_s=images_s, card=card)
+
+
 def _fmt_list(xs):
     return "[" + ", ".join(f"{x:.3f}" for x in xs) + "]"
 
@@ -3909,6 +4121,10 @@ def main():
             metrics_rows, metrics_stats = metrics_phase(torch, fc, cli, G, tmp)
         phases["metrics"] = ph.seconds
 
+        with Phase("extract") as ph:
+            extract_stats = extract_phase(torch, fc, cli, tmp, smi[0])
+        phases["extract"] = ph.seconds
+
     with Phase("train") as ph:
         train_rows, train_launches, train_stats, train_bf16_rows, train_bf16_launches = \
             train_phase(torch, fc)
@@ -3930,6 +4146,10 @@ def main():
         reg_stats = reg_phase(torch, fc)
     phases["reg"] = ph.seconds
 
+    with Phase("dist") as ph:
+        dist_stats = dist_phase(torch, fc, cli, smi[0])
+    phases["dist"] = ph.seconds
+
     print("kernel_calls " + json.dumps(rows + train_rows + k4_rows), flush=True)
     print("kernel_calls_train_bf16 " + json.dumps(train_bf16_rows), flush=True)
     print("projection " + json.dumps(proj_stats), flush=True)
@@ -3943,6 +4163,8 @@ def main():
     print("checkpoint " + json.dumps(ckpt_stats), flush=True)
     print("train " + json.dumps(train_stats), flush=True)
     print("loop " + json.dumps(loop_stats), flush=True)
+    print("dist " + json.dumps(dist_stats), flush=True)
+    print("extract " + json.dumps(extract_stats), flush=True)
     print("layouts " + json.dumps(layout_stats), flush=True)
     print("reg " + json.dumps(reg_stats), flush=True)
     print("vis " + json.dumps(vis_stats), flush=True)

@@ -21,12 +21,15 @@ calc_metrics, dataset_tool, warp_morphs and make_video.
     python -m morphganformer_tpu_torch.cli warp_morphs --morph m.png --img-a a.png \
         --img-b b.png --predict-landmarks --out warped
     python -m morphganformer_tpu_torch.cli make_video --images frames/ --out clip.gif --fps 24
+    python -m morphganformer_tpu_torch.cli extract_features --backbone iresnet18.npz \
+        --bona faces/bona --morph faces/morphs
 
 They mirror cli/generate.py, cli/merge.py, cli/project.py, cli/morph.py,
 cli/demorph.py, cli/train.py, cli/calc_metrics.py, cli/dataset_tool.py,
-cli/warp_morphs.py and cli/make_video.py of the JAX package. `--model <dir>` loads the
-EMA generator ("Gs") of a checkpoint directory (arch.json + Gs.msgpack,
-written by either package; a training snapshot is one). `--model
+cli/warp_morphs.py, cli/make_video.py and cli/extract_features.py of the JAX
+package. `--model <dir>` loads the EMA generator ("Gs") of a checkpoint
+directory (arch.json + Gs.msgpack, written by either package; a training
+snapshot is one). `--model
 init:<res>` builds a randomly initialised FFHQ-style generator at that
 resolution (weights from seed 0 whatever `--seed` says, as the JAX entry
 points build them; `--seed` picks z, the prior statistics and the
@@ -52,7 +55,21 @@ bundled landmark model, or `--random-perceptual`:
 latent and writes them beside it (<latent>.noises.npz); `merge --noises`
 applies such maps before generating. `morph --pairs-csv pairs.csv` projects
 the pairs of a CSV (img_a,img_b[,similarity]), `--pairs-per-batch` of them
-as one batch-2P projection.
+as one batch-2P projection; `morph --shard` splits each such projection's
+rows over the visible GPUs when their number divides the batch.
+
+`train` runs one process per visible GPU when there are more than one
+(spawned, met at a free localhost port, NCCL), or joins a process group
+that several launches form: `--coordinator host:port --num-processes N
+--process-id i` on each (or `--multihost` under torchrun's environment),
+each process on `cuda:<local rank>`. The global `--batch` is split over the
+processes; rank 0 writes the run directory.
+
+extract_features embeds a folder of PNGs with the ArcFace iresnet on the
+card (`--images`, to an .npz of `files` and `features`), or fits the linear
+SVM of bona fide against morph embeddings (`--bona`, `--morph`) and prints
+its accuracies as JSON; the split and the SVM are the port's own
+(metrics/fingerprint.py), equal to scikit-learn's.
 
 dataset_tool, warp_morphs and make_video read PNGs only (another format
 raises and names the file). warp_morphs warps on the card in float64 (the
@@ -94,11 +111,17 @@ from morphganformer_tpu_torch.losses import (
 )
 from morphganformer_tpu_torch.losses.nets import resize_bilinear
 from morphganformer_tpu_torch.models import GANformerConfig, init_generator, set_compute_dtype
+from morphganformer_tpu_torch.metrics import fingerprint
 from morphganformer_tpu_torch.morph import (
     demorph_latent,
     load_latent_mat,
     morph_latents,
     save_latent_mat,
+)
+from morphganformer_tpu_torch.parallel.launch import (
+    initialize_distributed,
+    is_main_process,
+    spawn_local,
 )
 from morphganformer_tpu_torch.projection import (
     ProjectionConfig,
@@ -368,9 +391,23 @@ def read_pairs_csv(path, img_root="", min_similarity=0.5):
             for r in rows]
 
 
+def shard_devices(G, batch):
+    """`morph --shard`'s devices for a batch: every visible device of G's
+    kind when more than one divides the batch (JAX's cli/morph.py:74-83),
+    else None, with JAX's message."""
+    dev = next(G.parameters()).device
+    devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+               if dev.type == "cuda" else [dev])
+    if len(devices) > 1 and batch % len(devices) == 0:
+        print(f"sharding the batch-{batch} projection over {len(devices)} devices", flush=True)
+        return devices
+    print(f"--shard ignored: {len(devices)} device(s), batch {batch}", flush=True)
+    return None
+
+
 def run_morph_pairs(G, pairs, out_dir, loss="mse", steps=1000, lr=0.1, truncation_psi=0.7,
                     n_mean_latent=10000, chunk=250, alpha=0.5, seed=0, progress=None,
-                    pairs_per_batch=4):
+                    pairs_per_batch=4, shard=False):
     """Project `pairs` of photos, `pairs_per_batch` pairs as one batch-2P
     projection (each image tracks its own best; the loss is the batch's mean,
     so the result is that of 2P separate runs on the same noise but for
@@ -381,7 +418,8 @@ def run_morph_pairs(G, pairs, out_dir, loss="mse", steps=1000, lr=0.1, truncatio
     drawn from one torch.Generator seeded with `seed`. Writes per pair
     <a>_rec.png, <b>_rec.png, <a>.mat, <b>.mat, <a>_<b>_morph.png and
     <a>_<b>_morph.mat; returns [(ProjectionResult, morph images [P,H,W,3],
-    morph latents [P,...])] a group. `progress` as in `run_project`."""
+    morph latents [P,...])] a group. `progress` as in `run_project`. `shard`
+    splits each group's rows over the visible devices (`shard_devices`)."""
     pcfg = ProjectionConfig(steps=steps, lr=lr, truncation_psi=truncation_psi,
                             n_mean_latent=n_mean_latent, chunk=chunk)
     gen = torch.Generator().manual_seed(seed)
@@ -396,8 +434,9 @@ def run_morph_pairs(G, pairs, out_dir, loss="mse", steps=1000, lr=0.1, truncatio
         names = [os.path.splitext(os.path.basename(p))[0] for p in paths]
         print(f"projecting {len(group)} pair(s) as one batch-{len(paths)} projection "
               f"({steps} steps, loss={loss})...", flush=True)
+        mesh = shard_devices(G, len(paths)) if shard else None
         res = project(G, _targets(G, paths), loss_fn, pcfg, mean, std, generator=gen,
-                      progress=progress or _print_progress(steps))
+                      progress=progress or _print_progress(steps), mesh=mesh)
         latents = res.latent.cpu().numpy()
         for i, name in enumerate(names):
             _save_png(os.path.join(out_dir, f"{name}_rec.png"), res.best_img[i].cpu().numpy())
@@ -599,6 +638,29 @@ def run_warp_morphs(args):
     return outputs
 
 
+def run_extract_features(args, parser):
+    """extract_features: embeddings of --images to --out, or the SVM
+    fingerprinting of --bona against --morph printed as JSON (JAX's
+    cli/extract_features.py)."""
+    if args.random_backbone:
+        params = face_embedding.random_iresnet_params(args.backbone_name, device=args.device)
+    elif args.backbone:
+        params = face_embedding.load_iresnet_npz(args.backbone, args.backbone_name,
+                                                 device=args.device)
+    else:
+        parser.error("extract_features needs --backbone or --random-backbone")
+    if args.bona and args.morph:
+        _, bona = fingerprint.extract_dir(params, args.bona, device=args.device)
+        _, morph = fingerprint.extract_dir(params, args.morph, device=args.device)
+        print(json.dumps(fingerprint.svm_fingerprinting(bona, morph)), flush=True)
+    elif args.images:
+        files, feats = fingerprint.extract_dir(params, args.images, device=args.device)
+        np.savez(args.out, files=np.asarray(files), features=feats)
+        print(f"{len(files)} embeddings ({feats.shape[1]}-d) -> {args.out}", flush=True)
+    else:
+        parser.error("extract_features needs --images, or --bona and --morph")
+
+
 def run_eval(args):
     """train --eval: the metrics (default fid2k_full) of the newest snapshot's
     Gs over the earlier runs of the same name, on 2000 images, written
@@ -624,8 +686,6 @@ def run_eval(args):
 
 
 GAMMAS = {"ffhq": 10, "cityscapes": 20, "clevr": 40, "bedrooms": 100}
-PARALLEL_NOT_PORTED = ('multi-process training is not ported yet (ROADMAP.md queue 1, '
-                       '"Parallel")')
 
 
 def make_run_dir(result_dir, expname):
@@ -677,28 +737,53 @@ def build_train_configs(args):
     return g_cfg, d_cfg, t_cfg
 
 
+def _train_rank(rank, args):
+    run_train(args)
+
+
+def _from_rank0(value):
+    """`value` as rank 0 has it, on every rank of the process group."""
+    if not torch.distributed.is_initialized():
+        return value
+    box = [value]
+    torch.distributed.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def run_train(args):
-    """The train subcommand: a numbered run directory, auto-resume from the
-    newest snapshot of the earlier runs of the same name, then the loop."""
+    """The train subcommand: the process group (JAX's --multihost,
+    --coordinator, --num-processes and --process-id; or one spawned process
+    per visible GPU when there are more), a numbered run directory,
+    auto-resume from the newest snapshot of the earlier runs of the same
+    name, then the loop."""
     from morphganformer_tpu_torch.training.loop import LoopConfig, latest_snapshot, training_loop
 
-    if args.multihost or args.coordinator or args.num_processes or args.process_id is not None:
-        raise NotImplementedError(PARALLEL_NOT_PORTED)
+    initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                           requested=args.multihost, device=args.device)
+    if (not torch.distributed.is_initialized() and not args.eval
+            and resolve_device(args.device).type == "cuda" and torch.cuda.device_count() > 1):
+        print(f"training on {torch.cuda.device_count()} GPUs, one process each", flush=True)
+        spawn_local(_train_rank, torch.cuda.device_count(), "nccl", args=(args,))
+        return None
     if args.eval:
-        run_eval(args)
+        if is_main_process():
+            run_eval(args)
         return None
     if args.raw_cache:
         os.environ["MGT_RAW_CACHE"] = "1"
     g_cfg, d_cfg, t_cfg = build_train_configs(args)
-    resume = args.resume
-    if resume == "auto":
-        prev = sorted(glob.glob(os.path.join(args.result_dir, f"{args.expname}-*")))
-        snaps = [s for d in prev if (s := latest_snapshot(d))]
-        resume = snaps[-1] if snaps else None
-        if resume:
-            print(f"auto-resume from {resume}")
-    run_dir = make_run_dir(args.result_dir, args.expname)
-    print(f"run dir: {run_dir}")
+    resume = run_dir = None
+    if is_main_process():
+        resume = args.resume
+        if resume == "auto":
+            prev = sorted(glob.glob(os.path.join(args.result_dir, f"{args.expname}-*")))
+            snaps = [s for d in prev if (s := latest_snapshot(d))]
+            resume = snaps[-1] if snaps else None
+            if resume:
+                print(f"auto-resume from {resume}")
+        run_dir = make_run_dir(args.result_dir, args.expname)
+        print(f"run dir: {run_dir}")
+    resume, run_dir = _from_rank0((resume, run_dir))
     l_cfg = LoopConfig(run_dir=run_dir, total_kimg=args.total_kimg,
                        kimg_per_tick=args.kimg_per_tick, snapshot_ticks=args.snapshot_ticks,
                        img_snapshot_ticks=args.img_snapshot_ticks,
@@ -765,11 +850,12 @@ def train_parser(sub):
                    help="decode the dataset once into <data-dir>/<res>.rawcache and train from "
                         "it (else the native loader if it builds, else read_png)")
     t.add_argument("--device", default="cuda")
-    t.add_argument("--multihost", action="store_true", help=f"refused: {PARALLEL_NOT_PORTED}")
-    t.add_argument("--coordinator", default=None, help=f"refused: {PARALLEL_NOT_PORTED}")
-    t.add_argument("--num-processes", type=int, default=None,
-                   help=f"refused: {PARALLEL_NOT_PORTED}")
-    t.add_argument("--process-id", type=int, default=None, help=f"refused: {PARALLEL_NOT_PORTED}")
+    t.add_argument("--multihost", action="store_true",
+                   help="join a process group (torchrun's environment without --coordinator)")
+    t.add_argument("--coordinator", default=None,
+                   help="host:port of the rendezvous of a multi-process run")
+    t.add_argument("--num-processes", type=int, default=None)
+    t.add_argument("--process-id", type=int, default=None)
 
 
 def main(argv=None):
@@ -863,7 +949,9 @@ def main(argv=None):
     mo.add_argument("--min-similarity", type=float, default=0.5)
     mo.add_argument("--pairs-per-batch", type=int, default=4,
                     help="CSV mode: pairs projected together as one batch-2P projection")
-    mo.add_argument("--shard", action="store_true", help=f"refused: {PARALLEL_NOT_PORTED}")
+    mo.add_argument("--shard", action="store_true",
+                    help="split each batch-2P projection's rows over the visible GPUs (when "
+                         "their number divides the batch)")
     mo.add_argument("--out", default="images/morphs")
     mo.add_argument("--alpha", type=float, default=0.5)
     mo.add_argument("--lr", type=float, default=0.1)
@@ -921,6 +1009,17 @@ def main(argv=None):
     mv.add_argument("--out", required=True)
     mv.add_argument("--fps", type=int, default=24)
 
+    ef = sub.add_parser("extract_features",
+                        help="face embeddings of a folder, or bona fide vs morph SVM detection")
+    ef.add_argument("--backbone", help="iresnet .npz of tools/convert_iresnet.py")
+    ef.add_argument("--backbone-name", default="iresnet18")
+    ef.add_argument("--random-backbone", action="store_true")
+    ef.add_argument("--images", help="folder of PNGs to embed")
+    ef.add_argument("--out", default="features.npz")
+    ef.add_argument("--bona", help="bona fide folder (fingerprinting mode)")
+    ef.add_argument("--morph", help="morph folder (fingerprinting mode)")
+    ef.add_argument("--device", default="cuda")
+
     args = p.parse_args(argv)
     if args.command == "dataset_tool":
         code = dataset_tool.run(args)
@@ -929,6 +1028,9 @@ def main(argv=None):
         return
     if args.command == "warp_morphs":
         run_warp_morphs(args)
+        return
+    if args.command == "extract_features":
+        run_extract_features(args, p)
         return
     if args.command == "make_video":
         frames = video.collect_frames(args.images, args.list_file)
@@ -948,8 +1050,6 @@ def main(argv=None):
         run_calc_metrics(G, args.data, args.metrics, args.max_items, args.batch, args.run_dir,
                          args.detector, args.device)
         return
-    if args.command == "morph" and args.shard:
-        raise NotImplementedError(f"morph --shard: {PARALLEL_NOT_PORTED}")
     if args.command == "morph" and not args.pairs_csv and not (args.img_a and args.img_b):
         p.error("morph needs --img-a and --img-b, or --pairs-csv")
     _, G = get_model(args.model, device=args.device, dtype=args.dtype)
@@ -976,7 +1076,7 @@ def main(argv=None):
                  if args.pairs_csv else [(args.img_a, args.img_b)])
         run_morph_pairs(G, pairs, args.out, args.loss, args.step, args.lr, args.truncation_psi,
                         args.n_mean_latent, args.chunk, args.alpha, args.seed,
-                        pairs_per_batch=args.pairs_per_batch)
+                        pairs_per_batch=args.pairs_per_batch, shard=args.shard)
     else:
         run_demorph(G, args.morph_latent, args.accomplice_latent, args.out, args.alpha,
                     args.truncation_psi, args.morph_img, args.accomplice_img, args.loss,

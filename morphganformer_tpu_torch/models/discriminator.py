@@ -40,6 +40,7 @@ from morphganformer_tpu_torch.models.layers import Conv2dLayer, FullyConnected, 
 from morphganformer_tpu_torch.ops.fused_conv import lw_fir_ok, lw_widths_ok
 from morphganformer_tpu_torch.ops.packed_override import packed_paths_disabled
 from morphganformer_tpu_torch.ops.upfirdn2d import downsample2d, setup_filter
+from morphganformer_tpu_torch.parallel.mesh import gather_rows
 from morphganformer_tpu_torch.utils.device import resolve_device
 from morphganformer_tpu_torch.utils.dtype import at_least_f32, to_compute
 
@@ -99,9 +100,19 @@ class DiscriminatorBlock(nn.Module):
         return self.conv1(self.conv0(x, fused=fused), fused=fused), img
 
 
-def minibatch_std(x, group_size, num_channels):
+def minibatch_std(x, group_size, num_channels, mesh=None):
     """Minibatch standard-deviation features (reference MinibatchStdLayer,
-    networks.py:1399-1420). x: NHWC."""
+    networks.py:1399-1420). x: NHWC.
+
+    Under a data mesh of more than one rank, x is this rank's block of the
+    global batch: the blocks are gathered (differentiably, so each rank's
+    gradient reaches the others' rows), the groups formed over the global
+    batch as JAX forms them under its mesh (group j holds rows j, j + n/g,
+    ..., which span the ranks), and this rank's rows of the result kept."""
+    if mesh is not None and mesh.world > 1:
+        rows = x.shape[0]
+        full = minibatch_std(gather_rows(x, mesh), group_size, num_channels)
+        return full[mesh.rank * rows:(mesh.rank + 1) * rows]
     n, h, w, c = x.shape
     g = min(group_size, n) if group_size is not None else n
     if n % g:
@@ -126,13 +137,13 @@ class DiscriminatorEpilogue(nn.Module):
         self.fc = FullyConnected(in_ch * 16, in_ch, act=cfg.act)
         self.out = FullyConnected(in_ch, max(cfg.c_dim, 1))
 
-    def forward(self, x, img):
+    def forward(self, x, img, mesh=None):
         cfg = self.cfg
         x = at_least_f32(x)
         if cfg.architecture == "skip":
             x = x + self.fromrgb(at_least_f32(img))
         if cfg.mbstd_num_channels > 0:
-            x = minibatch_std(x, cfg.mbstd_group_size, cfg.mbstd_num_channels)
+            x = minibatch_std(x, cfg.mbstd_group_size, cfg.mbstd_num_channels, mesh)
         x = self.conv(x)
         return self.out(self.fc(x.reshape(x.shape[0], -1)))
 
@@ -147,8 +158,10 @@ class Discriminator(nn.Module):
             setattr(self, f"b{res}", DiscriminatorBlock(cfg, res))
         self.b4 = DiscriminatorEpilogue(cfg)
 
-    def forward(self, img, plain=False):
-        """Logits [N, 1] of images [N, R, R, C] in [-1, 1]."""
+    def forward(self, img, plain=False, mesh=None):
+        """Logits [N, 1] of images [N, R, R, C] in [-1, 1]; under a data
+        `mesh`, of this rank's rows, with the minibatch-std over every
+        rank's."""
         cfg = self.cfg
         if tuple(img.shape[1:]) != (cfg.img_resolution, cfg.img_resolution, cfg.img_channels):
             raise ValueError(f"img must be [N,{cfg.img_resolution},{cfg.img_resolution},"
@@ -159,7 +172,7 @@ class Discriminator(nn.Module):
                      if packed_d_block_eligible(cfg, res) and not packed_paths_disabled()
                      else None)
             x, img = getattr(self, f"b{res}")(x, img, fused=fused)
-        return self.b4(x, img)
+        return self.b4(x, img, mesh)
 
 
 def init_discriminator(cfg: DiscriminatorConfig, seed: int = 0, device="cuda") -> Discriminator:

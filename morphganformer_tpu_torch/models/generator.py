@@ -44,12 +44,12 @@ class Generator(nn.Module):
         return torch.ones(batch, cfg.k - 1, device=device)
 
     def run_mapping(self, z, truncation_psi=1.0, train=False, skip_w_avg_update=False,
-                    gen=None, mask=None, truncation_cutoff=None):
+                    gen=None, mask=None, truncation_cutoff=None, mesh=None):
         if mask is None:
             mask = self.component_mask(z.shape[0], z.device, train, gen)
         return self.mapping(z, pos=self.pos, mask=mask, truncation_psi=truncation_psi,
                             truncation_cutoff=truncation_cutoff, train=train,
-                            skip_w_avg_update=skip_w_avg_update, gen=gen)
+                            skip_w_avg_update=skip_w_avg_update, gen=gen, mesh=mesh)
 
     def run_synthesis(self, ws, noise_mode="const", plain=False, train=False, gen=None,
                       mask=None, return_att=False):

@@ -17,6 +17,7 @@ from torch import nn
 from morphganformer_tpu_torch.models.config import GANformerConfig
 from morphganformer_tpu_torch.models.layers import FullyConnected, ResnetLayer, normalize_l2
 from morphganformer_tpu_torch.models.transformer import TransformerLayer
+from morphganformer_tpu_torch.parallel.mesh import mean_over_ranks
 
 
 class MLP(nn.Module):
@@ -73,12 +74,14 @@ class MappingNetwork(nn.Module):
         self.register_buffer("w_avg", torch.zeros(cfg.w_dim))
 
     def forward(self, z, pos=None, mask=None, truncation_psi=1.0, truncation_cutoff=None,
-                train=False, skip_w_avg_update=False, gen=None):
+                train=False, skip_w_avg_update=False, gen=None, mesh=None):
         """`train` applies the attention dropout (masks from `gen`) and,
         unless `skip_w_avg_update`, moves the tracked w_avg towards this
-        batch's mean (JAX `mapping.py:276-281`), in place. Truncation pulls
-        the first `truncation_cutoff` of the num_ws layers (all of them when
-        None) towards w_avg (JAX `mapping.py:285-298`)."""
+        batch's mean (JAX `mapping.py:276-281`), in place; under a data
+        `mesh` the mean over every rank's rows, as JAX's is over the global
+        batch.
+        Truncation pulls the first `truncation_cutoff` of the num_ws layers
+        (all of them when None) towards w_avg (JAX `mapping.py:285-298`)."""
         cfg = self.cfg
         m = cfg.mapping
         k = cfg.k
@@ -93,7 +96,7 @@ class MappingNetwork(nn.Module):
         x = torch.cat([p, x], dim=1)                                # global last
         if train and m.w_avg_beta is not None and not skip_w_avg_update:
             with torch.no_grad():
-                batch_mean = x.mean(dim=(0, 1))
+                batch_mean = mean_over_ranks(x.mean(dim=(0, 1)), mesh)
                 self.w_avg.copy_(batch_mean + m.w_avg_beta * (self.w_avg - batch_mean))
         x = x[:, :, None, :].expand(-1, -1, cfg.num_ws, -1)          # [B,k,num_ws,w]
         if truncation_psi != 1:

@@ -19,12 +19,14 @@ maps are keyed by the JAX package's flattened path
 the packages. The fused blocks give the maps' cotangent as a reduction of
 the pre-activation cotangent (ops/fused_conv.py `_noise_grad`).
 
-Not ported yet: `mesh` sharding, which raises.
+`mesh` (a list of devices) splits the batch's rows over the devices, one
+replica of G each (JAX engine.py:281-345); see `project`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import math
 from typing import Callable, Dict, Optional
@@ -180,13 +182,17 @@ def synthesize_latent(G, latent, cfg: ProjectionConfig, plain=False):
     return G(z=latent, truncation_psi=cfg.truncation_psi, noise_mode="const", plain=plain)
 
 
-def loss_and_grad(G, latent_n, target, loss_fn, cfg: ProjectionConfig, plain=False):
+def loss_and_grad(G, latent_n, target, loss_fn, cfg: ProjectionConfig, plain=False, denom=None):
     """One step's forward and backward at the noised latent: (per-image
-    losses [B], {term: [B]}, d mean(loss) / d latent_n)."""
+    losses [B], {term: [B]}, d mean(loss) / d latent_n). With `denom` the
+    gradient is that of sum(loss) / denom: a shard's rows of the whole
+    batch's mean (the same 1 / denom reaches each row as the batch's mean
+    gives it)."""
     latent_n = latent_n.detach().requires_grad_(True)
     with torch.enable_grad():
         per_img, comps = loss_fn(synthesize_latent(G, latent_n, cfg, plain), target)
-        grad, = torch.autograd.grad(per_img.mean(), latent_n)
+        total = per_img.mean() if denom is None else per_img.sum() / denom
+        grad, = torch.autograd.grad(total, latent_n)
     return per_img.detach(), {k: v.detach() for k, v in comps.items()}, grad
 
 
@@ -216,6 +222,34 @@ def _noise_windows(cfg: ProjectionConfig, shape, generator):
         yield torch.randn((min(cfg.steps, lo + cfg.chunk) - lo, *shape), generator=generator)
 
 
+@dataclasses.dataclass
+class _Shard:
+    """One device's block of the projection's rows: its replica of G, its
+    rows' targets, latents, Adam and best trackers."""
+    G: torch.nn.Module
+    rows: slice
+    target: torch.Tensor
+    latent: torch.Tensor
+    std: torch.Tensor
+    opt: torch.optim.Adam
+    best_loss: torch.Tensor
+    best_latent: torch.Tensor
+    best_step: torch.Tensor
+
+
+def _mesh_devices(mesh, batch, opt_noise):
+    """The devices of a projection mesh, with JAX's refusals."""
+    devices = [torch.device(d) for d in mesh]
+    if not devices:
+        raise ValueError("the projection mesh is empty")
+    if opt_noise:
+        raise ValueError("noise_regularize is batch-1; sharding needs a batch")
+    if batch % len(devices):
+        raise ValueError(f"projection batch {batch} must divide the mesh ({len(devices)} "
+                         f"devices)")
+    return devices
+
+
 def project(G, target, loss_fn, cfg: ProjectionConfig, latent_mean, latent_std,
             generator: Optional[torch.Generator] = None,
             progress: Optional[Callable[[int, float, float], None]] = None,
@@ -227,9 +261,17 @@ def project(G, target, loss_fn, cfg: ProjectionConfig, latent_mean, latent_std,
     through the mapping network with the configured truncation first.
     With cfg.noise_regularize > 0 (batch 1) the noise maps are optimized too
     and come back, the best ones, in `ProjectionResult.noises`; G's buffers
-    are left as they were. Freezes G's weights (G.requires_grad_(False))."""
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding of the projection is not ported yet")
+    are left as they were. Freezes G's weights (G.requires_grad_(False)).
+
+    `mesh`, a list of devices (JAX's 'data' mesh), splits the rows, which
+    are independent, into one contiguous block a device, each with its own
+    replica of G (G itself on G's device), targets, latents, Adam and best
+    trackers; each step issues the blocks in turn from this thread, each
+    block's gradient that of the whole batch's mean loss, and the per-step
+    noise is drawn for the whole batch and sliced, so the result equals the
+    unsharded one. It is gathered in row order on G's device. JAX's
+    refusals hold: no noise_regularize, and the batch must divide the
+    mesh."""
     dev = next(G.parameters()).device
     G.requires_grad_(False)
     target = torch.as_tensor(target, dtype=torch.float32, device=dev)
@@ -238,6 +280,7 @@ def project(G, target, loss_fn, cfg: ProjectionConfig, latent_mean, latent_std,
     if opt_noise and batch != 1:
         raise ValueError(f"noise_regularize optimizes batch-shared noise maps: batch 1 only, "
                          f"got {batch}")
+    devices = _mesh_devices(mesh, batch, opt_noise) if mesh is not None else [dev]
     k, z_dim = latent_mean.shape
     if init_latent is not None:
         latent = torch.as_tensor(init_latent, dtype=torch.float32)
@@ -253,7 +296,6 @@ def project(G, target, loss_fn, cfg: ProjectionConfig, latent_mean, latent_std,
             latent = G.run_mapping(latent, truncation_psi=cfg.truncation_psi)
     if latent.shape[0] != batch:
         latent = latent.expand(batch, *latent.shape[1:])
-    latent = latent.contiguous().clone().requires_grad_(True)
     std = torch.as_tensor(latent_std, dtype=torch.float32, device=dev)
 
     noises = best_noises = None
@@ -262,13 +304,24 @@ def project(G, target, loss_fn, cfg: ProjectionConfig, latent_mean, latent_std,
         if not noises:
             raise ValueError("noise_regularize: the generator has no const-noise buffers")
         best_noises = {k: v.clone() for k, v in noises.items()}
-    # One Adam over the latent and the noise maps: JAX's optax chain decays
-    # and updates the whole tree.
-    opt = torch.optim.Adam([latent, *(noises or {}).values()], lr=cfg.lr, betas=(0.9, 0.999),
-                           eps=1e-8, weight_decay=cfg.weight_decay)
-    best_loss = torch.full((batch,), 1e30, device=dev)
-    best_latent = latent.detach().clone()
-    best_step = torch.zeros(batch, dtype=torch.int64, device=dev)
+    replicas = {dev: G}
+    per = batch // len(devices)
+    shards = []
+    for i, d in enumerate(devices):
+        if d not in replicas:
+            replicas[d] = copy.deepcopy(G).to(d)
+        rows = slice(i * per, (i + 1) * per)
+        lat = latent[rows].to(d).contiguous().clone().requires_grad_(True)
+        # One Adam over the latent and the noise maps: JAX's optax chain
+        # decays and updates the whole tree.
+        opt = torch.optim.Adam([lat, *(noises or {}).values()], lr=cfg.lr, betas=(0.9, 0.999),
+                               eps=1e-8, weight_decay=cfg.weight_decay)
+        shards.append(_Shard(G=replicas[d], rows=rows, target=target[rows].to(d), latent=lat,
+                             std=std.to(d), opt=opt,
+                             best_loss=torch.full((per,), 1e30, device=d),
+                             best_latent=lat.detach().clone(),
+                             best_step=torch.zeros(per, dtype=torch.int64, device=d)))
+    denom = batch if mesh is not None else None
     expand = (slice(None),) + (None,) * (latent.ndim - 1)
 
     if noise_seq is not None:
@@ -280,46 +333,59 @@ def project(G, target, loss_fn, cfg: ProjectionConfig, latent_mean, latent_std,
     else:
         windows = _noise_windows(cfg, tuple(latent.shape), generator)
 
+    def on_dev(parts):
+        return parts[0] if len(parts) == 1 else torch.cat([p.to(dev) for p in parts])
+
     losses, comps_hist = [], []
-    window = None
+    shard_windows = None
     for step in range(cfg.steps):
         if step % cfg.chunk == 0:
-            window = next(windows).to(dev)
+            window = next(windows)
+            shard_windows = [window[:, sh.rows].to(sh.latent.device) for sh in shards]
         t = step / cfg.steps
         lr = cosine_ramp_lr(t, cfg.lr, cfg.lr_rampdown, cfg.lr_rampup)
-        strength = std * cfg.noise * max(0.0, 1.0 - t / cfg.noise_ramp) ** 2
-        latent_n = latent.detach() + window[step % cfg.chunk] * strength
-        if opt_noise:
-            used = {k: v.clone() for k, v in noises.items()}
-            per_img, comps, loss, grad, dnoise = loss_and_grads_with_noise(
-                G, latent_n, used, target, loss_fn, cfg)
-            for k, n in noises.items():
-                n.grad = dnoise[k]
-        else:
-            per_img, comps, grad = loss_and_grad(G, latent_n, target, loss_fn, cfg)
-            loss = per_img.mean()
-        latent.grad = grad
-        opt.param_groups[0]["lr"] = lr
-        opt.step()
-        if opt_noise:
-            normalize_noises(noises)
+        step_imgs, step_comps = [], []
+        for sh, win in zip(shards, shard_windows):
+            strength = sh.std * cfg.noise * max(0.0, 1.0 - t / cfg.noise_ramp) ** 2
+            latent_n = sh.latent.detach() + win[step % cfg.chunk] * strength
+            if opt_noise:
+                used = {k: v.clone() for k, v in noises.items()}
+                per_img, comps, loss, grad, dnoise = loss_and_grads_with_noise(
+                    sh.G, latent_n, used, sh.target, loss_fn, cfg)
+                for k, n in noises.items():
+                    n.grad = dnoise[k]
+            else:
+                per_img, comps, grad = loss_and_grad(sh.G, latent_n, sh.target, loss_fn, cfg,
+                                                     denom=denom)
+            sh.latent.grad = grad
+            sh.opt.param_groups[0]["lr"] = lr
+            sh.opt.step()
+            if opt_noise:
+                normalize_noises(noises)
 
-        improved = per_img < best_loss
-        if opt_noise:    # batch-shared maps: kept when any image improved
-            best_noises = {k: torch.where(improved.any(), used[k], best_noises[k])
-                           for k in used}
-        best_loss = torch.where(improved, per_img, best_loss)
-        best_latent = torch.where(improved[expand], latent_n, best_latent)
-        best_step = torch.where(improved, step, best_step)
+            improved = per_img < sh.best_loss
+            if opt_noise:    # batch-shared maps: kept when any image improved
+                best_noises = {k: torch.where(improved.any(), used[k], best_noises[k])
+                               for k in used}
+            sh.best_loss = torch.where(improved, per_img, sh.best_loss)
+            sh.best_latent = torch.where(improved[expand], latent_n, sh.best_latent)
+            sh.best_step = torch.where(improved, step, sh.best_step)
+            step_imgs.append(per_img)
+            step_comps.append(comps)
+        if not opt_noise:
+            loss = on_dev(step_imgs).mean()
         losses.append(loss)
-        comps_hist.append(comps)
+        comps_hist.append({k: on_dev([c[k] for c in step_comps]) for k in step_comps[0]})
         if progress is not None and ((step + 1) % cfg.chunk == 0 or step + 1 == cfg.steps):
-            progress(step + 1, float(losses[-1]), float(best_loss.mean()))
+            progress(step + 1, float(losses[-1]),
+                     float(on_dev([sh.best_loss for sh in shards]).mean()))
 
     with torch.no_grad(), noise_buffers(G, best_noises or {}):
-        best_img = synthesize_latent(G, best_latent, cfg)
+        best_img = on_dev([synthesize_latent(sh.G, sh.best_latent, cfg) for sh in shards])
+    best_loss = on_dev([sh.best_loss for sh in shards])
+    best_step = on_dev([sh.best_step for sh in shards])
     return ProjectionResult(
-        latent=best_latent,
+        latent=on_dev([sh.best_latent for sh in shards]),
         best_img=best_img,
         best_loss=float(best_loss.mean()),
         best_step=int(best_step.max()),

@@ -15,6 +15,19 @@ too, and train_state.msgpack: the port's own tree of G, D and G_ema (flax
 variables trees), both Adams' exp_avg, exp_avg_sq and step keyed by the
 same flax leaf paths, pl_mean and cur_nimg. A resumed run restarts its
 random draws and its batch order from `LoopConfig.seed`, as JAX's does.
+A snapshot of the JAX package (its train_state.msgpack tree: g, d,
+gs_params, gs_stats, optax's Adam states) resumes too: it is converted on
+load (checkpoint/convert.py `from_jax_train_state`). A JAX Orbax snapshot
+is refused by name.
+
+Under a process group of more than one rank (parallel/launch.py) the loop
+trains data-parallel over a `make_data_mesh()`: each rank's feed takes its
+shard of the data (`shard_index=rank, num_shards=world`) in batches of
+batch_size / world, its generator is seeded `seed + rank`, and the run
+directory's files (options, summary, stats.jsonl, TensorBoard, images,
+snapshots, pruning, metrics) are written by rank 0 alone, the stats
+all-reduced first. Every rank waits at a barrier before and after each
+snapshot, so none runs ahead of a save.
 
 The feed is chosen once, before the first step, and printed: the raw cache
 when MGT_RAW_CACHE=1 (`--raw-cache`), else the native C++ loader when its
@@ -42,12 +55,21 @@ from morphganformer_tpu_torch.checkpoint.async_io import (
     AsyncSnapshotter,
     write_tree,
 )
-from morphganformer_tpu_torch.checkpoint.convert import flatten, load_flax, set_leaf, to_flax
+from morphganformer_tpu_torch.checkpoint.convert import (
+    flatten,
+    from_jax_train_state,
+    is_jax_train_state,
+    load_flax,
+    set_leaf,
+    to_flax,
+)
 from morphganformer_tpu_torch.checkpoint.io import save_discriminator, save_generator
 from morphganformer_tpu_torch.checkpoint.msgpack_codec import msgpack_restore
 from morphganformer_tpu_torch.data.dataset import ImageFolderDataset, infinite_batches
 from morphganformer_tpu_torch.models.config import DiscriminatorConfig, GANformerConfig
 from morphganformer_tpu_torch.models.generator import set_compute_dtype
+from morphganformer_tpu_torch.parallel.launch import is_main_process, local_device
+from morphganformer_tpu_torch.parallel.mesh import DataMesh, make_data_mesh, replicated
 from morphganformer_tpu_torch.training import visualize as vz
 from morphganformer_tpu_torch.training.stats import Collector
 from morphganformer_tpu_torch.training.tensorboard import EventWriter
@@ -143,8 +165,11 @@ def _load_adam(opt, model, tree):
 
 
 def apply_train_state(state: TrainState, tree) -> TrainState:
-    """Load a train-state tree into `state` in place (the modules keep their
-    parameters, so the optimizers keep pointing at them)."""
+    """Load a train-state tree, the port's or the JAX package's, into `state`
+    in place (the modules keep their parameters, so the optimizers keep
+    pointing at them)."""
+    if is_jax_train_state(tree):
+        tree = from_jax_train_state(tree)
     for name in ("G", "D", "G_ema"):
         load_flax(getattr(state, name), tree[name])
     _load_adam(state.g_opt, state.G, tree["g_opt"])
@@ -159,25 +184,49 @@ def save_train_state(path, state: TrainState) -> None:
 
 
 def load_train_state(path, state: TrainState) -> TrainState:
+    """Load a train_state.msgpack of either package into `state`."""
     with open(path, "rb") as f:
         return apply_train_state(state, msgpack_restore(f.read()))
 
 
+def resume_train_state(snap_dir, state: TrainState, snapshotter=None,
+                       mesh: Optional[DataMesh] = None) -> TrainState:
+    """Load snapshot `snap_dir`'s train state into `state` (through the
+    background writer's `restore` when there is one), then broadcast the
+    nets from rank 0. A JAX Orbax snapshot (an `orbax` directory, no
+    train_state.msgpack) raises: the port reads msgpack only."""
+    path = os.path.join(snap_dir, TRAIN_STATE_FILE)
+    if not os.path.exists(path) and os.path.isdir(os.path.join(snap_dir, "orbax")):
+        raise ValueError(f"{snap_dir} is a JAX Orbax snapshot (snapshot_backend=\"orbax\"); "
+                         f"the port resumes from train_state.msgpack only: resave it with the "
+                         f"JAX package's msgpack backend")
+    if snapshotter is not None:
+        apply_train_state(state, snapshotter.restore(snap_dir))
+    else:
+        load_train_state(path, state)
+    for net in (state.G, state.D, state.G_ema):
+        replicated(net, mesh)
+    return state
+
+
 # ------------------------------------------------------------ the feed
 
-def select_feed(dataset: ImageFolderDataset, batch_size: int, seed: int):
-    """(name, batches): the feed of this run, chosen once."""
+def select_feed(dataset: ImageFolderDataset, batch_size: int, seed: int, shard_index=0,
+                num_shards=1):
+    """(name, batches): the feed of this run (of this rank's shard of the
+    data, `batch_size` rows a batch), chosen once."""
     from morphganformer_tpu_torch.data import native_loader
     from morphganformer_tpu_torch.data.raw_cache import raw_infinite_batches
 
     path, res = dataset.path, dataset.resolution
+    shard = dict(seed=seed, shard_index=shard_index, num_shards=num_shards)
     if os.environ.get("MGT_RAW_CACHE") == "1":
-        return "raw cache", raw_infinite_batches(path, res, batch_size, seed=seed)
+        return "raw cache", raw_infinite_batches(path, res, batch_size, **shard)
     if native_loader.native_available():
-        return "native", native_loader.native_infinite_batches(path, res, batch_size, seed=seed)
+        return "native", native_loader.native_infinite_batches(path, res, batch_size, **shard)
     print(f"(python feed: the native loader is unavailable: {native_loader.build_error()})",
           flush=True)
-    return "python", infinite_batches(dataset, batch_size, seed=seed)
+    return "python", infinite_batches(dataset, batch_size, **shard)
 
 
 # ------------------------------------------------------------ the loop
@@ -202,50 +251,68 @@ def _check(g_cfg: GANformerConfig, l_cfg: LoopConfig):
                          "this one has none")
 
 
+def _barrier(mesh: Optional[DataMesh]):
+    if mesh is not None and mesh.has_group:
+        torch.distributed.barrier()
+
+
 def training_loop(g_cfg: GANformerConfig, d_cfg: DiscriminatorConfig, t_cfg: TrainConfig,
                   l_cfg: LoopConfig, dataset_path: str, resume: Optional[str] = "auto",
                   max_ticks: Optional[int] = None, device="cuda") -> TrainState:
-    """Run (or resume) training until total_kimg or `max_ticks` ticks.
+    """Run (or resume) training until total_kimg or `max_ticks` ticks, data
+    parallel over the process group when it has more than one rank.
     Returns the final state."""
     _check(g_cfg, l_cfg)
     if os.environ.get("MGT_DEBUG_NANS") == "1":
         torch.autograd.set_detect_anomaly(True)
+    mesh = (make_data_mesh(device=device) if torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1 else None)
+    main = is_main_process()
+    world, rank = (mesh.world, mesh.rank) if mesh is not None else (1, 0)
 
     os.makedirs(l_cfg.run_dir, exist_ok=True)
-    with open(os.path.join(l_cfg.run_dir, "training_options.json"), "w") as f:
-        json.dump({"G": json.loads(g_cfg.to_json()),
-                   "D": json.loads(d_cfg.to_json()),
-                   "train": dataclasses.asdict(t_cfg),
-                   "loop": {k: v for k, v in dataclasses.asdict(l_cfg).items()
-                            if not isinstance(v, tuple)}},
-                  f, indent=2, default=str)
+    if main:
+        with open(os.path.join(l_cfg.run_dir, "training_options.json"), "w") as f:
+            json.dump({"G": json.loads(g_cfg.to_json()),
+                       "D": json.loads(d_cfg.to_json()),
+                       "train": dataclasses.asdict(t_cfg),
+                       "loop": {k: v for k, v in dataclasses.asdict(l_cfg).items()
+                                if not isinstance(v, tuple)},
+                       "world": world},
+                      f, indent=2, default=str)
 
+    trainer = GANTrainer(g_cfg, d_cfg, t_cfg, device=local_device(device), mesh=mesh)
     dataset = ImageFolderDataset(dataset_path, g_cfg.img_resolution)
-    feed, batches = select_feed(dataset, t_cfg.batch_size, l_cfg.seed)
-    print(f"feed: {feed} ({len(dataset)} images of {g_cfg.img_resolution}^2 "
-          f"under {dataset_path})", flush=True)
+    # Rank 0 first: it builds the raw cache that the others then read.
+    if not main:
+        _barrier(mesh)
+    feed, batches = select_feed(dataset, t_cfg.batch_size // world, l_cfg.seed,
+                                shard_index=rank, num_shards=world)
+    if main:
+        _barrier(mesh)
+        print(f"feed: {feed} ({len(dataset)} images of {g_cfg.img_resolution}^2 under "
+              f"{dataset_path}; {world} rank(s) of {t_cfg.batch_size // world} rows)",
+              flush=True)
 
-    trainer = GANTrainer(g_cfg, d_cfg, t_cfg, device=device)
     state = trainer.init_state(seed=l_cfg.seed)
 
-    summary = generator_summary(state.G) + "\n" + discriminator_summary(state.D)
-    with open(os.path.join(l_cfg.run_dir, "module_summary.txt"), "w") as f:
-        f.write(summary)
-    print(summary, flush=True)
+    if main:
+        summary = generator_summary(state.G) + "\n" + discriminator_summary(state.D)
+        with open(os.path.join(l_cfg.run_dir, "module_summary.txt"), "w") as f:
+            f.write(summary)
+        print(summary, flush=True)
 
-    snapshotter = AsyncSnapshotter() if l_cfg.snapshot_backend == "async" else None
+    snapshotter = AsyncSnapshotter() if l_cfg.snapshot_backend == "async" and main else None
     if resume == "auto":
         resume = latest_snapshot(l_cfg.run_dir)
     if resume:
-        if snapshotter is not None:
-            apply_train_state(state, snapshotter.restore(resume))
-        else:
-            load_train_state(os.path.join(resume, TRAIN_STATE_FILE), state)
-        print(f"Resuming from {resume} at cur_nimg {state.cur_nimg}", flush=True)
+        resume_train_state(resume, state, snapshotter, mesh)
+        if main:
+            print(f"Resuming from {resume} at cur_nimg {state.cur_nimg}", flush=True)
 
-    collector = Collector()
+    collector = Collector(mesh)
     stats_jsonl = os.path.join(l_cfg.run_dir, "stats.jsonl")
-    tb_writer = EventWriter(l_cfg.run_dir) if l_cfg.tensorboard else None
+    tb_writer = EventWriter(l_cfg.run_dir) if l_cfg.tensorboard and main else None
     dev = trainer.device
 
     tick = int(state.cur_nimg // (l_cfg.kimg_per_tick * 1000))
@@ -262,18 +329,23 @@ def training_loop(g_cfg: GANformerConfig, d_cfg: DiscriminatorConfig, t_cfg: Tra
         snap_dir = os.path.join(l_cfg.run_dir, f"network-snapshot-{kimg:06d}")
         if not force and kimg == last_snap_kimg:
             return snap_dir if os.path.exists(snap_dir) else None
-        if not force and os.path.exists(snap_dir):
+        # Whether a directory exists is not the same on every rank at the
+        # same moment: a multi-rank run decides on the kimg alone, as JAX's.
+        if not force and mesh is None and os.path.exists(snap_dir):
             return None
         last_snap_kimg = kimg
-        save_generator(snap_dir, g_cfg, state.G, role="G")
-        save_generator(snap_dir, g_cfg, state.G_ema, role="Gs")
-        save_discriminator(snap_dir, d_cfg, state.D)
-        if snapshotter is not None:
-            snapshotter.save(snap_dir, train_state_tree(state))
-        else:
-            save_train_state(os.path.join(snap_dir, TRAIN_STATE_FILE), state)
-        print(f"snapshot {snap_dir} at cur_nimg {state.cur_nimg}", flush=True)
-        prune_snapshots(l_cfg.run_dir, l_cfg.last_snapshots)
+        _barrier(mesh)
+        if main:
+            save_generator(snap_dir, g_cfg, state.G, role="G")
+            save_generator(snap_dir, g_cfg, state.G_ema, role="Gs")
+            save_discriminator(snap_dir, d_cfg, state.D)
+            if snapshotter is not None:
+                snapshotter.save(snap_dir, train_state_tree(state))
+            else:
+                save_train_state(os.path.join(snap_dir, TRAIN_STATE_FILE), state)
+            print(f"snapshot {snap_dir} at cur_nimg {state.cur_nimg}", flush=True)
+            prune_snapshots(l_cfg.run_dir, l_cfg.last_snapshots)
+        _barrier(mesh)
         return snap_dir
 
     def evaluate(snapshot_dir=None):
@@ -335,12 +407,14 @@ def training_loop(g_cfg: GANformerConfig, d_cfg: DiscriminatorConfig, t_cfg: Tra
             tick += 1
             ticks_done += 1
             now = time.time()
+            collector.sync()
             fields = [f"tick {tick}", f"kimg {state.cur_nimg / 1000:.1f}",
                       f"time {now - start_time:.0f}s", f"sec/tick {now - tick_start:.1f}"]
             fields += [f"{k.split('/')[-1]} {collector.mean(k):.3f}"
                        for k in collector.names() if k.startswith("Loss/")]
-            print(" | ".join(fields), flush=True)
-            collector.write_jsonl(stats_jsonl, kimg=state.cur_nimg / 1000, tick=tick)
+            if main:
+                print(" | ".join(fields), flush=True)
+                collector.write_jsonl(stats_jsonl, kimg=state.cur_nimg / 1000, tick=tick)
             if tb_writer is not None:
                 tb_writer.add_scalars(
                     state.cur_nimg,
@@ -349,14 +423,18 @@ def training_loop(g_cfg: GANformerConfig, d_cfg: DiscriminatorConfig, t_cfg: Tra
                        "Timing/total_sec": now - start_time})
             collector.reset()
             tick_start = now
-            if l_cfg.img_snapshot_ticks > 0 and tick % l_cfg.img_snapshot_ticks == 0:
+            if main and l_cfg.img_snapshot_ticks > 0 and tick % l_cfg.img_snapshot_ticks == 0:
                 save_visualizations()
             if l_cfg.snapshot_ticks > 0 and tick % l_cfg.snapshot_ticks == 0:
-                evaluate(snapshot_dir=maybe_snapshot())
+                snap = maybe_snapshot()
+                if main:
+                    evaluate(snapshot_dir=snap)
             if max_ticks is not None and ticks_done >= max_ticks:
                 break
 
-    evaluate(snapshot_dir=maybe_snapshot(force=True))
+    snap = maybe_snapshot(force=True)
+    if main:
+        evaluate(snapshot_dir=snap)
     batches.close()
     if snapshotter is not None:
         snapshotter.close()

@@ -5,6 +5,12 @@ as mean and std, and written as one stats.jsonl line per tick (reference
 torch_utils/training_stats.py). `report_dict` takes the step's stats as
 device tensors and copies them to the host in one transfer, so an
 iteration's stats cost one synchronisation, not one per stat.
+
+JAX's stats are global already. Under a data mesh each rank here reports
+its own rows' stats, so `sync()` (called by every rank, once a tick)
+all-reduces the triples, as the reference's training_stats.py:222-226
+did; `mean`, `std`, `as_dict` and `write_jsonl` then read the global
+triples until the next `report` or `reset`.
 """
 
 from __future__ import annotations
@@ -12,19 +18,25 @@ from __future__ import annotations
 import json
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from morphganformer_tpu_torch.parallel.mesh import DataMesh
 
 
 class Collector:
     """Accumulate [n, sum, sum_sq] per name; query mean/std; jsonl export."""
 
-    def __init__(self):
+    def __init__(self, mesh: Optional[DataMesh] = None):
+        self.mesh = mesh
         self._moments = defaultdict(lambda: np.zeros(3, np.float64))
+        self._synced = None
 
     def report(self, name: str, value):
+        self._synced = None
         value = np.asarray(value, dtype=np.float64).ravel()
         m = self._moments[name]
         m[0] += value.size
@@ -43,12 +55,34 @@ class Collector:
         for k, v in d.items():
             self.report(k, v)
 
+    def sync(self):
+        """All-reduce the triples over the mesh's ranks (a collective: every
+        rank calls it, with the same names reported). No-op without a
+        group."""
+        if self.mesh is None or not self.mesh.has_group:
+            return
+        names = self.names()
+        every = [None] * self.mesh.world
+        dist.all_gather_object(every, names)
+        if any(n != names for n in every):
+            raise RuntimeError(f"the ranks reported different stats: {every}")
+        device = self.mesh.device if dist.get_backend() == "nccl" else "cpu"
+        flat = torch.tensor(np.stack([self._moments[n] for n in names]) if names
+                            else np.zeros((0, 3)), dtype=torch.float64, device=device)
+        dist.all_reduce(flat)
+        self._synced = dict(zip(names, flat.cpu().numpy()))
+
+    def _get(self, name):
+        if self._synced is not None:
+            return self._synced.get(name, np.zeros(3))
+        return self._moments[name]
+
     def mean(self, name: str) -> float:
-        m = self._moments[name]
+        m = self._get(name)
         return float(m[1] / m[0]) if m[0] > 0 else float("nan")
 
     def std(self, name: str) -> float:
-        m = self._moments[name]
+        m = self._get(name)
         if m[0] < 1:
             return float("nan")
         mean = m[1] / m[0]
@@ -58,12 +92,13 @@ class Collector:
         return sorted(self._moments)
 
     def as_dict(self):
-        return {name: {"num": float(self._moments[name][0]),
+        return {name: {"num": float(self._get(name)[0]),
                        "mean": self.mean(name), "std": self.std(name)}
                 for name in self.names()}
 
     def reset(self):
         self._moments.clear()
+        self._synced = None
 
     def write_jsonl(self, path, **extra):
         """stats.jsonl line per tick (reference training_loop.py:289-294)."""

@@ -1,5 +1,5 @@
 """The lazily regularised adversarial training step (port of
-morphganformer_tpu/training/train_step.py:53-391, without the mesh).
+morphganformer_tpu/training/train_step.py:53-391).
 
 One iteration runs G_main, G_reg (path length) when `step % g_reg_interval
 == 0`, D_main with the EMA tail, then D_reg (R1) when `step %
@@ -17,6 +17,19 @@ One `torch.Generator` on the device, seeded by `init_state`, makes every
 random draw of the step. The reg stages run on the fused kernels'
 second-order route by default, on the unpacked route under
 MGT_PACKED_SECOND_ORDER=0 (training/loss.py).
+
+Data-parallel training (`GANTrainer(..., mesh=make_data_mesh())`,
+parallel/mesh.py) runs each accumulation round on this rank's rows of the
+global microbatch and, as JAX counts its data axis, makes `n_accum =
+batch_size // (batch_gpu * world)`. Each stage's round-mean gradients are
+averaged over the ranks in one all-reduce before the NaN scrub and Adam;
+inside a stage the minibatch-std layer, the w_avg update and the path
+length (JAX's rows of the global microbatch, and their mean) see every
+rank's rows, through the mesh that the stages hand them. The
+nets start equal on every rank (broadcast from rank 0 by `make_state`),
+and each rank's generator is seeded `seed + rank`, as JAX's loop seeds
+each process. The kernels' Functions are unchanged: only gradients and
+those few activations cross ranks.
 """
 
 from __future__ import annotations
@@ -30,6 +43,7 @@ import torch
 from morphganformer_tpu_torch.models.config import DiscriminatorConfig, GANformerConfig
 from morphganformer_tpu_torch.models.discriminator import Discriminator, init_discriminator
 from morphganformer_tpu_torch.models.generator import Generator, init_generator
+from morphganformer_tpu_torch.parallel.mesh import DataMesh, all_mean_, replicated
 from morphganformer_tpu_torch.training.loss import (
     LossConfig,
     d_main_loss,
@@ -101,23 +115,32 @@ def ema_update(G_ema, G, beta):
         e.copy_(p + beta * (e - p))
 
 
-def stage_grads(params, rounds):
+def stage_grads(params, rounds, mesh: Optional[DataMesh] = None):
     """The mean over accumulation rounds of each round's gradient of its
     loss w.r.t. `params` (zeros for a parameter a round does not reach),
-    NaN-scrubbed, and the rounds' mean stats as 0-d tensors on the device
-    (read on the host once per iteration: `training/stats.py`). `rounds`
-    yields (loss, stats) one round at a time."""
-    acc = [torch.zeros_like(p) for p in params]
+    averaged over the ranks of `mesh`, NaN-scrubbed, and this rank's
+    rounds' mean stats as 0-d tensors on the device (read on the host once
+    per iteration: `training/stats.py`). `rounds` yields (loss, stats) one
+    round at a time; a loss without a graph (a rank that holds none of the
+    path-length rows) adds zeros."""
+    # One buffer holds every gradient, so the mean over ranks is one
+    # all-reduce of it, with no copy in or out.
+    sizes = [p.numel() for p in params]
+    flat = torch.zeros(sum(sizes), dtype=params[0].dtype, device=params[0].device)
+    acc = [a.view_as(p) for a, p in zip(flat.split(sizes), params)]
     stats, n = {}, 0
     for loss, aux in rounds:
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        for a, g in zip(acc, grads):
-            if g is not None:
-                a.add_(g)
+        if loss.requires_grad:
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            for a, g in zip(acc, grads):
+                if g is not None:
+                    a.add_(g)
         for k, v in aux.items():
             stats[k] = stats.get(k, 0.0) + v
         n += 1
-    return [_nan_scrub(a / n) for a in acc], {k: v / n for k, v in stats.items()}
+    flat = _nan_scrub(all_mean_(flat.div_(n), mesh))
+    return ([g.view_as(p) for g, p in zip(flat.split(sizes), params)],
+            {k: v / n for k, v in stats.items()})
 
 
 def _apply(opt, params, grads):
@@ -130,13 +153,19 @@ def _apply(opt, params, grads):
 
 class GANTrainer:
     """The G_main, G_reg, D_main and D_reg stages and the EMA for one (G, D)
-    pair, on `device`: the card unless the caller asks for the CPU."""
+    pair, on `device`: the card unless the caller asks for the CPU (under a
+    `mesh`, this rank's device of it)."""
 
     def __init__(self, g_cfg: GANformerConfig, d_cfg: DiscriminatorConfig, cfg: TrainConfig,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[DataMesh] = None):
         self.g_cfg, self.d_cfg, self.cfg = g_cfg, d_cfg, cfg
-        self.device = resolve_device(device)
-        per_step = cfg.batch_gpu or 0
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None else device)
+        world = mesh.world if mesh is not None else 1
+        if cfg.batch_size % world:
+            raise ValueError(f"batch_size {cfg.batch_size} does not divide the data mesh "
+                             f"({world} ranks)")
+        per_step = (cfg.batch_gpu or 0) * world
         self.n_accum = max(1, cfg.batch_size // per_step) if per_step else 1
         if cfg.batch_size % self.n_accum:
             raise ValueError(f"batch_size {cfg.batch_size} not divisible into "
@@ -152,8 +181,11 @@ class GANTrainer:
         return self.make_state(G, D, seed)
 
     def make_state(self, G, D, seed=0):
-        """A state around existing nets (e.g. carried from JAX)."""
+        """A state around existing nets (e.g. carried from JAX), broadcast
+        from rank 0 under a mesh; the generator is seeded `seed + rank`."""
         cfg = self.cfg
+        replicated(G, self.mesh)
+        replicated(D, self.mesh)
         G_ema = copy.deepcopy(G).requires_grad_(False)
         return TrainState(
             G=G, D=D, G_ema=G_ema,
@@ -161,8 +193,12 @@ class GANTrainer:
                                  cfg.g_reg_interval),
             d_opt=make_optimizer(D.parameters(), cfg.d_lr, cfg.beta1, cfg.beta2, cfg.eps,
                                  cfg.d_reg_interval),
-            gen=torch.Generator(device=self.device).manual_seed(seed),
+            gen=torch.Generator(device=self.device).manual_seed(seed + self.rank),
             pl_mean=torch.zeros((), device=self.device))
+
+    @property
+    def rank(self) -> int:
+        return self.mesh.rank if self.mesh is not None else 0
 
     # -------------- stages --------------
 
@@ -177,7 +213,8 @@ class GANTrainer:
         state.D.requires_grad_(False)
         try:
             return stage_grads(params, (
-                g_main_loss(state.G, state.D, z_r, self.cfg.loss, gen, plain) for z_r in z))
+                g_main_loss(state.G, state.D, z_r, self.cfg.loss, gen, plain, self.mesh)
+                for z_r in z), self.mesh)
         finally:
             state.D.requires_grad_(True)
 
@@ -187,8 +224,8 @@ class GANTrainer:
         gen = state.gen if gen is None else gen
         params = list(state.D.parameters())
         return stage_grads(params, (
-            d_main_loss(state.G, state.D, real_r, z_r, self.cfg.loss, gen, plain)
-            for real_r, z_r in zip(real_img, z)))
+            d_main_loss(state.G, state.D, real_r, z_r, self.cfg.loss, gen, plain, self.mesh)
+            for real_r, z_r in zip(real_img, z)), self.mesh)
 
     def g_reg_grads(self, state, z, gen=None):
         """G_reg's round-mean gradients w.r.t. G's parameters, its stats and
@@ -202,11 +239,11 @@ class GANTrainer:
         def rounds():
             nonlocal pl_mean
             for z_r in z:
-                loss, aux = g_pl_loss(state.G, z_r, self.cfg.loss, gen, pl_mean)
+                loss, aux = g_pl_loss(state.G, z_r, self.cfg.loss, gen, pl_mean, self.mesh)
                 pl_mean = aux.pop("pl_mean")
                 yield loss * gain, aux
 
-        grads, stats = stage_grads(list(state.G.parameters()), rounds())
+        grads, stats = stage_grads(list(state.G.parameters()), rounds(), self.mesh)
         return grads, stats, pl_mean
 
     def d_reg_grads(self, state, real_img):
@@ -217,10 +254,10 @@ class GANTrainer:
 
         def rounds():
             for real_r in real_img:
-                loss, aux = d_r1_loss(state.D, real_r, self.cfg.loss)
+                loss, aux = d_r1_loss(state.D, real_r, self.cfg.loss, self.mesh)
                 yield loss * gain, aux
 
-        return stage_grads(list(state.D.parameters()), rounds())
+        return stage_grads(list(state.D.parameters()), rounds(), self.mesh)
 
     def g_main_step(self, state, z):
         """One G_main update; returns its stats."""
@@ -260,7 +297,8 @@ class GANTrainer:
     # -------------- one full iteration --------------
 
     def train_iteration(self, state, real_img, step: int, z=None):
-        """The stages due at `step` on one batch of real images [B, R, R, C],
+        """The stages due at `step` on one batch of real images [B, R, R, C]
+        (under a mesh, this rank's B / world rows of the global batch),
         split into the accumulation rounds (reference training_loop.py:186-209,
         JAX `train_iteration`): G_main, G_reg every `g_reg_interval` steps,
         D_main with the EMA, D_reg every `d_reg_interval` steps. z [B, k,

@@ -9,7 +9,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "PIL", "imageio", "msgpack", "morphganformer_tpu")
-PORT_FILES = sorted((ROOT / "morphganformer_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "morphganformer_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "dist_probe.py"]
 
 
 def _imported_roots(path):

@@ -108,8 +108,14 @@ def test_morph_csv_writes_every_pair(small, tmp_path):
             img = G(z=torch.from_numpy(w)[None], truncation_psi=0.7)[0].numpy()
         got = read_png(os.path.join(out, f"{a}_{b}_morph.png")).astype(np.int16)
         assert np.abs(got - to_uint8(img).astype(np.int16)).max() <= 1
-    with pytest.raises(NotImplementedError, match='"Parallel"'):
-        cli.main(["morph", "--model", ckpt, "--device", "cpu", "--shard"])
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):      # one CPU device: JAX's message, no sharding
+        cli.main(["morph", "--model", ckpt, "--device", "cpu", "--dtype", "float32",
+                  "--img-a", str(tmp_path / "faces" / "alice.png"),
+                  "--img-b", str(tmp_path / "faces" / "bob.png"), "--shard", "--step", "2",
+                  "--n_mean_latent", "64", "--out", str(tmp_path / "sharded")])
+    assert "--shard ignored: 1 device(s), batch 2" in log.getvalue()
+    assert os.path.exists(tmp_path / "sharded" / "alice_bob_morph.png")
     with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()):
         cli.main(["morph", "--model", ckpt, "--device", "cpu"])      # no pair given
 
@@ -125,9 +131,9 @@ def _replay(monkeypatch, mean, std, noises):
     it = iter(noises)
 
     def project(G, target, loss_fn, pcfg, latent_mean, latent_std, generator=None,
-                progress=None):
+                progress=None, mesh=None):
         return engine.project(G, target, loss_fn, pcfg, latent_mean, latent_std,
-                              progress=progress, noise_seq=next(it))
+                              progress=progress, noise_seq=next(it), mesh=mesh)
 
     monkeypatch.setattr(cli, "latent_stats", lambda *a, **k: (mean, std))
     monkeypatch.setattr(cli, "project", project)

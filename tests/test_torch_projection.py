@@ -204,8 +204,8 @@ def test_unported_options_raise(small):
     with pytest.raises(ValueError, match="batch 1"):
         project(G, torch.cat([target] * 2), loss_fn,
                 ProjectionConfig(steps=2, noise_regularize=1e5), mean, std)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        project(G, target, loss_fn, ProjectionConfig(steps=2), mean, std, mesh=object())
+    with pytest.raises(ValueError, match="must divide the mesh"):
+        project(G, target, loss_fn, ProjectionConfig(steps=2), mean, std, mesh=["cpu", "cpu"])
     with pytest.raises(ValueError, match="noise_seq"):
         project(G, target, loss_fn, ProjectionConfig(steps=2), mean, std,
                 noise_seq=np.zeros((3, 1, G.cfg.k, G.cfg.z_dim), np.float32))

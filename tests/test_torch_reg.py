@@ -270,8 +270,8 @@ def test_train_iteration_matches_jax_at_step_0(monkeypatch, force_fused_d):
     monkeypatch.setattr(tts, "g_pl_loss", lambda *a: real_pl(*a, pl_noise=next(noises)))
     stage_grads, real_stage_grads = [], tts.stage_grads
 
-    def recording(params, rounds):
-        out = real_stage_grads(params, rounds)
+    def recording(params, rounds, mesh=None):
+        out = real_stage_grads(params, rounds, mesh)
         stage_grads.append([g.numpy() for g in out[0]])
         return out
     monkeypatch.setattr(tts, "stage_grads", recording)

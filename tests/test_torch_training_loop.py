@@ -426,14 +426,31 @@ TRAIN_FLAGS = ["train", "--resolution", str(RES), "--components-num", "2", "--la
                "--batch", "4", "--device", "cpu", "--ganformer-default"]
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--multihost"], '"Parallel"'), (["--coordinator", "localhost:1234"], '"Parallel"'),
-    (["--num-processes", "2"], '"Parallel"'), (["--process-id", "0"], '"Parallel"'),
+@pytest.mark.parametrize("flags,want", [
+    pytest.param(["--multihost"], (None, None, None, True), id='flags0-"Parallel"'),
+    pytest.param(["--coordinator", "localhost:1234"], ("localhost:1234", None, None, False),
+                 id='flags1-"Parallel"'),
+    pytest.param(["--num-processes", "2"], (None, 2, None, False), id='flags2-"Parallel"'),
+    pytest.param(["--process-id", "0"], (None, None, 0, False), id='flags3-"Parallel"'),
 ])
-def test_train_entry_point_refuses_flags(tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_train_entry_point_refuses_flags(tmp_path, monkeypatch, flags, want):
+    """Each of JAX's group flags reaches initialize_distributed as JAX's
+    cli/train.py passes it: (coordinator, num_processes, process_id,
+    requested=multihost)."""
+    calls = []
+
+    class Joined(Exception):
+        pass
+
+    def initialize_distributed(*args, **kwargs):
+        calls.append((*args, kwargs["requested"]))
+        raise Joined
+
+    monkeypatch.setattr(cli, "initialize_distributed", initialize_distributed)
+    with pytest.raises(Joined):
         cli.main(TRAIN_FLAGS + ["--data-dir", str(tmp_path), "--result-dir", str(tmp_path)]
                  + flags)
+    assert calls == [want]
 
 
 def test_train_entry_point_runs_and_resumes(data_root, tmp_path, capsys):
