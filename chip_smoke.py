@@ -262,6 +262,29 @@ Phases, each printing its wall time:
               turns, beside the card's name and power limit; a 2-row
               projection through mesh=[cuda:0] and mesh=None, latents and
               losses equal, the same launches.
+  16. options four sets of GANformer options at FFHQ-1024 widths, each G
+              from seed 0 (`OPTION_SETS`): gated (k 17, ltnt_gate and
+              img_gate, the mapping's ltnt_gate, kmeans_iters 2, the
+              trainable encoding), iterative-conditional (k 9, the
+              iterative carry, kmeans_iters 2, c_dim 8 with the non-resnet
+              mapping, the linear encoding), stylegan2 (no transformer,
+              k 1: every block from 8^2 fused) and shared (k 2, the
+              trainable2d encoding). Per set: a batch-2 forward with const
+              noise, exact K1 and K2 launches, kernels against plain to
+              1e-3, ms; a 5-step projection at batch 1 onto G's own image
+              (run_project; the conditional set in W+ from its labelled ws
+              through `project`), exact launches with the adjoints, the
+              latent gradient kernels against plain to 1e-3; the gated set
+              in bfloat16 by phase bf16's rule; the iterative-conditional
+              set with a conditional 1024^2 D: one G_main and one D_main
+              round with labels held by phase train's check
+              (`main_round_checks`: backward alone and kernels against
+              plain, every leaf within 1e-3), where a check misses 1e-3 the
+              kernels no further from a plain float64 run than 2x plain
+              float32 is (float32 rounding alone moves this set's stages
+              past it); the path-length penalty at the same weights in
+              float32 and in float64; train_iteration at step 0 with
+              labels (all four stages, phase reg's exact launches).
 
 The phase `extract` runs after metrics, in phase morph's directory:
 extract_features (random iresnet18 on the card) with --bona on
@@ -953,11 +976,13 @@ def _steady_rate(stamps):
     return (s1 - s0) / (t1 - t0)
 
 
-def _per_step(steps, forwards, bf16=False):
+def _per_step(steps, forwards, bf16=False, k1=4, k2=6):
     """Exact launches of `steps` projection steps and `forwards` forwards on
-    the fused blocks; `bf16` counts them on the bfloat16 instantiations."""
-    main = {"modconv3x3": 4 * (steps + forwards), "upconv2": 6 * (steps + forwards),
-            "modconv3x3_adj": 4 * steps, "upconv2_adj": 6 * steps}
+    the fused blocks, `k1` K1 and `k2` K2 launches a forward (FFHQ-1024's
+    three fused blocks: 4 and 6); `bf16` counts them on the bfloat16
+    instantiations."""
+    main = {"modconv3x3": k1 * (steps + forwards), "upconv2": k2 * (steps + forwards),
+            "modconv3x3_adj": k1 * steps, "upconv2_adj": k2 * steps}
     counts = {**dict.fromkeys(main, 0), **dict.fromkeys(BF16_KEYS.values(), 0),
               **dict.fromkeys(TRAIN_KEYS.values(), 0), **dict.fromkeys(K4_KEYS, 0),
               **dict.fromkeys(TRAIN_BF16_KEYS.values(), 0)}
@@ -1542,6 +1567,159 @@ def _fmt(rows, k=3):
     return [(r[1], f"{r[0]:.3e}", f"{r[2]:.3e}") for r in rows[:k]]
 
 
+F64_RATIO = 2   # a check float32 misses: the kernels no further from float64 than 2x plain
+
+
+def main_round_checks(torch, fc, trainer, state, z, real, gen, c=None, f64_rule=False):
+    """One G_main and one D_main round (z [1, B, k, z_dim], real [1, B, R,
+    R, 3], labels c [1, B, c_dim] or None) at the state's weights with the
+    noise strengths (0 at init) set to U(0.05, 0.15) from `gen`, so the
+    per-sample noise reaches the kernels' epilogues and dd taps; both put
+    back after. Every run draws from a generator seeded alike, in an order
+    that does not depend on the path. Four runs per stage: on the kernels;
+    plain; the kernels' forward with the plain backward (one forward, so
+    only the backward differs); and plain with every weight nudged by 1e-6
+    of itself, printed only: how far the stage moves under a perturbation
+    of every weight the size of the kernels' forward rounding. Errors are
+    relative to each leaf's largest entry, floored at 1e-3 of the stage's
+    largest entry (leaves of zero true gradient: the key biases before a
+    softmax). Checks: backward alone, every leaf on its own within 1e-3;
+    kernels against plain, every other leaf on its own within 1e-3 and the
+    noise strengths as one vector leaf within 1e-3 of its largest entry
+    (each is a sum of g * noise over its layer that cancels down to a small
+    value, which pre-activations rounding to the other side of zero move by
+    about 1e-3 of itself); the loss within 1e-4.
+
+    With `f64_rule`, a fifth run, plain on float64 copies of the nets (the
+    same draws, made in float32), judges what misses those bounds: such a
+    leaf, the pooled strengths or the loss passes when the kernels' run is
+    no further from float64 than F64_RATIO times the run it was held
+    against (plain, or the kernels' forward with the plain backward): a
+    stage that float32 rounding alone moves past the bound, to which the
+    kernels add no error that float32 does not. Returns (errors by stage,
+    ms by run)."""
+    import copy
+    import dataclasses
+
+    w_avg = state.G.mapping.w_avg.clone()
+    strengths = set_noise_strengths(torch, state.G, gen)
+    assert strengths
+    state64 = (dataclasses.replace(state, G=copy.deepcopy(state.G).double(),
+                                   D=copy.deepcopy(state.D).double())
+               if f64_rule else None)
+
+    def one_round(stage, plain=False, st=state):
+        dt = st.G.mapping.w_avg.dtype
+        st.G.mapping.w_avg.copy_(w_avg)
+        rng = torch.Generator(device="cuda").manual_seed(11)
+        zz, cc = z.to(dt), (None if c is None else c.to(dt))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if stage == "g":
+            grads, stats = trainer.g_main_grads(st, zz, gen=rng, plain=plain, c=cc)
+        else:
+            grads, stats = trainer.d_main_grads(st, real.to(dt), zz, gen=rng, plain=plain, c=cc)
+        torch.cuda.synchronize()
+        return (grads, host(stats)), (time.perf_counter() - t0) * 1e3
+
+    errs, round_ms = {}, {}
+    for stage, net in (("g", state.G), ("d", state.D)):
+        runs = {"kernels": one_round(stage), "plain": one_round(stage, plain=True)}
+        before = dict(fc.launch_counts)
+        with plain_backwards(fc):
+            runs["kernel_fwd_plain_bwd"] = one_round(stage)
+        assert all(fc.launch_counts[k] == before[k] for k in before
+                   if k.endswith(("_adj", "_dw"))), "a backward kernel ran under plain_backwards"
+        with nudged(torch, (state.G, state.D), torch.Generator(device="cuda").manual_seed(3),
+                    1e-6):
+            runs["plain_nudged"] = one_round(stage, plain=True)
+        if f64_rule:
+            runs["plain_float64"] = one_round(stage, plain=True, st=state64)
+        names = [n for n, _ in net.named_parameters()]
+        (got, stats_k), (want, stats_p) = runs["kernels"][0], runs["plain"][0]
+        bwd_ref = runs["kernel_fwd_plain_bwd"][0][0]
+        assert all(torch.isfinite(t).all().item() for t in got)
+        floor = 1e-3 * max(t.abs().max().item() for t in want)
+        bwd = leaf_errors(names, got, bwd_ref, floor)
+        full = leaf_errors(names, got, want, floor)
+        ctrl = leaf_errors(names, runs["plain_nudged"][0][0], want, floor)
+        others = [r for r in full if not r[4]]
+        strength_worst = {k: max((r[0] for r in rows if r[4]), default=0.0)
+                          for k, rows in (("bwd", bwd), ("full", full), ("ctrl", ctrl))}
+        loss_key = next(k for k in stats_p if k.endswith("/loss"))
+        loss_err = abs(stats_k[loss_key] - stats_p[loss_key])
+        e = errs[stage] = dict(backward=bwd[0][0], other_leaves=others[0][0],
+                               noise_strengths_pooled=pooled_strengths(full),
+                               noise_strength_worst=strength_worst, control_worst=ctrl[0][0],
+                               loss_abs_err=loss_err)
+        for k, (_, ms) in runs.items():
+            round_ms[f"{stage}_{k}"] = ms
+        print(f"  one {stage.upper()}_main round ({len(names)} leaves; floor {floor:.3e}), "
+              f"{loss_key} kernels {stats_k[loss_key]:.6f} plain {stats_p[loss_key]:.6f}:\n"
+              f"    backward alone (kernels vs plain backward, one forward): worst "
+              f"{bwd[0][0]:.3e} {_fmt(bwd)}; worst noise strength {strength_worst['bwd']:.3e}\n"
+              f"    kernels vs plain: other leaves worst {others[0][0]:.3e} {_fmt(others)}; "
+              f"noise strengths as one {e['noise_strengths_pooled']:.3e}, worst on "
+              f"its own {strength_worst['full']:.3e} {_fmt([r for r in full if r[4]])}\n"
+              f"    control (plain, weights nudged by 1e-6, vs plain): worst {ctrl[0][0]:.3e} "
+              f"{_fmt(ctrl)}; worst noise strength {strength_worst['ctrl']:.3e} "
+              f"{_fmt([r for r in ctrl if r[4]])}\n"
+              f"    ms: " + ", ".join(f"{k} {ms:.3f}" for k, (_, ms) in runs.items()),
+              flush=True)
+        # (what, the error, its bound, the run under test and the run it is
+        # held against as (grads, loss), and the leaves the error covers)
+        over = [(f"{stage} backward {r[1]}", r[0], 1e-3, "kernels", "kernel_fwd_plain_bwd",
+                 [r[1]]) for r in bwd if r[0] > 1e-3]
+        over += [(f"{stage} {r[1]}", r[0], 1e-3, "kernels", "plain", [r[1]])
+                 for r in others if r[0] > 1e-3]
+        if e["noise_strengths_pooled"] > 1e-3:
+            over.append((f"{stage} noise strengths", e["noise_strengths_pooled"], 1e-3,
+                         "kernels", "plain", [r[1] for r in full if r[4]]))
+        if loss_err > 1e-4 * max(1.0, abs(stats_p[loss_key])):
+            over.append((f"{stage} {loss_key}", loss_err, 1e-4, "kernels", "plain", None))
+        if not f64_rule:
+            assert not over, f"{stage.upper()}_main kernels vs plain: {over}; {e}"
+            continue
+        want64, stats64 = runs["plain_float64"][0]
+        floor64 = 1e-3 * max(t.abs().max().item() for t in want64)
+        to64 = {k: {r[1]: r for r in leaf_errors(names, runs[k][0][0], want64, floor64)}
+                for k in ("kernels", "plain", "kernel_fwd_plain_bwd")}
+        plain64 = sorted(to64["plain"].values(), reverse=True)
+
+        def from64(run, leaves):
+            if leaves is None:
+                return abs(runs[run][0][1][loss_key] - stats64[loss_key])
+            rows = [to64[run][n] for n in leaves]
+            return rows[0][0] if len(rows) == 1 else pooled_strengths(rows)
+
+        judged = []
+        for what, err, bound, run, ref, leaves in over:
+            k64, ref64 = from64(run, leaves), from64(ref, leaves)
+            ratio = k64 / ref64 if ref64 > 0 else (0.0 if k64 == 0 else math.inf)
+            judged.append(dict(what=what, error=err, bound=bound, kernels_vs_f64=k64,
+                               held_against_vs_f64=ref64, ratio=ratio))
+        worst = max(judged, key=lambda j: j["ratio"], default=None)
+        e["float64"] = dict(judged=len(judged), worst=worst,
+                            plain_vs_f64_worst=plain64[0][0], plain_vs_f64_leaves_over_1e3=sum(
+                                r[0] > 1e-3 for r in plain64),
+                            loss64=stats64[loss_key])
+        print(f"    float64 rule: {len(judged)} checks over their bound, worst kernels / held-"
+              f"against distance to float64 {worst['ratio'] if worst else 0.0:.3f} "
+              f"({worst['what'] if worst else '-'}); plain float32 vs float64: worst leaf "
+              f"{plain64[0][0]:.3e} {_fmt(plain64)}, {e['float64']['plain_vs_f64_leaves_over_1e3']} "
+              f"of {len(names)} leaves past 1e-3; {loss_key} float64 {stats64[loss_key]:.6f}",
+              flush=True)
+        failed = sorted((j for j in judged if j["ratio"] > F64_RATIO), key=lambda j: -j["ratio"])
+        assert not failed, (f"{stage.upper()}_main kernels vs plain, float64 rule: {len(failed)} "
+                            f"of {len(judged)} over, worst {failed[:5]}; {e}")
+    del state64
+    with torch.no_grad():
+        for p in strengths:
+            p.zero_()
+    state.G.mapping.w_avg.copy_(w_avg)
+    return errs, round_ms
+
+
 def launch_events_ms(torch, fn, reps=5):
     """The kernel's own device ms in one call of `fn`, from CUDA events
     recorded on the launch's stream just before and after each kernel
@@ -1909,91 +2087,11 @@ def train_phase(torch, fc):
     res = d_cfg.img_resolution
     reals = torch.rand((2 * TRAIN_BATCH, res, res, 3), generator=gen, device="cuda") * 2 - 1
 
-    # One G_main and one D_main round at the seed-0 weights with the noise
-    # strengths (0 at init) set to U(0.05, 0.15), so the per-sample noise
-    # reaches the kernels' epilogues and dd taps. Every run draws from a
-    # generator seeded alike, in an order that does not depend on the path.
-    # Four runs per stage: on the kernels; plain; the kernels' forward with
-    # the plain backward (one forward, so only the backward differs); and
-    # plain with every weight nudged by 1e-6 of itself (the size of the
-    # kernels' forward rounding) as a control of how far float32 rounding
-    # alone moves each leaf. Errors are relative to each leaf's largest
-    # entry, floored at 1e-3 of the stage's largest entry (leaves of zero
-    # true gradient: the key biases before a softmax). Checks: backward
-    # alone, every leaf on its own within 1e-3; kernels against plain, every
-    # other leaf on its own within 1e-3 and the noise strengths as one
-    # vector leaf within 1e-3 of its largest entry (each is a sum of
-    # g * noise over its layer that cancels down to a small value, which
-    # pre-activations rounding to the other side of zero move by about 1e-3
-    # of itself: the control shows the same on the plain path alone).
+    # One G_main and one D_main round at the seed-0 weights, kernels
+    # against plain (`main_round_checks`).
     z = torch.randn((1, TRAIN_BATCH, g_cfg.k, g_cfg.z_dim), generator=gen, device="cuda")
-    real = reals[None, :TRAIN_BATCH]
-    w_avg = state.G.mapping.w_avg.clone()
-    strengths = set_noise_strengths(torch, state.G, gen)
-    assert strengths
-
-    def one_round(stage, plain=False):
-        state.G.mapping.w_avg.copy_(w_avg)
-        rng = torch.Generator(device="cuda").manual_seed(11)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if stage == "g":
-            grads, stats = trainer.g_main_grads(state, z, gen=rng, plain=plain)
-        else:
-            grads, stats = trainer.d_main_grads(state, real, z, gen=rng, plain=plain)
-        torch.cuda.synchronize()
-        return (grads, host(stats)), (time.perf_counter() - t0) * 1e3
-
-    errs, round_ms = {}, {}
-    for stage, net in (("g", state.G), ("d", state.D)):
-        runs = {"kernels": one_round(stage), "plain": one_round(stage, plain=True)}
-        before = dict(fc.launch_counts)
-        with plain_backwards(fc):
-            runs["kernel_fwd_plain_bwd"] = one_round(stage)
-        assert all(fc.launch_counts[k] == before[k] for k in before
-                   if k.endswith(("_adj", "_dw"))), "a backward kernel ran under plain_backwards"
-        with nudged(torch, (state.G, state.D), torch.Generator(device="cuda").manual_seed(3),
-                    1e-6):
-            runs["plain_nudged"] = one_round(stage, plain=True)
-        names = [n for n, _ in net.named_parameters()]
-        (got, stats_k), (want, stats_p) = runs["kernels"][0], runs["plain"][0]
-        assert all(torch.isfinite(t).all().item() for t in got)
-        floor = 1e-3 * max(t.abs().max().item() for t in want)
-        bwd = leaf_errors(names, got, runs["kernel_fwd_plain_bwd"][0][0], floor)
-        full = leaf_errors(names, got, want, floor)
-        ctrl = leaf_errors(names, runs["plain_nudged"][0][0], want, floor)
-        others = [r for r in full if not r[4]]
-        strength_worst = {k: max((r[0] for r in rows if r[4]), default=0.0)
-                          for k, rows in (("bwd", bwd), ("full", full), ("ctrl", ctrl))}
-        loss_key = next(k for k in stats_p if k.endswith("/loss"))
-        loss_err = abs(stats_k[loss_key] - stats_p[loss_key])
-        errs[stage] = dict(backward=bwd[0][0], other_leaves=others[0][0],
-                           noise_strengths_pooled=pooled_strengths(full),
-                           noise_strength_worst=strength_worst, control_worst=ctrl[0][0],
-                           loss_abs_err=loss_err)
-        for k, (_, ms) in runs.items():
-            round_ms[f"{stage}_{k}"] = ms
-        print(f"  one {stage.upper()}_main round ({len(names)} leaves; floor {floor:.3e}), "
-              f"{loss_key} kernels {stats_k[loss_key]:.6f} plain {stats_p[loss_key]:.6f}:\n"
-              f"    backward alone (kernels vs plain backward, one forward): worst "
-              f"{bwd[0][0]:.3e} {_fmt(bwd)}; worst noise strength {strength_worst['bwd']:.3e}\n"
-              f"    kernels vs plain: other leaves worst {others[0][0]:.3e} {_fmt(others)}; "
-              f"noise strengths as one {errs[stage]['noise_strengths_pooled']:.3e}, worst on "
-              f"its own {strength_worst['full']:.3e} {_fmt([r for r in full if r[4]])}\n"
-              f"    control (plain, weights nudged by 1e-6, vs plain): worst {ctrl[0][0]:.3e} "
-              f"{_fmt(ctrl)}; worst noise strength {strength_worst['ctrl']:.3e} "
-              f"{_fmt([r for r in ctrl if r[4]])}\n"
-              f"    ms: " + ", ".join(f"{k} {ms:.3f}" for k, (_, ms) in runs.items()),
-              flush=True)
-        e = errs[stage]
-        assert e["backward"] <= 1e-3, f"{stage.upper()}_main backward kernels vs plain: {e}"
-        assert e["other_leaves"] <= 1e-3, f"{stage.upper()}_main kernels vs plain: {e}"
-        assert e["noise_strengths_pooled"] <= 1e-3, f"{stage.upper()}_main noise strengths: {e}"
-        assert loss_err <= 1e-4 * max(1.0, abs(stats_p[loss_key])), (stats_k, stats_p)
-    with torch.no_grad():
-        for p in strengths:
-            p.zero_()
-    state.G.mapping.w_avg.copy_(w_avg)
+    errs, round_ms = main_round_checks(torch, fc, trainer, state, z, reals[None, :TRAIN_BATCH],
+                                       gen)
 
     stage_ms, _ = timed_stages(torch, trainer, ("g_main", "d_main"))
 
@@ -3858,6 +3956,240 @@ def extract_phase(torch, fc, cli, tmp, card):
     return dict(svm=result, svm_s=svm_s, images_s=images_s, card=card)
 
 
+# Phase options: the GANformer options at FFHQ-1024 widths (k, the mapping
+# and the attention as each set says; the rest of ffhq1024_config).
+OPTION_SETS = (
+    ("gated", dict(k=17, mapping=dict(ltnt_gate=True),
+                   attention=dict(ltnt_gate=True, img_gate=True, kmeans_iters=2,
+                                  pos_type="trainable"))),
+    # JAX's carry needs F = 2 (k - 1) at 4^2: k 9.
+    ("iterative-conditional", dict(k=9, c_dim=8, mapping=dict(resnet=False),
+                                   attention=dict(iterative=True, kmeans_iters=2,
+                                                  pos_type="linear"))),
+    ("stylegan2", dict(k=1, transformer=False)),
+    ("shared", dict(k=2, mapping=dict(shared=True), attention=dict(pos_type="trainable2d"))),
+)
+OPTIONS_PROJECT_STEPS = 5
+
+
+def option_config(kw):
+    from morphganformer_tpu_torch.models.config import (AttentionConfig, MappingConfig,
+                                                        ffhq1024_config)
+    kw = dict(kw)
+    return ffhq1024_config(mapping=MappingConfig(**kw.pop("mapping", {})),
+                           attention=AttentionConfig(**kw.pop("attention", {})), **kw)
+
+
+def option_launches(cfg, steps, forwards, bf16=False):
+    """`_per_step` for a generator whose fused blocks `packed_structural_ok`
+    picks: per block one K1 (conv1) and two K2 (conv0, skip), and one K1
+    for the last block's conv_last."""
+    from morphganformer_tpu_torch.models.synthesis import packed_structural_ok
+
+    n = sum(packed_structural_ok(cfg, r, "const") for r in cfg.block_resolutions)
+    k1 = n + packed_structural_ok(cfg, cfg.img_resolution, "const")
+    return _per_step(steps, forwards, bf16, k1, 2 * n)
+
+
+def nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _one_hot(torch, gen, rows, n):
+    return torch.nn.functional.one_hot(torch.randint(0, n, (rows,), generator=gen),
+                                       n).float().cuda()
+
+
+def option_train(torch, fc, cfg, total):
+    """The iterative-conditional pair (a 1024^2 D with the same c_dim) from
+    seed 0: one G_main and one D_main round's gradients with labels,
+    kernels against plain, by phase train's `main_round_checks` with the
+    float64 rule; the path-length penalty at the same weights in float32
+    (the default route) and in float64 (plain, unpacked), on the same z,
+    labels and noise; then train_iteration at step 0 with labels (G_main,
+    G_reg, D_main, D_reg): finite stats and phase reg's exact launches
+    (`loop_launches`)."""
+    import copy
+
+    from morphganformer_tpu_torch.models.config import DiscriminatorConfig
+    from morphganformer_tpu_torch.training import GANTrainer, TrainConfig
+    from morphganformer_tpu_torch.training import loss as tloss
+
+    d_cfg = DiscriminatorConfig(c_dim=cfg.c_dim, img_resolution=cfg.img_resolution)
+    trainer = GANTrainer(cfg, d_cfg, TrainConfig(batch_size=TRAIN_BATCH, batch_gpu=4))
+    state = trainer.init_state(seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    res = cfg.img_resolution
+    reals = torch.rand((TRAIN_BATCH, res, res, 3), generator=gen, device="cuda") * 2 - 1
+    c = _one_hot(torch, torch.Generator().manual_seed(22), TRAIN_BATCH, cfg.c_dim)
+    z = torch.randn((1, TRAIN_BATCH, cfg.k, cfg.z_dim), generator=gen, device="cuda")
+    fc.reset_launch_counts()
+    errs, round_ms = main_round_checks(torch, fc, trainer, state, z, reals[None], gen, c[None],
+                                       f64_rule=True)
+    _add(total, fc.launch_counts)
+
+    rows, _ = tloss.pl_rows(TRAIN_BATCH, trainer.cfg.loss.pl_batch_shrink, None)
+    noise = torch.randn((rows, res, res, 3), generator=gen, device="cuda") / res
+    G64 = copy.deepcopy(state.G).double()
+    pl = {}
+    for name, net, dt, route in (("float32", state.G, torch.float32, None),
+                                 ("float64", G64, torch.float64, "0")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with packed_env(route):
+            _, aux = tloss.g_pl_loss(net, z[0].to(dt), trainer.cfg.loss,
+                                     torch.Generator(device="cuda").manual_seed(13),
+                                     state.pl_mean.to(dt), c=c.to(dt), pl_noise=noise.to(dt))
+        torch.cuda.synchronize()
+        pl[name] = dict(penalty=float(aux["Loss/pl_penalty"]), pl_mean=float(aux["pl_mean"]),
+                        ms=(time.perf_counter() - t0) * 1e3)
+    del G64
+    print(f"    path-length penalty at the seed-0 weights, the same z, labels and noise: float32 "
+          f"{pl['float32']['penalty']:.6f} ({pl['float32']['ms']:.3f} ms), float64 (plain, "
+          f"unpacked) {pl['float64']['penalty']:.9f} ({pl['float64']['ms']:.3f} ms)", flush=True)
+    assert all(math.isfinite(v["penalty"]) and v["penalty"] > 0 for v in pl.values()), pl
+
+    torch.cuda.synchronize()
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = host(trainer.train_iteration(state, reals, 0, c=c))
+    torch.cuda.synchronize()
+    it_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fc.launch_counts)
+    _add(total, launches)
+    print(f"    train_iteration step 0 with labels (all four stages): {it_ms:.3f} ms; "
+          f"{json.dumps(stats)}; launches {nonzero(launches)}", flush=True)
+    assert {"Loss/G/reg", "Loss/D/reg"} <= set(stats), stats
+    assert all(math.isfinite(v) for v in stats.values()), stats
+    assert launches == loop_launches(0), (launches, loop_launches(0))
+    return dict(main_grads=errs, round_ms=round_ms, path_length=pl, iteration_ms=it_ms,
+                stats=stats)
+
+
+def options_phase(torch, fc, cli, tmp):
+    """Phase options: four sets of GANformer options at FFHQ-1024 widths
+    (`OPTION_SETS`), each G from seed 0. Per set, generation at batch 2
+    with const noise (exact K1 and K2 launches, kernels against plain
+    within phase generate's 1e-3, ms); a 5-step projection at batch 1 onto
+    G's own image (run_project; the conditional set, whose mapping needs
+    labels, in W+ from its labelled ws through `project`), exact launches
+    with the adjoints, the latent gradient kernels against plain within
+    phase project's 1e-3; the gated set also in bfloat16 (the forward
+    against float32, the kernels' mean and max error at most BF16_RATIO
+    times the plain version's, exact bf16 launches); the
+    iterative-conditional set a training iteration with labels
+    (`option_train`). Returns (stats, launches over the phase)."""
+    import numpy as np
+
+    from morphganformer_tpu_torch.losses import build_loss_stack
+    from morphganformer_tpu_torch.models import init_generator, set_compute_dtype
+    from morphganformer_tpu_torch.projection import (ProjectionConfig, latent_stats,
+                                                     loss_and_grad, project)
+    from morphganformer_tpu_torch.utils.image import to_uint8, write_png
+
+    out, total = {}, {}
+    for name, kw in OPTION_SETS:
+        t_set = time.perf_counter()
+        cfg = option_config(kw)
+        G = init_generator(cfg, seed=0, device="cuda")
+        z = torch.randn((2, cfg.k, cfg.z_dim), generator=torch.Generator().manual_seed(0)).cuda()
+        c = _one_hot(torch, torch.Generator().manual_seed(1), 2, cfg.c_dim) if cfg.c_dim else None
+
+        def forward(plain=False, zz=z, cc=c):
+            with torch.no_grad():
+                return G(zz, cc, truncation_psi=0.7, plain=plain)
+
+        fc.reset_launch_counts()
+        y_k = forward()
+        torch.cuda.synchronize()
+        launches = dict(fc.launch_counts)
+        _add(total, launches)
+        y_p = forward(plain=True)
+        diff = (y_k - y_p).abs().max().item()
+        res = cfg.img_resolution
+        assert y_k.shape == (2, res, res, 3) and torch.isfinite(y_k).all().item()
+        assert launches == option_launches(cfg, 0, 1), (name, launches)
+        assert launches["modconv3x3"] > 0 and launches["upconv2"] > 0
+        assert diff <= 1e-3, f"{name}: kernel vs plain forward differ by {diff}"
+        ms = cuda_ms(torch, forward, reps=3, warmup=1)
+        print(f"  {name}: k {cfg.k}, {sum(p.numel() for p in G.parameters())} parameters; "
+              f"forward batch 2 launches {nonzero(launches)}; kernels vs plain max abs {diff:.3e}; "
+              f"{ms:.3f} ms on the kernels", flush=True)
+        row = dict(k=cfg.k, forward_err=diff, forward_ms=ms)
+
+        png = os.path.join(tmp, f"{name}.png")
+        write_png(png, to_uint8(y_k[0].cpu().numpy()))
+        loss_fn = build_loss_stack({"mse": 1.0})
+        target = cli._targets(G, [png])
+        mean, std = latent_stats(cfg, torch.Generator().manual_seed(0), 10000)
+        pcfg = ProjectionConfig(steps=OPTIONS_PROJECT_STEPS, chunk=OPTIONS_PROJECT_STEPS,
+                                w_plus=cfg.c_dim > 0)
+        fc.reset_launch_counts()
+        t0 = time.perf_counter()
+        if cfg.c_dim:
+            ws0 = G.run_mapping(z[:1], c[:1], truncation_psi=0.7).detach()
+            res = project(G, target, loss_fn, pcfg, mean, std,
+                          generator=torch.Generator().manual_seed(0), init_latent=ws0)
+            latent_n = ws0 + std * pcfg.noise * torch.randn(
+                ws0.shape, generator=torch.Generator().manual_seed(1)).cuda()
+        else:
+            res = cli.run_project(G, png, os.path.join(tmp, f"proj_{name}"),
+                                  steps=OPTIONS_PROJECT_STEPS, n_mean_latent=10000,
+                                  chunk=OPTIONS_PROJECT_STEPS, seed=0)
+            latent_n = (mean[None] + std * pcfg.noise * torch.randn(
+                (1, cfg.k, cfg.z_dim), generator=torch.Generator().manual_seed(1))).cuda()
+        torch.cuda.synchronize()
+        proj_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(fc.launch_counts)
+        _add(total, launches)
+        history = res.loss_history.numpy()
+        assert np.isfinite(history).all() and history.shape == (OPTIONS_PROJECT_STEPS,)
+        assert launches == option_launches(cfg, OPTIONS_PROJECT_STEPS, 1), (name, launches)
+        grads = {}
+        for plain in (False, True):
+            fc.reset_launch_counts()
+            grads[plain] = loss_and_grad(G, latent_n, target, loss_fn, pcfg, plain)[2]
+            _add(total, fc.launch_counts)
+        grad_err = _rel_err(grads[False], grads[True])
+        print(f"    projection{' in W+' if cfg.c_dim else ''}: {OPTIONS_PROJECT_STEPS} steps in "
+              f"{proj_ms:.3f} ms (set-up and the best image's forward included), loss "
+              f"{history[0]:.5f} -> best {res.best_loss:.5f}; launches {nonzero(launches)}; latent "
+              f"gradient kernels vs plain rel err {grad_err:.3e}", flush=True)
+        assert torch.isfinite(grads[False]).all().item()
+        assert grad_err <= 1e-3, f"{name}: latent gradient kernels vs plain: {grad_err}"
+        row.update(project_ms=proj_ms, grad_rel_err=grad_err)
+
+        if name == "gated":
+            set_compute_dtype(G, "bfloat16")
+            fc.reset_launch_counts()
+            yb_k = forward()
+            launches = dict(fc.launch_counts)
+            _add(total, launches)
+            yb_p = forward(plain=True)
+            set_compute_dtype(G, "float32")
+            gaps = {k: ((y - y_k).abs().mean().item(), (y - y_k).abs().max().item())
+                    for k, y in (("kernels", yb_k), ("plain", yb_p))}
+            print(f"    bfloat16 forward vs float32 (mean, max abs): kernels {gaps['kernels']}, "
+                  f"plain {gaps['plain']}; launches {nonzero(launches)}", flush=True)
+            assert launches == option_launches(cfg, 0, 1, bf16=True), launches
+            for i, what in enumerate(("mean", "max")):
+                assert gaps["kernels"][i] <= BF16_RATIO * gaps["plain"][i], (what, gaps)
+            row["bf16_vs_f32"] = gaps
+        del G
+        if cfg.c_dim:
+            row["train"] = option_train(torch, fc, cfg, total)
+        torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t_set
+        print(f"    {name}: {row['seconds']:.3f} s", flush=True)
+        out[name] = row
+    return out, total
+
+
 def _fmt_list(xs):
     return "[" + ", ".join(f"{x:.3f}" for x in xs) + "]"
 
@@ -4150,6 +4482,10 @@ def main():
         dist_stats = dist_phase(torch, fc, cli, smi[0])
     phases["dist"] = ph.seconds
 
+    with Phase("options") as ph, tempfile.TemporaryDirectory(prefix="mgt_options_") as tmp:
+        options_stats, options_launches = options_phase(torch, fc, cli, tmp)
+    phases["options"] = ph.seconds
+
     print("kernel_calls " + json.dumps(rows + train_rows + k4_rows), flush=True)
     print("kernel_calls_train_bf16 " + json.dumps(train_bf16_rows), flush=True)
     print("projection " + json.dumps(proj_stats), flush=True)
@@ -4170,6 +4506,7 @@ def main():
     print("vis " + json.dumps(vis_stats), flush=True)
     print("warp " + json.dumps(warp_stats), flush=True)
     print("dataset " + json.dumps(dataset_stats), flush=True)
+    print("options " + json.dumps(options_stats), flush=True)
     kernels = []
     for kernel, name, replaces, key in (
             ("K1", "fused_modconv3x3 (mgt_modconv3x3_fwd; least work: conv3x3_lw_kernel, a "
@@ -4192,6 +4529,7 @@ def main():
                     + f"; launches over the {PROJECT_STEPS}-step projection)",
             "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": proj_launches[key],
+            "options_launches": options_launches.get(key, 0),
             "reg_launches": reg_stats["reg_launches"][key],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["ms"] for r in mine),
@@ -4232,6 +4570,7 @@ def main():
                       "largest entry)",
             "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": bf16_launches[BF16_KEYS[key]],
+            "options_launches": options_launches.get(BF16_KEYS[key], 0),
             "reg_launches": 0,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "err_vs_f32": max(r["err_kernel"] for r in mine),
@@ -4304,6 +4643,7 @@ def main():
                     + "; launches over train_iteration steps 1-3)",
             "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": train_launches[TRAIN_KEYS[role]],
+            "options_launches": options_launches.get(TRAIN_KEYS[role], 0),
             "reg_launches": reg_stats["reg_launches"][TRAIN_KEYS[role]],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["ms"] for r in mine),

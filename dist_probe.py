@@ -126,10 +126,10 @@ def train_part(work, mesh, device):
     noise = torch.from_numpy(data["pl_noise"]).to(device)
     real_pl = tts.g_pl_loss
 
-    def g_pl_loss(G, z, cfg, gen, pl_mean, mesh=None, pl_noise=None):
+    def g_pl_loss(G, z, cfg, gen, pl_mean, mesh=None, c=None, pl_noise=None):
         rows, _ = tloss.pl_rows(z.shape[0], cfg.pl_batch_shrink, mesh)
         start = mesh.rank * z.shape[0] if mesh is not None else 0
-        return real_pl(G, z, cfg, gen, pl_mean, mesh, pl_noise=noise[start:start + rows])
+        return real_pl(G, z, cfg, gen, pl_mean, mesh, c=c, pl_noise=noise[start:start + rows])
 
     z = data_sharding(mesh, torch.from_numpy(data["z"]).to(device))[None]
     real = data_sharding(mesh, torch.from_numpy(data["real"]).to(device))[None]

@@ -140,16 +140,30 @@ from morphganformer_tpu_torch.utils.image import (
 )
 
 
+def unconditional(G, model_spec):
+    """G, or a ValueError naming the checkpoint when G is conditional: the
+    entry points that draw images from z alone (generate, merge, project,
+    morph, demorph, calc_metrics, train --eval) take no labels. JAX's fail
+    inside the label embedding, given None."""
+    if G.cfg.c_dim > 0:
+        raise ValueError(f"{model_spec} is a conditional generator (c_dim {G.cfg.c_dim}); "
+                         "generate, merge, project, morph, demorph, calc_metrics and "
+                         "train --eval take no labels")
+    return G
+
+
 def get_model(model_spec: str, device="cuda", dtype="float32"):
     """(cfg, generator) for `--model`, as JAX's `cli/generate.py:get_model`:
-    a checkpoint directory gives its "Gs"; `init:<res>` random weights from
-    seed 0. The synthesis computes in `dtype` ("float32" or "bfloat16"),
-    whatever the checkpoint's arch.json says; the weights stay float32."""
+    a checkpoint directory gives its "Gs" (refused when conditional:
+    `unconditional`); `init:<res>` random weights from seed 0. The
+    synthesis computes in `dtype` ("float32" or "bfloat16"), whatever the
+    checkpoint's arch.json says; the weights stay float32."""
     if model_spec.startswith("init:"):
         cfg = GANformerConfig(img_resolution=int(model_spec.split(":", 1)[1]))
         G = init_generator(cfg, seed=0, device=device)
     else:
         _, G = load_network(model_spec, role="Gs", device=device)
+        unconditional(G, model_spec)
     set_compute_dtype(G, dtype)
     return G.cfg, G
 
@@ -675,6 +689,7 @@ def run_eval(args):
         raise FileNotFoundError(f"no snapshot to evaluate under {args.result_dir}/"
                                 f"{args.expname}-*")
     _, G = load_network(snaps[-1], role="Gs", device=args.device)
+    unconditional(G, snaps[-1])
     set_compute_dtype(G, "float32")         # the metrics run G in float32, as calc_metrics
     for metric in (args.metrics or ["fid2k_full"]):
         result = compute_metric(

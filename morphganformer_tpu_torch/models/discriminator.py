@@ -27,7 +27,9 @@ The `orig` and `skip` layouts (JAX `discriminator.py:94-117`) run unfused;
 `skip` adds a `fromrgb` of the image, down-sampled by the FIR once per
 block, at every block and in the epilogue. Their conv0 at 512^2 and above
 (b1024 and b512 at 1024^2) runs on K4 when MGT_PALLAS_CONV=1
-(ops/conv3x3.py). The conditional projection (c_dim > 0) is not ported.
+(ops/conv3x3.py). A conditional D (c_dim > 0) gives c_dim outputs and
+projects them onto the labels c [N, c_dim]: sum(out * c) per row (JAX
+`discriminator.py:158-160`); its blocks are those of the unconditional D.
 """
 
 from __future__ import annotations
@@ -137,7 +139,7 @@ class DiscriminatorEpilogue(nn.Module):
         self.fc = FullyConnected(in_ch * 16, in_ch, act=cfg.act)
         self.out = FullyConnected(in_ch, max(cfg.c_dim, 1))
 
-    def forward(self, x, img, mesh=None):
+    def forward(self, x, img, c=None, mesh=None):
         cfg = self.cfg
         x = at_least_f32(x)
         if cfg.architecture == "skip":
@@ -145,34 +147,39 @@ class DiscriminatorEpilogue(nn.Module):
         if cfg.mbstd_num_channels > 0:
             x = minibatch_std(x, cfg.mbstd_group_size, cfg.mbstd_num_channels, mesh)
         x = self.conv(x)
-        return self.out(self.fc(x.reshape(x.shape[0], -1)))
+        x = self.out(self.fc(x.reshape(x.shape[0], -1)))
+        if cfg.c_dim > 0:
+            x = (x * c).sum(dim=1, keepdim=True)
+        return x
 
 
 class Discriminator(nn.Module):
     def __init__(self, cfg: DiscriminatorConfig):
         super().__init__()
-        if cfg.c_dim > 0:
-            raise NotImplementedError("the port's discriminator is unconditional")
         self.cfg = cfg
         for res in cfg.block_resolutions:
             setattr(self, f"b{res}", DiscriminatorBlock(cfg, res))
         self.b4 = DiscriminatorEpilogue(cfg)
 
-    def forward(self, img, plain=False, mesh=None):
-        """Logits [N, 1] of images [N, R, R, C] in [-1, 1]; under a data
-        `mesh`, of this rank's rows, with the minibatch-std over every
-        rank's."""
+    def forward(self, img, c=None, plain=False, mesh=None):
+        """Logits [N, 1] of images [N, R, R, C] in [-1, 1] (with their labels
+        c [N, c_dim] for a conditional D); under a data `mesh`, of this
+        rank's rows, with the minibatch-std over every rank's."""
         cfg = self.cfg
         if tuple(img.shape[1:]) != (cfg.img_resolution, cfg.img_resolution, cfg.img_channels):
             raise ValueError(f"img must be [N,{cfg.img_resolution},{cfg.img_resolution},"
                              f"{cfg.img_channels}], got {tuple(img.shape)}")
+        if cfg.c_dim > 0 and (c is None or tuple(c.shape) != (img.shape[0], cfg.c_dim)):
+            raise ValueError(f"a conditional D (c_dim {cfg.c_dim}) needs labels c "
+                             f"[{img.shape[0]}, {cfg.c_dim}], got "
+                             f"{None if c is None else tuple(c.shape)}")
         x = None
         for res in cfg.block_resolutions:
             fused = (("plain" if plain else "kernel")
                      if packed_d_block_eligible(cfg, res) and not packed_paths_disabled()
                      else None)
             x, img = getattr(self, f"b{res}")(x, img, fused=fused)
-        return self.b4(x, img, mesh)
+        return self.b4(x, img, c, mesh)
 
 
 def init_discriminator(cfg: DiscriminatorConfig, seed: int = 0, device="cuda") -> Discriminator:

@@ -4,7 +4,9 @@ z [B, k, z_dim] -> MappingNetwork -> ws [B, k, num_ws, w_dim]
 -> SynthesisNetwork -> img [B, H, W, C] in [-1, 1] (NHWC). The training loss
 (training/loss.py) calls `run_mapping` / `run_synthesis` with `train=True`:
 attention dropout, the w_avg update, random noise and the component-dropout
-mask then draw from an explicit `torch.Generator`.
+mask then draw from an explicit `torch.Generator`. A conditional generator
+(c_dim > 0) takes its labels c [B, c_dim] through `forward` and
+`run_mapping`, as JAX's does (`generator.py:42-73`).
 """
 
 from __future__ import annotations
@@ -43,11 +45,14 @@ class Generator(nn.Module):
             return (u >= cfg.component_dropout).float()
         return torch.ones(batch, cfg.k - 1, device=device)
 
-    def run_mapping(self, z, truncation_psi=1.0, train=False, skip_w_avg_update=False,
+    def run_mapping(self, z, c=None, truncation_psi=1.0, train=False, skip_w_avg_update=False,
                     gen=None, mask=None, truncation_cutoff=None, mesh=None):
+        """ws [B, k, num_ws, w_dim] from z [B, k, z_dim] and, for a
+        conditional generator, the labels c [B, c_dim] (a ValueError that
+        names c_dim without them)."""
         if mask is None:
             mask = self.component_mask(z.shape[0], z.device, train, gen)
-        return self.mapping(z, pos=self.pos, mask=mask, truncation_psi=truncation_psi,
+        return self.mapping(z, c, pos=self.pos, mask=mask, truncation_psi=truncation_psi,
                             truncation_cutoff=truncation_cutoff, train=train,
                             skip_w_avg_update=skip_w_avg_update, gen=gen, mesh=mesh)
 
@@ -58,16 +63,17 @@ class Generator(nn.Module):
         return self.synthesis(ws, pos=self.pos, mask=mask, noise_mode=noise_mode, plain=plain,
                               train=train, gen=gen, return_att=return_att)
 
-    def forward(self, z=None, ws=None, truncation_psi=1.0, noise_mode="const",
+    def forward(self, z=None, c=None, ws=None, truncation_psi=1.0, noise_mode="const",
                 return_ws=False, plain=False, truncation_cutoff=None, gen=None,
                 return_att=False):
-        """Full forward from z (or from ws): img, or a tuple of img, the
+        """Full forward from z and the labels c of a conditional generator
+        (or from ws): img, or a tuple of img, the
         attention maps [B, k-1, L, heads, H, W] under `return_att` and ws
         under `return_ws`, in JAX's order (`generator.py:74-78`).
         `plain=True` runs the fused blocks on the plain versions of their
         kernels; random noise draws from `gen`."""
         if ws is None:
-            ws = self.run_mapping(z, truncation_psi=truncation_psi,
+            ws = self.run_mapping(z, c, truncation_psi=truncation_psi,
                                   truncation_cutoff=truncation_cutoff)
         out = self.run_synthesis(ws, noise_mode=noise_mode, plain=plain, gen=gen,
                                  return_att=return_att)

@@ -207,13 +207,70 @@ def sinusoidal_encoding(size: int, dim: int, num: int = 2) -> np.ndarray:
     return emb.astype(np.float32)
 
 
-def grid_positional_encoding(res, pos_dim, pos_type="sinus", pos_directions_num=2):
-    """Fixed positional encoding of a res x res grid, [res*res, pos_dim]
-    row-major. The trainable and linear encodings are not ported yet."""
-    if pos_type != "sinus":
-        raise NotImplementedError(f"pos_type {pos_type!r} is not ported")
-    emb = sinusoidal_encoding(res, pos_dim, pos_directions_num)
-    return torch.from_numpy(emb.reshape(res * res, pos_dim))
+def linear_encoding_dirs(size: int, num: int) -> np.ndarray:
+    """Direction-projected grid lengths [size, size, num, 1] of the linear
+    encoding, which multiplies them by a trainable [num, dim/num] table."""
+    theta = np.arange(0, math.pi, math.pi / num)
+    dirs = np.stack([np.cos(theta), np.sin(theta)], axis=-1)
+    c = np.linspace(-1.0, 1.0, size)
+    x = np.tile(c[None, :], (size, 1))
+    y = np.tile(c[:, None], (1, size))
+    xy = np.stack([x, y], axis=-1)
+    lens = np.sum(xy[:, :, None, :] * dirs, axis=-1, keepdims=True)
+    return lens.astype(np.float32)
+
+
+POS_TYPES = ("sinus", "linear", "trainable", "trainable2d")
+
+
+class GridPositionalEncoding(nn.Module):
+    """Positional encoding of a res x res grid, [res*res, pos_dim] row-major
+    (JAX `GridPositionalEncoding`, `layers.py:270-319`). "sinus" is a fixed
+    buffer; "linear" multiplies the fixed direction lengths by the parameter
+    `pos0` [num, pos_dim/num]; "trainable" tiles `pos0` [res, pos_dim/2]
+    along x and `pos1` along y; "trainable2d" is
+    the parameter `pos0` [res, res, pos_dim]. The parameters are drawn
+    uniform in [0, 1) or normal (`pos_init`), as flax's initialisers."""
+
+    def __init__(self, res, pos_dim, pos_type="sinus", pos_init="uniform",
+                 pos_directions_num=2):
+        super().__init__()
+        if pos_type not in POS_TYPES:
+            raise ValueError(f"pos_type must be one of {POS_TYPES}, got {pos_type!r}")
+        if pos_init not in ("uniform", "normal"):
+            raise ValueError(f"pos_init must be uniform or normal, got {pos_init!r}")
+        self.res, self.pos_dim, self.pos_type = res, pos_dim, pos_type
+        self.pos_init = pos_init
+        s, d, num = res, pos_dim, pos_directions_num
+        if pos_type == "sinus":
+            emb = sinusoidal_encoding(s, d, num).reshape(s * s, d)
+            self.register_buffer("emb", torch.from_numpy(emb), persistent=False)
+        elif pos_type == "linear":
+            self.register_buffer("lens", torch.from_numpy(linear_encoding_dirs(s, num)),
+                                 persistent=False)
+            self.pos0 = nn.Parameter(torch.empty(num, d // num))
+        elif pos_type == "trainable2d":
+            self.pos0 = nn.Parameter(torch.empty(s, s, d))
+        else:
+            self.pos0 = nn.Parameter(torch.empty(s, d // 2))
+            self.pos1 = nn.Parameter(torch.empty(s, d // 2))
+
+    def reset_parameters(self, gen):
+        with torch.no_grad():
+            for p in self.parameters(recurse=False):
+                p.copy_(torch.rand(p.shape, generator=gen) if self.pos_init == "uniform"
+                        else torch.randn(p.shape, generator=gen))
+
+    def forward(self):
+        s, d = self.res, self.pos_dim
+        if self.pos_type == "sinus":
+            return self.emb
+        if self.pos_type == "linear":
+            return (self.lens * self.pos0).reshape(s * s, d)
+        if self.pos_type == "trainable2d":
+            return self.pos0.reshape(s * s, d)
+        return torch.cat([self.pos0[None, :, :].expand(s, -1, -1),
+                          self.pos1[:, None, :].expand(-1, s, -1)], dim=-1).reshape(s * s, d)
 
 
 def logits_mask(x, mask):

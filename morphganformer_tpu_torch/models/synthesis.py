@@ -49,8 +49,8 @@ from morphganformer_tpu_torch.models.layers import (
     _normal_,
     get_components,
     get_gain,
+    GridPositionalEncoding,
     get_global,
-    grid_positional_encoding,
     runtime_coef,
 )
 from morphganformer_tpu_torch.models.transformer import TransformerLayer
@@ -88,7 +88,7 @@ class SynthesisLayer(nn.Module):
 
     def __init__(self, cfg: GANformerConfig, in_channels, out_channels, out_res,
                  kernel_size=3, up=1, use_bias=True, gain=1.0,
-                 use_transformer=False, local_noise=True):
+                 use_transformer=False, local_noise=True, first_attention=False):
         super().__init__()
         self.cfg = cfg
         self.kernel_size, self.up, self.gain = kernel_size, up, gain
@@ -101,10 +101,8 @@ class SynthesisLayer(nn.Module):
         if use_transformer:
             att = cfg.attention
             pos_dim = att.pos_dim or cfg.w_dim
-            self.register_buffer(
-                "grid_pos", grid_positional_encoding(out_res, pos_dim, att.pos_type,
-                                                     att.pos_directions_num),
-                persistent=False)
+            self.grid_pos = GridPositionalEncoding(out_res, pos_dim, att.pos_type, att.pos_init,
+                                                   att.pos_directions_num)
             self.transformer = TransformerLayer(
                 dim=out_channels, pos_dim=pos_dim, from_len=out_res * out_res,
                 to_len=cfg.k - 1, from_dim=out_channels, to_dim=cfg.w_dim,
@@ -112,7 +110,7 @@ class SynthesisLayer(nn.Module):
                 from_gate=att.img_gate, to_gate=att.ltnt_gate,
                 num_heads=att.num_heads, integration=att.integration, norm=att.norm,
                 kmeans=att.kmeans, kmeans_iters=att.kmeans_iters, iterative=att.iterative,
-                attention_dropout=att.dropout)
+                attention_dropout=att.dropout, first=first_attention, to_pos_dim=cfg.w_dim)
         else:
             self.transformer = None
         if local_noise:
@@ -127,9 +125,12 @@ class SynthesisLayer(nn.Module):
             _normal_(self.noise_const, gen)
 
     def forward(self, x, y, pos=None, mask=None, noise_mode="const", resid=None, fused=None,
-                train=False, gen=None):
-        """(x, att): `att` is the transformer's attention probabilities
-        [B, heads, H * W, k - 1], or None without one. `resid`: the skip
+                train=False, gen=None, att_vars=None):
+        """(x, att, att_vars): `att` is the transformer's attention
+        probabilities [B, heads, H * W, k - 1], or None without one;
+        `att_vars` the centroid assignments that the transformer hands on
+        (JAX `synthesis.py:277-288`), or those it was given without one, as
+        the fused branch does (JAX :206). `resid`: the skip
         branch, added after the activation. `fused` ("kernel" / "plain")
         runs the conv and its epilogue as K1 / K2. Random noise and the
         attention dropout draw from `gen`."""
@@ -156,10 +157,10 @@ class SynthesisLayer(nn.Module):
             if self.up == 2:
                 x = fused_upconv2(x, w, styles, f, noise, b, act_gain, alpha, True, False,
                                   plain=plain)
-                return (x if resid is None else x + resid), None
+                return (x if resid is None else x + resid), None, att_vars
             return fused_modconv3x3(x, w, styles, noise, b,
                                     None if resid is None else resid.contiguous(),
-                                    act_gain, alpha, True, plain=plain), None
+                                    act_gain, alpha, True, plain=plain), None, att_vars
 
         x = modulated_conv2d(x, w.to(x.dtype), styles=styles, modulate=self.cfg.style,
                              up=self.up, padding=self.kernel_size // 2,
@@ -167,17 +168,17 @@ class SynthesisLayer(nn.Module):
         att = None
         if self.transformer is not None:
             b_, h, wd, c = x.shape
-            tokens, att = self.transformer(
+            tokens, att, att_vars = self.transformer(
                 x.reshape(b_, h * wd, c), get_components(y).to(x.dtype),
-                from_pos=self.grid_pos,
+                from_pos=self.grid_pos(),
                 to_pos=pos if (self.cfg.mapping.use_pos and pos is not None) else None,
-                att_mask=mask, train=train, gen=gen)
+                att_vars=att_vars, att_mask=mask, train=train, gen=gen)
             x = tokens.reshape(b_, h, wd, c)
         if noise is not None:
             x = x + (noise[..., None] if noise.dim() == 3 else noise[None, :, :, None]).to(x.dtype)
         if self.biasAct is not None:
             x = self.biasAct(x)
-        return (x if resid is None else x + resid.to(x.dtype)), att
+        return (x if resid is None else x + resid.to(x.dtype)), att, att_vars
 
 
 class ToRGBLayer(nn.Module):
@@ -210,7 +211,9 @@ class ToRGBLayer(nn.Module):
 class SynthesisBlock(nn.Module):
     """Stem/conv0/conv1(/conv_last) + RGB accumulation."""
 
-    def __init__(self, cfg: GANformerConfig, res: int):
+    def __init__(self, cfg: GANformerConfig, res: int, first_attention=False):
+        """`first_attention`: the block holds the synthesis's first attention
+        layer (its first conv), which the iterative carry starts from."""
         super().__init__()
         self.cfg, self.res = cfg, res
         arch = cfg.architecture
@@ -220,9 +223,10 @@ class SynthesisBlock(nn.Module):
         in_ch = cfg.channels(res // 2) if not self.stem else 0
         use_tr = cfg.use_attention(res)
 
-        def layer(in_c, up, gain):
+        def layer(in_c, up, gain, first=False):
             return SynthesisLayer(cfg, in_c, out_ch, res, up=up, gain=gain,
-                                  use_transformer=use_tr, local_noise=cfg.local_noise)
+                                  use_transformer=use_tr, local_noise=cfg.local_noise,
+                                  first_attention=first)
 
         if self.stem:
             if cfg.latent_stem:
@@ -230,12 +234,12 @@ class SynthesisBlock(nn.Module):
                                                 gain=math.sqrt(2) / 4)
             else:
                 self.const = nn.Parameter(torch.empty(res, res, out_ch))
-            self.conv1 = layer(out_ch, 1, 1.0)
+            self.conv1 = layer(out_ch, 1, 1.0, first_attention)
         else:
             if arch == "resnet":
                 self.skip = Conv2dLayer(in_ch, out_ch, 1, use_bias=False, up=2,
                                         resample_kernel=cfg.resample_kernel, gain=get_gain(arch))
-            self.conv0 = layer(in_ch, 2, 1.0)
+            self.conv0 = layer(in_ch, 2, 1.0, first_attention)
             self.conv1 = layer(out_ch, 1, get_gain(arch))
         if self.is_last:
             self.conv_last = SynthesisLayer(cfg, out_ch, out_ch, res, use_bias=False,
@@ -250,9 +254,11 @@ class SynthesisBlock(nn.Module):
             _normal_(self.const, gen)
 
     def forward(self, x, img, ws, pos=None, mask=None, noise_mode="const", fused=None,
-                train=False, gen=None):
-        """(x, img, maps): `maps` lists the attention probabilities of the
-        block's layers that have a transformer (JAX `synthesis.py:371-392`)."""
+                train=False, gen=None, att_vars=None):
+        """(x, img, maps, att_vars): `maps` lists the attention
+        probabilities of the block's layers that have a transformer, and
+        `att_vars` carries the centroid assignments from layer to layer (JAX
+        `synthesis.py:367-392`)."""
         cfg = self.cfg
         w_i = iter(range(ws.shape[2]))
         kw = dict(pos=pos, mask=mask, noise_mode=noise_mode, fused=fused, train=train, gen=gen)
@@ -265,28 +271,29 @@ class SynthesisBlock(nn.Module):
         x = to_compute(x, cfg)
         maps = []
         if self.stem:
-            x, att = self.conv1(x, ws[:, :, next(w_i)], **kw)
+            x, att, att_vars = self.conv1(x, ws[:, :, next(w_i)], att_vars=att_vars, **kw)
             maps.append(att)
         elif cfg.architecture == "resnet":
             y_skip = self.skip(x, fused=fused)
-            x, att = self.conv0(x, ws[:, :, next(w_i)], **kw)
+            x, att, att_vars = self.conv0(x, ws[:, :, next(w_i)], att_vars=att_vars, **kw)
             maps.append(att)
-            x, att = self.conv1(x, ws[:, :, next(w_i)], resid=y_skip, **kw)
+            x, att, att_vars = self.conv1(x, ws[:, :, next(w_i)], resid=y_skip,
+                                          att_vars=att_vars, **kw)
             maps.append(att)
         else:
-            x, att = self.conv0(x, ws[:, :, next(w_i)], **kw)
+            x, att, att_vars = self.conv0(x, ws[:, :, next(w_i)], att_vars=att_vars, **kw)
             maps.append(att)
-            x, att = self.conv1(x, ws[:, :, next(w_i)], **kw)
+            x, att, att_vars = self.conv1(x, ws[:, :, next(w_i)], att_vars=att_vars, **kw)
             maps.append(att)
         if img is not None:
             img = upsample2d(img, self.resample_filter)
         if self.is_last:
-            x, _ = self.conv_last(x, ws[:, :, next(w_i)], noise_mode=noise_mode, fused=fused,
-                                  train=train, gen=gen)
+            x, _, _ = self.conv_last(x, ws[:, :, next(w_i)], noise_mode=noise_mode,
+                                     fused=fused, train=train, gen=gen)
         if self.is_last or cfg.architecture == "skip":
             y = self.torgb(x, ws[:, :, next(w_i)])
             img = img + y if img is not None else y
-        return x, img, [a for a in maps if a is not None]
+        return x, img, [a for a in maps if a is not None], att_vars
 
 
 def att_maps_to_tensor(maps, res, device=None):
@@ -313,8 +320,9 @@ class SynthesisNetwork(nn.Module):
     def __init__(self, cfg: GANformerConfig):
         super().__init__()
         self.cfg = cfg
+        first = next((r for r in cfg.block_resolutions if cfg.use_attention(r)), None)
         for res in cfg.block_resolutions:
-            setattr(self, f"b{res}", SynthesisBlock(cfg, res))
+            setattr(self, f"b{res}", SynthesisBlock(cfg, res, first_attention=res == first))
 
     def forward(self, ws, pos=None, mask=None, noise_mode="const", plain=False, train=False,
                 gen=None, return_att=False):
@@ -327,13 +335,14 @@ class SynthesisNetwork(nn.Module):
         ws = at_least_f32(ws)
         x = img = None
         maps = []
+        att_vars = {"centroid_assignments": None}
         for res, (start, count) in zip(cfg.block_resolutions, cfg.block_w_slices()):
             fused = (("plain" if plain else "kernel")
                      if packed_structural_ok(cfg, res, noise_mode)
                      and not packed_paths_disabled() else None)
-            x, img, block_maps = getattr(self, f"b{res}")(
+            x, img, block_maps, att_vars = getattr(self, f"b{res}")(
                 x, img, ws[:, :, start:start + count], pos=pos, mask=mask,
-                noise_mode=noise_mode, fused=fused, train=train, gen=gen)
+                noise_mode=noise_mode, fused=fused, train=train, gen=gen, att_vars=att_vars)
             if return_att:
                 maps += block_maps
         if return_att:

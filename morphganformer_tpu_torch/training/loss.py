@@ -8,7 +8,9 @@ and `d_r1_loss` (R1) the G_reg and D_reg stages. Every random draw (mixing
 cutoffs, the second z, the component mask, attention dropout, noise, the
 path-length noise) comes from one explicit `torch.Generator`, in an order
 that does not depend on whether the fused blocks run on the kernels or on
-their plain versions.
+their plain versions. A conditional pair takes the labels c [B, c_dim] of
+the batch's rows in every stage: the mapping runs (the second z's too) and
+D's projection, as in JAX (`loss.py:52-242`).
 
 The regularisers take a second derivative. By default they run, as in
 JAX, inside `second_order_scope()` (ops/second_order.py): the fused blocks
@@ -64,14 +66,15 @@ def _mix_axis(ws, ws2, cutoff, axis):
     return torch.where(idx < cutoff, ws, ws2)
 
 
-def _mixed_ws(G, z, cfg: LossConfig, gen, mask, train, update_w_avg, mesh=None):
-    """The mapping of z with style and component mixing (reference
-    loss.py:41-53); w_avg moves by the mean over `mesh`'s ranks."""
-    ws = G.run_mapping(z, train=train, skip_w_avg_update=not update_w_avg, gen=gen, mask=mask,
-                       mesh=mesh)
+def _mixed_ws(G, z, cfg: LossConfig, gen, mask, train, update_w_avg, mesh=None, c=None):
+    """The mapping of z (and labels c) with style and component mixing
+    (reference loss.py:41-53), the second z mapped with the same c; w_avg
+    moves by the mean over `mesh`'s ranks."""
+    ws = G.run_mapping(z, c, train=train, skip_w_avg_update=not update_w_avg, gen=gen,
+                       mask=mask, mesh=mesh)
     if cfg.style_mixing > 0 or cfg.component_mixing > 0:
         z2 = torch.randn(z.shape, generator=gen, device=z.device)
-        ws2 = G.run_mapping(z2, train=train, skip_w_avg_update=True, gen=gen, mask=mask)
+        ws2 = G.run_mapping(z2, c, train=train, skip_w_avg_update=True, gen=gen, mask=mask)
         if cfg.style_mixing > 0:
             ws = _mix_axis(ws, ws2, draw_cutoff(ws.shape[2], cfg.style_mixing, gen, z.device), 2)
         if cfg.component_mixing > 0:
@@ -80,12 +83,13 @@ def _mixed_ws(G, z, cfg: LossConfig, gen, mask, train, update_w_avg, mesh=None):
     return ws
 
 
-def run_G(G, z, cfg: LossConfig, gen, train=True, update_w_avg=False, plain=False, mesh=None):
+def run_G(G, z, cfg: LossConfig, gen, train=True, update_w_avg=False, plain=False, mesh=None,
+          c=None):
     """Mapping (with mixing) and synthesis (reference loss.py:41-56). One
     component mask serves the mapping runs and the synthesis, as one JAX
     key does. Returns (img, ws)."""
     mask = G.component_mask(z.shape[0], z.device, train, gen)
-    ws = _mixed_ws(G, z, cfg, gen, mask, train, update_w_avg, mesh)
+    ws = _mixed_ws(G, z, cfg, gen, mask, train, update_w_avg, mesh, c)
     img = G.run_synthesis(ws, noise_mode="random", plain=plain, train=train, gen=gen, mask=mask)
     return img, ws
 
@@ -105,23 +109,25 @@ def d_adv_loss_real(logits):
     return F.softplus(-logits)
 
 
-def g_main_loss(G, D, z, cfg: LossConfig, gen, plain=False, mesh=None):
+def g_main_loss(G, D, z, cfg: LossConfig, gen, plain=False, mesh=None, c=None):
     """G_main stage (reference loss.py:70-90): the mapping moves w_avg.
-    Under a data `mesh`, z is this rank's rows. Returns (scalar, stats)."""
-    img, _ = run_G(G, z, cfg, gen, update_w_avg=True, plain=plain, mesh=mesh)
-    logits = D(img, plain=plain, mesh=mesh)
+    Under a data `mesh`, z and c are this rank's rows. Returns (scalar,
+    stats)."""
+    img, _ = run_G(G, z, cfg, gen, update_w_avg=True, plain=plain, mesh=mesh, c=c)
+    logits = D(img, c, plain=plain, mesh=mesh)
     loss = g_adv_loss(logits).mean()
     return loss, {"Loss/G/loss": loss.detach(), "Loss/scores/fake": logits.detach().mean()}
 
 
-def d_main_loss(G, D, real_img, z, cfg: LossConfig, gen, plain=False, mesh=None):
+def d_main_loss(G, D, real_img, z, cfg: LossConfig, gen, plain=False, mesh=None, c=None):
     """D_main stage (reference loss.py:110-148): the fakes are made without
-    a graph (JAX stops their gradient). Under a data `mesh`, real_img and
-    z are this rank's rows. Returns (scalar, stats)."""
+    a graph (JAX stops their gradient), with the reals' labels c. Under a
+    data `mesh`, real_img, z and c are this rank's rows. Returns (scalar,
+    stats)."""
     with torch.no_grad():
-        img, _ = run_G(G, z, cfg, gen, plain=plain)
-    gen_logits = D(img, plain=plain, mesh=mesh)
-    real_logits = D(real_img, plain=plain, mesh=mesh)
+        img, _ = run_G(G, z, cfg, gen, plain=plain, c=c)
+    gen_logits = D(img, c, plain=plain, mesh=mesh)
+    real_logits = D(real_img, c, plain=plain, mesh=mesh)
     loss = d_adv_loss_gen(gen_logits).mean() + d_adv_loss_real(real_logits).mean()
     return loss, {"Loss/D/loss": loss.detach(), "Loss/scores/fake": gen_logits.detach().mean(),
                   "Loss/scores/real": real_logits.detach().mean()}
@@ -152,7 +158,7 @@ def pl_rows(n, shrink, mesh=None):
     return min(max(total - rank * n, 0), n), total
 
 
-def g_pl_loss(G, z, cfg: LossConfig, gen, pl_mean, mesh=None, pl_noise=None):
+def g_pl_loss(G, z, cfg: LossConfig, gen, pl_mean, mesh=None, c=None, pl_noise=None):
     """Path-length regularisation (reference loss.py:92-107; JAX
     `_g_pl_loss`), on `_reg_route("pl")`. On the rows of `pl_rows`: ws from
     the mapping with mixing (w_avg not moved), the image G(ws) with fresh
@@ -164,8 +170,10 @@ def g_pl_loss(G, z, cfg: LossConfig, gen, pl_mean, mesh=None, pl_noise=None):
     w_dim), and the penalty is the mean over them of
     (length - new pl_mean)^2.
 
-    Under a data `mesh`, z is this rank's block of the global microbatch
-    and the rows are JAX's rows of the global microbatch, of which a rank
+    The labels c take the same rows as z (JAX `loss.py:183`).
+
+    Under a data `mesh`, z and c are this rank's block of the global
+    microbatch and the rows are JAX's rows of the global microbatch, of which a rank
     holds some, all or none. Only the forward crosses the ranks (the
     lengths' sum): the new pl_mean enters the penalty detached, and its
     share of the gradient, which JAX keeps (for l_j,
@@ -180,10 +188,11 @@ def g_pl_loss(G, z, cfg: LossConfig, gen, pl_mean, mesh=None, pl_noise=None):
     rows, total = pl_rows(z.shape[0], cfg.pl_batch_shrink, mesh)
     count = total * cfg_g.w_dim
     z = z[:rows]
+    c = None if c is None else c[:rows]
     if rows:
         with _reg_route("pl", PL_REACHES):
             mask = G.component_mask(rows, z.device, True, gen)
-            ws = _mixed_ws(G, z, cfg, gen, mask, train=True, update_w_avg=False)
+            ws = _mixed_ws(G, z, cfg, gen, mask, train=True, update_w_avg=False, c=c)
             if pl_noise is None:
                 shape = (rows, cfg_g.img_resolution, cfg_g.img_resolution, cfg_g.img_channels)
                 pl_noise = torch.randn(shape, generator=gen, device=z.device)
@@ -204,15 +213,15 @@ def g_pl_loss(G, z, cfg: LossConfig, gen, pl_mean, mesh=None, pl_noise=None):
                   "pl_mean": new_pl_mean}
 
 
-def d_r1_loss(D, real_img, cfg: LossConfig, mesh=None):
+def d_r1_loss(D, real_img, cfg: LossConfig, mesh=None, c=None):
     """R1 gradient penalty (reference loss.py:149-159; JAX `_d_r1_loss`), on
-    `_reg_route("r1")`: the gradient of sum(D(real)) w.r.t. the reals with
-    its graph kept; r1_gamma / 2 times the batch mean of its squared norm.
-    Under a data `mesh`, real_img is this rank's rows. Returns (scalar,
-    stats)."""
+    `_reg_route("r1")`: the gradient of sum(D(real, c)) w.r.t. the reals
+    with its graph kept; r1_gamma / 2 times the batch mean of its squared
+    norm. Under a data `mesh`, real_img and c are this rank's rows. Returns
+    (scalar, stats)."""
     real = real_img.detach().requires_grad_(True)
     with _reg_route("r1", R1_REACHES):
-        r1_grads, = torch.autograd.grad(D(real, mesh=mesh).sum(), real, create_graph=True)
+        r1_grads, = torch.autograd.grad(D(real, c, mesh=mesh).sum(), real, create_graph=True)
     r1_penalty = r1_grads.square().sum(dim=(1, 2, 3))
     loss = r1_penalty.mean() * (cfg.r1_gamma / 2)
     return loss, {"Loss/r1_penalty": r1_penalty.detach().mean(), "Loss/D/reg": loss.detach()}

@@ -143,6 +143,12 @@ def stage_grads(params, rounds, mesh: Optional[DataMesh] = None):
             {k: v / n for k, v in stats.items()})
 
 
+def _rounds(c, n):
+    """The labels of each of n rounds: the rows of c [n, micro, c_dim], or
+    None n times for an unconditional pair."""
+    return [None] * n if c is None else c
+
+
 def _apply(opt, params, grads):
     for p, g in zip(params, grads):
         p.grad = g
@@ -202,32 +208,34 @@ class GANTrainer:
 
     # -------------- stages --------------
 
-    def g_main_grads(self, state, z, gen=None, plain=False):
+    def g_main_grads(self, state, z, gen=None, plain=False, c=None):
         """G_main's round-mean gradients w.r.t. G's parameters (D frozen, so
         its weight cotangents are never formed) and its stats. z: [n_accum,
-        micro, k, z_dim]. `gen` replaces the state's generator and
-        `plain=True` runs the fused blocks on the plain versions of the
-        kernels (both to check the kernels on the same draws)."""
+        micro, k, z_dim], c: [n_accum, micro, c_dim] or None. `gen`
+        replaces the state's generator and `plain=True` runs the fused
+        blocks on the plain versions of the kernels (both to check the
+        kernels on the same draws)."""
         gen = state.gen if gen is None else gen
         params = list(state.G.parameters())
         state.D.requires_grad_(False)
         try:
             return stage_grads(params, (
-                g_main_loss(state.G, state.D, z_r, self.cfg.loss, gen, plain, self.mesh)
-                for z_r in z), self.mesh)
+                g_main_loss(state.G, state.D, z_r, self.cfg.loss, gen, plain, self.mesh, c_r)
+                for z_r, c_r in zip(z, _rounds(c, len(z)))), self.mesh)
         finally:
             state.D.requires_grad_(True)
 
-    def d_main_grads(self, state, real_img, z, gen=None, plain=False):
+    def d_main_grads(self, state, real_img, z, gen=None, plain=False, c=None):
         """D_main's round-mean gradients w.r.t. D's parameters and its stats,
         as `g_main_grads`. real_img: [n_accum, micro, R, R, C]."""
         gen = state.gen if gen is None else gen
         params = list(state.D.parameters())
         return stage_grads(params, (
-            d_main_loss(state.G, state.D, real_r, z_r, self.cfg.loss, gen, plain, self.mesh)
-            for real_r, z_r in zip(real_img, z)), self.mesh)
+            d_main_loss(state.G, state.D, real_r, z_r, self.cfg.loss, gen, plain, self.mesh,
+                        c_r)
+            for real_r, z_r, c_r in zip(real_img, z, _rounds(c, len(z)))), self.mesh)
 
-    def g_reg_grads(self, state, z, gen=None):
+    def g_reg_grads(self, state, z, gen=None, c=None):
         """G_reg's round-mean gradients w.r.t. G's parameters, its stats and
         the pl_mean after the rounds (JAX `g_reg_step`): each round's
         path-length loss times `g_reg_interval`, pl_mean carried from round
@@ -238,50 +246,51 @@ class GANTrainer:
 
         def rounds():
             nonlocal pl_mean
-            for z_r in z:
-                loss, aux = g_pl_loss(state.G, z_r, self.cfg.loss, gen, pl_mean, self.mesh)
+            for z_r, c_r in zip(z, _rounds(c, len(z))):
+                loss, aux = g_pl_loss(state.G, z_r, self.cfg.loss, gen, pl_mean, self.mesh,
+                                      c_r)
                 pl_mean = aux.pop("pl_mean")
                 yield loss * gain, aux
 
         grads, stats = stage_grads(list(state.G.parameters()), rounds(), self.mesh)
         return grads, stats, pl_mean
 
-    def d_reg_grads(self, state, real_img):
+    def d_reg_grads(self, state, real_img, c=None):
         """D_reg's round-mean gradients w.r.t. D's parameters and its stats
         (JAX `d_reg_step`): each round's R1 loss times `d_reg_interval`.
         real_img: [n_accum, micro, R, R, C]."""
         gain = float(self.cfg.d_reg_interval or 1)
 
         def rounds():
-            for real_r in real_img:
-                loss, aux = d_r1_loss(state.D, real_r, self.cfg.loss, self.mesh)
+            for real_r, c_r in zip(real_img, _rounds(c, len(real_img))):
+                loss, aux = d_r1_loss(state.D, real_r, self.cfg.loss, self.mesh, c_r)
                 yield loss * gain, aux
 
         return stage_grads(list(state.D.parameters()), rounds(), self.mesh)
 
-    def g_main_step(self, state, z):
+    def g_main_step(self, state, z, c=None):
         """One G_main update; returns its stats."""
-        grads, stats = self.g_main_grads(state, z)
+        grads, stats = self.g_main_grads(state, z, c=c)
         _apply(state.g_opt, list(state.G.parameters()), grads)
         return stats
 
-    def g_reg_step(self, state, z):
+    def g_reg_step(self, state, z, c=None):
         """One G_reg update and the new pl_mean; returns its stats."""
-        grads, stats, state.pl_mean = self.g_reg_grads(state, z)
+        grads, stats, state.pl_mean = self.g_reg_grads(state, z, c=c)
         _apply(state.g_opt, list(state.G.parameters()), grads)
         return stats
 
-    def d_reg_step(self, state, real_img):
+    def d_reg_step(self, state, real_img, c=None):
         """One D_reg update; returns its stats."""
-        grads, stats = self.d_reg_grads(state, real_img)
+        grads, stats = self.d_reg_grads(state, real_img, c)
         _apply(state.d_opt, list(state.D.parameters()), grads)
         return stats
 
-    def d_main_step(self, state, real_img, z):
+    def d_main_step(self, state, real_img, z, c=None):
         """One D_main update, then the end-of-iteration EMA (JAX folds it
         into this stage's tail; G changes only in the G stages, which ran
         before); returns its stats."""
-        grads, stats = self.d_main_grads(state, real_img, z)
+        grads, stats = self.d_main_grads(state, real_img, z, c=c)
         _apply(state.d_opt, list(state.D.parameters()), grads)
         self._ema_tail(state)
         return stats
@@ -296,14 +305,16 @@ class GANTrainer:
 
     # -------------- one full iteration --------------
 
-    def train_iteration(self, state, real_img, step: int, z=None):
+    def train_iteration(self, state, real_img, step: int, z=None, c=None):
         """The stages due at `step` on one batch of real images [B, R, R, C]
         (under a mesh, this rank's B / world rows of the global batch),
         split into the accumulation rounds (reference training_loop.py:186-209,
         JAX `train_iteration`): G_main, G_reg every `g_reg_interval` steps,
         D_main with the EMA, D_reg every `d_reg_interval` steps. z [B, k,
         z_dim], the iteration's latents, is drawn from the state's generator
-        unless given."""
+        unless given. c [B, c_dim], the reals' labels of a conditional pair,
+        is split into the same rounds as the reals and z (JAX
+        `train_step.py:359-392`)."""
         cfg = self.cfg
         batch = real_img.shape[0]
         n = self.n_accum if batch % self.n_accum == 0 else 1
@@ -312,10 +323,12 @@ class GANTrainer:
             z = torch.randn((batch, self.g_cfg.k, self.g_cfg.z_dim), generator=state.gen,
                             device=real_img.device)
         z = z.reshape((n, batch // n) + tuple(z.shape[1:]))
-        stats = self.g_main_step(state, z)
+        if c is not None:
+            c = c.reshape((n, batch // n) + tuple(c.shape[1:]))
+        stats = self.g_main_step(state, z, c)
         if cfg.g_reg_interval and step % cfg.g_reg_interval == 0:
-            stats.update(self.g_reg_step(state, z))
-        stats.update(self.d_main_step(state, real, z))
+            stats.update(self.g_reg_step(state, z, c))
+        stats.update(self.d_main_step(state, real, z, c))
         if cfg.d_reg_interval and step % cfg.d_reg_interval == 0:
-            stats.update(self.d_reg_step(state, real))
+            stats.update(self.d_reg_step(state, real, c))
         return stats

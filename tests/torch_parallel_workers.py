@@ -62,10 +62,10 @@ def patched(work):
     block."""
     noise = torch.from_numpy(np.load(os.path.join(work, "batch.npz"))["pl_noise"])
 
-    def g_pl_loss(G, z, cfg, gen, pl_mean, mesh=None, pl_noise=None):
+    def g_pl_loss(G, z, cfg, gen, pl_mean, mesh=None, c=None, pl_noise=None):
         rows, _ = tloss.pl_rows(z.shape[0], cfg.pl_batch_shrink, mesh)
         start = mesh.rank * z.shape[0] if mesh is not None else 0
-        return tloss.g_pl_loss(G, z, cfg, gen, pl_mean, mesh,
+        return tloss.g_pl_loss(G, z, cfg, gen, pl_mean, mesh, c=c,
                                pl_noise=noise[start:start + rows])
 
     saved = tdisc.packed_d_block_eligible, tts.g_pl_loss
