@@ -116,6 +116,21 @@ Phases, each printing its wall time:
               leaf bit-equal; run_generate from the loaded generator writes
               phase generate's two PNGs byte for byte; bytes, save and load
               seconds.
+  9b. convert phase checkpoint's G (as G and Gs) and D in three pickles
+              in the reference's formats (tests/torch_reference_pickles.py:
+              the persistence dict through pickle and through torch.save,
+              the TF-legacy tuple; about 386 MB each), each converted by
+              `python -m morphganformer_tpu_torch.tools.convert_checkpoint`
+              in a subprocess and loaded through cli.get_model(<dir>) and
+              load_discriminator: configs equal (the TF form's G with
+              normalize_global False, which that form cannot carry), every
+              leaf bit-equal, run_generate's two PNGs byte for byte with
+              one forward's launches; pickle bytes, convert and load
+              seconds. Beside them, in its own process,
+              `python -m morphganformer_tpu_torch.tools.train_landmarks`
+              with JAX's defaults on the card: dataset seconds, steps/s,
+              validation error, and the held-out error of the trained and
+              the bundled net under 6 px at 256 scale.
   10. metrics the float32 K1 and K2 forwards at the 10 call shapes at
               batch 16 against their plain versions (times, bound);
               fid2k_full through run_calc_metrics over 32 G(z) PNGs with a
@@ -2867,6 +2882,166 @@ def checkpoint_phase(torch, fc, cli, G, tmp):
     return dict(bytes=nbytes, save_s=save_s, load_s=load_s, leaves=n)
 
 
+CONVERT_FORMS = ("plain", "zipfile", "tf")
+LANDMARK_HELDOUT_PX = 6.0      # tests/test_landmarks_trained.py's regression bound
+
+
+def convert_phase(torch, fc, cli, G, tmp, card):
+    """Phase convert: the reference-checkpoint converter and the landmark
+    net's trainer, each run as a user runs it (`python -m`, no JAX).
+
+    Three pickles in the reference's wire format (tests/
+    torch_reference_pickles.py), each holding phase generate's init:1024 G
+    as G and as Gs and phase checkpoint's 1024^2 D (seed 4): the
+    persistence dict through `pickle` and through `torch.save` (zipfile),
+    and the TF-legacy (G, D, Gs) tuple. Each is converted in a subprocess,
+    loaded through cli.get_model(<dir>) and load_discriminator: the configs
+    G's and D's (the TF form's G with normalize_global False, which the TF
+    form cannot carry and the converter sets, as JAX's does), every leaf
+    bit-equal, run_generate's two PNGs byte for byte those of the G the
+    pickle came from (phase generate's; for the TF form, that G's weights
+    under the TF config, through a native checkpoint), exactly one forward's
+    launches. Beside them, in a process of its own started first,
+    train_landmarks with JAX's defaults on the card (its host-bound dataset
+    build overlaps the conversions; its steps share the card with the three
+    two-image generations): its held-out error and the bundled model's on
+    16 faces of RandomState(991) under LANDMARK_HELDOUT_PX at 256 scale."""
+    import numpy as np
+
+    from morphganformer_tpu_torch.losses.landmarks import (BUNDLED_NPZ, load_landmark_npz,
+                                                           make_landmark_fn)
+    from morphganformer_tpu_torch.losses.synthetic_faces import sample_batch
+
+    work = os.path.join(tmp, "convert")
+    os.makedirs(work)
+    lm_out, lm_log = os.path.join(work, "landmarks_trained.npz"), os.path.join(work, "lm.log")
+    t_lm = time.perf_counter()
+    with open(lm_log, "w") as log:
+        trainer = subprocess.Popen([sys.executable, "-m",
+                                    "morphganformer_tpu_torch.tools.train_landmarks", "2000",
+                                    lm_out], stdout=log, stderr=subprocess.STDOUT, cwd=REPO)
+    try:
+        stats = convert_forms(torch, fc, cli, G, tmp, work, card)
+        rc = trainer.wait(timeout=900)
+    finally:
+        if trainer.poll() is None:
+            trainer.kill()
+            trainer.wait()
+    train_wall = time.perf_counter() - t_lm
+    with open(lm_log) as f:
+        out_lines = f.read().splitlines()
+    assert rc == 0, f"train_landmarks: {out_lines[-30:]}"
+    dataset_s = float(next(line for line in out_lines if line.startswith("dataset:")).split()[1])
+    rate_line = next(line for line in out_lines if line.startswith("trained "))
+    assert rate_line.endswith("on " + DEV), rate_line
+    steps_per_s = float(rate_line.split(": ")[1].split()[0])
+    last_step = [line for line in out_lines if line.startswith("step ")][-1]
+    val_px = float(last_step.split("val_err ")[1].split("px")[0])
+    imgs, lms = sample_batch(np.random.RandomState(991), 16, 128)
+    heldout = {}
+    for which, path in (("trained", lm_out), ("bundled", BUNDLED_NPZ)):
+        fn = make_landmark_fn(load_landmark_npz(path, DEV), temperature=0.05)
+        with torch.no_grad():
+            pred = fn(torch.from_numpy(imgs).to(DEV)).cpu().numpy()
+        heldout[which] = float(np.linalg.norm(pred - lms, axis=-1).mean() * 256)
+    stats["landmarks"] = dict(dataset_s=dataset_s, steps_per_s=steps_per_s,
+                              val_err_px=val_px, heldout_err_px=heldout["trained"],
+                              bundled_heldout_err_px=heldout["bundled"], wall_s=train_wall)
+    print(f"  train_landmarks 2000 steps (python -m, on cuda, beside the conversions): dataset "
+          f"of 2048 + 128 faces built on the host in {dataset_s:.3f} s; {steps_per_s:.3f} "
+          f"steps/s; validation error {val_px:.3f} px at 256 scale; held-out (16 faces, "
+          f"RandomState(991)) {heldout['trained']:.3f} px, the bundled model "
+          f"{heldout['bundled']:.3f} px (bound {LANDMARK_HELDOUT_PX}); {train_wall:.3f} s from "
+          f"its start to its end; {card}", flush=True)
+    assert heldout["trained"] < LANDMARK_HELDOUT_PX, heldout
+    assert heldout["bundled"] < LANDMARK_HELDOUT_PX, heldout
+    return stats
+
+
+def convert_forms(torch, fc, cli, G, tmp, work, card):
+    """The three pickles of phase convert, each converted, loaded and held
+    to the nets it came from; {form: figures}."""
+    from morphganformer_tpu_torch.checkpoint import to_flax
+    from morphganformer_tpu_torch.checkpoint.io import (load_discriminator, load_generator,
+                                                        save_generator)
+    from morphganformer_tpu_torch.models.config import DiscriminatorConfig
+    from morphganformer_tpu_torch.models.discriminator import init_discriminator
+
+    from tests import torch_reference_pickles as refpk
+
+    D = init_discriminator(DiscriminatorConfig(), seed=4, device=DEV)
+    g_tree, d_tree, d_cfg = to_flax(G), to_flax(D), D.cfg
+    del D
+    stats = {"card": card}
+
+    def same_pngs(a, b):
+        names = sorted(os.listdir(a))
+        assert names == sorted(os.listdir(b)) and len(names) == 2, (names, os.listdir(b))
+        for name in names:
+            with open(os.path.join(a, name), "rb") as fa, open(os.path.join(b, name), "rb") as fb:
+                assert fa.read() == fb.read(), f"{name}: the converted generator's PNG differs"
+
+    for form in CONVERT_FORMS:
+        pkl = os.path.join(work, f"snapshot_{form}.pkl")
+        out = os.path.join(work, form)
+        t0 = time.perf_counter()
+        if form == "tf":
+            refpk.write_tf_pickle(pkl, refpk.tf_nets(G.cfg, g_tree, d_cfg, d_tree))
+            want_cfg = refpk.tf_config(G.cfg)
+            ref_dir = os.path.join(work, "gen_tf_config")
+            save_generator(os.path.join(work, "tf_config"), want_cfg, g_tree)
+            _, G_ref = cli.get_model(os.path.join(work, "tf_config"), device=DEV)
+            cli.run_generate(G_ref, ref_dir, images_num=2, truncation_psi=0.7, batch_size=2,
+                             seed=0)
+            del G_ref
+        else:
+            refpk.write_persistence_pickle(pkl, refpk.persistence_nets(G.cfg, g_tree, d_cfg,
+                                                                       d_tree),
+                                           zipfile=form == "zipfile")
+            want_cfg, ref_dir = G.cfg, os.path.join(tmp, "gen")
+        write_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(pkl)
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m",
+                              "morphganformer_tpu_torch.tools.convert_checkpoint", pkl, out],
+                             capture_output=True, text=True, timeout=600, cwd=REPO)
+        convert_s = time.perf_counter() - t0
+        assert run.returncode == 0, f"convert_checkpoint {form}: {run.stderr[-3000:]}"
+        lines = run.stdout.splitlines()
+        assert lines[-1] == "done" and not any("WARNING" in line for line in lines), lines
+        os.remove(pkl)
+        t0 = time.perf_counter()
+        cfg2, G2 = cli.get_model(out, device=DEV)
+        d_cfg2, D2 = load_discriminator(out, device=DEV)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        g_cfg_role, G_role = load_generator(out, role="G", device=DEV)
+        assert cfg2 == g_cfg_role == want_cfg, (cfg2, want_cfg)
+        assert d_cfg2 == d_cfg, d_cfg2
+        n = assert_same_tree(to_flax(G2), g_tree, f"{form} Gs")
+        n += assert_same_tree(to_flax(G_role), g_tree, f"{form} G")
+        n += assert_same_tree(to_flax(D2), d_tree, f"{form} D")
+        del G_role, D2
+        fc.reset_launch_counts()
+        cli.run_generate(G2, os.path.join(work, f"gen_{form}"), images_num=2,
+                         truncation_psi=0.7, batch_size=2, seed=0)
+        launches = dict(fc.launch_counts)
+        assert launches == _per_step(0, 1), launches
+        same_pngs(ref_dir, os.path.join(work, f"gen_{form}"))
+        del G2
+        torch.cuda.empty_cache()
+        stats[form] = dict(pickle_bytes=nbytes, write_s=write_s, convert_s=convert_s,
+                           load_s=load_s, leaves=n, out_bytes=dir_bytes(out))
+        source = "its G under the TF config" if form == "tf" else "phase generate"
+        print(f"  {form}: pickle {nbytes} bytes (written in {write_s:.3f} s); "
+              f"convert_checkpoint (python -m, a subprocess) {convert_s:.3f} s; "
+              f"load (cli.get_model + load_discriminator, to cuda) {load_s:.3f} s; arch.json + "
+              f"G, Gs, D msgpack {stats[form]['out_bytes']} bytes; {n} leaves bit-equal; "
+              f"run_generate: the 2 PNGs of {source} byte for byte; launches {launches}; "
+              f"{card}", flush=True)
+    return stats
+
+
 def write_png_filtered(path, img, filter_type):
     """An RGB PNG with every row filtered by `filter_type` (1 Sub, 4 Paeth),
     as libpng's encoders often pick for photographs."""
@@ -4449,6 +4624,10 @@ def main():
             ckpt_stats = checkpoint_phase(torch, fc, cli, G, tmp)
         phases["checkpoint"] = ph.seconds
 
+        with Phase("convert") as ph:
+            convert_stats = convert_phase(torch, fc, cli, G, tmp, smi[0])
+        phases["convert"] = ph.seconds
+
         with Phase("metrics") as ph:
             metrics_rows, metrics_stats = metrics_phase(torch, fc, cli, G, tmp)
         phases["metrics"] = ph.seconds
@@ -4497,6 +4676,7 @@ def main():
     print("bf16 " + json.dumps(bf16_stats), flush=True)
     print("losses " + json.dumps(loss_stats), flush=True)
     print("checkpoint " + json.dumps(ckpt_stats), flush=True)
+    print("convert " + json.dumps(convert_stats), flush=True)
     print("train " + json.dumps(train_stats), flush=True)
     print("loop " + json.dumps(loop_stats), flush=True)
     print("dist " + json.dumps(dist_stats), flush=True)

@@ -25,6 +25,15 @@ ARCH_FILE = "arch.json"
 PARAMS_FILE = "{role}.msgpack"
 
 
+def _key_sorted(tree):
+    """The tree with every dict's keys in sorted order: JAX's save passes
+    the tree through `jax.device_get`, which rebuilds each dict so, and
+    msgpack keeps the order, so the port writes JAX's bytes."""
+    if isinstance(tree, dict):
+        return {k: _key_sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
 def _save(path, role, cfg, net):
     os.makedirs(path, exist_ok=True)
     arch_path = os.path.join(path, ARCH_FILE)
@@ -36,7 +45,8 @@ def _save(path, role, cfg, net):
     with open(arch_path, "w") as f:
         json.dump(arch, f, indent=2)
     with open(os.path.join(path, PARAMS_FILE.format(role=role)), "wb") as f:
-        f.write(msgpack_serialize(to_flax(net) if isinstance(net, torch.nn.Module) else net))
+        f.write(msgpack_serialize(_key_sorted(
+            to_flax(net) if isinstance(net, torch.nn.Module) else net)))
 
 
 def _load(path, role):
@@ -81,10 +91,10 @@ def load_discriminator(path: str, device="cuda"):
 
 def load_network(path: str, role: str = "Gs", device="cuda"):
     """Load a generator from a checkpoint directory; a reference .pkl is
-    refused with the conversion command, as in JAX."""
+    refused with the command of the port's converter."""
     if path.endswith(".pkl"):
         raise ValueError(
             f"{path} is a torch/TF pickle. Convert it once with:\n"
-            f"  python tools/convert_checkpoint.py {path} <out_dir>\n"
+            f"  python -m morphganformer_tpu_torch.tools.convert_checkpoint {path} <out_dir>\n"
             f"then pass <out_dir>.")
     return load_generator(path, role=role, device=device)

@@ -45,8 +45,9 @@ generator as z, as the JAX entry points do. Projection targets are PNGs of
 any size (Lanczos-resized and centre-cropped, as JAX's load_target does).
 `project --loss` takes JAX's whole loss stack: the pixel terms and lpips,
 wing, awing, facenet, arcface, mdf and lbp, their networks' weights from
-the .npz files of the JAX package's converters (tools/convert_*.py), the
-bundled landmark model, or `--random-perceptual`:
+the .npz files of the port's converters (`python -m
+morphganformer_tpu_torch.tools.convert_<net>`; the JAX package's write the
+same files), the bundled landmark model, or `--random-perceptual`:
 
     python -m morphganformer_tpu_torch.cli project --model init:1024 --img face.png \
         --loss "lpips+0.01*wing+1*mse" --random-perceptual --size 256
@@ -251,8 +252,9 @@ def _print_progress(steps):
 @dataclasses.dataclass(frozen=True)
 class LossNets:
     """Where the perceptual and biometric terms' networks get their weights
-    (project's flags of the same names): the .npz files that the JAX
-    package's tools/convert_*.py write; for wing and awing the bundled
+    (project's flags of the same names): the .npz files that the port's
+    converters (morphganformer_tpu_torch/tools/convert_*.py) write; for
+    wing and awing the bundled
     synthetic-face landmark model when no file is named; random weights for
     a net without a file when `random_perceptual` is set."""
     lpips_weights: Optional[str] = None
@@ -923,17 +925,19 @@ def main(argv=None):
                     help="wing (and awing) weight override: p + lamda*wing + beta*mse")
     pr.add_argument("--beta", type=float, default=None, help="mse weight override")
     pr.add_argument("--lpips-weights", dest="lpips_weights", default=None,
-                    help=".npz of tools/convert_lpips.py")
+                    help=".npz of python -m morphganformer_tpu_torch.tools.convert_lpips")
     pr.add_argument("--lpips-net", dest="lpips_net", default="alex",
                     choices=["alex", "vgg", "squeeze"])
     pr.add_argument("--landmark-weights", dest="landmark_weights", default=None,
-                    help="landmark net .npz (default: the bundled synthetic-face model)")
+                    help="landmark net .npz (default: the bundled synthetic-face model; python -m "
+                         "morphganformer_tpu_torch.tools.train_landmarks retrains it)")
     pr.add_argument("--facenet-weights", dest="facenet_weights", default=None,
-                    help=".npz of tools/convert_facenet.py")
+                    help=".npz of python -m morphganformer_tpu_torch.tools.convert_facenet")
     pr.add_argument("--arcface-weights", dest="arcface_weights", default=None,
-                    help=".npz of tools/convert_iresnet.py (iresnet18)")
+                    help=".npz of python -m morphganformer_tpu_torch.tools.convert_iresnet "
+                         "(iresnet18)")
     pr.add_argument("--mdf-weights", dest="mdf_weights", default=None,
-                    help=".npz of tools/convert_mdf.py")
+                    help=".npz of python -m morphganformer_tpu_torch.tools.convert_mdf")
     pr.add_argument("--random-perceptual", action="store_true",
                     help="random weights for the perceptual nets without a file (smoke run)")
     pr.add_argument("--path_to_gen", default="images/projection")
@@ -1014,7 +1018,8 @@ def main(argv=None):
     wm.add_argument("--predict-landmarks", action="store_true",
                     help="predict landmarks with the landmark net instead of reading CSVs")
     wm.add_argument("--landmark-weights", default=None,
-                    help="landmark net .npz (default: the bundled synthetic-face model)")
+                    help="landmark net .npz (default: the bundled synthetic-face model; python -m "
+                         "morphganformer_tpu_torch.tools.train_landmarks retrains it)")
     wm.add_argument("--out", default="images/warped")
     wm.add_argument("--device", default="cuda")
 
@@ -1026,7 +1031,8 @@ def main(argv=None):
 
     ef = sub.add_parser("extract_features",
                         help="face embeddings of a folder, or bona fide vs morph SVM detection")
-    ef.add_argument("--backbone", help="iresnet .npz of tools/convert_iresnet.py")
+    ef.add_argument("--backbone",
+                    help="iresnet .npz of python -m morphganformer_tpu_torch.tools.convert_iresnet")
     ef.add_argument("--backbone-name", default="iresnet18")
     ef.add_argument("--random-backbone", action="store_true")
     ef.add_argument("--images", help="folder of PNGs to embed")

@@ -4,7 +4,8 @@ morphganformer_tpu/losses/face_embedding.py).
 The reference's backbones/iresnet.py family, batch norms folded into scale
 and shift. Input NHWC in [-1, 1], resized to 112 x 112 (ArcFace's input);
 the loss is the mean squared difference of the two images' embeddings.
-Weights load from the .npz of tools/convert_iresnet.py.
+Weights load from the .npz of `python -m
+morphganformer_tpu_torch.tools.convert_iresnet`.
 """
 
 from __future__ import annotations
@@ -114,8 +115,8 @@ def random_iresnet_params(name="iresnet18", num_features=512, seed=0, device="cu
 
 
 def load_iresnet_npz(path, name="iresnet18", device="cuda") -> Dict:
-    """The flat .npz of tools/convert_iresnet.py as tensors, read as that
-    tool's load_iresnet_npz reads it."""
+    """The flat .npz of morphganformer_tpu_torch.tools.convert_iresnet as
+    tensors, read as the JAX package's load_iresnet_npz reads it."""
     with np.load(path) as data:
         def bn(pre):
             return {"scale": data[f"{pre}_scale"], "shift": data[f"{pre}_shift"]}

@@ -5,7 +5,7 @@ facenet_pytorch's architecture (stem, 5 Block35, Mixed_6a, 10 Block17,
 Mixed_7a, 5 Block8, Block8 without ReLU, average pool, linear 1792 -> 512,
 batch norm), batch norms folded into scale and shift. Input NHWC in
 [-1, 1], resized to 160 x 160; the embedding is L2-normalised. Weights
-load from the .npz of tools/convert_facenet.py.
+load from the .npz of `python -m morphganformer_tpu_torch.tools.convert_facenet`.
 """
 
 from __future__ import annotations
@@ -138,8 +138,8 @@ def random_facenet_params(seed=0, device="cuda") -> Dict:
 
 
 def load_facenet_npz(path, device="cuda") -> Dict:
-    """The .npz of tools/convert_facenet.py as tensors, read as that tool's
-    load_facenet_npz reads it."""
+    """The .npz of morphganformer_tpu_torch.tools.convert_facenet as
+    tensors, read as the JAX package's load_facenet_npz reads it."""
     p = {"repeat_1": [{} for _ in range(5)], "repeat_2": [{} for _ in range(10)],
          "repeat_3": [{} for _ in range(5)], "mixed_6a": {}, "mixed_7a": {}, "block8": {}}
     with np.load(path) as data:

@@ -3,9 +3,11 @@ morphganformer_tpu/losses/landmarks.py).
 
 A compact stride-pyramid CNN gives [B, 64, 64, 68] heatmaps of an image
 resized to 256 x 256; soft-argmax decodes them into coordinates, so the
-wing losses are a gradient signal. The repository bundles weights trained
-on synthetic faces (morphganformer_tpu/losses/weights/landmarks_synthetic.npz,
-read here by path); `random_landmark_params` gives plumbing weights.
+wing losses are a gradient signal. The port bundles weights trained on
+synthetic faces (weights/landmarks_synthetic.npz beside this module, a byte
+copy of the JAX package's; `python -m
+morphganformer_tpu_torch.tools.train_landmarks` retrains them);
+`random_landmark_params` gives plumbing weights.
 """
 
 from __future__ import annotations
@@ -20,8 +22,7 @@ import torch.nn.functional as F
 from morphganformer_tpu_torch.losses.nets import nchw, nhwc, resize_bilinear, to_torch_params
 
 NUM_LANDMARKS = 68
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-BUNDLED_NPZ = os.path.join(REPO, "morphganformer_tpu", "losses", "weights",
+BUNDLED_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)), "weights",
                            "landmarks_synthetic.npz")
 
 

@@ -8,8 +8,9 @@ lpips/pretrained_networks.py:
   vgg16:   relu1_2, relu2_2, relu3_3, relu4_3, relu5_3 (64, 128, 256, 512, 512)
   alexnet: the relu after each of the 5 convs (64, 192, 384, 256, 256)
   squeeze: 7 slices (64, 128, 256, 384, 384, 512, 512)
-Weights load from the .npz that tools/convert_lpips.py writes for the JAX
-package ({"tower": ..., "lins": [...]}).
+Weights load from the .npz that `python -m
+morphganformer_tpu_torch.tools.convert_lpips` writes, as the JAX package's
+converter does ({"tower": ..., "lins": [...]}).
 """
 
 from __future__ import annotations
@@ -153,9 +154,10 @@ def random_lpips_params(net: str = "alex", seed: int = 0, device="cuda") -> Dict
 
 
 def load_lpips_params(path: str, net: str = "alex", device="cuda") -> Dict:
-    """The .npz of tools/convert_lpips.py (tower w*/b*, heads lin0, lin1,
-    ...) as tensors. A heads-only .npz (`--tower none`) gets the seeded
-    random tower of random_lpips_params and `"tower_source": "random"`."""
+    """The .npz of morphganformer_tpu_torch.tools.convert_lpips (tower w*/b*,
+    heads lin0, lin1, ...) as tensors. A heads-only .npz (`--tower none`)
+    gets the seeded random tower of random_lpips_params and
+    `"tower_source": "random"`."""
     tower, lins = {}, []
     with np.load(path) as data:
         for key in data.files:

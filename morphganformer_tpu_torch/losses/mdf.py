@@ -6,7 +6,8 @@ shift, leaky ReLU 0.2; a body of shrinking widths; a one-channel tail). The
 loss sums, over at most 8 scales and the three taps [head, body, tail], the
 per-sample mean squared difference of the two images' activations, then
 averages over the batch. The reference's Ds_*.pth stacks load from the
-.npz of tools/convert_mdf.py, with the conv padding recorded there.
+.npz of `python -m morphganformer_tpu_torch.tools.convert_mdf`, with the conv
+padding recorded there.
 """
 
 from __future__ import annotations
@@ -83,10 +84,10 @@ def random_mdf_params(num_discs=8, nfc=32, min_nfc=32, num_layer=5, nc_im=3, ker
 
 
 def load_mdf_params(path, with_padding=False, device="cuda"):
-    """The .npz of tools/convert_mdf.py (d<i>_head_*, d<i>_body<j>_*,
-    d<i>_tail_*) as tensors, as that tool's load_mdf_params reads it; with
-    `with_padding`, also the conv padding recorded there (0 when absent,
-    SinGAN's default)."""
+    """The .npz of morphganformer_tpu_torch.tools.convert_mdf (d<i>_head_*,
+    d<i>_body<j>_*, d<i>_tail_*) as tensors, as the JAX package's
+    load_mdf_params reads it; with `with_padding`, also the conv padding
+    recorded there (0 when absent, SinGAN's default)."""
     def block(data, pre):
         return {leaf: data[f"{pre}_{leaf}"] for leaf in ("w", "b", "bn_scale", "bn_shift")}
 

@@ -1,7 +1,8 @@
 """The feature detector of FID, KID, IS and P&R (port of
 morphganformer_tpu/metrics/detector.py).
 
-The converted InceptionV3 (.npz of tools/convert_inception.py) is the
+The converted InceptionV3 (.npz of `python -m
+morphganformer_tpu_torch.tools.convert_inception`) is the
 default whenever one is found, through $MGT_INCEPTION_NPZ or
 <$MGT_CACHE_DIR or ~/.cache/morphganformer_tpu>/inception.npz; without one
 the raw-pixel fallback runs, and says that its values are not comparable to

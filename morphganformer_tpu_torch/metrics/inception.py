@@ -9,8 +9,9 @@ pool: 2048 features; `fc_w`, `fc_b` give the 1000 logits of IS. Every
 convolution is followed by its batch norm folded into a scale and a shift
 and a ReLU. The parameters are the JAX package's tree (conv weights HWIO,
 "scale", "shift"; the FC [2048, 1000]): `random_inception_params(seed)`
-draws the same numbers as JAX's, `load_inception_npz` reads the .npz of
-tools/convert_inception.py (`save_inception_npz` writes one). The module
+draws the same numbers as JAX's, `load_inception_npz` reads the .npz of `python -m
+morphganformer_tpu_torch.tools.convert_inception` (`save_inception_npz`
+writes one). The module
 holds them NCHW/OIHW and runs plain cuDNN convolutions, work that JAX
 leaves to XLA.
 """
@@ -231,8 +232,9 @@ def random_inception_params(seed=0) -> Dict:
 
 
 def save_inception_npz(params: Dict, path) -> None:
-    """Write a parameter tree as the .npz that tools/convert_inception.py
-    writes (the inverse of `load_inception_npz`)."""
+    """Write a parameter tree as the .npz that
+    morphganformer_tpu_torch.tools.convert_inception writes (the inverse of
+    `load_inception_npz`)."""
     flat = {}
     for name, node in params.items():
         if name in ("fc_w", "fc_b"):
@@ -247,7 +249,8 @@ def save_inception_npz(params: Dict, path) -> None:
 
 def load_inception_npz(path) -> Dict:
     """The parameter tree of a converted .npz (JAX's key layout, written by
-    tools/convert_inception.py): "c1a_w", "m5b.b1x1_scale", "fc_w", ..."""
+    morphganformer_tpu_torch.tools.convert_inception and JAX's): "c1a_w",
+    "m5b.b1x1_scale", "fc_w", ..."""
     params = {}
     with np.load(path) as data:
         for key in data.files:

@@ -266,7 +266,9 @@ def test_generate_entry_point_on_a_jax_checkpoint(jax_nets, tmp_path):
 
 
 def test_load_network_refuses_a_pickle_and_a_missing_role(tmp_path):
-    with pytest.raises(ValueError, match="convert_checkpoint.py"):
+    with pytest.raises(ValueError,
+                       match=r"python -m morphganformer_tpu_torch\.tools\.convert_checkpoint "
+                             r"network-snapshot-000100\.pkl <out_dir>"):
         tio.load_network("network-snapshot-000100.pkl")
     G = init_generator(g_cfg(tcfg), seed=0, device="cpu")
     tio.save_generator(str(tmp_path), G.cfg, G, role="G")

@@ -1,6 +1,7 @@
-"""The port stands alone: no JAX, flax, Pillow, imageio, msgpack or JAX
-package on its import path, and its kernels build with plain nvcc for
-sm_90a."""
+"""The port stands alone: no JAX, flax, optax, Pillow, imageio, msgpack,
+torchvision, JAX package or the JAX package's tools/ on its import path
+(nor on that of the reference-pickle writer that chip_smoke.py imports),
+and its kernels build with plain nvcc for sm_90a."""
 
 import ast
 import pathlib
@@ -8,9 +9,10 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "PIL", "imageio", "msgpack", "morphganformer_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "PIL", "imageio", "msgpack", "torchvision",
+             "morphganformer_tpu", "tools")
 PORT_FILES = sorted((ROOT / "morphganformer_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "dist_probe.py"]
+    ROOT / "chip_smoke.py", ROOT / "dist_probe.py", ROOT / "tests" / "torch_reference_pickles.py"]
 
 
 def _imported_roots(path):
@@ -51,6 +53,17 @@ def test_metrics_modules_are_checked():
     assert {f"morphganformer_tpu_torch/metrics/{m}.py" for m in (
         "__init__", "core", "feature_stats", "inception", "detector", "extract", "ppl",
         "registry")} <= names
+
+
+def test_weight_tools_are_checked():
+    """The converters, the landmark trainer, its sampler and the pickle
+    writer of phase convert are on the list above."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"morphganformer_tpu_torch/{m}.py" for m in (
+        "tools/__init__", "tools/convert_checkpoint", "tools/convert_iresnet",
+        "tools/convert_inception", "tools/convert_facenet", "tools/convert_mdf",
+        "tools/convert_lpips", "tools/train_landmarks", "losses/synthetic_faces")} <= names
+    assert "tests/torch_reference_pickles.py" in names
 
 
 def test_warp_video_and_dataset_modules_are_checked():

@@ -229,8 +229,12 @@ def test_random_params_are_jax_draws(which):
 
 def test_landmark_loader_reads_the_bundled_and_a_written_npz(tmp_path, monkeypatch):
     path = landmarks.bundled_landmark_path()
-    assert path == jlandmarks.bundled_landmark_path()
-    assert_same_tree(landmarks.load_landmark_npz(path, "cpu"), jlandmarks.load_landmark_npz(path))
+    # The port's own copy of the JAX package's bundled model, byte for byte.
+    assert path == landmarks.BUNDLED_NPZ != jlandmarks.bundled_landmark_path()
+    with open(path, "rb") as a, open(jlandmarks.bundled_landmark_path(), "rb") as b:
+        assert a.read() == b.read()
+    assert_same_tree(landmarks.load_landmark_npz(path, "cpu"),
+                     jlandmarks.load_landmark_npz(jlandmarks.bundled_landmark_path()))
     tree = jlandmarks.random_landmark_params(width=4, seed=5)
     flat = {"head_w": tree["head_w"], "head_b": tree["head_b"],
             **{f"{n}_{leaf}": v for n, p in tree.items() if isinstance(p, dict)
