@@ -300,12 +300,32 @@ Phases, each printing its wall time:
               past it); the path-length penalty at the same weights in
               float32 and in float64; train_iteration at step 0 with
               labels (all four stages, phase reg's exact launches).
+  17. apl     one APL episode on the card (an Encoder of 32^2 images and an
+              RSAFFDecoder from seeded weights; 16 steps, each writing 16
+              entries to a 128-slot memory, which wraps, and reading 8
+              neighbours of 8 queries, then the decoder's logits) against the same episode
+              on the CPU: distances and logits within 1e-5 of their largest
+              entry, the labels equal where no distances tie.
+  18. demo    tools/train_demo_synfaces at a reduced size (32 faces at 64^2,
+              one tick of 2 kimg, no metric; each cut printed) through `cli
+              train` in this process: one snapshot, the fakes grid PNG,
+              finite losses.
 
 The phase `extract` runs after metrics, in phase morph's directory:
 extract_features (random iresnet18 on the card) with --bona on
 morph_csv_check's 8 G(z) faces and --morph on its 4 morphs (JAX's JSON:
 accuracies in [0, 1], the counts), then --images on the faces to an npz of
 512-d rows in file order; no fused-kernel launch; seconds of each.
+
+The phase `formats` runs after extract: every fixture of tests/data/formats
+decoded by the port (PNG, JPEG, BMP, Netpbm) with no Pillow, each array and
+its RGB conversion equal to Pillow's recorded SHA-256; the host's decode
+time of the face JPEG (800 x 640) and of a 1024^2 JPEG; load_target of the
+face JPEG equal to that of its pixels as a PNG; the JPEG projected at
+FFHQ-1024 widths in bfloat16 for 20 steps (exact tensor-core launches per
+step, the loss descending); the latent gradient at one noised latent on
+the kernels against the plain path, float32 within 1e-3 of its largest
+entry and bfloat16 by phase bf16's rule.
 
 The line before the last lists every kernel (name, route, source, the TPU
 kernel it replaces, launches on the main path, error, ms, plain, bound,
@@ -4365,6 +4385,280 @@ def options_phase(torch, fc, cli, tmp):
     return out, total
 
 
+FORMATS_DIR = os.path.join(REPO, "tests", "data", "formats")
+FORMATS_STEPS = 20        # the face JPEG's bfloat16 projection at FFHQ-1024 widths
+
+
+def array_digest(arr):
+    """The fixture script's digest of an array (a bool array as 0 and 1)."""
+    import hashlib
+
+    import numpy as np
+
+    arr = np.ascontiguousarray(arr != 0 if arr.dtype == bool else arr)
+    return {"dtype": str(arr.dtype), "shape": list(arr.shape),
+            "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
+
+
+def check_format_fixtures(folder=FORMATS_DIR):
+    """Decode every committed fixture with the port's decoders (no Pillow):
+    its mode and the SHA-256 of its array and of its RGB conversion equal
+    Pillow's, recorded in formats.json. Returns {name: decode seconds}."""
+    from morphganformer_tpu_torch.utils import image
+
+    with open(os.path.join(folder, "formats.json")) as f:
+        table = json.load(f)
+    names = sorted(n for n in os.listdir(folder) if n != "formats.json")
+    assert names == sorted(table), (names, sorted(table))
+    seconds = {}
+    for name in names:
+        t0 = time.perf_counter()
+        got = image.open_image(os.path.join(folder, name))
+        seconds[name] = time.perf_counter() - t0
+        assert got.mode == table[name]["mode"], (name, got.mode)
+        assert array_digest(got.array) == table[name]["image"], name
+        assert array_digest(image.to_rgb(got)) == table[name]["rgb"], name
+    return seconds
+
+
+def _best_of(fn, reps=3):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return out, min(times), sum(times) / reps
+
+
+def formats_phase(torch, fc, cli, G, tmp, card):
+    """Photo formats without Pillow: every committed fixture decoded and
+    held to Pillow's recorded SHA-256; the decode time of the face JPEG
+    (800 x 640, quality 90) and of a 1024^2 JPEG (4:2:0, quality 90, made
+    here by the fixture script's encoder); load_target of the face JPEG
+    equal to load_target of its pixels written as a PNG; then the JPEG
+    projected at FFHQ-1024 widths in bfloat16 for FORMATS_STEPS steps
+    through run_project (exact tensor-core launches per step, the loss
+    descending), and at one noised latent the gradient on the kernels
+    against the plain path: float32 within 1e-3 of its largest entry (phase
+    project's rule), bfloat16 against float32 by phase bf16's rule."""
+    import numpy as np
+
+    from morphganformer_tpu_torch.losses import build_loss_stack
+    from morphganformer_tpu_torch.projection import ProjectionConfig, latent_stats, loss_and_grad
+    from morphganformer_tpu_torch.utils.image import load_target, read_image, read_image_rgb
+    from morphganformer_tpu_torch.utils.image import write_png
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import make_format_fixtures as mff
+
+    out = {"card": card, "pillow_importable": _importable("PIL")}
+    seconds = check_format_fixtures()
+    assert "PIL" not in sys.modules, "a decoder imported Pillow"
+    out["fixtures"] = len(seconds)
+    out["fixture_decode_s"] = sum(seconds.values())
+    print(f"  {len(seconds)} fixtures decoded without Pillow (importable here: "
+          f"{out['pillow_importable']}), each equal to Pillow's SHA-256, in "
+          f"{out['fixture_decode_s']:.3f} s", flush=True)
+    face = os.path.join(FORMATS_DIR, "face.jpg")
+    img, best, mean = _best_of(lambda: read_image(face))
+    assert img.shape == (800, 640, 3)
+    out["face_jpeg_decode_s"] = dict(best=best, mean=mean, bytes=os.path.getsize(face))
+    t0 = time.perf_counter()
+    big = mff.encode_jpeg(mff.photo(5, 1024, 1024), quality=90)
+    encode_s = time.perf_counter() - t0
+    big_path = os.path.join(tmp, "photo_1024.jpg")
+    with open(big_path, "wb") as f:
+        f.write(big)
+    big_img, best_b, mean_b = _best_of(lambda: read_image(big_path))
+    psnr = 10 * math.log10(255 ** 2 / float(np.mean((big_img.astype(np.float64)
+                                                     - mff.photo(5, 1024, 1024)) ** 2)))
+    assert big_img.shape == (1024, 1024, 3) and psnr > 25, psnr
+    out["jpeg_1024_decode_s"] = dict(best=best_b, mean=mean_b, bytes=len(big), psnr_db=psnr,
+                                     encode_s=encode_s)
+    print(f"  decode on the host: face.jpg (800 x 640, {os.path.getsize(face)} bytes) best "
+          f"{best:.4f} s, mean {mean:.4f} s of 3; a 1024^2 4:2:0 JPEG ({len(big)} bytes, "
+          f"{psnr:.2f} dB against its source) best {best_b:.4f} s, mean {mean_b:.4f} s; "
+          f"{card}", flush=True)
+
+    png = os.path.join(tmp, "face_from_jpeg.png")
+    write_png(png, read_image_rgb(face))
+    target_np = load_target(face, 1024)
+    assert np.array_equal(target_np, load_target(png, 1024)), "load_target JPEG != PNG"
+    assert target_np.shape == (1, 1024, 1024, 3)
+
+    with compute_dtype(G, "bfloat16"):
+        stamps = []
+        fc.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = cli.run_project(G, face, os.path.join(tmp, "proj_jpeg"), steps=FORMATS_STEPS,
+                              n_mean_latent=10000, chunk=5, seed=0,
+                              progress=_timed_progress(stamps))
+        proj_s = time.perf_counter() - t0
+        launches = dict(fc.launch_counts)
+    history = res.loss_history.numpy()
+    rate = _steady_rate(stamps)
+    print(f"  run_project bfloat16 on face.jpg: {FORMATS_STEPS} steps in {proj_s:.3f} s; steady "
+          f"{rate:.3f} steps/s; loss {history[0]:.5f} -> best {res.best_loss:.5f}; launches "
+          f"{launches}", flush=True)
+    assert launches == _per_step(FORMATS_STEPS, 1, bf16=True), launches
+    assert np.isfinite(history).all() and res.best_loss < history[0]
+    assert torch.isfinite(res.best_img).all().item()
+    assert len(os.listdir(os.path.join(tmp, "proj_jpeg"))) == 2
+
+    cfg = G.cfg
+    pcfg = ProjectionConfig(steps=FORMATS_STEPS)
+    mean_l, std = latent_stats(cfg, torch.Generator().manual_seed(0), 10000)
+    latent_n = (mean_l[None] + torch.randn((1, cfg.k, cfg.z_dim),
+                                           generator=torch.Generator().manual_seed(1))
+                * std * pcfg.noise).cuda()
+    target = torch.from_numpy(target_np).cuda()
+    loss_fn = build_loss_stack({"mse": 1.0})
+    grads = {}
+    for dt in ("float32", "bfloat16"):
+        with compute_dtype(G, dt):
+            for plain in (False, True):
+                grads[dt, plain] = loss_and_grad(G, latent_n, target, loss_fn, pcfg, plain)[2]
+    f32_err = _rel_err(grads["float32", False], grads["float32", True])
+    ref = grads["float32", True]
+    gk, gp = (_rel_err(grads["bfloat16", p], ref) for p in (False, True))
+    print(f"  latent gradient on face.jpg's target: float32 kernels vs plain {f32_err:.3e} (of "
+          f"|grad| max {ref.abs().max().item():.4e}); bfloat16 against float32: kernels {gk:.3e}, "
+          f"plain {gp:.3e}", flush=True)
+    assert f32_err <= 1e-3, f32_err
+    assert gk <= max(BF16_RATIO * gp, BF16_FLOOR), (gk, gp)
+    out["project"] = dict(steps=FORMATS_STEPS, steps_per_s=rate, wall_s=proj_s,
+                          first_loss=float(history[0]), best_loss=res.best_loss,
+                          launches={k: v for k, v in launches.items() if v},
+                          grad_f32_kernels_vs_plain=f32_err, grad_bf16_kernels_vs_f32=gk,
+                          grad_bf16_plain_vs_f32=gp)
+    return out, launches
+
+
+def _importable(name):
+    import importlib.util
+
+    return importlib.util.find_spec(name) is not None
+
+
+APL_MEMORY, APL_STEPS, APL_WRITE, APL_QUERIES, APL_K = 128, 16, 16, 8, 8
+
+
+def apl_episode(torch, device, enc, dec, images, labels, queries):
+    """One APL episode on `device`: every step embeds a batch, writes it
+    with its labels and reads the queries' APL_K nearest entries; then the
+    decoder's logits for the last step's queries. Returns (labels [steps,
+    Q, K], distances [steps, Q, K], logits [Q, classes])."""
+    from morphganformer_tpu_torch import apl
+
+    state = apl.init_memory(APL_MEMORY, 64, dec.logits.bias.shape[0], device=device)
+    got_l, got_d = [], []
+    with torch.no_grad():
+        for s in range(APL_STEPS):
+            state = apl.add_entries(state, enc(images[s].to(device)), labels[s].to(device))
+            q = enc(queries[s].to(device))
+            be, bl, bd = apl.nearest_entries(state, q, APL_K)
+            got_l.append(bl)
+            got_d.append(bd)
+        logits = dec(be, bl, q, bd)
+    return torch.stack(got_l).cpu(), torch.stack(got_d).cpu(), logits.cpu(), state
+
+
+def apl_phase(torch, card):
+    """APL on the card: the Encoder (32^2 gray images to 64 features, eval
+    mode) and an RSAFFDecoder (2 layers, 4 heads) from seeded weights; one
+    episode of APL_STEPS steps, each writing APL_WRITE entries to an
+    APL_MEMORY-slot memory (it wraps around) and reading APL_K neighbours
+    of APL_QUERIES queries, then the decoder's logits: the card against the
+    same episode on the CPU, the distances and logits within 1e-5 of their
+    largest entry, the labels equal wherever the distances are not tied
+    within 1e-5."""
+    import copy
+
+    import numpy as np
+
+    from morphganformer_tpu_torch import apl
+
+    gen = torch.Generator().manual_seed(0)
+    classes = 10
+    enc = apl.Encoder((32, 32, 1), gen, device="cpu").eval()
+    dec = apl.RSAFFDecoder(classes, 64, 16, APL_K, 16, 16, 4, 2, gen, device="cpu")
+    images = torch.randn((APL_STEPS, APL_WRITE, 32, 32, 1), generator=gen)
+    labels = torch.randint(0, classes, (APL_STEPS, APL_WRITE), generator=gen, dtype=torch.int32)
+    queries = torch.randn((APL_STEPS, APL_QUERIES, 32, 32, 1), generator=gen)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)              # torch's CPU pool is far slower on these small ops
+    try:
+        t0 = time.perf_counter()
+        cpu = apl_episode(torch, "cpu", enc, dec, images, labels, queries)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+    enc_c, dec_c = copy.deepcopy(enc).to("cuda"), copy.deepcopy(dec).to("cuda")
+    apl_episode(torch, "cuda", enc_c, dec_c, images, labels, queries)       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_out = apl_episode(torch, "cuda", enc_c, dec_c, images, labels, queries)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    assert card_out[3].embeds.device.type == "cuda"
+    assert int(apl.num_entries(card_out[3])) == APL_MEMORY
+    d_err = _rel_err(card_out[1], cpu[1])
+    l_err = _rel_err(card_out[2], cpu[2])
+    dist = cpu[1].numpy()
+    gaps = np.diff(dist, axis=-1)
+    tied = np.zeros(dist.shape, bool)
+    tied[..., 1:] |= gaps <= 1e-5 * np.abs(dist).max()
+    tied[..., :-1] |= gaps <= 1e-5 * np.abs(dist).max()
+    same = (card_out[0].numpy() == cpu[0].numpy()) | tied
+    print(f"  APL episode ({APL_STEPS} steps, {APL_WRITE} writes and {APL_QUERIES} queries x "
+          f"{APL_K} neighbours a step, {APL_MEMORY} slots): card {card_s * 1e3:.3f} ms, CPU "
+          f"{cpu_s * 1e3:.3f} ms; distances {d_err:.3e}, logits {l_err:.3e} of their largest "
+          f"entry; {int(tied.sum())} neighbour slots tied within 1e-5; {card}", flush=True)
+    assert d_err <= 1e-5 and l_err <= 1e-5, (d_err, l_err)
+    assert same.all(), "kNN labels differ where the distances are not tied"
+    assert torch.isfinite(card_out[2]).all().item()
+    return dict(card_ms=card_s * 1e3, cpu_ms=cpu_s * 1e3, dist_rel_err=d_err,
+                logits_rel_err=l_err, tied_slots=int(tied.sum()), card=card)
+
+
+DEMO_ARGS = ("--images", "32", "--res", "64", "--ticks", "1", "--kimg-per-tick", "2",
+             "--metrics")
+
+
+def demo_phase(torch, fc, tmp, card):
+    """The synthetic-faces training demo at a reduced size, through its
+    entry point with `cli train` in this process: 32 faces at 64^2 (JAX's
+    default 512), one tick of 2 kimg (JAX's 3), no metric (JAX's
+    fid2k_full): a snapshot, the fakes grid PNG, finite losses in
+    stats.jsonl, the launches of the run and its seconds."""
+    from morphganformer_tpu_torch.tools import train_demo_synfaces as demo
+    from morphganformer_tpu_torch.utils.image import read_image
+
+    out = os.path.join(tmp, "demo")
+    print("  cuts: --images 32 (JAX 512), --ticks 1 (JAX 3), --metrics none (JAX fid2k_full); "
+          "--res 64 and 2 kimg a tick as JAX", flush=True)
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = demo.main(["--out", out, *DEMO_ARGS, "--device", "cuda"], in_process=True)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in fc.launch_counts.items() if v}
+    run = os.path.join(out, "results", "exp-000")
+    snaps = [d for d in os.listdir(run) if d.startswith("network-snapshot-")]
+    grids = [f for f in os.listdir(run) if f.startswith("fakes") and f.endswith(".png")]
+    with open(os.path.join(run, "stats.jsonl")) as f:
+        stats = [json.loads(line) for line in f]
+    losses = {k: v["mean"] for st in stats for k, v in st.items() if k.startswith("Loss/")}
+    print(f"  demo: rc {rc}, {wall:.3f} s (the dataset included); snapshots {snaps}; grids "
+          f"{grids}; losses {losses}; launches {launches}; {card}", flush=True)
+    assert rc == 0 and len(snaps) == 1 and grids
+    assert read_image(os.path.join(run, grids[0])).ndim == 3
+    assert {"Loss/G/loss", "Loss/D/loss"} <= set(losses)
+    assert all(math.isfinite(v) for v in losses.values()), losses
+    assert stats[-1]["kimg"] >= 2.0, stats[-1]["kimg"]
+    return dict(wall_s=wall, kimg=stats[-1]["kimg"], losses=losses, launches=launches,
+                card=card)
+
+
 def _fmt_list(xs):
     return "[" + ", ".join(f"{x:.3f}" for x in xs) + "]"
 
@@ -4636,6 +4930,10 @@ def main():
             extract_stats = extract_phase(torch, fc, cli, tmp, smi[0])
         phases["extract"] = ph.seconds
 
+        with Phase("formats") as ph:
+            formats_stats, formats_launches = formats_phase(torch, fc, cli, G, tmp, smi[0])
+        phases["formats"] = ph.seconds
+
     with Phase("train") as ph:
         train_rows, train_launches, train_stats, train_bf16_rows, train_bf16_launches = \
             train_phase(torch, fc)
@@ -4665,6 +4963,14 @@ def main():
         options_stats, options_launches = options_phase(torch, fc, cli, tmp)
     phases["options"] = ph.seconds
 
+    with Phase("apl") as ph:
+        apl_stats = apl_phase(torch, smi[0])
+    phases["apl"] = ph.seconds
+
+    with Phase("demo") as ph, tempfile.TemporaryDirectory(prefix="mgt_demo_") as tmp:
+        demo_stats = demo_phase(torch, fc, tmp, smi[0])
+    phases["demo"] = ph.seconds
+
     print("kernel_calls " + json.dumps(rows + train_rows + k4_rows), flush=True)
     print("kernel_calls_train_bf16 " + json.dumps(train_bf16_rows), flush=True)
     print("projection " + json.dumps(proj_stats), flush=True)
@@ -4687,6 +4993,9 @@ def main():
     print("warp " + json.dumps(warp_stats), flush=True)
     print("dataset " + json.dumps(dataset_stats), flush=True)
     print("options " + json.dumps(options_stats), flush=True)
+    print("formats " + json.dumps(formats_stats), flush=True)
+    print("apl " + json.dumps(apl_stats), flush=True)
+    print("demo " + json.dumps(demo_stats), flush=True)
     kernels = []
     for kernel, name, replaces, key in (
             ("K1", "fused_modconv3x3 (mgt_modconv3x3_fwd; least work: conv3x3_lw_kernel, a "
@@ -4751,6 +5060,7 @@ def main():
             "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": bf16_launches[BF16_KEYS[key]],
             "options_launches": options_launches.get(BF16_KEYS[key], 0),
+            "formats_launches": formats_launches[BF16_KEYS[key]],
             "reg_launches": 0,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "err_vs_f32": max(r["err_kernel"] for r in mine),

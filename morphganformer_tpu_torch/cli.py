@@ -41,8 +41,10 @@ and the loss stay float32); calc_metrics has no `--dtype` and runs float32,
 as JAX's does. `train --dtype bfloat16` trains with G's synthesis and D's
 blocks in bfloat16 (the parameters, Adam, the EMA, pl_mean and the losses
 stay float32; the metrics run G_ema in float32). Latents are fed to the
-generator as z, as the JAX entry points do. Projection targets are PNGs of
-any size (Lanczos-resized and centre-cropped, as JAX's load_target does).
+generator as z, as the JAX entry points do. Projection targets are photos
+of any size in PNG, JPEG, BMP or Netpbm (`utils/image.py` `read_image_rgb`,
+bit-equal to Pillow's decoders), Lanczos-resized and centre-cropped as JAX's
+load_target does.
 `project --loss` takes JAX's whole loss stack: the pixel terms and lpips,
 wing, awing, facenet, arcface, mdf and lbp, their networks' weights from
 the .npz files of the port's converters (`python -m
@@ -66,14 +68,15 @@ that several launches form: `--coordinator host:port --num-processes N
 each process on `cuda:<local rank>`. The global `--batch` is split over the
 processes; rank 0 writes the run directory.
 
-extract_features embeds a folder of PNGs with the ArcFace iresnet on the
+extract_features embeds a folder of PNGs and JPEGs with the ArcFace iresnet on the
 card (`--images`, to an .npz of `files` and `features`), or fits the linear
 SVM of bona fide against morph embeddings (`--bona`, `--morph`) and prints
 its accuracies as JSON; the split and the SVM are the port's own
 (metrics/fingerprint.py), equal to scikit-learn's.
 
-dataset_tool, warp_morphs and make_video read PNGs only (another format
-raises and names the file). warp_morphs warps on the card in float64 (the
+dataset_tool, warp_morphs and make_video read what the JAX scripts read
+through Pillow, as `read_image_rgb` does (PNG, JPEG, BMP, Netpbm; WebP and
+the other formats raise and name the file). warp_morphs warps on the card in float64 (the
 Delaunay triangulation is scipy's, on the host); make_video writes an
 animated GIF, and for another container prints JAX's fallback line and
 writes the GIF beside it.
@@ -135,7 +138,7 @@ from morphganformer_tpu_torch.utils.device import resolve_device
 from morphganformer_tpu_torch.utils.image import (
     crop_max_rectangle,
     load_target,
-    read_png_rgb,
+    read_image_rgb,
     to_uint8,
     write_png,
 )
@@ -364,7 +367,7 @@ def run_project(G, img, out_dir, loss="mse", steps=5000, lr=0.1, lr_rampup=0.05,
                 n_mean_latent=10000, chunk=250, w_plus=False, init_latent=None,
                 save_latent=None, ratio=1.0, seed=0, progress=None, size=None, lamda=None,
                 beta=None, nets: Optional[LossNets] = None, noise_regularize=0.0):
-    """Project the PNG `img` into G's latent space under the loss stack
+    """Project the photo `img` into G's latent space under the loss stack
     `loss` (`projection_loss` with `size`, `lamda`, `beta` and `nets`). The
     prior statistics and then the per-step noise are drawn from one
     torch.Generator seeded with `seed`. Writes
@@ -545,9 +548,9 @@ def run_calc_metrics(G, data, metrics, max_items=None, batch=16, run_dir=None, d
 def morph_qa(dir_a, dir_b, size=None, device="cuda"):
     """Mean PSNR and SSIM between the paired PNGs of two directories (sorted
     by name), each loaded by load_target at `size` (default: the width of
-    the first image of the pair)."""
+    the first image of the pair, as Pillow's `Image.open(fa).size[0]`)."""
     from morphganformer_tpu_torch.losses.pixel import psnr, ssim
-    from morphganformer_tpu_torch.utils.image import read_png
+    from morphganformer_tpu_torch.utils.image import read_image
 
     files_a = sorted(glob.glob(os.path.join(dir_a, "*.png")))
     files_b = sorted(glob.glob(os.path.join(dir_b, "*.png")))
@@ -555,7 +558,7 @@ def morph_qa(dir_a, dir_b, size=None, device="cuda"):
         raise ValueError(f"paired dirs mismatch: {len(files_a)} vs {len(files_b)}")
     psnrs, ssims = [], []
     for fa, fb in zip(files_a, files_b):
-        sz = size or read_png(fa).shape[1]
+        sz = size or read_image(fa).shape[1]
         a, b = (torch.from_numpy(load_target(f, sz)).to(device) for f in (fa, fb))
         psnrs.append(float(psnr(a, b)))
         ssims.append(float(ssim(a, b)))
@@ -616,7 +619,7 @@ def run_warp_morphs(args):
     )
 
     def load(path):
-        return read_png_rgb(path).astype(np.float32)
+        return read_image_rgb(path).astype(np.float32)
 
     device = resolve_device(args.device)
     predict = (landmark_predictor(args.landmark_weights, device)
@@ -865,7 +868,7 @@ def train_parser(sub):
                         "refused")
     t.add_argument("--raw-cache", action="store_true",
                    help="decode the dataset once into <data-dir>/<res>.rawcache and train from "
-                        "it (else the native loader if it builds, else read_png)")
+                        "it (else the native loader if it builds, else read_image)")
     t.add_argument("--device", default="cuda")
     t.add_argument("--multihost", action="store_true",
                    help="join a process group (torchrun's environment without --coordinator)")
@@ -917,7 +920,8 @@ def main(argv=None):
     pr = sub.add_parser("project", help="project a photo into the latent space")
     common(pr, "bfloat16")
     projection_flags(pr, 5000, "mse l1 psnr ssim lpips wing awing facenet arcface mdf lbp")
-    pr.add_argument("--img", required=True, help="target PNG (any size)")
+    pr.add_argument("--img", required=True,
+                    help="target photo: PNG, JPEG, BMP or Netpbm (any size)")
     pr.add_argument("--size", type=int, default=None,
                     help="compute the loss at this resolution (downsamples both images when "
                          "below the model resolution)")
@@ -1023,7 +1027,7 @@ def main(argv=None):
     wm.add_argument("--out", default="images/warped")
     wm.add_argument("--device", default="cuda")
 
-    mv = sub.add_parser("make_video", help="PNG frames -> animated GIF")
+    mv = sub.add_parser("make_video", help="PNG or JPEG frames -> animated GIF")
     mv.add_argument("--images", help="directory of frames")
     mv.add_argument("--list", dest="list_file", help="text file of frame paths")
     mv.add_argument("--out", required=True)
@@ -1035,7 +1039,7 @@ def main(argv=None):
                     help="iresnet .npz of python -m morphganformer_tpu_torch.tools.convert_iresnet")
     ef.add_argument("--backbone-name", default="iresnet18")
     ef.add_argument("--random-backbone", action="store_true")
-    ef.add_argument("--images", help="folder of PNGs to embed")
+    ef.add_argument("--images", help="folder of PNGs and JPEGs to embed")
     ef.add_argument("--out", default="features.npz")
     ef.add_argument("--bona", help="bona fide folder (fingerprinting mode)")
     ef.add_argument("--morph", help="morph folder (fingerprinting mode)")

@@ -6,7 +6,9 @@ layout of the dataset tool) with optional `labels.npy`, `max_items` and
 mirror augmentation by index doubling; `infinite_batches` yields NHWC float
 batches of an endless reshuffled, process-sharded stream. The shuffles use
 `np.random.RandomState` exactly as JAX's do, so the same seed gives the same
-batches in both packages. PNGs are decoded by the port's `read_png`.
+batches in both packages. PNGs are decoded by the port's `read_image`, as
+JAX's `np.asarray(Image.open(path))` decodes them (any bit depth, colour
+type or interlace; a 2-D result gets a channel axis, as in JAX).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Iterator
 
 import numpy as np
 
-from morphganformer_tpu_torch.utils.image import read_png
+from morphganformer_tpu_torch.utils.image import read_image
 
 
 def dataset_files(path, resolution):
@@ -84,7 +86,9 @@ class ImageFolderDataset:
         return label.copy()
 
     def __getitem__(self, i):
-        img = read_png(self.img_files[self.idx[i]])
+        img = read_image(self.img_files[self.idx[i]])
+        if img.ndim == 2:
+            img = img[:, :, None]
         if self.mirror[i]:
             img = img[:, ::-1, :]
         return img.copy(), self.get_label(i)

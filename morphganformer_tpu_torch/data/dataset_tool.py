@@ -14,9 +14,11 @@ and the exit code of `compare` are JAX's.
     python -m morphganformer_tpu_torch.cli dataset_tool compare out other --resolution 1024
     python -m morphganformer_tpu_torch.cli dataset_tool extract out pngs --resolution 1024
 
-The port reads PNG only: an input of another extension that JAX's tool
-takes (jpg, jpeg, bmp, webp) raises by name before anything is written,
-since leaving it out would build another dataset than JAX's.
+The inputs are JAX's (png, jpg, jpeg, bmp and webp files), each read by
+`read_image_rgb` as Pillow's `convert("RGB")` reads it. Every input's
+format is checked before anything is written: a WebP, or a variant of a
+read format that the port refuses (`utils/image.py` `check_image`), raises
+by name, since leaving it out would build another dataset than JAX's.
 """
 
 from __future__ import annotations
@@ -28,9 +30,10 @@ import numpy as np
 
 from morphganformer_tpu_torch.data.dataset import ImageFolderDataset
 from morphganformer_tpu_torch.utils.image import (
+    check_image,
     create_img_grid,
     lanczos_resize,
-    read_png_rgb,
+    read_image_rgb,
     write_png,
 )
 
@@ -62,16 +65,13 @@ def create_from_images(out_dir, in_dir, resolution, lods=1):
     files = iter_images(in_dir)
     if not files:
         raise FileNotFoundError(f"no images under {in_dir}")
-    other = [f for f in files if not f.lower().endswith(".png")]
-    if other:
-        raise ValueError(f"{other[0]}: the port reads PNG only ({len(other)} such inputs under "
-                         f"{in_dir}); convert them to PNG first (ROADMAP.md queue 1, "
-                         "\"The rest\")")
+    for f in files:
+        check_image(f)
     res_levels = [resolution // (2 ** i) for i in range(lods)]
     for r in res_levels:
         os.makedirs(os.path.join(out_dir, str(r)), exist_ok=True)
     for i, path in enumerate(files):
-        img = center_crop(read_png_rgb(path))
+        img = center_crop(read_image_rgb(path))
         for r in res_levels:
             write_png(os.path.join(out_dir, str(r), f"{i:08d}.png"), lanczos_resize(img, r, r))
         if (i + 1) % 100 == 0:

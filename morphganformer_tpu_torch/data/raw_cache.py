@@ -23,7 +23,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from morphganformer_tpu_torch.data.dataset import dataset_files
-from morphganformer_tpu_torch.utils.image import read_png
+from morphganformer_tpu_torch.utils.image import read_image_rgb
 
 
 def _source_digest(files) -> str:
@@ -41,16 +41,16 @@ def _paths(dataset_path: str, resolution: int):
 
 
 def _decoder(resolution):
-    """The native decoder when its library builds, else `read_png` with
-    gray replicated and alpha dropped: the same RGB bytes either way."""
+    """The native decoder when its library builds, else `read_image_rgb`
+    (JAX's fallback, `Image.open(p).convert("RGB")`): the same RGB bytes
+    either way."""
     from morphganformer_tpu_torch.data.native_loader import decode_png, native_available
 
     if native_available():
         return lambda p: decode_png(p, resolution, resolution)
 
     def decode(p):
-        img = read_png(p)
-        img = np.repeat(img, 3, axis=2) if img.shape[2] == 1 else img[:, :, :3]
+        img = read_image_rgb(p)
         if img.shape != (resolution, resolution, 3):
             raise ValueError(f"{p}: shape {img.shape}, expected {(resolution, resolution, 3)}")
         return img

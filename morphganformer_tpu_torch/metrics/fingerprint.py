@@ -3,7 +3,7 @@
 cli/extract_features.py (reference extract_FaceNet.py and
 Facenet_torch/extract_feature_fingerprinting.py:14-18).
 
-`extract_dir` embeds every PNG of a folder with the ArcFace iresnet
+`extract_dir` embeds every PNG and JPEG of a folder with the ArcFace iresnet
 (losses/face_embedding.py) on the card. JAX splits and classifies with
 scikit-learn, which the port does not use; it has its own:
 
@@ -29,19 +29,18 @@ import numpy as np
 import torch
 
 from morphganformer_tpu_torch.losses.face_embedding import iresnet_embed
-from morphganformer_tpu_torch.utils.image import load_target
+from morphganformer_tpu_torch.utils.image import check_image, load_target
 
 
 def image_files(path):
-    """The images of a folder in JAX's order (sorted PNGs and JPEGs); a JPEG
-    raises, since the port reads PNG only."""
+    """The images of a folder in JAX's order (sorted PNGs and JPEGs), each
+    checked by `check_image` before any is embedded: a file the port does
+    not read raises by name."""
     files = sorted(glob.glob(os.path.join(path, "*.png")) + glob.glob(os.path.join(path, "*.jpg")))
     if not files:
         raise FileNotFoundError(f"no images in {path}")
-    jpg = [f for f in files if f.endswith(".jpg")]
-    if jpg:
-        raise ValueError(f"{jpg[0]}: the port reads PNG only ({len(jpg)} JPEGs in {path}); "
-                         f"convert them to PNG first (ROADMAP.md queue 1, \"The rest\")")
+    for f in files:
+        check_image(f)
     return files
 
 

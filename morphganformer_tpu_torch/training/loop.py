@@ -31,7 +31,7 @@ snapshot, so none runs ahead of a save.
 
 The feed is chosen once, before the first step, and printed: the raw cache
 when MGT_RAW_CACHE=1 (`--raw-cache`), else the native C++ loader when its
-library builds, else `read_png` in Python, with the reason. MGT_DEBUG_NANS=1 turns on
+library builds, else `read_image` in Python, with the reason. MGT_DEBUG_NANS=1 turns on
 autograd's anomaly mode (a backward that makes a NaN raises), the
 counterpart of JAX's jax_debug_nans.
 """

@@ -1,9 +1,11 @@
-"""Image conversion and PNG input/output (port of morphganformer_tpu/utils/image.py).
+"""Image conversion and photo input/output (port of morphganformer_tpu/utils/image.py).
 
-Generator output is NHWC float in [-1, 1]. PNGs are read and written with
-the standard library's zlib and struct, and projection targets are resized
-by a numpy copy of Pillow's Lanczos resampling, so the port needs no imaging
-package.
+Generator output is NHWC float in [-1, 1]. Photos are read as Pillow's
+`Image.open` reads them, picked by their first bytes: PNG here (every bit
+depth, colour type and interlace), JPEG in `utils/jpeg.py`, BMP and Netpbm
+in `utils/formats.py`. PNGs are written with the standard library's zlib
+and struct, and projection targets are resized by a numpy copy of Pillow's
+Lanczos resampling, so the port needs no imaging package.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import math
 import struct
 import zlib
+from typing import NamedTuple
 
 import numpy as np
 
@@ -82,35 +85,284 @@ def write_png(path, img_hwc_uint8):
 
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_SIGNATURES = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
-               (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}      # gray, RGB, gray + alpha, RGBA
+_REFUSED_SIGNATURES = ((b"GIF8", "GIF"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+                       (b"II+\x00", "BigTIFF"), (b"MM\x00+", "BigTIFF"))
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # gray, RGB, palette, gray + alpha, RGBA
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7: (first column, first row, column step, row step) of each pass.
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+READ_FORMATS = "PNG, JPEG, BMP and Netpbm (PPM, PGM, PBM)"
 
 
-def _paeth(a, b, c):
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+class ImageFormatError(ValueError):
+    """A file the port does not decode: another format, or a variant of a
+    read format that is refused by name."""
 
 
-def _unfilter_row(ft, line, prev, bpp):
-    """Undo one row's PNG filter (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)."""
-    if ft == 0:
-        return line.copy()
-    if ft == 1:
-        return np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
-    if ft == 2:
-        return line + prev
-    if ft not in (3, 4):
-        raise ValueError(f"PNG: unknown filter type {ft}")
-    cur, up = bytearray(line.tobytes()), prev.tobytes()
-    for i in range(len(cur)):
-        a = cur[i - bpp] if i >= bpp else 0
-        if ft == 3:
-            cur[i] = (cur[i] + ((a + up[i]) >> 1)) & 0xFF
+class Decoded(NamedTuple):
+    """A decoded image as Pillow opens it: `array` is
+    `np.asarray(Image.open(path))`, `mode` is Pillow's mode, `palette` the
+    [n, 3] uint8 colours of a "P" image (else None)."""
+
+    array: np.ndarray
+    mode: str
+    palette: np.ndarray | None = None
+
+
+def refuse(path, what, reason=""):
+    """Raise ImageFormatError naming the file, what it is, and why."""
+    raise ImageFormatError(f"{path}: {what} is not read by the port"
+                           + (f" ({reason})" if reason else "")
+                           + "; see ROADMAP.md queue 1, item 8")
+
+
+def _unfilter(raw, stride, bpp):
+    """Undo the PNG row filters of `raw` [rows, 1 + stride] uint8 (filter
+    byte first: 0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth); `stride` is a
+    multiple of `bpp`. Rows of None, Sub and Up are undone a row at a time;
+    where Average or Paeth occur, every pixel on one anti-diagonal (its
+    left, upper and upper-left neighbours done) is undone at once."""
+    rows = raw.shape[0]
+    ft = raw[:, 0].astype(np.int16)
+    if rows and int(ft.max()) > 4:
+        raise ValueError(f"PNG: unknown filter type {int(ft.max())}")
+    line = raw[:, 1:]
+    if not rows or int(ft.max()) <= 2:
+        out = np.empty((rows, stride), np.uint8)
+        prev = np.zeros(stride, np.uint8)
+        for y in range(rows):
+            f, cur = int(ft[y]), line[y]
+            if f == 1:
+                cur = np.cumsum(cur.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+            elif f == 2:
+                cur = cur + prev
+            prev = out[y] = cur
+        return out
+    npx = stride // bpp
+    filt = line.astype(np.int16).reshape(rows, npx, bpp)
+    # cur[y + 1, x + 1] is pixel (y, x); row 0 and column 0 are the zeros
+    # PNG assumes outside the image.
+    cur = np.zeros((rows + 1, npx + 1, bpp), np.int16)
+    for d in range(rows + npx - 1):
+        ys = np.arange(max(0, d - npx + 1), min(rows, d + 1))
+        xs = d - ys
+        a, b, c = cur[ys + 1, xs], cur[ys, xs + 1], cur[ys, xs]
+        f = ft[ys][:, None]
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        pred = np.select([f == 1, f == 2, f == 3, f == 4], [a, b, (a + b) >> 1, paeth], 0)
+        cur[ys + 1, xs + 1] = (filt[ys, xs] + pred) & 0xFF
+    return cur[1:, 1:].reshape(rows, stride).astype(np.uint8)
+
+
+def _png_samples(rows, width, channels, depth):
+    """Unfiltered rows [h, stride] uint8 -> samples [h, width, channels]
+    (uint16 at depth 16, else uint8)."""
+    h = rows.shape[0]
+    n = width * channels
+    if depth == 8:
+        return rows[:, :n].reshape(h, width, channels)
+    if depth == 16:
+        pairs = rows[:, :2 * n].reshape(h, n, 2).astype(np.uint16)
+        return ((pairs[..., 0] << 8) | pairs[..., 1]).reshape(h, width, channels)
+    bits = np.unpackbits(rows, axis=1)[:, :n * depth].reshape(h, n, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=2, dtype=np.uint8).reshape(h, width, channels)
+
+
+def _png_chunks(path, data):
+    if data[:8] != _PNG_SIGNATURE:
+        raise ImageFormatError(f"{path}: not a PNG")
+    pos, idat, chunks = 8, [], {}
+    while pos + 8 <= len(data):
+        (length,), tag = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        if tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
         else:
-            cur[i] = (cur[i] + _paeth(a, up[i], up[i - bpp] if i >= bpp else 0)) & 0xFF
-    return np.frombuffer(bytes(cur), np.uint8)
+            chunks.setdefault(tag, body)
+        pos += 12 + length
+    if b"IHDR" not in chunks:
+        raise ValueError(f"{path}: PNG without IHDR")
+    return chunks, b"".join(idat)
+
+
+def decode_png(path, data=None):
+    """Every PNG as Pillow 12 opens it, bit for bit: each bit depth and
+    colour type, PLTE and tRNS, Adam7 interlacing. The modes (and what
+    `convert("RGB")` then gives, `to_rgb`):
+
+    ====================  ========  ===================================
+    colour type, depth    mode      array; RGB
+    ====================  ========  ===================================
+    gray 1                "1"       bool [h, w]; 0 or 255
+    gray 2, 4             "L"       scaled to 0-255 (x 85, x 17)
+    gray 8                "L"       uint8 [h, w]; replicated
+    gray 16               "I;16"    uint16 [h, w]; clipped to 255, not
+                                    scaled
+    RGB 8, 16             "RGB"     uint8 [h, w, 3]; 16: the high byte
+    palette 1, 2, 4, 8    "P"       the indices uint8 [h, w]; PLTE's
+                                    colours, black past its end
+    gray + alpha 8        "LA"      uint8 [h, w, 2]; gray replicated
+    gray + alpha 16       "RGBA"    gray's high byte three times, then
+                                    alpha's
+    RGBA 8, 16            "RGBA"    uint8 [h, w, 4]; 16: high bytes
+    ====================  ========  ===================================
+
+    tRNS changes no pixel of either (Pillow keeps it in `info`)."""
+    if data is None:
+        with open(path, "rb") as f:
+            data = f.read()
+    chunks, idat = _png_chunks(path, data)
+    w, h, depth, color, _, _, interlace = struct.unpack(">IIBBBBB", chunks[b"IHDR"][:13])
+    if color not in _PNG_DEPTHS or depth not in _PNG_DEPTHS[color] or interlace > 1:
+        raise ValueError(f"{path}: invalid PNG header (bit depth {depth}, colour type "
+                         f"{color}, interlace {interlace})")
+    c = _PNG_CHANNELS[color]
+    bpp = max(1, c * depth // 8)
+    raw = np.frombuffer(zlib.decompressobj().decompress(idat), np.uint8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    samples = np.zeros((h, w, c), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = -(-pw * c * depth // 8)
+        size = ph * (1 + stride)
+        if pos + size > len(raw):
+            raise ValueError(f"{path}: PNG image data ends early")
+        rows = _unfilter(raw[pos:pos + size].reshape(ph, 1 + stride), stride, bpp)
+        samples[y0::dy, x0::dx] = _png_samples(rows, pw, c, depth)
+        pos += size
+    if color == 3:
+        plte = chunks.get(b"PLTE")
+        if plte is None:
+            raise ValueError(f"{path}: palette PNG without PLTE")
+        pal = np.frombuffer(plte[:len(plte) // 3 * 3], np.uint8).reshape(-1, 3)
+        return Decoded(samples[..., 0], "P", pal)
+    if color == 0:
+        g = samples[..., 0]
+        if depth == 1:
+            return Decoded(g.astype(bool), "1")
+        if depth == 16:
+            return Decoded(g, "I;16")
+        return Decoded(g * np.uint8(255 // ((1 << depth) - 1)), "L")
+    if depth == 16:
+        samples = (samples >> 8).astype(np.uint8)
+        if color == 4:
+            return Decoded(samples[..., [0, 0, 0, 1]], "RGBA")
+    return Decoded(samples, {2: "RGB", 4: "LA", 6: "RGBA"}[color])
+
+
+def to_rgb(img):
+    """A Decoded image as Pillow's `convert("RGB")` gives it: HWC uint8."""
+    a, mode = img.array, img.mode
+    if mode == "RGB":
+        return a
+    if mode == "RGBA":
+        return a[..., :3]
+    if mode == "P":
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:min(256, len(img.palette))] = img.palette[:256]
+        return pal[a]
+    if mode == "1":
+        gray = np.where(a, np.uint8(255), np.uint8(0))
+    elif mode == "I;16":
+        gray = np.minimum(a, 255).astype(np.uint8)
+    elif mode == "LA":
+        gray = a[..., 0]
+    elif mode == "L":
+        gray = a
+    else:
+        raise ValueError(f"no RGB conversion of mode {mode}")
+    return np.repeat(gray[..., None], 3, axis=2)
+
+
+def image_format(data):
+    """The format of a file from its first bytes: "PNG", "JPEG", "BMP",
+    "PNM", or None (with a description for the refusal) for others."""
+    if data.startswith(_PNG_SIGNATURE):
+        return "PNG", "a PNG image"
+    if data.startswith(b"\xff\xd8\xff"):
+        return "JPEG", "a JPEG image"
+    if data.startswith(b"BM"):
+        return "BMP", "a BMP image"
+    if len(data) >= 2 and data[0:1] == b"P" and data[1:2] in b"123456":
+        return "PNM", "a Netpbm image"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return None, "a WebP image"
+    for magic, name in _REFUSED_SIGNATURES:
+        if data.startswith(magic):
+            return None, f"a {name} image"
+    if data[:2] in (b"P7", b"PF", b"Pf"):
+        return None, "a PAM or PFM image"
+    if not data:
+        return None, "an empty file"
+    return None, "a file of unknown format"
+
+
+def _refuse_format(path, what):
+    if what == "a WebP image":
+        refuse(path, what, "the VP8 and VP8L decoders are not ported yet; convert it to PNG")
+    raise ImageFormatError(f"{path}: {what}; the port reads {READ_FORMATS} images only, so "
+                           "convert it to PNG first (ROADMAP.md queue 1, item 8)")
+
+
+def open_image(path):
+    """Decode a PNG, JPEG, BMP or Netpbm file as Pillow's `Image.open`
+    does, picked by the file's first bytes (never its extension). Other
+    formats, and the variants of these that the port refuses, raise
+    ImageFormatError with their name."""
+    with open(path, "rb") as f:
+        data = f.read()
+    fmt, what = image_format(data)
+    if fmt == "PNG":
+        return decode_png(path, data)
+    if fmt == "JPEG":
+        from morphganformer_tpu_torch.utils import jpeg
+
+        return jpeg.decode_jpeg(path, data)
+    if fmt == "BMP":
+        from morphganformer_tpu_torch.utils import formats
+
+        return formats.decode_bmp(path, data)
+    if fmt == "PNM":
+        from morphganformer_tpu_torch.utils import formats
+
+        return formats.decode_pnm(path, data)
+    _refuse_format(path, what)
+
+
+def check_image(path):
+    """Raise as `open_image` would on a format or variant the port refuses,
+    from the headers alone (no pixel is decoded)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    fmt, what = image_format(data)
+    if fmt is None:
+        _refuse_format(path, what)
+    if fmt == "JPEG":
+        from morphganformer_tpu_torch.utils import jpeg
+
+        jpeg.check_jpeg(path, data)
+    elif fmt in ("BMP", "PNM"):
+        from morphganformer_tpu_torch.utils import formats
+
+        (formats.check_bmp if fmt == "BMP" else formats.check_pnm)(path, data)
+
+
+def read_image(path):
+    """`np.asarray(Image.open(path))`: see `open_image`."""
+    return open_image(path).array
+
+
+def read_image_rgb(path):
+    """`np.asarray(Image.open(path).convert("RGB"))`: HWC uint8."""
+    return to_rgb(open_image(path))
 
 
 def read_png(path):
@@ -119,32 +371,17 @@ def read_png(path):
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{path}: {_format_of(data)}, not a PNG; only PNG images are read, "
-                         "so convert it to PNG first")
-    pos, idat, hdr = 8, [], None
-    while pos < len(data):
-        (length,), tag = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + length]
-        if tag == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif tag == b"IDAT":
-            idat.append(body)
-        elif tag == b"IEND":
-            break
-        pos += 12 + length
-    w, h, depth, color, _, _, interlace = hdr
-    if depth != 8 or color not in _PNG_CHANNELS or interlace != 0:
-        raise NotImplementedError(f"{path}: only 8-bit non-interlaced gray, RGB, gray + "
-                                  f"alpha and RGBA "
-                                  f"PNGs are read (depth {depth}, color type {color}, "
-                                  f"interlace {interlace})")
-    c = _PNG_CHANNELS[color]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * c)
-    out = np.empty((h, w * c), np.uint8)
-    prev = np.zeros(w * c, np.uint8)
-    for y in range(h):
-        prev = out[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prev, c)
-    return out.reshape(h, w, c)
+        raise ValueError(f"{path}: {image_format(data)[1]}, not a PNG; read_png reads PNG "
+                         "only (read_image reads the other formats)")
+    chunks, _ = _png_chunks(path, data)
+    _, _, depth, color, _, _, interlace = struct.unpack(">IIBBBBB", chunks[b"IHDR"][:13])
+    if depth != 8 or color == 3 or color not in _PNG_CHANNELS or interlace != 0:
+        raise NotImplementedError(f"{path}: read_png reads 8-bit non-interlaced gray, RGB, "
+                                  f"gray + alpha and RGBA PNGs only (depth {depth}, color "
+                                  f"type {color}, interlace {interlace}); read_image reads "
+                                  "every PNG")
+    img = decode_png(path, data).array
+    return img[..., None] if img.ndim == 2 else img
 
 
 def read_png_rgb(path):
@@ -152,15 +389,6 @@ def read_png_rgb(path):
     replicated to the three channels, alpha dropped."""
     img = read_png(path)
     return np.repeat(img[:, :, :1], 3, axis=2) if img.shape[2] <= 2 else img[:, :, :3]
-
-
-def _format_of(data):
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "a WebP image"
-    for magic, name in _SIGNATURES:
-        if data.startswith(magic):
-            return f"a {name} image"
-    return "a file of unknown format"
 
 
 # Pillow's Resample.c for 8-bit images: the Lanczos filter (a = 3) in
@@ -233,12 +461,13 @@ def lanczos_resize(img, height, width):
 
 
 def load_target(path, size=1024, drange=(-1.0, 1.0)):
-    """A projection target [1, size, size, 3] float32 in `drange` from a PNG
-    of any size, as the JAX package's load_target makes it: the shorter side
-    Lanczos-resized to `size` (the longer to max(size, round(side *
-    scale))), then the centre crop. Gray is replicated to RGB and alpha
-    dropped before the resize. Other formats raise."""
-    img = read_png_rgb(path)
+    """A projection target [1, size, size, 3] float32 in `drange` from a
+    photo of any size, as the JAX package's load_target makes it: the
+    shorter side Lanczos-resized to `size` (the longer to max(size,
+    round(side * scale))), then the centre crop. The file is read by
+    `read_image_rgb` (PNG, JPEG, BMP or Netpbm), converted to RGB as
+    Pillow converts it, before the resize. Other formats raise."""
+    img = read_image_rgb(path)
     h, w = img.shape[:2]
     scale = size / min(w, h)
     w, h = max(size, round(w * scale)), max(size, round(h * scale))

@@ -17,15 +17,15 @@ import struct
 
 import numpy as np
 
-from morphganformer_tpu_torch.utils.image import read_png_rgb
+from morphganformer_tpu_torch.utils.image import read_image_rgb
 
 _MAP_CHUNK = 1 << 15   # colours mapped to the palette at once (a [chunk, 256] distance table)
 
 
 def collect_frames(images=None, list_file=None):
     """The frame paths: the lines of `list_file`, else the sorted PNG and
-    JPEG files of the folder `images` (JAX's patterns; a JPEG then raises
-    by name when it is read)."""
+    JPEG files of the folder `images` (JAX's patterns), each read by
+    `read_image_rgb`."""
     if list_file:
         with open(list_file) as f:
             return [line.strip() for line in f if line.strip()]
@@ -144,7 +144,7 @@ def write_gif(path, frames, duration_ms, loop=0):
 
 
 def write_video(frames, out, fps=24):
-    """Frames (PNG paths) into `out` at `fps`; returns the path written. A
+    """Frames (PNG or JPEG paths) into `out` at `fps`; returns the path written. A
     name that is not .gif gets JAX's fallback line and a GIF beside it."""
     if not frames:
         raise ValueError("no frames")
@@ -152,5 +152,5 @@ def write_video(frames, out, fps=24):
         alt = os.path.splitext(out)[0] + ".gif"
         print(f"mp4 backend unavailable (the port encodes GIF only); writing {alt}")
         return write_video(frames, alt, fps)
-    write_gif(out, [read_png_rgb(f) for f in frames], int(1000 / fps))
+    write_gif(out, [read_image_rgb(f) for f in frames], int(1000 / fps))
     return out

@@ -117,9 +117,18 @@ def test_compare_and_its_exit_code(built, tmp_path, capsys):
 
 @pytest.mark.parametrize("ext", ["jpg", "jpeg", "bmp", "webp"])
 def test_inputs_that_are_not_png_raise_by_name(tmp_path, ext):
+    """Of JAX's input extensions the port reads JPEG and BMP; what it
+    refuses (a CMYK JPEG, an RLE8 BMP, any WebP) raises by name before
+    anything is written."""
     src = write_sources(tmp_path / "src", SOURCES[:2])
-    Image.fromarray(np.zeros((9, 9, 3), np.uint8)).save(tmp_path / "src" / f"odd.{ext}")
-    with pytest.raises(ValueError, match=rf"odd\.{ext}.*PNG only.*The rest"):
+    img = Image.fromarray(np.zeros((9, 9, 3), np.uint8))
+    path = tmp_path / "src" / f"odd.{ext}"
+    (img.convert("CMYK") if ext in ("jpg", "jpeg") else img).save(path)
+    if ext == "bmp":                      # BI_RLE8 in the compression field
+        data = bytearray(path.read_bytes())
+        data[30:34] = (1).to_bytes(4, "little")
+        path.write_bytes(bytes(data))
+    with pytest.raises(ValueError, match=rf"odd\.{ext}.*is not read by the port.*item 8"):
         tdt.create_from_images(str(tmp_path / "out"), src, 16)
     assert not (tmp_path / "out").exists()
     with pytest.raises(FileNotFoundError, match="no images"):

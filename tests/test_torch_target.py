@@ -89,15 +89,30 @@ def test_load_target_matches_pillow_and_jax(tmp_path, name, h, w, mode, size):
     np.testing.assert_array_equal(read_png(path).reshape(np.asarray(pil).shape), np.asarray(pil))
 
 
+# The formats load_target refuses, each with its message: GIF and TIFF are
+# not read; WebP waits for its decoders; of JPEG and BMP, which are read, a
+# 4-component JPEG and an RLE8 BMP are refused by name.
+REFUSED = {"JPEG": "a 4-component \\(CMYK or YCCK\\) JPEG is not read by the port",
+           "GIF": "a GIF image; the port reads PNG, JPEG, BMP and Netpbm .*convert it to PNG",
+           "BMP": "an RLE8-compressed BMP is not read by the port",
+           "TIFF": "a TIFF image; the port reads PNG, JPEG, BMP and Netpbm .*convert it to PNG",
+           "WebP": "a WebP image is not read by the port.*VP8"}
+
+
 @pytest.mark.parametrize("fmt,name", [("JPEG", "JPEG"), ("GIF", "GIF"), ("BMP", "BMP"),
                                       ("TIFF", "TIFF"), ("WEBP", "WebP")])
 def test_load_target_refuses_other_formats(tmp_path, fmt, name):
     path = tmp_path / f"face.{fmt.lower()}"
+    img = Image.fromarray(photo(1, 20, 20), "RGB")
     try:
-        Image.fromarray(photo(1, 20, 20), "RGB").save(path, format=fmt)
+        (img.convert("CMYK") if fmt == "JPEG" else img).save(path, format=fmt)
     except (KeyError, OSError) as e:      # a Pillow build without that encoder
         pytest.skip(f"Pillow cannot write {fmt}: {e}")
-    with pytest.raises(ValueError, match=f"a {name} image, not a PNG.*convert it to PNG"):
+    if fmt == "BMP":                      # BI_RLE8 in the compression field
+        data = bytearray(path.read_bytes())
+        data[30:34] = (1).to_bytes(4, "little")
+        path.write_bytes(bytes(data))
+    with pytest.raises(ValueError, match=REFUSED[name]):
         load_target(path, size=16)
 
 

@@ -353,7 +353,8 @@ def test_lzw_fills_and_clears_its_table(tmp_path):
 
 
 def test_non_png_frames_raise_by_name(tmp_path):
+    """A frame the port does not read (a CMYK JPEG) raises by name."""
     path = tmp_path / "f.jpg"
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(path)
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).convert("CMYK").save(path)
     with pytest.raises(ValueError, match="f.jpg"):
         cli.main(["make_video", "--images", str(tmp_path), "--out", str(tmp_path / "x.gif")])
