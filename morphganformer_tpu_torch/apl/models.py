@@ -264,7 +264,7 @@ class Encoder(nn.Module):
 
 def _flat(tree, prefix=""):
     for k, v in tree.items():
-        if isinstance(v, dict) or hasattr(v, "items"):
+        if hasattr(v, "items"):
             yield from _flat(v, f"{prefix}{k}.")
         else:
             yield f"{prefix}{k}", v

@@ -119,11 +119,9 @@ def decode_bmp(path, data=None):
     info = _bmp_header(path, data)
     w, h, bits = info["width"], info["height"], info["bits"]
     stride = ((w * bits + 31) >> 3) & ~3
-    rows = np.frombuffer(data, np.uint8, count=h * stride, offset=info["offset"]) \
-        if len(data) >= info["offset"] + h * stride else None
-    if rows is None:
+    if len(data) < info["offset"] + h * stride:
         raise ValueError(f"{path}: BMP pixel data cut short")
-    rows = rows.reshape(h, stride)
+    rows = np.frombuffer(data, np.uint8, count=h * stride, offset=info["offset"]).reshape(h, stride)
     if not info["topdown"]:
         rows = rows[::-1]
     if bits <= 8:
@@ -191,7 +189,7 @@ def _pnm_header(path, data):
                 break
             c = data[pos:pos + 1]
             pos += 1
-            if c in (b" ", b"\t", b"\n", b"\x0b", b"\x0c", b"\r"):
+            if c in _WHITESPACE:
                 if not tok:
                     continue
                 break

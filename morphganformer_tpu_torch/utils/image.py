@@ -312,47 +312,42 @@ def _refuse_format(path, what):
                            "convert it to PNG first (ROADMAP.md queue 1, item 8)")
 
 
-def open_image(path):
-    """Decode a PNG, JPEG, BMP or Netpbm file as Pillow's `Image.open`
-    does, picked by the file's first bytes (never its extension). Other
-    formats, and the variants of these that the port refuses, raise
-    ImageFormatError with their name."""
-    with open(path, "rb") as f:
-        data = f.read()
-    fmt, what = image_format(data)
-    if fmt == "PNG":
-        return decode_png(path, data)
-    if fmt == "JPEG":
-        from morphganformer_tpu_torch.utils import jpeg
+def _codec(fmt):
+    """(decode, check from the headers alone or None) of a read format."""
+    from morphganformer_tpu_torch.utils import formats, jpeg
 
-        return jpeg.decode_jpeg(path, data)
-    if fmt == "BMP":
-        from morphganformer_tpu_torch.utils import formats
-
-        return formats.decode_bmp(path, data)
-    if fmt == "PNM":
-        from morphganformer_tpu_torch.utils import formats
-
-        return formats.decode_pnm(path, data)
-    _refuse_format(path, what)
+    return {"PNG": (decode_png, None), "JPEG": (jpeg.decode_jpeg, jpeg.check_jpeg),
+            "BMP": (formats.decode_bmp, formats.check_bmp),
+            "PNM": (formats.decode_pnm, formats.check_pnm)}[fmt]
 
 
-def check_image(path):
-    """Raise as `open_image` would on a format or variant the port refuses,
-    from the headers alone (no pixel is decoded)."""
+def _read_known(path):
+    """(the file's bytes, its format), refusing a format the port does not
+    read."""
     with open(path, "rb") as f:
         data = f.read()
     fmt, what = image_format(data)
     if fmt is None:
         _refuse_format(path, what)
-    if fmt == "JPEG":
-        from morphganformer_tpu_torch.utils import jpeg
+    return data, fmt
 
-        jpeg.check_jpeg(path, data)
-    elif fmt in ("BMP", "PNM"):
-        from morphganformer_tpu_torch.utils import formats
 
-        (formats.check_bmp if fmt == "BMP" else formats.check_pnm)(path, data)
+def open_image(path):
+    """Decode a PNG, JPEG, BMP or Netpbm file as Pillow's `Image.open`
+    does, picked by the file's first bytes (never its extension). Other
+    formats, and the variants of these that the port refuses, raise
+    ImageFormatError with their name."""
+    data, fmt = _read_known(path)
+    return _codec(fmt)[0](path, data)
+
+
+def check_image(path):
+    """Raise as `open_image` would on a format or variant the port refuses,
+    from the headers alone (no pixel is decoded)."""
+    data, fmt = _read_known(path)
+    check = _codec(fmt)[1]
+    if check is not None:
+        check(path, data)
 
 
 def read_image(path):

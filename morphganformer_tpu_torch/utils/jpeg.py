@@ -55,24 +55,25 @@ _SPAN = [0] + [(1 << s) - 1 for s in range(1, 17)]
 _MARKER = re.compile(rb"\xff+([^\x00\xff])")
 _STUFFED = re.compile(rb"\xff+\x00")
 _SMOOTHING_COEFS = 10          # libjpeg-turbo's SAVED_COEFS: DC and the first 9 AC
+_ARITHMETIC = "arithmetic coding is not implemented"
+_HIERARCHICAL = "hierarchical coding is not implemented"
 _REFUSED_SOF = {0xC3: ("a lossless JPEG (SOF3)", "lossless coding is not implemented"),
-                0xC5: ("a hierarchical JPEG (SOF5)", "hierarchical coding is not implemented"),
-                0xC6: ("a hierarchical JPEG (SOF6)", "hierarchical coding is not implemented"),
-                0xC7: ("a hierarchical JPEG (SOF7)", "hierarchical coding is not implemented"),
-                0xC9: ("an arithmetic-coded JPEG (SOF9)",
-                       "arithmetic coding is not implemented"),
-                0xCA: ("an arithmetic-coded JPEG (SOF10)",
-                       "arithmetic coding is not implemented"),
-                0xCB: ("an arithmetic-coded JPEG (SOF11)",
-                       "arithmetic coding is not implemented"),
+                0xC5: ("a hierarchical JPEG (SOF5)", _HIERARCHICAL),
+                0xC6: ("a hierarchical JPEG (SOF6)", _HIERARCHICAL),
+                0xC7: ("a hierarchical JPEG (SOF7)", _HIERARCHICAL),
+                0xC9: ("an arithmetic-coded JPEG (SOF9)", _ARITHMETIC),
+                0xCA: ("an arithmetic-coded JPEG (SOF10)", _ARITHMETIC),
+                0xCB: ("an arithmetic-coded JPEG (SOF11)", _ARITHMETIC),
+                0xCC: ("an arithmetic-coded JPEG (DAC)", _ARITHMETIC),
                 0xCD: ("an arithmetic-coded hierarchical JPEG (SOF13)",
                        "arithmetic and hierarchical coding are not implemented"),
                 0xCE: ("an arithmetic-coded hierarchical JPEG (SOF14)",
                        "arithmetic and hierarchical coding are not implemented"),
                 0xCF: ("an arithmetic-coded hierarchical JPEG (SOF15)",
                        "arithmetic and hierarchical coding are not implemented"),
-                0xDE: ("a hierarchical JPEG (DHP)", "hierarchical coding is not implemented"),
-                0xDF: ("a hierarchical JPEG (EXP)", "hierarchical coding is not implemented")}
+                0xDC: ("a JPEG whose height is given by DNL", "a DNL marker is not implemented"),
+                0xDE: ("a hierarchical JPEG (DHP)", _HIERARCHICAL),
+                0xDF: ("a hierarchical JPEG (EXP)", _HIERARCHICAL)}
 
 
 class _Fail(Exception):
@@ -166,7 +167,7 @@ def _parse(path, data, headers_only=False):
         pos += 1
         if code == 0xD9:
             return fr
-        if code in (0x01,) or 0xD0 <= code <= 0xD7:
+        if code == 0x01 or 0xD0 <= code <= 0xD7:
             continue
         if pos + 2 > len(data):
             raise _Fail("markers", f"marker 0xFF{code:02X} cut short")
@@ -177,11 +178,6 @@ def _parse(path, data, headers_only=False):
         pos += length
         if code in _REFUSED_SOF:
             refuse(path, *_REFUSED_SOF[code])
-        if code == 0xCC:
-            refuse(path, "an arithmetic-coded JPEG (DAC)", "arithmetic coding is not implemented")
-        if code == 0xDC:
-            refuse(path, "a JPEG whose height is given by DNL",
-                   "a DNL marker is not implemented")
         if code in (0xC0, 0xC1, 0xC2):
             _sof(fr, code, body)
         elif code == 0xC4:
@@ -210,7 +206,7 @@ def _sof(fr, code, body):
     if precision != 8:
         refuse(fr.path, f"a {precision}-bit JPEG", "only 8-bit samples are read")
     if height == 0:
-        refuse(fr.path, "a JPEG whose height is given by DNL", "a DNL marker is not implemented")
+        refuse(fr.path, *_REFUSED_SOF[0xDC])
     if n == 4:
         refuse(fr.path, "a 4-component (CMYK or YCCK) JPEG",
                "CMYK and YCCK are not implemented")
