@@ -2512,13 +2512,15 @@ def layouts_phase(torch, fc, k4):
     return rows, total, bf16_launches, stats
 
 
-def reg_launches(stage, inner=False):
+def reg_launches(stage, inner=False, g_nodes=(4, 3, 3), d_nodes=(2, 4)):
     """Exact launches of one G_reg or D_reg round on the scoped route on the
     resnet pair at FFHQ-1024 (`inner`: those of its inner create_graph
     gradient alone), derived from the fused nodes: G has 4 K1 nodes (conv1
     of b256, b512, b1024 and b1024's conv_last, all styled), 3 styled K2
     nodes (conv0) and 3 unstyled (skip); D's two fused blocks have 2 K1
-    nodes (conv0, no styles) and 4 down-conv nodes (conv1, skip).
+    nodes (conv0, no styles) and 4 down-conv nodes (conv1, skip). Another
+    pair gives its own (K1, styled K2, unstyled K2) as `g_nodes` and (K1,
+    down-conv) as `d_nodes`.
       inner forward    one forward launch a node
       inner backward   one adjoint a node, dx (and ds) only: no dw
       outer, the grad Functions' backwards (path length feeds cdx and cds,
@@ -2530,14 +2532,14 @@ def reg_launches(stage, inner=False):
         c_y added): one adjoint and one dw launch a node"""
     counts = dict.fromkeys(per_iteration(), 0)
     if stage == "g_reg":
-        k1, k2s, k2u = 4, 3, 3
+        k1, k2s, k2u = g_nodes
         counts.update(modconv3x3_adj=k1, upconv2_adj=k2s + k2u)
         if not inner:
             counts.update(modconv3x3=k1 + k1, upconv2=(k2s + k2u) * 2,
                           modconv3x3_adj=k1 * 3, upconv2_adj=(k2s + k2u) * 2 + k2s,
                           modconv3x3_dw=k1 * 2, upconv2_dw=(k2s + k2u) * 2)
     else:
-        k1, down = 2, 4
+        k1, down = d_nodes
         counts.update(modconv3x3_adj=k1, downconv2_adj=down)
         if not inner:
             counts.update(modconv3x3=k1 * 2, downconv2=down * 2, modconv3x3_adj=k1 * 2,
@@ -4621,26 +4623,76 @@ def apl_phase(torch, card):
                 logits_rel_err=l_err, tied_slots=int(tied.sum()), card=card)
 
 
-DEMO_ARGS = ("--images", "32", "--res", "64", "--ticks", "1", "--kimg-per-tick", "2",
-             "--metrics")
+DEMO_ARGS = ("--images", "32", "--res", "64", "--ticks", "1", "--metrics")
+DEMO_ITERATIONS = 125     # one tick of 2 kimg at batch 16
+DEMO_G_NODES = (2, 1, 1)  # b64's K1 (conv1, conv_last), styled K2 (conv0), unstyled K2 (skip)
+
+
+def demo_forward():
+    """Launches of one forward of the demo's G (a 64^2 GANformer with
+    attention in b4-b32, `--end-res 6`): only b64 runs on the fused kernels
+    (`packed_structural_ok` leaves out the blocks with attention)."""
+    k1, k2s, k2u = DEMO_G_NODES
+    return {**dict.fromkeys(per_iteration(), 0), "modconv3x3": k1, "upconv2": k2s + k2u}
+
+
+def demo_launches(step):
+    """Exact launches of one demo iteration (batch 16 in one round), derived
+    from the fused nodes of `demo_forward`. G_main: G's forward, then its
+    backward with dw (an adjoint and a dw launch a node); D_main: G's
+    forward without a graph. D (64^2) has no block of 512^2 or above, so it
+    runs unfused, and D_reg launches nothing. G_reg, every 4 steps: phase
+    reg's rule (`reg_launches`) over G's nodes."""
+    fwd = demo_forward()
+    k1, k2s, k2u = DEMO_G_NODES
+    counts = {k: 2 * v for k, v in fwd.items()}
+    counts.update(modconv3x3_adj=k1, upconv2_adj=k2s + k2u, modconv3x3_dw=k1,
+                  upconv2_dw=k2s + k2u)
+    if step % 4 == 0:
+        reg = reg_launches("g_reg", g_nodes=DEMO_G_NODES)
+        counts = {k: v + reg[k] for k, v in counts.items()}
+    return counts
 
 
 def demo_phase(torch, fc, tmp, card):
     """The synthetic-faces training demo at a reduced size, through its
-    entry point with `cli train` in this process: 32 faces at 64^2 (JAX's
-    default 512), one tick of 2 kimg (JAX's 3), no metric (JAX's
-    fid2k_full): a snapshot, the fakes grid PNG, finite losses in
-    stats.jsonl, the launches of the run and its seconds."""
+    entry point (`cli train` in this process): 32 faces at 64^2 (JAX's
+    default 512), one tick of 2 kimg (JAX's 3 ticks), no metric (JAX's
+    fid2k_full). Checks: each iteration's launches exact (`demo_launches`),
+    125 of them; the run's other launches exactly five forwards of G (the
+    module summary's and the 16-image grid's four of batch 4); a snapshot,
+    the fakes grid PNG and finite losses in stats.jsonl. Then, on the
+    trained G and D at the demo's shapes, one G_main and one D_main round's
+    gradients on the kernels against plain, by phase train's rule
+    (`main_round_checks`), on 16 of the demo's faces."""
+    import numpy as np
+
     from morphganformer_tpu_torch.tools import train_demo_synfaces as demo
+    from morphganformer_tpu_torch.training import GANTrainer
     from morphganformer_tpu_torch.utils.image import read_image
 
     out = os.path.join(tmp, "demo")
     print("  cuts: --images 32 (JAX 512), --ticks 1 (JAX 3), --metrics none (JAX fid2k_full); "
           "--res 64 and 2 kimg a tick as JAX", flush=True)
+    real_iteration = GANTrainer.train_iteration
+    calls, held = [], {}
+
+    def recording(self, state, real_img, step, z=None):
+        before = dict(fc.launch_counts)
+        result = real_iteration(self, state, real_img, step, z)
+        calls.append((step, {k: fc.launch_counts[k] - before[k] for k in before}))
+        held.update(trainer=self, state=state)
+        return result
+
     fc.reset_launch_counts()
-    t0 = time.perf_counter()
-    rc = demo.main(["--out", out, *DEMO_ARGS, "--device", "cuda"], in_process=True)
-    wall = time.perf_counter() - t0
+    GANTrainer.train_iteration = recording
+    try:
+        t0 = time.perf_counter()
+        rc = demo.main(["--out", out, *DEMO_ARGS, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        GANTrainer.train_iteration = real_iteration
     launches = {k: v for k, v in fc.launch_counts.items() if v}
     run = os.path.join(out, "results", "exp-000")
     snaps = [d for d in os.listdir(run) if d.startswith("network-snapshot-")]
@@ -4655,8 +4707,28 @@ def demo_phase(torch, fc, tmp, card):
     assert {"Loss/G/loss", "Loss/D/loss"} <= set(losses)
     assert all(math.isfinite(v) for v in losses.values()), losses
     assert stats[-1]["kimg"] >= 2.0, stats[-1]["kimg"]
+
+    assert [step for step, _ in calls] == list(range(DEMO_ITERATIONS)), [s for s, _ in calls]
+    wrong = [(step, got) for step, got in calls if got != demo_launches(step)]
+    assert not wrong, f"demo launches per iteration: {wrong[:3]}"
+    want = {k: sum(demo_launches(step)[k] for step, _ in calls) + 5 * v
+            for k, v in demo_forward().items()}
+    assert dict(fc.launch_counts) == want, (dict(fc.launch_counts), want)
+    print(f"  {len(calls)} iterations, each at its exact launches (G_reg at every 4th: "
+          f"{demo_launches(0)}; else {demo_launches(1)}), and five forwards of G outside "
+          "them", flush=True)
+
+    trainer, state = held["trainer"], held["state"]
+    faces = sorted(os.listdir(os.path.join(out, "dataset", "64")))[:16]
+    real = np.stack([read_image(os.path.join(out, "dataset", "64", f)) for f in faces])
+    real = torch.from_numpy(real).cuda().float().div(127.5).sub(1)[None]
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    z = torch.randn((1, len(faces), trainer.g_cfg.k, trainer.g_cfg.z_dim), generator=gen,
+                    device="cuda")
+    errs, round_ms = main_round_checks(torch, fc, trainer, state, z, real, gen)
     return dict(wall_s=wall, kimg=stats[-1]["kimg"], losses=losses, launches=launches,
-                card=card)
+                iterations=len(calls), g_grads=errs["g"], d_grads=errs["d"],
+                round_ms=round_ms, card=card)
 
 
 def _fmt_list(xs):

@@ -13,17 +13,18 @@ Pillow); fid2k_full runs on the raw-pixel detector unless an InceptionV3
 .npz is named ($MGT_INCEPTION_NPZ), so it needs no download.
 
 Usage: python -m morphganformer_tpu_torch.tools.train_demo_synfaces
-       [--out /tmp/synface_run] [--images 512] [--res 64] [--ticks 3]
+       [--out $TMPDIR/synface_run] [--images 512] [--res 64] [--ticks 3]
        [--kimg-per-tick 2] [--metrics fid2k_full] [--device cuda]
 
 `--kimg-per-tick` and `--metrics` keep JAX's values (2 and fid2k_full)
 unless given; a smoke run cuts them (`--metrics` with no name runs none).
+The dataset is rendered once: a later run with the same `--out` and
+`--res` trains on the PNGs already there, as JAX's tool does.
 """
 
 import argparse
 import os
-import subprocess
-import sys
+import tempfile
 
 import numpy as np
 
@@ -46,7 +47,7 @@ def build_dataset(root: str, images: int, res: int, seed: int = 42) -> None:
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m morphganformer_tpu_torch.tools.train_demo_synfaces")
-    p.add_argument("--out", default="/tmp/synface_run")
+    p.add_argument("--out", default=os.path.join(tempfile.gettempdir(), "synface_run"))
     p.add_argument("--images", type=int, default=512)
     p.add_argument("--res", type=int, default=64)
     p.add_argument("--ticks", type=int, default=3)
@@ -79,22 +80,19 @@ def train_argv(args):
     ]
 
 
-def main(argv=None, in_process=False):
-    """Build the dataset (once), then train: in a child process, as JAX's
-    tool does, or with `in_process` through `cli.main` in this one.
-    Returns the exit code."""
+def main(argv=None):
+    """Build the dataset (once), then train through `cli.main` in this
+    process. Returns the exit code."""
+    from morphganformer_tpu_torch import cli
+
     args = parse_args(argv)
     data_dir = os.path.join(args.out, "dataset")
     if not os.path.isdir(os.path.join(data_dir, str(args.res))):
         build_dataset(data_dir, args.images, args.res)
     rest = train_argv(args)
     print("exec: python -m morphganformer_tpu_torch.cli " + " ".join(rest), flush=True)
-    if in_process:
-        from morphganformer_tpu_torch import cli
-
-        cli.main(rest)
-        return 0
-    return subprocess.call([sys.executable, "-m", "morphganformer_tpu_torch.cli", *rest])
+    cli.main(rest)
+    return 0
 
 
 if __name__ == "__main__":

@@ -148,8 +148,10 @@ def _windows(seg):
 
 
 def _parse(path, data, headers_only=False):
-    """Walk the markers; decode every scan unless `headers_only` (then stop
-    at the first SOS after the refusals are checked)."""
+    """Walk the markers; decode every scan unless `headers_only`. Then a
+    sequential frame stops at its first SOS, after the refusals are
+    checked, and a progressive one reads every scan's header and skips its
+    data, so that the coefficients its script leaves unrefined are known."""
     fr = _Frame(path)
     if data[:2] != b"\xff\xd8":
         raise _Fail("markers", "no SOI")
@@ -193,9 +195,13 @@ def _parse(path, data, headers_only=False):
         elif code == 0xDA:
             if fr.sof is None:
                 raise _Fail("markers", "SOS before SOF")
-            if headers_only:
+            if headers_only and fr.sof != 0xC2:
                 return fr
-            pos = _scan(fr, data, pos, body)
+            if headers_only:
+                _scan_header(fr, body)
+                pos = _scan_end(data, pos)
+            else:
+                pos = _scan(fr, data, pos, body)
             fr.scans += 1
 
 
@@ -263,9 +269,10 @@ def _dqt(fr, body):
         fr.qt[tq] = natural
 
 
-def _scan(fr, data, pos, body):
-    """Decode one scan into the components' coefficients; returns the
-    offset of the marker after it."""
+def _scan_header(fr, body):
+    """Check one scan's header, latch its components' quantisation tables
+    and mark in their `coef_bits` the coefficients it codes; returns
+    (components, (DC, AC) table ids, Ss, Se, Ah, Al)."""
     n = body[0]
     comps, tables = [], []
     for i in range(n):
@@ -291,6 +298,24 @@ def _scan(fr, data, pos, body):
             c.quant = fr.qt[c.tq]
         for k in range(ss, se + 1):
             c.coef_bits[k] = al
+    return comps, tables, ss, se, ah, al
+
+
+def _scan_end(data, pos):
+    """The offset of the marker that ends the scan whose data starts at
+    `pos` (a restart marker does not)."""
+    while (m := _MARKER.search(data, pos)) is not None:
+        if not 0xD0 <= m.group(1)[0] <= 0xD7:
+            return m.start()
+        pos = m.end()
+    return len(data)
+
+
+def _scan(fr, data, pos, body):
+    """Decode one scan into the components' coefficients; returns the
+    offset of the marker after it."""
+    comps, tables, ss, se, ah, al = _scan_header(fr, body)
+    progressive = fr.sof == 0xC2
     try:
         dcs = [fr.dc[td] if (ss == 0 and ah == 0) else None for td, _ in tables]
         acs = [fr.ac[ta] if se else None for _, ta in tables]
@@ -618,11 +643,17 @@ def _check_smoothing(fr):
 
 
 def check_jpeg(path, data):
-    """Raise on a JPEG the decoder refuses, from its headers alone."""
+    """Raise on a JPEG the decoder refuses, from its headers alone (every
+    scan's of a progressive one, so a script that leaves coefficients
+    unrefined is refused here too), as `decode_jpeg` raises."""
     try:
-        _parse(path, data, headers_only=True)
+        _check_smoothing(_parse(path, data, headers_only=True))
     except _Fail as e:
         raise ValueError(f"{path}: JPEG {e.args[0]}: {e.args[1]}") from None
+    except ImageFormatError:
+        raise
+    except (IndexError, ValueError, struct.error) as e:
+        raise ValueError(f"{path}: JPEG markers: {e}") from None
 
 
 def decode_jpeg(path, data=None):

@@ -11,6 +11,7 @@ import importlib.util
 import json
 import math
 import os
+import tempfile
 
 import numpy as np
 from PIL import Image
@@ -72,13 +73,19 @@ def test_train_command_carries_the_jax_flags(tmp_path, monkeypatch):
         assert parsed.metrics == ["fid2k_full"] and parsed.device == "cuda"
 
 
+def test_default_out_is_under_the_temp_dir(tmp_path, monkeypatch):
+    """With no --out the run goes under tempfile's directory ($TMPDIR), not
+    a fixed path that two checkouts would share."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    assert demo.parse_args([]).out == str(tmp_path / "synface_run")
+
+
 def test_one_tick_at_16_on_the_cpu(tmp_path, one_torch_thread):
     """32 faces at 16^2, one tick of 32 images, no metric: a snapshot, the
     image grid, and finite losses in stats.jsonl."""
     out = str(tmp_path / "run")
     assert demo.main(["--out", out, "--images", "32", "--res", "16", "--ticks", "1",
-                      "--kimg-per-tick", "0.032", "--metrics", "--device", "cpu"],
-                     in_process=True) == 0
+                      "--kimg-per-tick", "0.032", "--metrics", "--device", "cpu"]) == 0
     run = os.path.join(out, "results", "exp-000")
     snaps = [d for d in os.listdir(run) if d.startswith("network-snapshot-")]
     assert len(snaps) == 1

@@ -324,27 +324,27 @@ def _truncated_progressive():
 
 def _refused():
     bmp = _pillow_bytes(Image.fromarray(photo(1, 8, 8)), "BMP")
-    yield "arithmetic", _patched_jpeg(0xC0, 0xC9), "arithmetic-coded JPEG \\(SOF9\\)", True
-    yield "lossless", _patched_jpeg(0xC0, 0xC3), "lossless JPEG \\(SOF3\\)", True
-    yield "hierarchical", _patched_jpeg(0xC0, 0xC5), "hierarchical JPEG \\(SOF5\\)", True
-    yield "12bit", _patched_jpeg(0xC0, offset=0, value=b"\x0c"), "12-bit JPEG", True
-    yield "dnl", _patched_jpeg(0xC0, offset=1, value=b"\x00\x00"), "DNL", True
+    yield "arithmetic", _patched_jpeg(0xC0, 0xC9), "arithmetic-coded JPEG \\(SOF9\\)"
+    yield "lossless", _patched_jpeg(0xC0, 0xC3), "lossless JPEG \\(SOF3\\)"
+    yield "hierarchical", _patched_jpeg(0xC0, 0xC5), "hierarchical JPEG \\(SOF5\\)"
+    yield "12bit", _patched_jpeg(0xC0, offset=0, value=b"\x0c"), "12-bit JPEG"
+    yield "dnl", _patched_jpeg(0xC0, offset=1, value=b"\x00\x00"), "DNL"
     yield ("cmyk", _pillow_bytes(Image.fromarray(photo(1, 8, 8)).convert("CMYK"), "JPEG"),
-           "4-component \\(CMYK or YCCK\\) JPEG", True)
+           "4-component \\(CMYK or YCCK\\) JPEG")
     yield ("unrefined", _truncated_progressive(),
-           "progressive JPEG whose scans leave coefficients unrefined", False)
+           "progressive JPEG whose scans leave coefficients unrefined")
     for code, name in ((1, "RLE8"), (2, "RLE4")):
         data = bytearray(bmp)
         data[30:34] = code.to_bytes(4, "little")
-        yield name.lower(), bytes(data), f"{name}-compressed BMP", True
+        yield name.lower(), bytes(data), f"{name}-compressed BMP"
     yield ("pgm16", _pillow_bytes(Image.fromarray(np.full((4, 4), 40000, np.uint16)), "PPM"),
-           "maxval 65535", True)
-    yield "ppm16", b"P6 2 2 1000\n" + bytes(24), "maxval 1000", True
+           "maxval 65535")
+    yield "ppm16", b"P6 2 2 1000\n" + bytes(24), "maxval 1000"
     yield ("webp", _pillow_bytes(Image.fromarray(photo(1, 8, 8)), "WEBP"),
-           "WebP image is not read by the port.*VP8.*item 8", True)
-    yield "gif", _pillow_bytes(Image.fromarray(photo(1, 8, 8)), "GIF"), "a GIF image", True
-    yield "tiff", _pillow_bytes(Image.fromarray(photo(1, 8, 8)), "TIFF"), "a TIFF image", True
-    yield "empty", b"", "an empty file", True
+           "WebP image is not read by the port.*VP8.*item 8")
+    yield "gif", _pillow_bytes(Image.fromarray(photo(1, 8, 8)), "GIF"), "a GIF image"
+    yield "tiff", _pillow_bytes(Image.fromarray(photo(1, 8, 8)), "TIFF"), "a TIFF image"
+    yield "empty", b"", "an empty file"
 
 
 REFUSED = {name: rest for name, *rest in _refused()}
@@ -352,17 +352,26 @@ REFUSED = {name: rest for name, *rest in _refused()}
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_refused_formats_raise_with_their_name(tmp_path, name):
-    data, pattern, in_headers = REFUSED[name]
+    data, pattern = REFUSED[name]
     path = _write(tmp_path, f"refused_{name}.img", data)
     with pytest.raises(ImageFormatError, match=f"refused_{name}.img: .*{pattern}"):
         read_image(path)
     with pytest.raises(ImageFormatError, match=pattern):
         load_target(path, size=8)
-    if in_headers:
-        with pytest.raises(ImageFormatError, match=pattern):
-            check_image(path)
-    else:
-        check_image(path)                  # the headers are fine; the scans are not
+    with pytest.raises(ImageFormatError, match=pattern):
+        check_image(path)
+
+
+def test_a_jpeg_header_cut_short_raises_value_error(tmp_path):
+    """A SOF whose length leaves its body short: ValueError naming the
+    stage, from the decoder and from the header check alike."""
+    data = bytearray(_jpeg())
+    i = data.index(b"\xff\xc0")
+    data[i + 2:i + 4] = (7).to_bytes(2, "big")     # a 5-byte body: no component count
+    path = _write(tmp_path, "short_sof.jpg", bytes(data))
+    for fn in (read_image, check_image):
+        with pytest.raises(ValueError, match="short_sof.jpg: JPEG markers: "):
+            fn(path)
 
 
 def test_read_png_keeps_its_contract(tmp_path):
