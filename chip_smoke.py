@@ -277,6 +277,18 @@ Phases, each printing its wall time:
               turns, beside the card's name and power limit; a 2-row
               projection through mesh=[cuda:0] and mesh=None, latents and
               losses equal, the same launches.
+  15b. tp     tensor parallelism on this card: a world-1 NCCL group through
+              make_mesh(model_parallel=1), the trainer over it bit-equal to
+              the plain trainer in a step-0 iteration (all four stages);
+              then every fused call shape of FFHQ-1024 and a 1024^2 D at
+              batch 4 (`tp_calls`: K1 forward and adjoint, K2 forward, K3
+              adjoint, K3-forward, K2's use_dw, the three dw roles) launched
+              at both halves of its output channels, as a 2-way model axis
+              runs them, and at the full width, in float32 and bfloat16:
+              each half against its plain version by its role's rule, the
+              halves concatenated (per output channel) or summed (dx, ds)
+              against the full-width launch; exactly three launches a case
+              (`tp_launches` in the kernels line).
   16. options four sets of GANformer options at FFHQ-1024 widths, each G
               from seed 0 (`OPTION_SETS`): gated (k 17, ltnt_gate and
               img_gate, the mapping's ltnt_gate, kmeans_iters 2, the
@@ -4102,6 +4114,298 @@ def dist_phase(torch, fc, cli, card):
                 leaves_equal=n_leaves, projection_ms=proj_ms, card=card)
 
 
+TP_KEYS = {"K1": "modconv3x3", "K1-adjoint": "modconv3x3_adj", "K2": "upconv2",
+           "K3-adjoint": "upconv2_adj", **TRAIN_KEYS}
+
+
+def tp_calls():
+    """Every fused call shape of FFHQ-1024 and a 1024^2 D in a training
+    iteration at batch 4 whose output channels a model axis slices: (role,
+    block, layer, base resolution, Cin, Cout, kh), as `train_calls`. G's
+    forward and adjoint at `kernel_calls`' 10 shapes, D's conv0 (K1 with no
+    styles) forward and adjoint, and the training roles."""
+    calls = []
+    for kernel, block, layer, h, cin, cout in kernel_calls():
+        roles = ("K1", "K1-adjoint") if kernel == "K1" else ("K2", "K3-adjoint")
+        calls += [(r, f"G {block}", layer, h, cin, cout, 1 if layer == "skip" else 3)
+                  for r in roles]
+    for res, c in ((1024, 32), (512, 64)):
+        calls += [(r, f"D b{res}", "conv0", res, c, c, 3) for r in ("K1", "K1-adjoint")]
+    return calls + train_calls()
+
+
+def tp_case(torch, fc, gen, call, dt):
+    """One role at one call shape, batch 4, on random activations of type
+    `dt` (weights, styles, noise and bias float32): (key, run, combine).
+    run(sl, plain=False, wide=False) gives the role's outputs for the output
+    channels `sl` (slice(None): the full width) on their slice of the
+    weight, bias, resid, y and cotangent and the whole of x, styles and
+    noise, launched or on the plain version, on the activations widened to
+    float32 with `wide`. `combine` says for each output how the slices make
+    the full width: "cat" (per output channel) or "sum" (a partial sum
+    over the output channels: dx, ds)."""
+    from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter
+
+    role, block, layer, h, cin, cout, kh = call
+    dev, n = torch.device("cuda"), TRAIN_BATCH
+    f = setup_filter([1, 3, 3, 1]).cuda()
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def act(t):
+        return None if t is None else t.to(dt)
+
+    def cut(t, sl):
+        return None if t is None else t[..., sl].contiguous()
+
+    def widen(args, wide):
+        return tuple(a.float() if wide and isinstance(a, torch.Tensor) and a.dtype == dt
+                     else a for a in args)
+
+    w = randn(kh, kh, cin, cout, scale=1 / math.sqrt(kh * kh * cin))
+    on_g = block.startswith("G")
+    s = (torch.rand((n, cin), generator=gen, device=dev) + 0.5) if on_g else None
+    key = TP_KEYS[role] + ("" if dt == torch.float32 else "_bf16")
+    if role in ("K1", "K1-adjoint"):
+        last = layer == "conv_last"
+        x = act(randn(n, h, h, cin))
+        noise = randn(n, h, h, scale=0.1) if on_g and not last else None
+        bias = None if last else randn(cout, scale=0.1)
+        resid = act(randn(n, h, h, cout)) if layer == "conv1" else None
+        gain, alpha = (1.0, 1.0) if last else ((1.0, 0.2) if on_g else (math.sqrt(2), 0.2))
+        if role == "K1":
+            def run(sl, plain=False, wide=False):
+                args = widen((x, cut(w, sl), s, noise, cut(bias, sl), cut(resid, sl)), wide)
+                fn = fc.modconv3x3_plain if plain else fc.fused_modconv3x3
+                return (fn(*args, gain, alpha, on_g),)
+            return key, run, ("cat",)
+        y = act(fc.modconv3x3_plain(x, w, s, noise, bias, resid, gain, alpha, on_g))
+        g = act(randn(n, h, h, cout))
+
+        def run(sl, plain=False, wide=False):
+            args = widen((cut(g, sl), x, cut(w, sl), s, cut(y, sl), noise, cut(bias, sl),
+                          cut(resid, sl)), wide)
+            fn = fc.modconv3x3_adjoint_plain if plain else fc.modconv3x3_adjoint
+            return fn(*args, gain, alpha, on_g)
+        return key, run, ("sum", "sum", "cat", "cat")
+    if role in ("K2", "K3-adjoint"):
+        skip = layer == "skip"
+        x = act(randn(n, h, h, cin))
+        styles = None if skip else s
+        noise = None if skip else randn(n, 2 * h, 2 * h, scale=0.1)
+        bias = None if skip else randn(cout, scale=0.1)
+        gain, alpha = (math.sqrt(0.5), 1.0) if skip else (math.sqrt(2), 0.2)
+        if role == "K2":
+            def run(sl, plain=False, wide=False):
+                args = widen((x, cut(w, sl), styles, f, noise, cut(bias, sl)), wide)
+                fn = fc.upconv2_plain if plain else fc.fused_upconv2
+                return (fn(*args, gain, alpha, not skip, False),)
+            return key, run, ("cat",)
+        y = act(fc.upconv2_plain(x, w, styles, f, noise, bias, gain, alpha, not skip, False))
+        g = act(randn(n, 2 * h, 2 * h, cout))
+
+        def run(sl, plain=False, wide=False):
+            args = widen((cut(g, sl), x, cut(w, sl), styles, f, cut(y, sl), noise,
+                          cut(bias, sl)), wide)
+            fn = fc.upconv2_adjoint_plain if plain else fc.upconv2_adjoint
+            return fn(*args, gain, alpha, not skip, False)
+        return key, run, ("sum", "sum", "cat", "cat")
+    if role in ("K3-forward", "K2-use_dw", "K2-use_dw-dw"):
+        conv1 = layer == "conv1"
+        x = act(randn(n, 2 * h, 2 * h, cin))
+        gz = act(randn(n, h, h, cout))
+        if role == "K3-forward":
+            b = randn(cout, scale=0.1) if conv1 else None
+            r = act(randn(n, h, h, cout)) if conv1 else None
+            gain, alpha = (1.0, 0.2) if conv1 else (math.sqrt(0.5), 1.0)
+
+            def run(sl, plain=False, wide=False):
+                args = widen((x, cut(w, sl), f, cut(b, sl), cut(r, sl)), wide)
+                fn = fc.downconv2_plain if plain else fc.fused_downconv2
+                return (fn(*args, gain, alpha),)
+            return key, run, ("cat",)
+        if role == "K2-use_dw":
+            def run(sl, plain=False, wide=False):
+                args = widen((cut(gz, sl), cut(w, sl), f), wide)
+                return ((fc.downconv2_adjoint_plain if plain else fc.downconv2_adjoint)(*args),)
+            return key, run, ("sum",)
+
+        def run(sl, plain=False, wide=False):
+            args = widen((x, cut(gz, sl), cut(w, sl), f), wide)
+            return ((fc.downconv2_dw_plain if plain else fc.downconv2_dw)(*args),)
+        return key, run, ("cat",)
+    x = act(randn(n, h, h, cin))
+    if role == "K1-dw":
+        gd = act(randn(n, h, h, cout))
+
+        def run(sl, plain=False, wide=False):
+            args = widen((x, cut(gd, sl), s), wide)
+            if plain:
+                return (fc.conv_dw_plain(*args, 1, 1, 3, (0, 0))[0],)
+            return (fc.conv_dw(*args),)
+        return key, run, ("cat",)
+    gd = act(randn(n, 2 * h, 2 * h, cout))
+
+    def run(sl, plain=False, wide=False):
+        args = widen((x, cut(gd, sl), s, cut(w, sl), f), wide)
+        return ((fc.upconv2_dw_plain if plain else fc.upconv2_dw)(*args),)
+    return key, run, ("cat",)
+
+
+def _tp_f32_err(role, got, want):
+    """A float32 output's error by the rule its role is held to in phases
+    kernels and train, as a fraction of its bound: max abs 1e-4 for K1 and
+    K2's forward, 1e-3 for K3-forward; otherwise 1e-4 of the reference's
+    largest entry (the adjoints' dx, ds and dd; K2's use_dw; the dw roles)."""
+    err = (got.float() - want.float()).abs().max().item()
+    if role in ("K1", "K2"):
+        return err / 1e-4
+    if role == "K3-forward":
+        return err / 1e-3
+    return err / max(1e-4 * want.abs().max().item(), 1e-30)
+
+
+def _join(torch, parts, combine):
+    """The full width from the slices' outputs, by `combine`: concatenated
+    along the last axis, or summed in float32."""
+    out = []
+    for i, how in enumerate(combine):
+        ts = [p[i] for p in parts]
+        if ts[0] is None:
+            out.append(None)
+        elif how == "cat":
+            out.append(torch.cat(ts, dim=-1))
+        else:
+            out.append(sum(t.float() for t in ts))
+    return tuple(out)
+
+
+def check_tp_slices(torch, fc, gen, call, dt, halves=2):
+    """One role at one call shape (`tp_case`) launched at each of `halves`
+    slices of its output channels and at the full width: each slice held
+    to its plain version by the rule of its role (float32: `_tp_f32_err`;
+    bfloat16: phase bf16's, the kernel's error from the float32 plain
+    version at most BF16_RATIO times the plain bfloat16 version's, or
+    BF16_FLOOR of the largest entry); the slices' outputs, concatenated
+    (per output channel) or summed (dx, ds: partial sums), held to the
+    full-width launch by the same rule (bfloat16: their distance from it,
+    against the full width's float32 reference, within the full width's
+    bound). Returns (key, the worst error over its bound)."""
+    role, block, layer, h, cin, cout, kh = call
+    key, run, combine = tp_case(torch, fc, gen, call, dt)
+    c = cout // halves
+    slices = [slice(i * c, (i + 1) * c) for i in range(halves)]
+    full = run(slice(None))
+    parts = [run(sl) for sl in slices]
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t.float()).all().item() for p in parts for t in p if t is not None)
+    worst = 0.0
+    if dt == torch.float32:
+        for sl, got in zip(slices, parts):
+            want = run(sl, plain=True)
+            worst = max([worst] + [_tp_f32_err(role, g, w) for g, w in zip(got, want)
+                                   if w is not None])
+        joined = _join(torch, parts, combine)
+        worst = max([worst] + [_tp_f32_err(role if how == "cat" else "sum", j, fl)
+                               for j, fl, how in zip(joined, full, combine) if fl is not None])
+    else:
+        for sl, got in zip(slices, parts):
+            ek, ep, _ = _bf16_errs(got, run(sl, plain=True), run(sl, plain=True, wide=True))
+            worst = max(worst, ek / max(BF16_RATIO * ep, BF16_FLOOR))
+        ref = run(slice(None), plain=True, wide=True)
+        _, ep, _ = _bf16_errs(full, run(slice(None), plain=True), ref)
+        joined = _join(torch, parts, combine)
+        for j, fl, r in zip(joined, full, ref):
+            if r is None:
+                continue
+            gap = (j.float() - fl.float()).abs().max().item() / max(r.abs().max().item(), 1e-30)
+            worst = max(worst, gap / max(BF16_RATIO * ep, BF16_FLOOR))
+    print(f"  tp {role} {'bf16 ' if dt != torch.float32 else ''}{block} {layer}: {halves} "
+          f"slices of {c} of {cout} output channels, worst error over its bound {worst:.3e}",
+          flush=True)
+    assert worst <= 1.0, f"tp {role} {dt} {block} {layer}: {worst}"
+    return key, worst
+
+
+def tp_phase(torch, fc, card):
+    """Phase tp: tensor parallelism on this card. A world-1 NCCL group
+    through `make_mesh(model_parallel=1)` (the data mesh): one 1024^2
+    iteration at step 0 (all four stages) at batch 4 on phase train's
+    resnet pair by the plain trainer and by the trainer over that mesh,
+    from one state on one set of z and reals, every leaf bit-equal (cuDNN
+    deterministic). Then every fused call shape of FFHQ-1024 and a 1024^2
+    D in an iteration at batch 4 (`tp_calls`: K1 forward and adjoint, K2
+    forward, K3 adjoint, K3-forward, K2's use_dw, the three dw roles) at
+    both halves of its output channels, as a 2-way model axis runs them, in
+    float32 and bfloat16 (`check_tp_slices`), with exactly three launches
+    of its role a case (the full width and two halves). Returns (stats,
+    the launches by key)."""
+    import torch.distributed as dist
+
+    from morphganformer_tpu_torch.models.config import DiscriminatorConfig, ffhq1024_config
+    from morphganformer_tpu_torch.parallel import free_port, initialize_distributed
+    from morphganformer_tpu_torch.parallel.tp import make_mesh
+    from morphganformer_tpu_torch.training import GANTrainer, TrainConfig
+    from morphganformer_tpu_torch.training.loop import apply_train_state, train_state_tree
+
+    t0 = time.perf_counter()
+    initialize_distributed(f"localhost:{free_port()}", 1, 0, device="cuda", timeout_s=120)
+    try:
+        mesh = make_mesh(model_parallel=1)
+        assert type(mesh).__name__ == "DataMesh" and mesh.world == 1, mesh
+        g_cfg, d_cfg = ffhq1024_config(), DiscriminatorConfig()
+        cfg = TrainConfig(batch_size=TRAIN_BATCH, batch_gpu=4)
+        trainers = {"plain": GANTrainer(g_cfg, d_cfg, cfg),
+                    "mesh": GANTrainer(g_cfg, d_cfg, cfg, mesh=mesh)}
+        state = trainers["plain"].init_state(seed=0)
+        start = train_state_tree(state)
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        res = d_cfg.img_resolution
+        real = torch.rand((TRAIN_BATCH, res, res, 3), generator=gen, device="cuda") * 2 - 1
+        z = torch.randn((TRAIN_BATCH, g_cfg.k, g_cfg.z_dim), generator=gen, device="cuda")
+        trees, iter_ms = {}, {}
+        with cudnn_deterministic(torch):
+            for name, trainer in trainers.items():
+                apply_train_state(state, start)
+                state.gen = torch.Generator(device="cuda").manual_seed(0)
+                fc.reset_launch_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                stats = host(trainer.train_iteration(state, real, 0, z=z))
+                torch.cuda.synchronize()
+                iter_ms[name] = (time.perf_counter() - t) * 1e3
+                assert all(math.isfinite(v) for v in stats.values()), (name, stats)
+                assert dict(fc.launch_counts) == loop_launches(0), (name, fc.launch_counts)
+                trees[name] = train_state_tree(state)
+        n_leaves = assert_same_tree(trees["mesh"], trees["plain"], "make_mesh(1) vs plain")
+        del trees, start, state, trainers
+    finally:
+        dist.destroy_process_group()
+    trainer_s = time.perf_counter() - t0
+    print(f"  make_mesh(model_parallel=1) trainer vs plain, step 0 (all four stages): "
+          f"{n_leaves} leaves bit-equal; {iter_ms['mesh']:.3f} / {iter_ms['plain']:.3f} ms; "
+          f"{trainer_s:.3f} s", flush=True)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    fc.reset_launch_counts()
+    worst, want = {}, {k: 0 for k in fc.launch_counts}
+    for dt in (torch.float32, torch.bfloat16):
+        for call in tp_calls():
+            key, w = check_tp_slices(torch, fc, gen, call, dt)
+            worst[key] = max(worst.get(key, 0.0), w)
+            want[key] += 3
+    launches = dict(fc.launch_counts)
+    assert launches == want, (launches, want)
+    slices_s = time.perf_counter() - t0
+    print(f"  tp slices: {len(tp_calls())} call shapes x 2 types, each at 2 halves and the full "
+          f"width: worst error over its bound by role {json.dumps(worst)}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; {slices_s:.3f} s; {card}", flush=True)
+    return dict(leaves_equal=n_leaves, iteration_ms=iter_ms, trainer_s=trainer_s,
+                slices_s=slices_s, worst=worst, card=card), launches
+
+
 def extract_phase(torch, fc, cli, tmp, card):
     """Phase 10b: extract_features through the entry point with a random
     iresnet18 backbone on the card: --bona on phase morph's CSV faces (the
@@ -5031,6 +5335,10 @@ def main():
         dist_stats = dist_phase(torch, fc, cli, smi[0])
     phases["dist"] = ph.seconds
 
+    with Phase("tp") as ph:
+        tp_stats, tp_launches = tp_phase(torch, fc, smi[0])
+    phases["tp"] = ph.seconds
+
     with Phase("options") as ph, tempfile.TemporaryDirectory(prefix="mgt_options_") as tmp:
         options_stats, options_launches = options_phase(torch, fc, cli, tmp)
     phases["options"] = ph.seconds
@@ -5058,6 +5366,7 @@ def main():
     print("train " + json.dumps(train_stats), flush=True)
     print("loop " + json.dumps(loop_stats), flush=True)
     print("dist " + json.dumps(dist_stats), flush=True)
+    print("tp " + json.dumps(tp_stats), flush=True)
     print("extract " + json.dumps(extract_stats), flush=True)
     print("layouts " + json.dumps(layout_stats), flush=True)
     print("reg " + json.dumps(reg_stats), flush=True)
@@ -5090,6 +5399,7 @@ def main():
                     + f"; launches over the {PROJECT_STEPS}-step projection)",
             "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": proj_launches[key],
+            "tp_launches": tp_launches[key],
             "options_launches": options_launches.get(key, 0),
             "reg_launches": reg_stats["reg_launches"][key],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -5131,6 +5441,7 @@ def main():
                       "largest entry)",
             "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": bf16_launches[BF16_KEYS[key]],
+            "tp_launches": tp_launches[BF16_KEYS[key]],
             "options_launches": options_launches.get(BF16_KEYS[key], 0),
             "formats_launches": formats_launches[BF16_KEYS[key]],
             "reg_launches": 0,
@@ -5172,6 +5483,7 @@ def main():
             "replaces": K3_REPLACES if kernel.startswith("K3") else (
                 K2_REPLACES if kernel.startswith("K2") else K1_REPLACES),
             "launches": run["launches"][key],
+            "tp_launches": tp_launches[key],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
@@ -5205,6 +5517,7 @@ def main():
                     + "; launches over train_iteration steps 1-3)",
             "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": train_launches[TRAIN_KEYS[role]],
+            "tp_launches": tp_launches[TRAIN_KEYS[role]],
             "options_launches": options_launches.get(TRAIN_KEYS[role], 0),
             "reg_launches": reg_stats["reg_launches"][TRAIN_KEYS[role]],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -5247,6 +5560,7 @@ def main():
                       "largest entry)",
             "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": train_bf16_launches[TRAIN_BF16_KEYS[role]],
+            "tp_launches": tp_launches[TRAIN_BF16_KEYS[role]],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "err_vs_f32": max(r["err_kernel"] for r in mine),
             "plain_err_vs_f32": max(r["err_plain"] for r in mine),
@@ -5272,6 +5586,7 @@ def main():
                     + "; launches over the skip layouts' train_iteration steps 1-3)",
             "route": "cuda", "source": SOURCE, "replaces": K4_REPLACES,
             "launches": k4_launches["conv3x3" if role == "K4 fwd" else "conv3x3_adj"],
+            "tp_launches": tp_launches["conv3x3" if role == "K4 fwd" else "conv3x3_adj"],
             "reg_launches": reg_stats["reg_launches"]["conv3x3" if role == "K4 fwd"
                                                       else "conv3x3_adj"],
             "max_abs_err": max(r["max_abs_err"] for r in k4_rows if r["kernel"] == role),
@@ -5300,6 +5615,7 @@ def main():
                       "kernel vs plain bfloat16, of the float32 reference's largest entry)",
             "route": "cuda", "source": SOURCE, "replaces": K4_REPLACES,
             "launches": k4_bf16_launches[key],
+            "tp_launches": tp_launches[key],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "err_vs_f32": max(r["err_kernel"] for r in mine),
             "plain_err_vs_f32": max(r["err_plain"] for r in mine),

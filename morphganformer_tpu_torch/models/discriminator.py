@@ -21,7 +21,10 @@ twice. The other blocks run the unfused plain PyTorch path, as JAX runs XLA
 there, and so does every block under `force_unpacked()`
 (ops/packed_override.py; the R1 stage under MGT_PACKED_SECOND_ORDER=0).
 `plain=True` runs
-the fused blocks on the plain versions of the kernels.
+the fused blocks on the plain versions of the kernels. Under a model axis
+(parallel/tp.py) every sharded layer computes this rank's output channels
+and gathers them (models/layers.py); the skip hands a fused conv1 its own
+slice.
 
 The `orig` and `skip` layouts (JAX `discriminator.py:94-117`) run unfused;
 `skip` adds a `fromrgb` of the image, down-sampled by the FIR once per
@@ -96,7 +99,9 @@ class DiscriminatorBlock(nn.Module):
             if skip:
                 img = downsample2d(img, self.resample_filter)
         if self.cfg.architecture == "resnet":
-            y = self.skip(x, fused=fused)
+            # On the fused path conv1 adds the skip in its kernel: this
+            # rank's slice of it under a model axis.
+            y = self.skip(x, fused=fused, gather=fused is None)
             x = self.conv0(x, fused=fused)
             return self.conv1(x, fused=fused, resid=y), img
         return self.conv1(self.conv0(x, fused=fused), fused=fused), img

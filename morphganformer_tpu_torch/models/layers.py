@@ -6,6 +6,12 @@ coefficient), under the same names, so a flax variables tree maps onto a
 state_dict by joining its path (checkpoint/convert.py). Each module that owns
 parameters initialises them in `reset_parameters(gen)` from a
 `torch.Generator`.
+
+Under a model axis (parallel/tp.py `shard_params`) a layer whose weight or
+bias is sharded holds this rank's slice of its output channels and carries
+the axis as `tp`: it computes that slice from its whole input
+(`to_model`) and gathers the whole output (`from_model`); without one, `tp`
+is None and both are the identity.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from morphganformer_tpu_torch.ops.fused_conv import (
     fused_upconv2,
 )
 from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter
+from morphganformer_tpu_torch.parallel.tp import from_model, to_model
 from morphganformer_tpu_torch.utils.dtype import at_least_f32
 
 
@@ -65,7 +72,10 @@ def _fill_(p, value):
 
 
 class FullyConnected(nn.Module):
-    """act(x @ (w * coef) + b * lrmul) over the last axis."""
+    """act(x @ (w * coef) + b * lrmul) over the last axis; under a model axis
+    this rank's output features, then all of them gathered."""
+
+    tp = None
 
     def __init__(self, in_features, features, use_bias=True, act="linear",
                  gain=1.0, lrmul=1.0, bias_init=0.0):
@@ -81,15 +91,22 @@ class FullyConnected(nn.Module):
             _fill_(self.bias, self.bias_init)
 
     def forward(self, x):
+        x = to_model(x, self.tp)
         y = x @ (self.weight * self.coef).to(x.dtype)
         b = None if self.bias is None else self.bias * self.lrmul
         if self.act == "linear":
-            return y if b is None else y + b.to(y.dtype)
-        return bias_act(y, b, act=self.act)
+            y = y if b is None else y + b.to(y.dtype)
+        else:
+            y = bias_act(y, b, act=self.act)
+        return from_model(y, self.tp)
 
 
 class BiasAct(nn.Module):
-    """Bias + activation + gain over the last axis (NHWC)."""
+    """Bias + activation + gain over the last axis (NHWC). Under a model
+    axis the bias is this rank's slice: it applies to the slice of the
+    output channels, or gathered (`whole=True`) to the whole activation."""
+
+    tp = None
 
     def __init__(self, num_channels, use_bias=True, act="linear", lrmul=1.0,
                  bias_init=0.0, gain=1.0):
@@ -105,9 +122,10 @@ class BiasAct(nn.Module):
         """The bias as the fused kernels take it (None when absent)."""
         return None if self.bias is None else self.bias * self.lrmul
 
-    def forward(self, x):
+    def forward(self, x, whole=False):
         gain = activation_funcs[self.act].def_gain * self.gain
-        return bias_act(x, self.runtime_bias(), act=self.act, gain=gain)
+        b = self.runtime_bias()
+        return bias_act(x, from_model(b, self.tp) if whole else b, act=self.act, gain=gain)
 
 
 class ResnetLayer(nn.Module):
@@ -124,7 +142,11 @@ class ResnetLayer(nn.Module):
 
 class Conv2dLayer(nn.Module):
     """Conv + resample + bias/act: the synthesis resnet skip branch and the
-    discriminator's layers."""
+    discriminator's layers. Under a model axis it computes this rank's
+    output channels and gathers them (`gather=False` keeps the slice, for a
+    fused layer's resid)."""
+
+    tp = None
 
     def __init__(self, in_channels, out_channels, kernel_size, use_bias=True,
                  act="linear", up=1, down=1, resample_kernel=(1, 3, 3, 1), gain=1.0):
@@ -165,18 +187,25 @@ class Conv2dLayer(nn.Module):
             return fused_modconv3x3(x, w, None, None, b, resid, gain, alpha, False, plain=plain)
         raise ValueError("no fused branch for this layer")
 
-    def forward(self, x, fused=None, resid=None):
+    def forward(self, x, fused=None, resid=None, gather=True):
         """`fused` ("kernel" or "plain") runs the layer on the fused kernels
         (or their plain versions); None runs the unfused conv2d_resample path.
-        `resid`: a skip branch shaped like the output, added after the
-        activation."""
+        `resid`: a skip branch added after the activation, shaped like the
+        output; under a model axis this rank's slice of it on the fused path
+        (the kernels add it), the whole of it on the unfused one. `gather`
+        False returns this rank's slice of the output channels."""
+        tp = self.tp
+        x = to_model(x, tp)
         w = self.weight * self.coef
         f = self.resample_filter
         if fused is not None:
-            return self._forward_fused(x, w, f, resid, fused == "plain")
+            y = self._forward_fused(x, w, f, resid, fused == "plain")
+            return from_model(y, tp) if gather else y
         x = conv2d_resample(x, w.to(x.dtype), f=f, up=self.up, down=self.down,
                             padding=self.kernel_size // 2, flip_weight=(self.up == 1))
         x = self.biasAct(x)
+        if gather:
+            x = from_model(x, tp)
         return x if resid is None else x + resid.to(x.dtype)
 
 

@@ -31,6 +31,14 @@ on the plain versions of the kernels and of their adjoints even on a card
 layer's probabilities, stacked and up-sampled to the image as JAX's
 `_att_maps_to_tensor` does; asking for them changes neither the image nor
 the route of any block.
+
+Under a model axis (parallel/tp.py) each conv computes this rank's slice
+of its output channels from its whole input and styles, and the slices
+are gathered after it: after the fused call and its epilogue (demodulation,
+noise, bias, lrelu * gain and the resid all act per output channel; the
+skip hands conv1 its own slice, ungathered), or right after the
+modulated conv on the unfused path, where the transformer, the noise and
+the bias (gathered) act on the whole activation.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from morphganformer_tpu_torch.ops.fused_conv import (
 from morphganformer_tpu_torch.ops.modulated_conv import modulated_conv2d
 from morphganformer_tpu_torch.ops.packed_override import packed_paths_disabled
 from morphganformer_tpu_torch.ops.upfirdn2d import setup_filter, upsample2d
+from morphganformer_tpu_torch.parallel.tp import from_model, to_model
 from morphganformer_tpu_torch.utils.dtype import at_least_f32, to_compute
 
 NOISE_MODES = ("const", "none", "random")
@@ -85,6 +94,8 @@ def packed_structural_ok(cfg: GANformerConfig, res: int, noise_mode: str) -> boo
 
 class SynthesisLayer(nn.Module):
     """Modulated conv + optional duplex attention + noise + bias/act."""
+
+    tp = None
 
     def __init__(self, cfg: GANformerConfig, in_channels, out_channels, out_res,
                  kernel_size=3, up=1, use_bias=True, gain=1.0,
@@ -131,9 +142,10 @@ class SynthesisLayer(nn.Module):
         `att_vars` the centroid assignments that the transformer hands on
         (JAX `synthesis.py:277-288`), or those it was given without one, as
         the fused branch does (JAX :206). `resid`: the skip
-        branch, added after the activation. `fused` ("kernel" / "plain")
-        runs the conv and its epilogue as K1 / K2. Random noise and the
-        attention dropout draw from `gen`."""
+        branch, added after the activation (under a model axis this rank's
+        slice of it on the fused path, the whole on the unfused one).
+        `fused` ("kernel" / "plain") runs the conv and its epilogue as K1 /
+        K2. Random noise and the attention dropout draw from `gen`."""
         if noise_mode not in NOISE_MODES:
             raise ValueError(f"noise_mode must be one of {NOISE_MODES}, got {noise_mode!r}")
         styles = self.affine(at_least_f32(get_global(y)))
@@ -146,7 +158,9 @@ class SynthesisLayer(nn.Module):
             noise = torch.randn((x.shape[0], self.out_res, self.out_res), generator=gen,
                                 device=x.device) * self.noise_strength
 
+        tp = self.tp
         if fused is not None:
+            x, styles, noise = to_model(x, tp), to_model(styles, tp), to_model(noise, tp)
             if self.biasAct is not None:
                 b = self.biasAct.runtime_bias()
                 alpha = 0.2
@@ -157,14 +171,18 @@ class SynthesisLayer(nn.Module):
             if self.up == 2:
                 x = fused_upconv2(x, w, styles, f, noise, b, act_gain, alpha, True, False,
                                   plain=plain)
-                return (x if resid is None else x + resid), None, att_vars
-            return fused_modconv3x3(x, w, styles, noise, b,
-                                    None if resid is None else resid.contiguous(),
-                                    act_gain, alpha, True, plain=plain), None, att_vars
+                x = x if resid is None else x + resid
+            else:
+                x = fused_modconv3x3(x, w, styles, noise, b,
+                                     None if resid is None else resid.contiguous(),
+                                     act_gain, alpha, True, plain=plain)
+            return from_model(x, tp), None, att_vars
 
-        x = modulated_conv2d(x, w.to(x.dtype), styles=styles, modulate=self.cfg.style,
-                             up=self.up, padding=self.kernel_size // 2,
-                             resample_kernel=f, flip_weight=(self.up == 1))
+        x = modulated_conv2d(to_model(x, tp), w.to(x.dtype), styles=to_model(styles, tp),
+                             modulate=self.cfg.style, up=self.up,
+                             padding=self.kernel_size // 2, resample_kernel=f,
+                             flip_weight=(self.up == 1))
+        x = from_model(x, tp)
         att = None
         if self.transformer is not None:
             b_, h, wd, c = x.shape
@@ -177,13 +195,16 @@ class SynthesisLayer(nn.Module):
         if noise is not None:
             x = x + (noise[..., None] if noise.dim() == 3 else noise[None, :, :, None]).to(x.dtype)
         if self.biasAct is not None:
-            x = self.biasAct(x)
+            x = self.biasAct(x, whole=True)
         return (x if resid is None else x + resid.to(x.dtype)), att, att_vars
 
 
 class ToRGBLayer(nn.Module):
     """1x1 modulated conv without demodulation, with the TF-compat quirk of
-    scaling the styles (not the weight) by the runtime gain."""
+    scaling the styles (not the weight) by the runtime gain. Its 3 output
+    channels stay replicated but on a model axis of 3 (JAX's rule)."""
+
+    tp = None
 
     def __init__(self, cfg: GANformerConfig, in_channels, out_channels, kernel_size=1):
         super().__init__()
@@ -203,9 +224,10 @@ class ToRGBLayer(nn.Module):
             styles = styles * self.w_gain
         else:
             w = w * self.w_gain
-        x = modulated_conv2d(x, w.to(x.dtype), styles=styles, modulate=self.cfg.style,
-                             demodulate=False)
-        return at_least_f32(self.biasAct(x))
+        tp = self.tp
+        x = modulated_conv2d(to_model(x, tp), w.to(x.dtype), styles=to_model(styles, tp),
+                             modulate=self.cfg.style, demodulate=False)
+        return at_least_f32(from_model(self.biasAct(x), tp))
 
 
 class SynthesisBlock(nn.Module):
@@ -274,7 +296,9 @@ class SynthesisBlock(nn.Module):
             x, att, att_vars = self.conv1(x, ws[:, :, next(w_i)], att_vars=att_vars, **kw)
             maps.append(att)
         elif cfg.architecture == "resnet":
-            y_skip = self.skip(x, fused=fused)
+            # On the fused path conv1 adds the skip in its kernel: this
+            # rank's slice of it under a model axis.
+            y_skip = self.skip(x, fused=fused, gather=fused is None)
             x, att, att_vars = self.conv0(x, ws[:, :, next(w_i)], att_vars=att_vars, **kw)
             maps.append(att)
             x, att, att_vars = self.conv1(x, ws[:, :, next(w_i)], resid=y_skip,

@@ -11,3 +11,9 @@ from morphganformer_tpu_torch.parallel.mesh import (  # noqa: F401
     make_data_mesh,
     replicated,
 )
+from morphganformer_tpu_torch.parallel.tp import (  # noqa: F401
+    DataModelMesh,
+    make_mesh,
+    shard_params,
+    unshard_params,
+)

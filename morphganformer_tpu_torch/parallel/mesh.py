@@ -14,6 +14,10 @@ argument: a call without one runs no collective.
     make_data_mesh(devices)     DataMesh(devices, world, rank)
     data_sharding(mesh, x)      this rank's block of x's rows
     replicated(module, mesh)    parameters and buffers broadcast from rank 0
+
+Every collective here runs over the mesh's `group`: the default group of
+a data mesh, or the data axis of a ('data', 'model') mesh
+(parallel/tp.py), whose `world` and `rank` are that axis's too.
 """
 
 from __future__ import annotations
@@ -30,11 +34,13 @@ from morphganformer_tpu_torch.parallel.launch import local_device
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
     """The data axis: every rank's device, the world size and this rank.
-    Collectives run over the default process group, which must exist when
-    `world > 1` (a mesh of one rank without a group runs none)."""
+    Collectives run over `group` (None: the default process group), which
+    must exist when `world > 1` (a mesh of one rank without a group runs
+    none)."""
     devices: tuple
     world: int
     rank: int
+    group: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -43,6 +49,15 @@ class DataMesh:
     @property
     def has_group(self) -> bool:
         return dist.is_initialized()
+
+    @property
+    def replica_group(self):
+        """The ranks that start from one copy of the nets: the data axis."""
+        return self.group
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.world}
 
 
 def make_data_mesh(devices: Optional[Sequence] = None, device="cuda") -> DataMesh:
@@ -81,11 +96,14 @@ def data_sharding(mesh: Optional[DataMesh], x):
 
 @torch.no_grad()
 def replicated(module: torch.nn.Module, mesh: Optional[DataMesh]) -> torch.nn.Module:
-    """Broadcast `module`'s parameters and buffers from rank 0, in place, so
-    every rank starts from the same values (JAX's P() placement)."""
+    """Broadcast `module`'s parameters and buffers from the first rank of
+    the mesh's `replica_group` (every rank of a ('data', 'model') mesh), in
+    place, so every rank starts from the same values (JAX's P() placement)."""
     if mesh is not None and mesh.has_group:
+        group = mesh.replica_group
+        src = 0 if group is None else dist.get_global_rank(group, 0)
         for t in list(module.parameters()) + list(module.buffers()):
-            dist.broadcast(t.data, src=0)
+            dist.broadcast(t.data, src=src, group=group)
     return module
 
 
@@ -95,7 +113,7 @@ def all_mean_(flat, mesh: Optional[DataMesh]):
     and one scale (the trainer keeps a stage's gradients as views of one
     such buffer). Returns `flat`."""
     if mesh is not None and mesh.has_group:
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=mesh.group)
         flat.div_(mesh.world)
     return flat
 
@@ -106,7 +124,7 @@ def sum_over_ranks(x, mesh: Optional[DataMesh]):
     itself without a group)."""
     y = x.detach().clone()
     if mesh is not None and mesh.has_group:
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=mesh.group)
     return y
 
 
@@ -121,14 +139,15 @@ class _AllReduceSum(torch.autograd.Function):
     each rank's input is the sum of every rank's cotangent of the output."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        return _AllReduceSum.apply(g)
+        return _AllReduceSum.apply(g, ctx.group), None
 
 
 def gather_rows(x, mesh: Optional[DataMesh]):
@@ -141,5 +160,5 @@ def gather_rows(x, mesh: Optional[DataMesh]):
         return x
     blocks = [torch.zeros_like(x)] * mesh.world
     blocks[mesh.rank] = x
-    return _AllReduceSum.apply(torch.cat(blocks))
+    return _AllReduceSum.apply(torch.cat(blocks), mesh.group)
 

@@ -8,9 +8,10 @@ iteration's stats cost one synchronisation, not one per stat.
 
 JAX's stats are global already. Under a data mesh each rank here reports
 its own rows' stats, so `sync()` (called by every rank, once a tick)
-all-reduces the triples, as the reference's training_stats.py:222-226
-did; `mean`, `std`, `as_dict` and `write_jsonl` then read the global
-triples until the next `report` or `reset`.
+all-reduces the triples over the mesh's data axis (its `group`), as the
+reference's training_stats.py:222-226 did; `mean`, `std`, `as_dict` and
+`write_jsonl` then read the global triples until the next `report` or
+`reset`.
 """
 
 from __future__ import annotations
@@ -63,13 +64,13 @@ class Collector:
             return
         names = self.names()
         every = [None] * self.mesh.world
-        dist.all_gather_object(every, names)
+        dist.all_gather_object(every, names, group=self.mesh.group)
         if any(n != names for n in every):
             raise RuntimeError(f"the ranks reported different stats: {every}")
         device = self.mesh.device if dist.get_backend() == "nccl" else "cpu"
         flat = torch.tensor(np.stack([self._moments[n] for n in names]) if names
                             else np.zeros((0, 3)), dtype=torch.float64, device=device)
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=self.mesh.group)
         self._synced = dict(zip(names, flat.cpu().numpy()))
 
     def _get(self, name):

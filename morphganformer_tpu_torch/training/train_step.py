@@ -27,15 +27,32 @@ inside a stage the minibatch-std layer, the w_avg update and the path
 length (JAX's rows of the global microbatch, and their mean) see every
 rank's rows, through the mesh that the stages hand them. The
 nets start equal on every rank (broadcast from rank 0 by `make_state`),
-and each rank's generator is seeded `seed + rank`, as JAX's loop seeds
-each process. The kernels' Functions are unchanged: only gradients and
-those few activations cross ranks.
+and each rank's generator is seeded `seed + data rank`, as JAX's loop
+seeds each process. The kernels' Functions are unchanged: only gradients
+and those few activations cross ranks.
+
+Tensor parallelism (`GANTrainer(..., mesh=make_mesh(model_parallel=m))`,
+parallel/tp.py) adds a model axis: after the broadcast, `make_state`
+slices every parameter that JAX shards to this rank's output channels
+(`shard_params`; the EMA copy is made from the sliced G, and the
+optimizers are built on the slices, so the Adam moments are sliced too),
+and each sharded layer computes its slice and gathers it. The batch
+divides the data axis alone: the ranks of one model group hold the same
+rows and draw the same z, noise and dropout (their generators share the
+data rank's seed), and the stages average over the data axis as before;
+each stage then averages the replicated parameters' gradients over the
+model group, so that the replicas stay bit-equal where the ranks' own ops
+do not sum alike (cuDNN's default algorithms). A model
+axis trains float32 only. `dryrun_train_step` is JAX's multi-device dry
+run: one step-0 iteration of a tiny pair over `spawn_local` processes on
+a ('data', 'model') mesh, then a sharded projection.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -44,6 +61,13 @@ from morphganformer_tpu_torch.models.config import DiscriminatorConfig, GANforme
 from morphganformer_tpu_torch.models.discriminator import Discriminator, init_discriminator
 from morphganformer_tpu_torch.models.generator import Generator, init_generator
 from morphganformer_tpu_torch.parallel.mesh import DataMesh, all_mean_, replicated
+from morphganformer_tpu_torch.parallel.tp import (
+    check_float32,
+    model_axis,
+    model_mean_,
+    replicated_mask,
+    shard_params,
+)
 from morphganformer_tpu_torch.training.loss import (
     LossConfig,
     d_main_loss,
@@ -160,10 +184,13 @@ def _apply(opt, params, grads):
 class GANTrainer:
     """The G_main, G_reg, D_main and D_reg stages and the EMA for one (G, D)
     pair, on `device`: the card unless the caller asks for the CPU (under a
-    `mesh`, this rank's device of it)."""
+    `mesh`, this rank's device of it). A ('data', 'model') mesh
+    (parallel/tp.py `make_mesh`) shards the nets over its model axis and the
+    batch over its data axis; it refuses a bfloat16 pair."""
 
     def __init__(self, g_cfg: GANformerConfig, d_cfg: DiscriminatorConfig, cfg: TrainConfig,
                  device="cuda", mesh: Optional[DataMesh] = None):
+        check_float32(mesh, g_cfg, d_cfg)
         self.g_cfg, self.d_cfg, self.cfg = g_cfg, d_cfg, cfg
         self.mesh = mesh
         self.device = resolve_device(mesh.device if mesh is not None else device)
@@ -188,10 +215,12 @@ class GANTrainer:
 
     def make_state(self, G, D, seed=0):
         """A state around existing nets (e.g. carried from JAX), broadcast
-        from rank 0 under a mesh; the generator is seeded `seed + rank`."""
+        from rank 0 under a mesh and then, on a model axis, sliced in place
+        (`shard_params`); the generator is seeded `seed + data rank`."""
         cfg = self.cfg
-        replicated(G, self.mesh)
-        replicated(D, self.mesh)
+        for net in (G, D):
+            replicated(net, self.mesh)
+            shard_params(net, self.mesh)
         G_ema = copy.deepcopy(G).requires_grad_(False)
         return TrainState(
             G=G, D=D, G_ema=G_ema,
@@ -204,6 +233,7 @@ class GANTrainer:
 
     @property
     def rank(self) -> int:
+        """This rank's index on the data axis."""
         return self.mesh.rank if self.mesh is not None else 0
 
     # -------------- stages --------------
@@ -219,9 +249,9 @@ class GANTrainer:
         params = list(state.G.parameters())
         state.D.requires_grad_(False)
         try:
-            return stage_grads(params, (
+            return self._replicas_agree(state.G, stage_grads(params, (
                 g_main_loss(state.G, state.D, z_r, self.cfg.loss, gen, plain, self.mesh, c_r)
-                for z_r, c_r in zip(z, _rounds(c, len(z)))), self.mesh)
+                for z_r, c_r in zip(z, _rounds(c, len(z)))), self.mesh))
         finally:
             state.D.requires_grad_(True)
 
@@ -230,10 +260,10 @@ class GANTrainer:
         as `g_main_grads`. real_img: [n_accum, micro, R, R, C]."""
         gen = state.gen if gen is None else gen
         params = list(state.D.parameters())
-        return stage_grads(params, (
+        return self._replicas_agree(state.D, stage_grads(params, (
             d_main_loss(state.G, state.D, real_r, z_r, self.cfg.loss, gen, plain, self.mesh,
                         c_r)
-            for real_r, z_r, c_r in zip(real_img, z, _rounds(c, len(z)))), self.mesh)
+            for real_r, z_r, c_r in zip(real_img, z, _rounds(c, len(z)))), self.mesh))
 
     def g_reg_grads(self, state, z, gen=None, c=None):
         """G_reg's round-mean gradients w.r.t. G's parameters, its stats and
@@ -252,7 +282,8 @@ class GANTrainer:
                 pl_mean = aux.pop("pl_mean")
                 yield loss * gain, aux
 
-        grads, stats = stage_grads(list(state.G.parameters()), rounds(), self.mesh)
+        grads, stats = self._replicas_agree(
+            state.G, stage_grads(list(state.G.parameters()), rounds(), self.mesh))
         return grads, stats, pl_mean
 
     def d_reg_grads(self, state, real_img, c=None):
@@ -266,7 +297,16 @@ class GANTrainer:
                 loss, aux = d_r1_loss(state.D, real_r, self.cfg.loss, self.mesh, c_r)
                 yield loss * gain, aux
 
-        return stage_grads(list(state.D.parameters()), rounds(), self.mesh)
+        return self._replicas_agree(
+            state.D, stage_grads(list(state.D.parameters()), rounds(), self.mesh))
+
+    def _replicas_agree(self, net, out):
+        """stage_grads' (grads, stats) with, on a model axis, the replicated
+        parameters' gradients averaged over the model group in place."""
+        axis = model_axis(self.mesh)
+        if axis is not None:
+            model_mean_([g for g, whole in zip(out[0], replicated_mask(net)) if whole], axis)
+        return out
 
     def g_main_step(self, state, z, c=None):
         """One G_main update; returns its stats."""
@@ -332,3 +372,97 @@ class GANTrainer:
         if cfg.d_reg_interval and step % cfg.d_reg_interval == 0:
             stats.update(self.d_reg_step(state, real, c))
         return stats
+
+
+def dryrun_configs():
+    """JAX's dry-run pair: a 16^2 GANformer (k 3, channel_max 32) and a 16^2 D
+    with minibatch-std groups of 2 (JAX `train_step.py:413-420`)."""
+    from morphganformer_tpu_torch.models.config import AttentionConfig, MappingConfig
+    g_cfg = GANformerConfig(img_resolution=16, z_dim=8, w_dim=8, k=3, channel_base=256,
+                            channel_max=32, end_res=3, mapping=MappingConfig(num_layers=2),
+                            attention=AttentionConfig())
+    d_cfg = DiscriminatorConfig(img_resolution=16, channel_base=256, channel_max=32,
+                                mbstd_group_size=2)
+    return g_cfg, d_cfg
+
+
+def dryrun_model_parallel(n_devices: int) -> int:
+    """JAX's choice: a 2-way model axis at 4 or more devices divisible by 4
+    (the data axis stays even, for the minibatch-std groups of 2), else none."""
+    return 2 if n_devices >= 4 and n_devices % 4 == 0 else 1
+
+
+def _dryrun_rank(rank, n_devices, device):
+    """One rank of `dryrun_train_step`: a step-0 iteration (all four stages)
+    on the mesh; prints JAX's first line on rank 0."""
+    import torch.distributed as dist
+
+    from morphganformer_tpu_torch.parallel.mesh import data_sharding, mean_over_ranks
+    from morphganformer_tpu_torch.parallel.tp import make_mesh, model_axis
+
+    m = dryrun_model_parallel(n_devices)
+    mesh = make_mesh(model_parallel=m, device=device)
+    g_cfg, d_cfg = dryrun_configs()
+    data = n_devices // m
+    # batch_gpu 1: two accumulation rounds, as JAX's dry run.
+    trainer = GANTrainer(g_cfg, d_cfg, TrainConfig(batch_size=2 * data, batch_gpu=1),
+                         mesh=mesh)
+    state = trainer.init_state(seed=0)
+    axis = model_axis(mesh)
+    if axis is not None:
+        assert any(getattr(sub, "tp_names", None) for sub in state.G.modules()), \
+            "no parameter sharded over the model axis"
+    real = torch.randn((2 * data, 16, 16, 3), generator=torch.Generator().manual_seed(0))
+    stats = trainer.train_iteration(state, data_sharding(mesh, real.to(mesh.device)), step=0)
+    stats = {k: float(mean_over_ranks(v, mesh)) for k, v in stats.items()}
+    for k, v in stats.items():
+        assert math.isfinite(v), f"non-finite stat {k}"
+    if axis is not None:
+        # The replicated leaves are bit-equal across the model group.
+        flat = torch.cat([p.detach().reshape(-1) for net in (state.G, state.D, state.G_ema)
+                          for sub in net.modules()
+                          for n, p in sub.named_parameters(recurse=False)
+                          if n not in getattr(sub, "tp_names", ())])
+        every = [torch.empty_like(flat) for _ in range(axis.size)]
+        dist.all_gather(every, flat, group=axis.group)
+        assert all(torch.equal(every[0], e) for e in every), \
+            "replicated parameters differ across the model group"
+    if rank == 0:
+        print(f"dryrun_multichip ok on {n_devices} devices (mesh {mesh.shape}); "
+              f"stats: { {k: round(v, 4) for k, v in stats.items()} }", flush=True)
+
+
+def dryrun_train_step(n_devices: int, device="cuda") -> None:
+    """The port of JAX's multi-device dry run (`train_step.py:394-470`):
+    `n_devices` processes (`spawn_local`; NCCL on the cards, gloo for
+    `device="cpu"`) on a ('data', 'model') mesh with a 2-way model axis at 4
+    or more devices divisible by 4 (else a data mesh), JAX's tiny pair,
+    one `train_iteration` at step 0 (all four stages; at least one
+    parameter sharded, every stat finite, the replicated parameters
+    bit-equal across each model group); then, in this process, a batch of
+    `n_devices` rows projected for 2 steps over every rank's device
+    (`project(mesh=...)`, what `morph --shard` runs). Prints JAX's two
+    "dryrun ... ok" lines."""
+    from morphganformer_tpu_torch.losses import build_loss_stack
+    from morphganformer_tpu_torch.parallel.launch import spawn_local
+    from morphganformer_tpu_torch.projection import ProjectionConfig, latent_stats, project
+
+    cpu = resolve_device(device).type == "cpu"
+    if not cpu and torch.cuda.device_count() < n_devices:
+        raise ValueError(f"need {n_devices} devices, have {torch.cuda.device_count()}")
+    spawn_local(_dryrun_rank, n_devices, "gloo" if cpu else "nccl",
+                args=(n_devices, device), timeout_s=600)
+
+    g_cfg, _ = dryrun_configs()
+    devices = ["cpu"] * n_devices if cpu else [f"cuda:{i}" for i in range(n_devices)]
+    G = init_generator(g_cfg, seed=0, device=devices[0])
+    z = torch.randn((n_devices, g_cfg.k, g_cfg.z_dim), generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        targets = G(z=z.to(devices[0]))
+    mean, std = latent_stats(g_cfg, torch.Generator().manual_seed(4), n_mean_latent=64)
+    res = project(G, targets, build_loss_stack({"mse": 1.0}),
+                  ProjectionConfig(steps=2, chunk=2, n_mean_latent=64), mean, std,
+                  generator=torch.Generator().manual_seed(5), mesh=devices)
+    assert torch.isfinite(res.per_image_loss).all()
+    print(f"dryrun sharded projection ok: batch {n_devices} over ('data',) x{n_devices}, "
+          f"per-image loss {[round(float(v), 4) for v in res.per_image_loss]}", flush=True)

@@ -21,7 +21,7 @@ import sys
 import numpy as np
 import torch
 
-from morphganformer_tpu_torch.checkpoint.convert import flatten, load_flax
+from morphganformer_tpu_torch.checkpoint.convert import flatten, load_flax, to_flax
 from morphganformer_tpu_torch.checkpoint.msgpack_codec import msgpack_restore
 from morphganformer_tpu_torch.models import config as tcfg
 from morphganformer_tpu_torch.models import discriminator as tdisc
@@ -31,6 +31,13 @@ from morphganformer_tpu_torch.parallel import (
     initialize_distributed,
     is_main_process,
     make_data_mesh,
+)
+from morphganformer_tpu_torch.parallel.tp import (
+    make_mesh,
+    shard_params,
+    sharded_names,
+    unshard_like,
+    unshard_params,
 )
 from morphganformer_tpu_torch.training import loss as tloss
 from morphganformer_tpu_torch.training import train_step as tts
@@ -177,8 +184,79 @@ def spawned_failing(rank, work):
     torch.distributed.all_reduce(torch.ones(1))
 
 
+def case_tp_loss(rank, world, work):
+    """JAX's tensor-parallel test (tests/test_parallel.py:253-304) on a 1 x
+    world mesh: <work>/g.msgpack's G (the dry run's tiny config), sharded,
+    at <work>/tp_loss.npz's z; the loss mean(img^2) + mean(|img|) of
+    G(z, truncation_psi 0.8, const noise) and every parameter's gradient,
+    gathered whole; then `unshard_params` gives back the loaded tree to the
+    bit."""
+    mesh = make_mesh(model_parallel=world, device="cpu")
+    g_cfg, _ = tts.dryrun_configs()
+    tree = msgpack_restore(open(os.path.join(work, "g.msgpack"), "rb").read())
+    G = load_flax(init_generator(g_cfg, seed=1, device="cpu"), tree)
+    sharded = sharded_names(G, world)
+    shard_params(G, mesh)
+    z = torch.from_numpy(np.load(os.path.join(work, "tp_loss.npz"))["z"])
+    img = G(z=z, truncation_psi=0.8, noise_mode="const")
+    loss = img.square().mean() + img.abs().mean()
+    params = list(G.parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = unshard_like(G, [torch.zeros_like(p) if g is None else g
+                             for p, g in zip(params, grads)])
+    np.savez(os.path.join(work, f"rank{rank}.npz"), loss=loss.detach().numpy(),
+             **{f"grad/{n}": g.numpy() for (n, _), g in zip(G.named_parameters(), grads)})
+    local_shapes = {n: list(p.shape) for n, p in G.named_parameters()}
+    back = dict(flatten(to_flax(unshard_params(G, mesh))))
+    round_trip = all(np.array_equal(back[path], np.asarray(leaf))
+                     for path, leaf in flatten(tree)) and len(back) == len(dict(flatten(tree)))
+    return {"sharded": sorted(sharded), "local_shapes": local_shapes,
+            "round_trip": round_trip, "tp_left": any(m.tp for m in G.modules()
+                                                     if hasattr(m, "tp"))}
+
+
+def stage_grads_one_state(work, mesh):
+    """Each stage's gradient (G_main, G_reg, D_main, D_reg, from one state,
+    no Adam step between them) on this rank's rows of <work>/batch.npz's
+    first step, gathered whole: {stage/parameter: gradient}."""
+    G, D = load_pair(os.path.join(work, "pair.msgpack"))
+    g_cfg, d_cfg = small_cfgs(tcfg)
+    batch = np.load(os.path.join(work, "batch.npz"))
+    trainer = tts.GANTrainer(g_cfg, d_cfg, train_config(mesh.world, int(batch["pl_batch_shrink"])),
+                             device="cpu", mesh=mesh)
+    state = trainer.make_state(G, D, seed=0)
+    z = data_sharding(mesh, torch.from_numpy(batch["z"][0]))[None]
+    real = data_sharding(mesh, torch.from_numpy(batch["real"][0]))[None]
+    with patched(work):
+        grads = {"g_main": trainer.g_main_grads(state, z)[0],
+                 "g_reg": trainer.g_reg_grads(state, z)[0],
+                 "d_main": trainer.d_main_grads(state, real, z)[0],
+                 "d_reg": trainer.d_reg_grads(state, real)[0]}
+    out = {}
+    for stage, gs in grads.items():
+        net = state.G if stage.startswith("g") else state.D
+        for (name, _), g in zip(net.named_parameters(), unshard_like(net, gs)):
+            out[f"{stage}/{name}"] = g.numpy()
+    return out
+
+
+def case_tp_train(rank, world, work):
+    """On a ('data', 'model') mesh (a 2-way model axis at world 4, a data
+    mesh at world 2: `dryrun_model_parallel`): the iterations of
+    `run_iterations` (this rank's leaves, sliced where sharded, under
+    "state/") and each stage's gradient from one state, gathered whole
+    (`stage_grads_one_state`, under "grads/"); returns the last iteration's
+    stats of this rank's rows."""
+    mesh = make_mesh(model_parallel=tts.dryrun_model_parallel(world), device="cpu")
+    flat, stats = run_iterations(work, mesh)
+    grads = stage_grads_one_state(work, mesh)
+    np.savez(os.path.join(work, f"rank{rank}.npz"), **{f"state/{k}": v for k, v in flat.items()},
+             **{f"grads/{k}": v for k, v in grads.items()})
+    return stats
+
+
 CASES = {"rendezvous": case_rendezvous, "train": case_train, "mbstd": case_mbstd,
-         "collector": case_collector}
+         "collector": case_collector, "tp_loss": case_tp_loss, "tp_train": case_tp_train}
 
 
 def main(argv):
